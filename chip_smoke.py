@@ -7,22 +7,48 @@ Phases, each of which fails the run (non-zero exit, no result line) when it
 does not hold:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels of ``isegprobe_torch/csrc`` with nvcc, one process
-   per source, all started together, and print the ptxas report;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   flagship shapes in f32 and bf16 plus attention shapes with dh != 64, and
-   time kernel, plain version and the one PyTorch call that computes the
-   same function (a yardstick only: the port never calls it);
-4. build the full-width flagship probe (DINOv2-S/14, 448², weights drawn
-   from a seed), run one f32 forward on the card and the same forward on
-   the CPU (plain versions), compare the logits, and check that one forward
-   launches 12 attention and 25 LayerNorm kernels;
-5. the main path: the Predictor answers NoC clicks (fixed-448 ZoomIn, flip
-   TTA, f32) on two numpy-drawn scenes, with every launch counter set to 0
-   just before and read just after; prints the p50 ms per click. Then one
-   bf16 forward is timed with the params cast as evaluate.py casts them;
-6. print the ``{"kernels": [...]}`` line and, last, the
-   ``{"ok": true, "device": ...}`` line.
+2. build the CUDA kernels of ``isegprobe_torch/csrc`` (A attention, B
+   LayerNorm, C EDT row envelope) with nvcc, one process per source, all
+   started together, and print the ptxas report;
+3. hold kernels A and B against their plain PyTorch versions on the card, at
+   the flagship shapes in f32 and bf16, at the device loop's batch of 16
+   crops, and at attention shapes with dh != 64, and time kernel, plain
+   version and the one PyTorch call that computes the same function (a
+   yardstick only: the port never calls it);
+4. hold kernel C bitwise against its plain version (max abs error exactly 0)
+   at the device loop's shape [8, 2, 514, 642], at 64x64 and at a width
+   that is no multiple of 32, on random masks with zero-free columns;
+5. build the full-width flagship probe (DINOv2-S/14, 448², weights drawn
+   from a seed, classifier bias set so that masks answer clicks), run
+   one f32 forward on the card and the same forward on the CPU (plain
+   versions), compare the logits, and check that one forward launches 12
+   attention and 25 LayerNorm kernels;
+6. main path 1, the host protocol: the Predictor answers NoC clicks
+   (fixed-448 ZoomIn, flip TTA, f32) on two numpy-drawn scenes, with every
+   launch counter set to 0 just before and read just after; prints the p50
+   ms per click. Then one bf16 forward is timed with the params cast as
+   evaluate.py casts them;
+7. the on-device clicker (``next_click_from_error``, kernel C underneath)
+   on 32 random lanes must click exactly where the host scipy ``Clicker``
+   clicks;
+8. main path 2, the batched on-device NoC loop (``make_device_evaluator`` +
+   ``evaluate_dataset_device``) on ten 480x640 scenes at B=8 (a padded
+   tail chunk), 20 clicks, f32, with a target IoU picked from a first run
+   so that lanes stop at different clicks. Counters set to 0 just before
+   and read just after: every loop step launches exactly 1 C, 12 A and 25
+   B. The B=8 trajectories must equal the B=1 ones, and two of them the
+   host Predictor's;
+9. one whole device-loop evaluation under
+   ``torch.cuda.set_sync_debug_mode("error")``, lifted only around the one
+   allowed read per click: any other synchronising op fails the run;
+10. the trunk cache at full width (``after_backbone`` flagship, B=4, 5
+    clicks): cached trajectories equal uncached ones, and the trunk was
+    recomputed on some clicks but not all;
+11. throughput of the device loop (f32 B=8, bf16 B=8 and B=16 on sixteen
+    scenes) beside the host protocol's p50 per click, and the split of one
+    f32 B=8 loop step (clicker, crop, forward at batch 16, paste);
+12. print the ``{"kernels": [...]}`` line and, last, the
+    ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without a
 result when CUDA is not available or the port cannot be imported.
@@ -54,6 +80,23 @@ FORWARD_RTOL = 1e-3
 PROBS_ATOL = 1e-3
 
 MAX_CLICKS = 5
+
+# device loop: B=8 against B=1 and against the host Predictor. On the card
+# the batch size may change cuBLAS's algorithm and so the f32 summation
+# order, and a pixel at the 0.49 threshold may flip: per-click IoU within
+# 1e-3, click counts equal. The picked target IoU keeps STOP_MARGIN from
+# every IoU reached, so such a difference cannot move a stop.
+LOOP_CLICKS = 20
+LOOP_BATCH = 8
+LOOP_JOBS = 10
+LOOP_IOU_TOL = 1e-3
+STOP_MARGIN = 2e-3
+# trunk cache: the same arithmetic from a cached trunk
+CACHE_TOL = 1e-4
+# share of a seeded scene's pixels a drawn probe marks positive
+POSITIVE_SHARE = 0.03
+# what the loop's steps must launch, per step
+PER_STEP = {"edt_row_envelope": 1, "mha_qkv": 12, "layernorm": 25}
 
 
 def fail(msg: str):
@@ -174,6 +217,40 @@ def layernorm_case(torch, F, layernorm, rows_shape, d, dtype, seed):
     return res
 
 
+def edt_case(torch, edt, shape, seed):
+    """Hold kernel C bitwise against its plain version at one shape: the
+    column pass of random masks (about 2% zeros; column 1 and, for the
+    leading rows, the last column zero-free, so g = 1e6 reaches the row
+    pass) through both, timed beside each other. No single PyTorch call
+    computes this function, so there is no library time."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    zero = torch.rand(shape, generator=g, device="cuda") < 0.02
+    zero[..., 1] = False
+    zero[..., : max(1, shape[-2] // 2), -1] = False
+    gcol = edt._column_pass(zero).contiguous()
+    got = edt.row_envelope(gcol)
+    want = edt._row_envelope_plain(gcol)
+    torch.cuda.synchronize()
+    res = {"max_abs_err": float((got - want).abs().max()),
+           "bitwise_equal": bool(torch.equal(got, want)),
+           "clamped_values": int((want == edt.BIG2).sum())}
+    res["ok"] = res["bitwise_equal"] and res["max_abs_err"] == 0.0
+    res["ms"], res["timing"] = time_ms(torch,
+                                       lambda: edt.row_envelope(gcol))
+    res["plain_ms"], _ = time_ms(torch,
+                                 lambda: edt._row_envelope_plain(gcol))
+    res["library_ms"] = None
+    w = shape[-1]
+    rows = gcol.numel() // w
+    # brute force: an add and a min for each of the W candidates of each of
+    # the rows * W outputs; bytes: g read once, the result written once
+    res.update(_bound(2.0 * rows * w * w, 8.0 * rows * w, "float32"))
+    res["bytes_bound_ms"] = 8.0 * rows * w / PEAK_BYTES_PER_S * 1e3
+    res.update(kernel="edt_row_envelope", shape=list(shape), rows=rows,
+               dtype="float32")
+    return res
+
+
 def _bound(ops: float, nbytes: float, op_dtype: str) -> dict:
     t_ops = ops / PEAK_OPS_PER_S[op_dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -216,6 +293,99 @@ def check_probs(image, gt, probs, *_):
         fail("predictor returned bad probabilities")
 
 
+def calibrate_classifier(torch, model, size: int) -> float:
+    """Set the classifier bias of a drawn probe so that POSITIVE_SHARE of
+    one seeded scene's pixels (one click) are positive. A drawn probe's
+    logits share one sign over the frame (its head's ReLU features have a
+    common positive mean), so every click would answer the same mask and
+    every trajectory would be flat; with a small positive share the mask is
+    a few compact blobs that the ZoomIn ROI follows, so masks answer the
+    crop, the clicks and the previous mask, the ROI moves and lanes stop at
+    different clicks. Returns the bias."""
+    img, _ = scene(7, (size, size))
+    x = np.concatenate([img.astype(np.float32) / 255.0,
+                        np.zeros((size, size, 1), np.float32)], axis=-1)
+    pts = np.full((1, 40, 3), -1.0, np.float32)
+    pts[0, 0] = (size / 2, size / 2, 0)
+    with torch.no_grad():
+        logits = model(torch.from_numpy(x[None]).cuda(),
+                       torch.from_numpy(pts).cuda())["instances"]
+        cut = torch.quantile(logits.float().flatten(), 1.0 - POSITIVE_SHARE)
+        model.head.classifier.bias.sub_(cut)
+    return float(model.head.classifier.bias.detach())
+
+
+def click_lanes(n: int, hw, seed: int):
+    """Random clicker inputs: elliptic ground truths with an ignore band,
+    predictions that are other ellipses with 1% noise, a few clicked
+    pixels; lane 0 has no error at all."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:hw[0], :hw[1]]
+
+    def ellipse():
+        cy, cx = rng.uniform(0.2, 0.8) * hw[0], rng.uniform(0.2, 0.8) * hw[1]
+        ry, rx = rng.uniform(0.1, 0.3) * hw[0], rng.uniform(0.1, 0.3) * hw[1]
+        return ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
+
+    gts, preds, ncs = [], [], []
+    for lane in range(n):
+        obj = ellipse()
+        gt = obj.astype(np.int32)
+        if lane % 2:
+            gt[:, rng.integers(0, hw[1] - 20):][:, :20] = -1
+        pred = ellipse() ^ (rng.random(hw) < 0.01)
+        if lane == 0:
+            pred = obj.copy()
+        gts.append(gt), preds.append(pred)
+        ncs.append(rng.random(hw) > 0.001)
+    return np.stack(gts), np.stack(preds), np.stack(ncs)
+
+
+def pick_target(trajectories, max_clicks: int):
+    """The target IoU, from trajectories run to ``max_clicks``, at which the
+    lanes stop at the most distinct clicks, at least STOP_MARGIN from every
+    IoU reached. Returns (target, the stop click of each lane)."""
+    values = sorted({float(v) for t in trajectories for v in t})
+    best = None
+    for lo, hi in zip(values, values[1:]):
+        if hi - lo < 2 * STOP_MARGIN:
+            continue
+        t = 0.5 * (lo + hi)
+        stops = [next((k + 1 for k, v in enumerate(traj) if v >= t),
+                      max_clicks) for traj in trajectories]
+        key = (len(set(stops)), hi - lo)
+        if best is None or key > best[0]:
+            best = (key, t, stops)
+    if best is None or best[0][0] < 2:
+        fail(f"no target IoU stops the lanes at different clicks: "
+             f"{trajectories}")
+    return best[1], best[2]
+
+
+def same_trajectories(got, want, tol: float, what: str) -> float:
+    """Fail unless click counts are equal and IoUs within ``tol``; returns
+    the largest IoU difference."""
+    if [len(a) for a in got] != [len(b) for b in want]:
+        fail(f"{what}: click counts {[len(a) for a in got]} != "
+             f"{[len(b) for b in want]}")
+    err = max((float(np.abs(np.asarray(a) - np.asarray(b)).max())
+               for a, b in zip(got, want) if len(a)), default=0.0)
+    if err > tol:
+        fail(f"{what}: IoUs differ by {err} > {tol}")
+    return err
+
+
+def counters(attention, layernorm, edt) -> dict:
+    return {"edt_row_envelope": edt.row_envelope.launches,
+            "mha_qkv": attention.mha_qkv.launches,
+            "layernorm": layernorm.layernorm.launches}
+
+
+def zero_counters(attention, layernorm, edt) -> None:
+    edt.row_envelope.launches = 0
+    attention.mha_qkv.launches = layernorm.layernorm.launches = 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every result to this JSON "
@@ -230,6 +400,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    from isegprobe_torch.inference import device_eval
+    from isegprobe_torch.inference.clicker import Clicker
     from isegprobe_torch.inference.evaluation import (
         evaluate_dataset,
         evaluate_sample,
@@ -241,7 +413,7 @@ def main() -> int:
         iSegProbeModel,
     )
     from isegprobe_torch.models.vit import init_params
-    from isegprobe_torch.ops import attention, cuda_lib, layernorm
+    from isegprobe_torch.ops import attention, cuda_lib, edt, layernorm
 
     t_start = time.time()
     results: dict = {}
@@ -264,7 +436,8 @@ def main() -> int:
     print(f"built {sorted(reports) or 'nothing (cached)'} in "
           f"{results['build_s']:.1f} s")
 
-    # 3. each kernel against its plain version, timed beside it
+    # 3. kernels A and B against their plain versions, timed beside them;
+    # batch 16 is the device loop's forward (8 lanes, flip TTA)
     checks = []
     for dtype in ("float32", "bfloat16"):
         checks.append(attention_case(torch, F, attention, 2, 1025, 6, 64,
@@ -275,6 +448,15 @@ def main() -> int:
                                  "float32", seed=3))
     checks.append(attention_case(torch, F, attention, 1, 513, 2, 128,
                                  "float32", seed=4))
+    checks.append(attention_case(torch, F, attention, 2 * LOOP_BATCH, 1025,
+                                 6, 64, "float32", seed=5))
+    checks.append(layernorm_case(torch, F, layernorm, (2 * LOOP_BATCH, 1025),
+                                 384, "float32", seed=6))
+
+    # 4. kernel C against its plain version: bitwise
+    for i, shape in enumerate(((LOOP_BATCH, 2, 514, 642), (64, 64),
+                               (3, 5, 37, 333))):
+        checks.append(edt_case(torch, edt, shape, seed=10 + i))
     for c in checks:
         print("check", json.dumps(c))
     results["checks"] = checks
@@ -282,9 +464,10 @@ def main() -> int:
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
 
-    # 4. full-width flagship forward: card vs CPU, launches per forward
+    # 5. full-width flagship forward: card vs CPU, launches per forward
     cfg = flagship_config((448, 448))
     model = init_params(iSegProbeModel(**cfg), seed=0).eval()
+    results["classifier_bias"] = calibrate_classifier(torch, model, 448)
     cpu_model = iSegProbeModel(**cfg, device="cpu").eval()
     cpu_model.load_state_dict(model.state_dict())
     rng = np.random.default_rng(0)
@@ -326,7 +509,7 @@ def main() -> int:
         fail(f"expected 12 attention and 25 LayerNorm launches per forward, "
              f"got {per_forward}")
 
-    # 5. the main path: the predictor answers NoC clicks
+    # 6. main path 1: the host predictor answers NoC clicks
     scenes = [scene(11), scene(12)]
     predictor = Predictor(model, target_size=(448, 448), with_flip=True,
                           net_clicks_limit=20)
@@ -342,18 +525,18 @@ def main() -> int:
 
     predictor.get_prediction = get_prediction
     sample_s: list = []  # per sample: wall time / clicks, clicker included
-    attention.mha_qkv.launches = layernorm.layernorm.launches = 0
+    zero_counters(attention, layernorm, edt)
     all_ious, _ = evaluate_dataset(Scenes(scenes), predictor,
                                    latencies=sample_s, max_iou_thr=0.95,
                                    max_clicks=MAX_CLICKS,
                                    callback=check_probs)
-    launches = {"mha_qkv": attention.mha_qkv.launches,
-                "layernorm": layernorm.layernorm.launches}
+    launches = counters(attention, layernorm, edt)
     n_clicks = sum(len(ious) for ious in all_ious)
     if len(all_ious) != len(scenes) or not all(
             1 <= len(ious) <= MAX_CLICKS for ious in all_ious):
         fail("predictor trajectories have bad lengths")
-    if launches != {"mha_qkv": 12 * n_clicks, "layernorm": 25 * n_clicks}:
+    if launches != {"edt_row_envelope": 0, "mha_qkv": 12 * n_clicks,
+                    "layernorm": 25 * n_clicks}:
         fail(f"main path launches {launches} for {n_clicks} clicks")
 
     # the first click of scene 0 against the CPU predictor
@@ -394,22 +577,219 @@ def main() -> int:
           f"{n_clicks} clicks (f32, fixed-448 ZoomIn, flip TTA)")
     results["noc"] = noc
 
-    # 6. the kernels of the path, at the main path's shapes (f32)
-    sources = {"mha_qkv": ("isegprobe_torch/csrc/attention.cu",
-                           "isegprobe_tpu/ops/attention.py:172"),
-               "layernorm": ("isegprobe_torch/csrc/layernorm.cu",
-                             "isegprobe_tpu/ops/layernorm.py:70")}
+    # 7. the device clicker against the host scipy clicker, lane by lane
+    gts, preds, ncs = click_lanes(32, (512, 640), seed=3)
+    with torch.inference_mode():
+        is_pos, cy, cx = edt.next_click_from_error(
+            *(torch.from_numpy(a).cuda() for a in (gts == 1, preds, ncs,
+                                                   gts != -1)))
+    got = list(zip(is_pos.tolist(), cy.tolist(), cx.tolist()))
+    want = []
+    for gt, pred, nc in zip(gts, preds, ncs):
+        clicker = Clicker(gt)
+        clicker.not_clicked_map = nc.copy()
+        click = clicker._get_next_click(pred)
+        want.append((click.is_positive, *click.coords))
+    mismatched = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    results["clicker"] = {"lanes": len(got), "mismatched": mismatched,
+                          "positives": int(sum(p for p, _, _ in got))}
+    print("clicker", json.dumps(results["clicker"]))
+    if mismatched:
+        fail(f"device clicks differ from the host clicker in lanes "
+             f"{mismatched}: {[(got[i], want[i]) for i in mismatched]}")
+
+    # 8. main path 2: the batched on-device NoC loop at full width
+    loop_scenes = [scene(20 + i) for i in range(LOOP_JOBS)]
+
+    def evaluator(m, batch, target, **kw):
+        kw.setdefault("max_clicks", LOOP_CLICKS)
+        return device_eval.make_device_evaluator(
+            m, target_size=(448, 448), batch_size=batch, target_iou=target,
+            net_clicks_limit=20, **kw)
+
+    probe = device_eval.evaluate_dataset_device(
+        evaluator(model, LOOP_BATCH, 2.0), Scenes(loop_scenes))
+    target, stops = pick_target(probe, LOOP_CLICKS)
+    print(f"target IoU {target:.6f}: lanes stop at clicks {stops}")
+    run8 = evaluator(model, LOOP_BATCH, target)
+    lane_s: list = []
+    zero_counters(attention, layernorm, edt)
+    t0 = time.time()
+    got8 = device_eval.evaluate_dataset_device(run8, Scenes(loop_scenes),
+                                               sample_times=lane_s)
+    loop_wall = time.time() - t0
+    loop_launches = counters(attention, layernorm, edt)
+    want_launches = {k: v * run8.steps for k, v in PER_STEP.items()}
+    if loop_launches != want_launches:
+        fail(f"device loop launched {loop_launches} in {run8.steps} steps, "
+             f"expected {want_launches}")
+    lengths = [len(a) for a in got8]
+    if lengths != stops or len(set(lengths)) < 2:
+        fail(f"lanes stopped at {lengths}, expected {stops} (at least two "
+             f"different clicks)")
+    if len(lane_s) != LOOP_JOBS:
+        fail(f"{len(lane_s)} sample times for {LOOP_JOBS} samples")
+    run1 = evaluator(model, 1, target)
+    got1 = device_eval.evaluate_dataset_device(run1, Scenes(loop_scenes))
+    err_b1 = same_trajectories(got8, got1, LOOP_IOU_TOL, "B=8 vs B=1")
+    host_idx = sorted({int(np.argmin(lengths)), int(np.argmax(lengths))})
+    host_pred = Predictor(model, target_size=(448, 448), with_flip=True,
+                          net_clicks_limit=20)
+    host = [evaluate_sample(*loop_scenes[i], host_pred, max_iou_thr=target,
+                            pred_thr=0.49, max_clicks=LOOP_CLICKS)[1]
+            for i in host_idx]
+    err_host = same_trajectories([got8[i] for i in host_idx], host,
+                                 LOOP_IOU_TOL, "device loop vs Predictor")
+    loop = {"jobs": LOOP_JOBS, "batch": LOOP_BATCH, "target_iou": target,
+            "lengths": lengths, "steps": run8.steps,
+            "host_reads": run8.host_reads, "launches": loop_launches,
+            "wall_s": loop_wall, "sample_s": lane_s,
+            "ious": [[float(v) for v in a] for a in got8],
+            "max_iou_diff_b8_vs_b1": err_b1,
+            "host_compared": host_idx, "max_iou_diff_vs_host": err_host}
+    print("device_loop", json.dumps({k: v for k, v in loop.items()
+                                     if k not in ("ious", "sample_s")}))
+    results["device_loop"] = loop
+
+    # 9. no hidden syncs: one whole device-loop evaluation of the first
+    # chunk under the sync debugger, lifted only around the allowed reads
+    jobs = [device_eval._pad_job(img, gt, 64)
+            for img, gt in loop_scenes[:LOOP_BATCH]]
+    chunk = [torch.from_numpy(np.stack([j[k] for j in jobs])).cuda()
+             for k in range(3)]
+    torch.cuda.synchronize()
+    steps0, reads0 = run8.steps, run8.host_reads
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        try:  # the debugger is live: a plain read must raise
+            bool(chunk[2].sum() > 0)
+            live = False
+        except RuntimeError:
+            live = True
+        ious_d, n_d = run8(*chunk)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    steps, reads = run8.steps - steps0, run8.host_reads - reads0
+    if not live:
+        fail("set_sync_debug_mode('error') did not catch a device read")
+    if reads != steps + 1:
+        fail(f"{reads} host reads in {steps} loop steps")
+    ious_d, n_d = ious_d.cpu().numpy(), n_d.cpu().numpy()
+    same_trajectories([ious_d[i][: int(n_d[i])] for i in range(LOOP_BATCH)],
+                      got8[:LOOP_BATCH], CACHE_TOL, "sync-checked run")
+    results["sync_check"] = {"steps": steps, "host_reads": reads,
+                             "debugger_live": live}
+    print("sync_check", json.dumps(results["sync_check"]))
+
+    # 10. the trunk cache at full width: after_backbone injection
+    cfg_ab = flagship_config((448, 448))
+    cfg_ab["backbone_cfg"]["params"]["feats_injection_mode"] = \
+        "after_backbone"
+    model_ab = iSegProbeModel(**cfg_ab).eval()
+    model_ab.load_state_dict(model.state_dict())
+    calibrate_classifier(torch, model_ab, 448)  # clicks join after it
+    cache_scenes = Scenes(loop_scenes[:4])
+    cached = evaluator(model_ab, 4, 2.0, max_clicks=5)
+    uncached = evaluator(model_ab, 4, 2.0, max_clicks=5, trunk_cache="off")
+    if not cached.use_cache or uncached.use_cache:
+        fail("trunk_cache='auto' did not pick the cache for after_backbone")
+    got_c = device_eval.evaluate_dataset_device(cached, cache_scenes)
+    want_c = device_eval.evaluate_dataset_device(uncached, cache_scenes)
+    cache = {"max_iou_diff": same_trajectories(got_c, want_c, CACHE_TOL,
+                                               "cached vs uncached trunk"),
+             "ious": [[float(v) for v in a] for a in got_c],
+             "steps": cached.steps,
+             "trunk_recomputes": cached.trunk_recomputes,
+             "host_reads": cached.host_reads}
+    print("trunk_cache", json.dumps(cache))
+    if not 0 < cached.trunk_recomputes < cached.steps:
+        fail(f"the trunk was recomputed on {cached.trunk_recomputes} of "
+             f"{cached.steps} clicks: the ROI never moved, or moved on "
+             f"every click, so the cache was not exercised")
+    print(f"trunk recomputed on {cache['trunk_recomputes']} of "
+          f"{cache['steps']} clicks")
+    results["trunk_cache"] = cache
+
+    # 11. throughput of the device loop beside the host protocol, and the
+    # split of one f32 B=8 loop step
+    thr_scenes = Scenes([scene(20 + i) for i in range(16)])
+    throughput = []
+    for dtype, batch in (("float32", 8), ("bfloat16", 8), ("bfloat16", 16)):
+        m = model if dtype == "float32" else model_bf16
+        device_eval.evaluate_dataset_device(  # warm-up: per-device constants
+            evaluator(m, batch, target, max_clicks=1),
+            Scenes(thr_scenes.scenes[:batch]))
+        run = evaluator(m, batch, target)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = device_eval.evaluate_dataset_device(run, thr_scenes)
+        wall = time.time() - t0
+        clicks = sum(len(a) for a in res)
+        throughput.append({
+            "dtype": dtype, "batch": batch, "jobs": len(thr_scenes),
+            "steps": run.steps, "wall_s": wall, "clicks": clicks,
+            "lane_clicks_per_s": clicks / wall,
+            "driven_lane_steps_per_s": run.steps * batch / wall,
+            "ms_per_step": 1e3 * wall / run.steps})
+        print("throughput", json.dumps(throughput[-1]))
+    host_p50 = noc["per_click_protocol"]["p50_ms"]
+    print(f"host protocol p50 {host_p50:.3f} ms per click "
+          f"({1e3 / host_p50:.2f} clicks/s) vs device loop " + ", ".join(
+              f"{t['dtype']} B={t['batch']}: {t['lane_clicks_per_s']:.2f} "
+              f"lane-clicks/s, {t['ms_per_step']:.3f} ms/step"
+              for t in throughput))
+    results["throughput"] = throughput
+
+    with torch.inference_mode():
+        st = run8._init_state(*chunk)
+        sel, pts_full = run8._select(st)
+        crops, pts = run8._crop_points(st["image"], st["prev"], sel["roi"],
+                                       pts_full)
+        step_logits = model(crops, pts)["instances"]
+        split = {
+            "clicker_ms": time_ms(torch, lambda: edt.next_click_from_error(
+                st["gt"], st["prev"][..., 0] > 0.49, st["not_clicked"],
+                st["not_ignore"]))[0],
+            "select_ms": time_ms(torch, lambda: run8._select(st))[0],
+            "crop_ms": time_ms(torch, lambda: run8._crop_points(
+                st["image"], st["prev"], sel["roi"], pts_full))[0],
+            "forward_ms": time_ms(torch, lambda: model(crops, pts),
+                                  reps=5, rounds=3, graph=False)[0],
+            "paste_iou_ms": time_ms(torch, lambda: run8._finish(
+                st, sel["roi"], run8._merge_flip(step_logits,
+                                                 LOOP_BATCH)))[0],
+        }
+    split["row_envelope_ms"] = next(
+        c["ms"] for c in checks if c["kernel"] == "edt_row_envelope")
+    split["loop_ms_per_step"] = throughput[0]["ms_per_step"]
+    print("step_split", json.dumps(split))
+    results["step_split"] = split
+
+    # 12. the kernels of the paths, at the device loop's shapes (f32)
+    sources = {
+        "mha_qkv": ("isegprobe_torch/csrc/attention.cu",
+                    "isegprobe_tpu/ops/attention.py:172",
+                    [2 * LOOP_BATCH, 1025, 1152]),
+        "layernorm": ("isegprobe_torch/csrc/layernorm.cu",
+                      "isegprobe_tpu/ops/layernorm.py:70",
+                      [2 * LOOP_BATCH, 1025, 384]),
+        "edt_row_envelope": ("isegprobe_torch/csrc/edt.cu",
+                             "isegprobe_tpu/ops/edt.py:168",
+                             [LOOP_BATCH, 2, 514, 642])}
     kernels = []
-    for name, (src, replaces) in sources.items():
-        c = next(c for c in checks
-                 if c["kernel"] == name and c["dtype"] == "float32")
+    for name, (src, replaces, shape) in sources.items():
+        c = next(c for c in checks if c["kernel"] == name
+                 and c["dtype"] == "float32" and c["shape"] == shape)
+        by_path = {"host_protocol": launches[name],
+                   "device_loop": loop_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-            "shape": c["shape"]})
+            "shape": shape})
     results["kernels"] = kernels
     results["seconds"] = time.time() - t_start
     if args.out:

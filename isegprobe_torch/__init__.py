@@ -3,13 +3,15 @@ for an NVIDIA Hopper GPU, beside the JAX package ``isegprobe_tpu`` that stays
 the numerical reference.
 
 Layout mirrors the JAX package so each module's counterpart is easy to find:
-    ops/        resize, click encoding, ZoomIn sampling, host EDT, and the
-                hand-written CUDA kernels (attention, LayerNorm) with their
+    ops/        resize, click encoding, ZoomIn sampling, host and device EDT
+                with the device clicker rule, and the hand-written CUDA
+                kernels (attention, LayerNorm, EDT row envelope) with their
                 plain PyTorch versions
     csrc/       CUDA C++ sources of those kernels, built with nvcc at first use
     models/     ViT core, DINOv2 featurizer, upsamplers, heads, probe model,
                 and the weight bridge from the JAX package's param trees
-    inference/  clicker, predictor, NoC evaluation and metrics
+    inference/  clicker, predictor, NoC evaluation and metrics, and the
+                batched on-device NoC loop (device_eval)
     utils/      bbox helpers
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without a

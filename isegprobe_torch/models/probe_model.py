@@ -80,6 +80,7 @@ class iSegProbeModel(nn.Module):
         self.use_disks = use_disks
         self.with_prev_mask = with_prev_mask
         self.norm_mean_std = norm_mean_std
+        self._norm_cache: Dict = {}
 
         btype = backbone_cfg["type"].lower()
         if btype != "dinov2":
@@ -109,15 +110,22 @@ class iSegProbeModel(nn.Module):
 
     # -- input preparation ------------------------------------------------
 
+    def _norm_consts(self, dtype, device):
+        """Mean and std as tensors, made once per (dtype, device): a host
+        copy per forward would be a sync inside the on-device click loop."""
+        key = (dtype, device)
+        if key not in self._norm_cache:
+            self._norm_cache[key] = tuple(
+                torch.tensor(v, dtype=dtype, device=device)
+                for v in self.norm_mean_std)
+        return self._norm_cache[key]
+
     def prepare_input(self, image: torch.Tensor):
         prev_mask = None
         if self.with_prev_mask:
             prev_mask = image[..., 3:]
             image = image[..., :3]
-        mean = torch.tensor(self.norm_mean_std[0], dtype=image.dtype,
-                            device=image.device)
-        std = torch.tensor(self.norm_mean_std[1], dtype=image.dtype,
-                           device=image.device)
+        mean, std = self._norm_consts(image.dtype, image.device)
         return (image - mean) / std, prev_mask
 
     def get_coord_features(self, image, prev_mask, points) -> torch.Tensor:
@@ -130,14 +138,18 @@ class iSegProbeModel(nn.Module):
 
     # -- forward ----------------------------------------------------------
 
-    def backbone_forward(self, image, coord_features) -> Dict:
-        coord_tokens = self.embed_coords(coord_features)
-        feats = self.backbone(image, coord_tokens)
+    def _upsample_and_head(self, feats, image) -> torch.Tensor:
         h, w = image.shape[1], image.shape[2]
         feats = self.upsampler(feats, image)
         if self.upsampler_type != "identity" and feats.shape[1:3] != (h, w):
             feats = resize(feats, (h, w), "bilinear", align_corners=True)
-        return {"instances": self.head(feats), "instances_aux": None}
+        return self.head(feats)
+
+    def backbone_forward(self, image, coord_features) -> Dict:
+        coord_tokens = self.embed_coords(coord_features)
+        feats = self.backbone(image, coord_tokens)
+        return {"instances": self._upsample_and_head(feats, image),
+                "instances_aux": None}
 
     def forward(self, image: torch.Tensor, points: torch.Tensor) -> Dict:
         image, prev_mask = self.prepare_input(image)
@@ -147,6 +159,34 @@ class iSegProbeModel(nn.Module):
         outputs["instances"] = resize(outputs["instances"], (h, w),
                                       "bilinear", align_corners=True)
         return outputs
+
+    # -- late-injection caching seams ---------------------------------------
+    # With 'after_backbone' injection the frozen trunk depends only on the
+    # image crop, so the click loop can cache it and rerun just the click
+    # embedding, the add, the upsampler and the head.
+
+    def compute_backbone_trunk(self, image: torch.Tensor) -> torch.Tensor:
+        """Trunk features ``[B, gh, gw, C]`` of the (un-normalised, possibly
+        prev-mask-extended) crop, with no click injection."""
+        image, _ = self.prepare_input(image)
+        return self.backbone(image, None)
+
+    def forward_with_cached_trunk(self, image: torch.Tensor,
+                                  points: torch.Tensor,
+                                  trunk_feats: torch.Tensor) -> Dict:
+        """The late-injection forward from cached trunk features: equal to
+        ``forward`` for an ``after_backbone`` model."""
+        image, prev_mask = self.prepare_input(image)
+        coord_features = self.get_coord_features(image, prev_mask, points)
+        coord_tokens = self.embed_coords(coord_features)
+        b, gh, gw, c = trunk_feats.shape
+        # the add the featurizer performs for 'after_backbone'
+        feats = trunk_feats.float() + coord_tokens.reshape(b, gh, gw,
+                                                           c).float()
+        out = self._upsample_and_head(feats, image)
+        h, w = image.shape[1], image.shape[2]
+        out = resize(out, (h, w), "bilinear", align_corners=True)
+        return {"instances": out, "instances_aux": None}
 
 
 def flagship_config(img_size=(448, 448)) -> Dict:

@@ -9,14 +9,17 @@ be left out:
 
 Tolerances: f32 differs only in summation order, rsqrtf and the online
 softmax (~1e-6 relative), so 1e-5; bf16 outputs may differ by one bf16
-rounding step (2^-8 relative), so 2e-2.
+rounding step (2^-8 relative), so 2e-2. The EDT row kernel computes exact
+integers in f32 and is held bitwise to its plain version.
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from isegprobe_torch.ops import attention, layernorm
+from isegprobe_torch.ops import attention, edt, layernorm
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
@@ -71,6 +74,38 @@ def test_layernorm_kernel_matches_plain(cuda_device, dtype, w_dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2, 66, 82), (64, 64), (5, 33, 129),
+                                   (3, 1, 4096), (7, 1)])
+def test_edt_row_kernel_matches_plain_bitwise(cuda_device, shape):
+    """Random masks through the column pass, one with a zero-free column,
+    then the row pass: kernel C equals the plain version bit for bit."""
+    rng = np.random.default_rng(sum(shape))
+    zero = rng.random(shape) < 0.05
+    zero[..., 0] = False  # a column without any zero: g = 1e6 there
+    g = edt._column_pass(torch.from_numpy(zero).to(cuda_device))
+    before = edt.row_envelope.launches
+    got = edt.row_envelope(g)
+    torch.cuda.synchronize()
+    assert edt.row_envelope.launches == before + 1
+    want = edt._row_envelope_plain(g)
+    assert torch.equal(got, want)
+    ones = torch.ones((2, 9, 13), dtype=torch.bool, device=cuda_device)
+    assert bool((edt.edt_l2sq_device(ones) == edt.BIG2).all())
+
+
+@pytest.mark.cuda
+def test_clicker_ties_take_the_first_maximum(cuda_device):
+    """Two equal false-positive squares: on the card the click goes to the
+    first row-major maximum (the upper square's centre), as on the host."""
+    pred = torch.zeros((2, 40, 52), dtype=torch.bool, device=cuda_device)
+    pred[:, 5:10, 5:10] = pred[:, 20:25, 30:35] = True
+    gt = torch.zeros_like(pred)
+    is_pos, y, x = edt.next_click_from_error(gt, pred, ~gt)
+    assert is_pos.tolist() == [False, False]
+    assert y.tolist() == [7, 7] and x.tolist() == [7, 7]
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     qkv = _randn((1, 9, 3 * 2 * 64), 0, cuda_device)
     with pytest.raises(ValueError):
@@ -85,6 +120,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         layernorm.layernorm(x, torch.ones(2048, device=cuda_device),
                             torch.zeros(2048, device=cuda_device))  # D > 1024
+    with pytest.raises(TypeError):
+        edt.row_envelope(x.double())
+    with pytest.raises(ValueError):
+        edt.row_envelope(x.t())  # not contiguous
+    with pytest.raises(ValueError):
+        edt.row_envelope(_randn((2, 4097), 0, cuda_device))  # W > 4096
 
 
 @pytest.mark.cuda
@@ -116,3 +157,56 @@ def test_small_probe_forward_matches_cpu(cuda_device):
         want = cpu(image, points)["instances"]
     scale = float(want.abs().max())
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3 * max(1.0, scale))
+
+
+@pytest.mark.cuda
+def test_device_loop_matches_cpu(cuda_device):
+    """A 112² flagship-width probe through the on-device click loop at two
+    lanes: the card's trajectories equal the CPU loop's (same lengths, IoU
+    within 1e-3: pixels at the 0.49 threshold), with one kernel C launch
+    per loop step."""
+    from isegprobe_torch.inference.device_eval import (
+        evaluate_dataset_device,
+        make_device_evaluator,
+    )
+    from isegprobe_torch.models.probe_model import (
+        flagship_config,
+        iSegProbeModel,
+    )
+    from isegprobe_torch.models.vit import init_params
+
+    cfg = flagship_config((112, 112))
+    model = init_params(iSegProbeModel(**cfg, device=cuda_device),
+                        seed=0).eval()
+    cpu = iSegProbeModel(**cfg, device="cpu").eval()
+    cpu.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(1)
+    scenes = []
+    for _ in range(3):
+        img = rng.integers(0, 90, (100, 130, 3), dtype=np.uint8)
+        gt = np.zeros((100, 130), np.int32)
+        y, x = rng.integers(10, 50, size=2)
+        gt[y:y + 40, x:x + 60] = 1
+        img[gt == 1] = rng.integers(130, 255, size=3)
+        scenes.append((img, gt))
+
+    class Data:
+        def __len__(self):
+            return len(scenes)
+
+        def get_sample(self, i):
+            img, gt = scenes[i]
+            return SimpleNamespace(image=img, objects_ids=[1],
+                                   gt_mask=lambda _: gt)
+
+    kw = dict(target_size=(112, 112), max_clicks=4, target_iou=0.95,
+              min_crop_size=40, batch_size=2)
+    run = make_device_evaluator(model, **kw)
+    edt.row_envelope.launches = 0
+    got = evaluate_dataset_device(run, Data())
+    assert edt.row_envelope.launches == run.steps
+    want = evaluate_dataset_device(
+        make_device_evaluator(cpu, device="cpu", **kw), Data())
+    assert [len(a) for a in got] == [len(a) for a in want]
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-3)

@@ -105,12 +105,15 @@ def _blob_masks(seed, n=4, shape=(60, 70)):
 
 def test_edt_matches_jax():
     from isegprobe_tpu.ops.edt import edt_l2sq as j_edt
+    from isegprobe_tpu.ops.edt import edt_l2sq_device as j_edt_device
     from isegprobe_torch.ops.edt import edt_l2sq
 
     for m in _blob_masks(4):
         np.testing.assert_array_equal(edt_l2sq(m), j_edt(m))
-    with pytest.raises(ValueError):
-        edt_l2sq(np.ones((4, 4), np.uint8))
+    # no zero pixel: "infinitely far", the JAX device path's clamp
+    ones = np.ones((4, 4), np.uint8)
+    np.testing.assert_array_equal(edt_l2sq(ones),
+                                  np.asarray(j_edt_device(jnp.asarray(ones))))
 
 
 def test_bbox_helpers_match_jax():
