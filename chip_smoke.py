@@ -8,8 +8,9 @@ does not hold:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels of ``isegprobe_torch/csrc`` (A attention, B
-   LayerNorm, C EDT row envelope) with nvcc, one process per source, all
-   started together, and print the ptxas report;
+   LayerNorm, C EDT row envelope, D cross-attention, E JBU filter) with
+   nvcc, one process per source, all started together, and print the
+   ptxas report;
 3. hold kernels A and B against their plain PyTorch versions on the card, at
    the flagship shapes in f32 and bf16, at the device loop's batch of 16
    crops, and at attention shapes with dh != 64, and time kernel, plain
@@ -47,8 +48,19 @@ does not hold:
 11. throughput of the device loop (f32 B=8, bf16 B=8 and B=16 on sixteen
     scenes) beside the host protocol's p50 per click, and the split of one
     f32 B=8 loop step (clicker, crop, forward at batch 16, paste);
-12. print the ``{"kernels": [...]}`` line and, last, the
-    ``{"ok": true, "device": ...}`` line.
+12. the learned-upsampler families, LoftUp and JBU-FeatUp on DINOv2-S/14 at
+    448² (drawn, calibrated): kernels D (cross-attention) and E (JBU
+    filter) against their plain versions at the families' shapes, timed
+    beside them; for each family one f32 forward on the card against the
+    CPU with its exact launches per forward (LoftUp 12 A + 82 B + 14 D, JBU
+    12 A + 25 B + 4 E), the host protocol (main path 3 and 5: p50 ms per
+    click), the device loop at B=4 (main paths 4 and 6: every step 1 C plus
+    one forward's launches, trajectories equal to B=1 and to the host
+    Predictor; the JBU loop also under the sync debugger), and the split of
+    one loop step into backbone, upsampler and head, with a profiler
+    breakdown of the LoftUp forward by kernel;
+13. print the ``{"kernels": [...]}`` line (kernels A-E, launches by path)
+    and, last, the ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without a
 result when CUDA is not available or the port cannot be imported.
@@ -72,7 +84,9 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 
 # max |kernel - plain| <= ATOL + RTOL * |plain|: f32 differs only in
 # summation order (and rsqrtf / the online softmax, ~1e-6 relative); bf16
-# outputs may differ by one bf16 rounding step (2^-8 relative)
+# outputs may differ by one bf16 rounding step (2^-8 relative). Kernel E's
+# output is a weighted mean of 49 inputs, which errs relative to the inputs
+# summed, not to the mean, so its ATOL is scaled by max |hr|.
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
 # full forward, card vs CPU: f32 through 12 blocks and the conv head
 FORWARD_RTOL = 1e-3
@@ -95,8 +109,33 @@ STOP_MARGIN = 2e-3
 CACHE_TOL = 1e-4
 # share of a seeded scene's pixels a drawn probe marks positive
 POSITIVE_SHARE = 0.03
+# what one forward of each probe launches (LoftUp at 448²: 7 slabs of 64
+# rows, each 2 cross-attention layers of kernel D and 8 LayerNorms, plus the
+# ChannelNorm of its input; JBU: 4 stages of kernel E)
+FORWARD_LAUNCHES = {
+    "flagship": {"mha_qkv": 12, "layernorm": 25},
+    "loftup": {"mha_qkv": 12, "layernorm": 25 + 1 + 7 * 8, "mha": 14},
+    "jbu_featup": {"mha_qkv": 12, "layernorm": 25, "jbu_filter": 4},
+}
+KERNELS = ("edt_row_envelope", "mha_qkv", "layernorm", "mha", "jbu_filter")
 # what the loop's steps must launch, per step
-PER_STEP = {"edt_row_envelope": 1, "mha_qkv": 12, "layernorm": 25}
+PER_STEP = {"edt_row_envelope": 1, **FORWARD_LAUNCHES["flagship"]}
+# the learned-upsampler families: crop size, device loop batch, clicks and
+# scenes
+FAMILY_SIZE = 448
+FAMILY_BATCH = 4
+FAMILY_CLICKS = 8
+FAMILY_JOBS = 4
+# a larger positive share than the flagship's: at 3% the drawn JBU probe's
+# masks missed every object on every click (IoU 0 throughout), so no target
+# IoU could stop its lanes at different clicks
+FAMILY_POSITIVE_SHARE = 0.15
+UPSAMPLERS = {
+    "loftup": dict(type="loftup", params=dict(upsampler_path=None,
+                                              n_dim=384)),
+    "jbu_featup": dict(type="jbu_featup", params=dict(backbone_type="dinov2",
+                                                      use_norm=True)),
+}
 
 
 def fail(msg: str):
@@ -152,8 +191,9 @@ def time_ms(torch, fn, reps: int = 20, rounds: int = 5,
     return float(np.median(times)), method
 
 
-def compare(torch, got, want, dtype: str) -> dict:
+def compare(torch, got, want, dtype: str, scale: float = 1.0) -> dict:
     rtol, atol = TOL[dtype]
+    atol *= scale
     g, w = got.float(), want.float()
     err = (g - w).abs()
     ok = bool((err <= atol + rtol * w.abs()).all()) and bool(
@@ -251,6 +291,93 @@ def edt_case(torch, edt, shape, seed):
     return res
 
 
+def sdpa_backends(torch, F, q, k, v, scale) -> list:
+    """The fused backends of ``scaled_dot_product_attention`` that take
+    these inputs (the math backend takes everything)."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    names = []
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                with sdpa_kernel(backend):
+                    F.scaled_dot_product_attention(q, k, v, scale=scale)
+                names.append(backend.name)
+            except RuntimeError:
+                pass
+    return names
+
+
+def cross_attention_case(torch, F, attention, b, nq, nk, heads, dh, dtype,
+                         seed):
+    """Check and time kernel D at one shape, beside its plain version and
+    ``scaled_dot_product_attention`` (recording which fused backends take
+    the shape; the default picks the first, else the math backend)."""
+    tdt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, nq, heads, dh), generator=g, device="cuda").to(tdt)
+    k = torch.randn((b, nk, heads, dh), generator=g, device="cuda").to(tdt)
+    v = torch.randn((b, nk, heads, dh), generator=g, device="cuda").to(tdt)
+    scale = dh**-0.5
+    got = attention.mha(q, k, v, scale)
+    want = attention._mha_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    res = compare(torch, got, want, dtype)
+    del got, want
+    res["ms"], res["timing"] = time_ms(
+        torch, lambda: attention.mha(q, k, v, scale))
+    res["plain_ms"], _ = time_ms(
+        torch, lambda: attention._mha_plain(q, k, v, scale), reps=3,
+        rounds=3, graph=False)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    res["library_backends"] = sdpa_backends(torch, F, qt, kt, vt, scale)
+    res["library_ms"], _ = time_ms(
+        torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      scale=scale),
+        reps=3, rounds=3, graph=False)
+    ops = 4.0 * b * heads * nq * nk * dh
+    nbytes = (2 * b * nq + 2 * b * nk) * heads * dh * q.element_size()
+    res.update(_bound(ops, nbytes, "float32"))
+    res.update(kernel="mha", shape=[[b, nq, heads, dh], [b, nk, heads, dh]],
+               dtype=dtype)
+    return res
+
+
+def jbu_case(torch, jbu, b, h, w, c, k, seed):
+    """Check and time kernel E at one shape (f32, temp 0.5, sigma 0.8, as
+    the drawn probes carry). No single PyTorch call computes this function,
+    so there is no library time."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    hr = torch.randn((b, h, w, c), generator=g, device="cuda")
+    proj = torch.randn((b, h, w, k), generator=g, device="cuda")
+    temp = torch.full((), 0.5, device="cuda")
+    sigma = torch.full((), 0.8, device="cuda")
+    got = jbu.jbu_filter(hr, proj, temp, sigma)
+    want = jbu._jbu_plain(hr, proj, temp, sigma)
+    torch.cuda.synchronize()
+    res = compare(torch, got, want, "float32", float(hr.abs().max()))
+    del got, want
+    res["ms"], res["timing"] = time_ms(
+        torch, lambda: jbu.jbu_filter(hr, proj, temp, sigma))
+    res["plain_ms"], _ = time_ms(
+        torch, lambda: jbu._jbu_plain(hr, proj, temp, sigma), reps=3,
+        rounds=3, graph=False)
+    res["library_ms"] = None
+    px = b * h * w
+    # 49 taps of a K-wide dot and a C-wide weighted sum, 2 ops a product;
+    # hr and proj read once, out written once
+    res.update(_bound(2.0 * jbu.NTAP * (k + c) * px, 4.0 * (2 * c + k) * px,
+                      "float32"))
+    res.update(kernel="jbu_filter", shape=[b, h, w, c], key_dim=k,
+               dtype="float32")
+    return res
+
+
 def _bound(ops: float, nbytes: float, op_dtype: str) -> dict:
     t_ops = ops / PEAK_OPS_PER_S[op_dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -293,9 +420,10 @@ def check_probs(image, gt, probs, *_):
         fail("predictor returned bad probabilities")
 
 
-def calibrate_classifier(torch, model, size: int) -> float:
-    """Set the classifier bias of a drawn probe so that POSITIVE_SHARE of
-    one seeded scene's pixels (one click) are positive. A drawn probe's
+def calibrate_classifier(torch, model, size: int,
+                         share: float = POSITIVE_SHARE) -> float:
+    """Set the classifier bias of a drawn probe so that ``share`` of one
+    seeded scene's pixels (one click) are positive. A drawn probe's
     logits share one sign over the frame (its head's ReLU features have a
     common positive mean), so every click would answer the same mask and
     every trajectory would be flat; with a small positive share the mask is
@@ -310,7 +438,7 @@ def calibrate_classifier(torch, model, size: int) -> float:
     with torch.no_grad():
         logits = model(torch.from_numpy(x[None]).cuda(),
                        torch.from_numpy(pts).cuda())["instances"]
-        cut = torch.quantile(logits.float().flatten(), 1.0 - POSITIVE_SHARE)
+        cut = torch.quantile(logits.float().flatten(), 1.0 - share)
         model.head.classifier.bias.sub_(cut)
     return float(model.head.classifier.bias.detach())
 
@@ -344,7 +472,17 @@ def click_lanes(n: int, hw, seed: int):
 def pick_target(trajectories, max_clicks: int):
     """The target IoU, from trajectories run to ``max_clicks``, at which the
     lanes stop at the most distinct clicks, at least STOP_MARGIN from every
-    IoU reached. Returns (target, the stop click of each lane)."""
+    IoU reached. Returns (target, the stop click of each lane); fails when
+    no target stops the lanes at two different clicks."""
+    best = find_target(trajectories, max_clicks)
+    if best is None:
+        fail(f"no target IoU stops the lanes at different clicks: "
+             f"{trajectories}")
+    return best
+
+
+def find_target(trajectories, max_clicks: int):
+    """As ``pick_target``; None when no target splits the lanes."""
     values = sorted({float(v) for t in trajectories for v in t})
     best = None
     for lo, hi in zip(values, values[1:]):
@@ -357,8 +495,7 @@ def pick_target(trajectories, max_clicks: int):
         if best is None or key > best[0]:
             best = (key, t, stops)
     if best is None or best[0][0] < 2:
-        fail(f"no target IoU stops the lanes at different clicks: "
-             f"{trajectories}")
+        return None
     return best[1], best[2]
 
 
@@ -375,15 +512,326 @@ def same_trajectories(got, want, tol: float, what: str) -> float:
     return err
 
 
-def counters(attention, layernorm, edt) -> dict:
-    return {"edt_row_envelope": edt.row_envelope.launches,
-            "mha_qkv": attention.mha_qkv.launches,
-            "layernorm": layernorm.layernorm.launches}
+def time_clicks(predictor) -> list:
+    """Wrap ``predictor.get_prediction`` so that the host seconds of each
+    call (it ends in a device-to-host copy) go to the returned list."""
+    click_s: list = []
+    timed = predictor.get_prediction
+
+    def get_prediction(clicker):
+        t = time.perf_counter()
+        out = timed(clicker)
+        click_s.append(time.perf_counter() - t)
+        return out
+
+    predictor.get_prediction = get_prediction
+    return click_s
 
 
-def zero_counters(attention, layernorm, edt) -> None:
-    edt.row_envelope.launches = 0
-    attention.mha_qkv.launches = layernorm.layernorm.launches = 0
+def first_chunk(torch, device_eval, scenes, batch: int) -> list:
+    """The device loop's (image, gt, valid) inputs for the first ``batch``
+    scenes, on the card."""
+    jobs = [device_eval._pad_job(img, gt, 64) for img, gt in scenes[:batch]]
+    chunk = [torch.from_numpy(np.stack([j[k] for j in jobs])).cuda()
+             for k in range(3)]
+    torch.cuda.synchronize()
+    return chunk
+
+
+def sync_checked_run(torch, run, chunk, want, what: str) -> dict:
+    """One whole device-loop evaluation of ``chunk`` under
+    ``torch.cuda.set_sync_debug_mode("error")``, which the loop lifts only
+    around its one allowed read per click: any other synchronising op, a
+    debugger that does not catch a read, or trajectories other than
+    ``want`` fail the run."""
+    steps0, reads0 = run.steps, run.host_reads
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        try:  # the debugger is live: a plain read must raise
+            bool(chunk[2].sum() > 0)
+            live = False
+        except RuntimeError:
+            live = True
+        ious, n = run(*chunk)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    steps, reads = run.steps - steps0, run.host_reads - reads0
+    if not live:
+        fail("set_sync_debug_mode('error') did not catch a device read")
+    if reads != steps + 1:
+        fail(f"{what}: {reads} host reads in {steps} loop steps")
+    ious, n = ious.cpu().numpy(), n.cpu().numpy()
+    same_trajectories([ious[i][: int(n[i])] for i in range(len(n))], want,
+                      CACHE_TOL, f"{what}: sync-checked run")
+    return {"steps": steps, "host_reads": reads, "debugger_live": live}
+
+
+def forward_vs_cpu(torch, model, cpu_model, size: int, per_forward: dict,
+                   what: str, cpu_batch: int = 2) -> tuple:
+    """One f32 forward at B=2 on the card: it must launch exactly
+    ``per_forward``, give finite logits of the crop's shape, and agree
+    within FORWARD_RTOL of the logit scale with the CPU forward of its
+    first ``cpu_batch`` samples (lanes are independent). Returns (image,
+    points and logits on the card, the record)."""
+    rng = np.random.default_rng(0)
+    image = rng.random((2, size, size, 4), dtype=np.float32)
+    points = np.full((2, 40, 3), -1.0, np.float32)
+    points[:, 0] = (200.0, 220.0, 0)
+    points[0, 20] = (60.0, 400.0, 1)
+    points[1, 1] = (300.0, 120.0, 1)
+    img_d = torch.from_numpy(image).cuda()
+    pts_d = torch.from_numpy(points).cuda()
+    with torch.inference_mode():
+        zero_counters()
+        logits = model(img_d, pts_d)["instances"]
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counters().items() if v}
+        t0 = time.time()
+        ref = cpu_model(torch.from_numpy(image[:cpu_batch]),
+                        torch.from_numpy(points[:cpu_batch]))["instances"]
+        cpu_s = time.time() - t0
+        f32_ms, _ = time_ms(torch, lambda: model(img_d, pts_d), reps=3,
+                            rounds=3, graph=False)
+    err = float((logits[:cpu_batch].cpu() - ref).abs().max())
+    scale = float(ref.abs().max())
+    record = {"launches_per_forward": got, "max_abs_err_vs_cpu": err,
+              "logit_scale": scale, "cpu_forward_s": cpu_s,
+              "f32_forward_ms": f32_ms, "shape": list(logits.shape)}
+    print(f"{what} forward", json.dumps(record))
+    if tuple(logits.shape) != (2, size, size, 1) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"{what}: bad logits, shape {tuple(logits.shape)}")
+    if err > FORWARD_RTOL * max(1.0, scale):
+        fail(f"{what}: card forward disagrees with the CPU forward: {err} "
+             f"(logit scale {scale})")
+    if got != per_forward:
+        fail(f"{what}: expected {per_forward} launches per forward, got "
+             f"{got}")
+    return img_d, pts_d, logits, record
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from isegprobe_torch.ops import attention, edt, jbu, layernorm
+
+    return {"edt_row_envelope": edt.row_envelope,
+            "mha_qkv": attention.mha_qkv, "layernorm": layernorm.layernorm,
+            "mha": attention.mha, "jbu_filter": jbu.jbu_filter}
+
+
+def counters() -> dict:
+    return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+def zero_counters() -> None:
+    for w in kernel_wrappers().values():
+        w.launches = 0
+
+
+def expected(**counts) -> dict:
+    """A full counter dict: the given launches, 0 for every other kernel."""
+    return {k: counts.get(k, 0) for k in KERNELS}
+
+
+def profile_forward(torch, model, crops, pts) -> dict:
+    """Device time of one forward by kernel, from ``torch.profiler``: the
+    sum of every kernel's self device time, grouped (the port's kernels by
+    name; cuDNN convolutions, GEMMs, the rest), the ten longest kernels, and
+    the device-busy share of the profiled forward's wall time. Empty when
+    the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        model(crops, pts)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0) > 0]
+    # kernels only: an operator's self device time repeats its kernels'
+    kernels = [e for e in events if "CUDA" in str(e.device_type)] or [
+        e for e in events if not e.key.startswith("aten::")]
+    rows = [(e.self_device_time_total / 1e3, e.key, e.count)
+            for e in kernels]
+    if not rows:
+        return {}
+    groups = {"D mha_kernel": "mha_kernel", "A attn_qkv_kernel":
+              "attn_qkv_kernel", "B ln_kernel": "ln_kernel",
+              "E jbu_kernel": "jbu_kernel", "C edt": "edt"}
+    out: dict = {k: 0.0 for k in groups}
+    out.update(conv=0.0, gemm=0.0, other=0.0)
+    for ms, key, _ in rows:
+        name = next((g for g, pat in groups.items() if pat in key), None)
+        low = key.lower()
+        if name is None:  # implicit-GEMM convolutions name both
+            name = ("conv" if "conv" in low or "fprop" in low
+                    or "cudnn" in low
+                    else "gemm" if "gemm" in low or "cutlass" in low
+                    else "other")
+        out[name] += ms
+    total = sum(ms for ms, _, _ in rows)
+    rows.sort(reverse=True)
+    return {"device_ms": total, "wall_ms": wall_ms,
+            "busy_share": total / wall_ms, "by_group_ms": out,
+            "top": [[round(ms, 4), key[:90], n] for ms, key, n in rows[:10]]}
+
+
+def learned_family(torch, name: str) -> dict:
+    """Main paths 3-6: one learned-upsampler family (DINOv2-S/14 + LoftUp or
+    JBU-FeatUp at FAMILY_SIZE², drawn from seed 0 and calibrated) through
+    the card's forward against the CPU, the host protocol and the device
+    loop, with exact launch counts on each path, and the split of one loop
+    step."""
+    from isegprobe_torch.inference import device_eval
+    from isegprobe_torch.inference.evaluation import (
+        evaluate_dataset,
+        evaluate_sample,
+        latency_percentiles,
+    )
+    from isegprobe_torch.inference.predictor import Predictor
+    from isegprobe_torch.models.probe_model import (
+        flagship_config,
+        iSegProbeModel,
+    )
+    from isegprobe_torch.models.vit import init_params
+    from isegprobe_torch.ops.resize import resize
+
+    per_forward = FORWARD_LAUNCHES[name]
+    size = (FAMILY_SIZE, FAMILY_SIZE)
+    res: dict = {}
+    cfg = dict(flagship_config(size), upsampler_cfg=UPSAMPLERS[name])
+    model = init_params(iSegProbeModel(**cfg), seed=0).eval()
+    res["classifier_bias"] = calibrate_classifier(
+        torch, model, FAMILY_SIZE, FAMILY_POSITIVE_SHARE)
+    cpu_model = iSegProbeModel(**cfg, device="cpu").eval()
+    cpu_model.load_state_dict(model.state_dict())
+    # the CPU forward of the first sample alone: it takes tens of seconds
+    res["forward"] = forward_vs_cpu(torch, model, cpu_model, FAMILY_SIZE,
+                                    per_forward, name, cpu_batch=1)[-1]
+    del cpu_model
+
+    # main path: the host predictor answers NoC clicks
+    predictor = Predictor(model, target_size=size, with_flip=True,
+                          net_clicks_limit=20)
+    evaluate_sample(*scene(10), predictor, max_iou_thr=2.0, max_clicks=1)
+    click_s = time_clicks(predictor)
+    sample_s: list = []
+    zero_counters()
+    all_ious, _ = evaluate_dataset(Scenes([scene(11)]), predictor,
+                                   latencies=sample_s, max_iou_thr=0.95,
+                                   max_clicks=3, callback=check_probs)
+    host_launches = counters()
+    n_clicks = sum(len(a) for a in all_ious)
+    if host_launches != expected(**{k: v * n_clicks
+                                    for k, v in per_forward.items()}):
+        fail(f"{name}: host protocol launched {host_launches} for "
+             f"{n_clicks} clicks")
+    res["host"] = {"clicks": n_clicks, "launches": host_launches,
+                   "ious": [[float(v) for v in a] for a in all_ious],
+                   "per_click": latency_percentiles(click_s),
+                   "per_click_protocol": latency_percentiles(sample_s)}
+    print(f"{name} host", json.dumps(res["host"]))
+
+    # main path: the batched on-device loop at B=FAMILY_BATCH
+    loop_scenes = [scene(20 + i) for i in range(FAMILY_JOBS)]
+
+    def evaluator(batch, target):
+        return device_eval.make_device_evaluator(
+            model, target_size=size, batch_size=batch,
+            target_iou=target, net_clicks_limit=20,
+            max_clicks=FAMILY_CLICKS)
+
+    probe = device_eval.evaluate_dataset_device(
+        evaluator(FAMILY_BATCH, 2.0), Scenes(loop_scenes))
+    found = find_target(probe, FAMILY_CLICKS)
+    # a drawn probe whose lanes never split runs every lane to the end
+    target, stops = found or (2.0, [FAMILY_CLICKS] * len(loop_scenes))
+    run = evaluator(FAMILY_BATCH, target)
+    zero_counters()
+    t0 = time.time()
+    got = device_eval.evaluate_dataset_device(run, Scenes(loop_scenes))
+    wall = time.time() - t0
+    loop_launches = counters()
+    want = expected(edt_row_envelope=run.steps,
+                    **{k: v * run.steps for k, v in per_forward.items()})
+    if loop_launches != want:
+        fail(f"{name}: device loop launched {loop_launches} in {run.steps} "
+             f"steps, expected {want}")
+    lengths = [len(a) for a in got]
+    if lengths != stops:
+        fail(f"{name}: lanes stopped at {lengths}, expected {stops}")
+    got1 = device_eval.evaluate_dataset_device(evaluator(1, target),
+                                               Scenes(loop_scenes))
+    err_b1 = same_trajectories(got, got1, LOOP_IOU_TOL,
+                               f"{name}: B={FAMILY_BATCH} vs B=1")
+    host_idx = sorted({int(np.argmin(lengths)), int(np.argmax(lengths))})
+    host_pred = Predictor(model, target_size=size, with_flip=True,
+                          net_clicks_limit=20)
+    host = [evaluate_sample(*loop_scenes[i], host_pred, max_iou_thr=target,
+                            pred_thr=0.49, max_clicks=FAMILY_CLICKS)[1]
+            for i in host_idx]
+    err_host = same_trajectories([got[i] for i in host_idx], host,
+                                 LOOP_IOU_TOL, f"{name}: loop vs Predictor")
+    res["device_loop"] = {
+        "batch": FAMILY_BATCH, "jobs": FAMILY_JOBS, "target_iou": target,
+        "target_splits_lanes": found is not None, "lengths": lengths,
+        "steps": run.steps, "host_reads": run.host_reads,
+        "launches": loop_launches, "wall_s": wall,
+        "ms_per_step": 1e3 * wall / run.steps,
+        "lane_clicks_per_s": sum(lengths) / wall,
+        "ious": [[float(v) for v in a] for a in got],
+        "max_iou_diff_vs_b1": err_b1, "host_compared": host_idx,
+        "max_iou_diff_vs_host": err_host}
+    print(f"{name} device_loop", json.dumps(
+        {k: v for k, v in res["device_loop"].items() if k != "ious"}))
+
+    chunk = first_chunk(torch, device_eval, loop_scenes, FAMILY_BATCH)
+    if name == "jbu_featup":
+        # no hidden syncs in this family's click either
+        res["sync_check"] = sync_checked_run(torch, run, chunk,
+                                             got[:FAMILY_BATCH], name)
+        print(f"{name} sync_check", json.dumps(res["sync_check"]))
+
+    # the split of one loop step (forward at batch 2·B): backbone with the
+    # click encoding, upsampler, head (with JBU's resize to the crop size)
+    with torch.inference_mode():
+        st = run._init_state(*chunk)
+        sel, pts_full = run._select(st)
+        crops, pts = run._crop_points(st["image"], st["prev"], sel["roi"],
+                                      pts_full)
+        image_n, prev = model.prepare_input(crops)
+
+        def backbone():
+            coords = model.get_coord_features(image_n, prev, pts)
+            return model.backbone(image_n, model.embed_coords(coords))
+
+        feats = backbone()
+        hr = model.upsampler(feats, image_n)
+
+        def head():
+            f = hr
+            if f.shape[1:3] != size:
+                f = resize(f, size, "bilinear", align_corners=True)
+            return model.head(f)
+
+        slow = dict(reps=1, rounds=3, graph=False)
+        split = {"batch": int(crops.shape[0]),
+                 "backbone_ms": time_ms(torch, backbone, **slow)[0],
+                 "upsampler_ms": time_ms(
+                     torch, lambda: model.upsampler(feats, image_n),
+                     **slow)[0],
+                 "head_ms": time_ms(torch, head, **slow)[0],
+                 "forward_ms": time_ms(torch, lambda: model(crops, pts),
+                                       **slow)[0],
+                 "loop_ms_per_step": res["device_loop"]["ms_per_step"]}
+        split["profile"] = profile_forward(torch, model, crops, pts)
+    print(f"{name} step_split", json.dumps(split))
+    res["step_split"] = split
+    res["path_launches"] = {f"{name}_host": host_launches,
+                            f"{name}_loop": loop_launches}
+    return res
 
 
 def main() -> int:
@@ -413,7 +861,7 @@ def main() -> int:
         iSegProbeModel,
     )
     from isegprobe_torch.models.vit import init_params
-    from isegprobe_torch.ops import attention, cuda_lib, edt, layernorm
+    from isegprobe_torch.ops import attention, cuda_lib, edt, jbu, layernorm
 
     t_start = time.time()
     results: dict = {}
@@ -457,6 +905,27 @@ def main() -> int:
     for i, shape in enumerate(((LOOP_BATCH, 2, 514, 642), (64, 64),
                                (3, 5, 37, 333))):
         checks.append(edt_case(torch, edt, shape, seed=10 + i))
+
+    # kernel D at LoftUp's slab (64 rows of 448 queries against 32² keys, 4
+    # heads of 101) at B=2 and at the family loop's batch (flip TTA doubles
+    # it), at a ragged Nq and Nk, and at dh=64; kernel E at the four JBU
+    # stages at B=2, the last at the loop's batch, at a width and height
+    # that are no multiple of 16, and at C=100
+    loop_fwd = 2 * FAMILY_BATCH
+    for i, (b, nq, nk, heads, dh, dtype) in enumerate((
+            (2, 64 * 448, 1024, 4, 101, "float32"),
+            (2, 64 * 448, 1024, 4, 101, "bfloat16"),
+            (loop_fwd, 64 * 448, 1024, 4, 101, "float32"),
+            (2, 1000, 777, 4, 101, "float32"),
+            (2, 1000, 777, 4, 101, "bfloat16"),
+            (2, 4096, 1024, 6, 64, "float32"))):
+        checks.append(cross_attention_case(torch, F, attention, b, nq, nk,
+                                           heads, dh, dtype, seed=20 + i))
+    for i, (b, h, w, c) in enumerate((
+            (2, 64, 64, 384), (2, 128, 128, 384), (2, 256, 256, 384),
+            (2, 512, 512, 384), (loop_fwd, 512, 512, 384),
+            (1, 60, 90, 384), (2, 64, 64, 100))):
+        checks.append(jbu_case(torch, jbu, b, h, w, c, 32, seed=30 + i))
     for c in checks:
         print("check", json.dumps(c))
     results["checks"] = checks
@@ -470,73 +939,30 @@ def main() -> int:
     results["classifier_bias"] = calibrate_classifier(torch, model, 448)
     cpu_model = iSegProbeModel(**cfg, device="cpu").eval()
     cpu_model.load_state_dict(model.state_dict())
-    rng = np.random.default_rng(0)
-    image = rng.random((2, 448, 448, 4), dtype=np.float32)
-    points = np.full((2, 40, 3), -1.0, np.float32)
-    points[:, 0] = (200.0, 220.0, 0)
-    points[0, 20] = (60.0, 400.0, 1)
-    points[1, 1] = (300.0, 120.0, 1)
-    img_d = torch.from_numpy(image).cuda()
-    pts_d = torch.from_numpy(points).cuda()
-    with torch.inference_mode():
-        attention.mha_qkv.launches = layernorm.layernorm.launches = 0
-        logits = model(img_d, pts_d)["instances"]
-        torch.cuda.synchronize()
-        per_forward = {"mha_qkv": attention.mha_qkv.launches,
-                       "layernorm": layernorm.layernorm.launches}
-        torch.set_num_threads(8)
-        t0 = time.time()
-        ref = cpu_model(torch.from_numpy(image),
-                        torch.from_numpy(points))["instances"]
-        cpu_s = time.time() - t0
-        f32_ms, _ = time_ms(torch, lambda: model(img_d, pts_d), reps=5,
-                            rounds=3, graph=False)
-    err = float((logits.cpu() - ref).abs().max())
-    scale = float(ref.abs().max())
-    forward = {"launches_per_forward": per_forward,
-               "max_abs_err_vs_cpu": err, "logit_scale": scale,
-               "cpu_forward_s": cpu_s, "f32_forward_ms": f32_ms,
-               "shape": list(logits.shape)}
-    print("forward", json.dumps(forward))
-    results["forward"] = forward
-    if tuple(logits.shape) != (2, 448, 448, 1) or not bool(
-            torch.isfinite(logits).all()):
-        fail(f"bad logits: shape {tuple(logits.shape)}")
-    if err > FORWARD_RTOL * max(1.0, scale):
-        fail(f"card forward disagrees with the CPU forward: {err} "
-             f"(logit scale {scale})")
-    if per_forward != {"mha_qkv": 12, "layernorm": 25}:
-        fail(f"expected 12 attention and 25 LayerNorm launches per forward, "
-             f"got {per_forward}")
+    torch.set_num_threads(8)
+    img_d, pts_d, logits, results["forward"] = forward_vs_cpu(
+        torch, model, cpu_model, 448, FORWARD_LAUNCHES["flagship"],
+        "flagship")
 
     # 6. main path 1: the host predictor answers NoC clicks
     scenes = [scene(11), scene(12)]
     predictor = Predictor(model, target_size=(448, 448), with_flip=True,
                           net_clicks_limit=20)
     evaluate_sample(*scene(10), predictor, max_iou_thr=2.0, max_clicks=1)
-    click_s = []
-    timed = predictor.get_prediction
-
-    def get_prediction(clicker):
-        t = time.perf_counter()
-        out = timed(clicker)  # ends in a device-to-host copy
-        click_s.append(time.perf_counter() - t)
-        return out
-
-    predictor.get_prediction = get_prediction
+    click_s = time_clicks(predictor)
     sample_s: list = []  # per sample: wall time / clicks, clicker included
-    zero_counters(attention, layernorm, edt)
+    zero_counters()
     all_ious, _ = evaluate_dataset(Scenes(scenes), predictor,
                                    latencies=sample_s, max_iou_thr=0.95,
                                    max_clicks=MAX_CLICKS,
                                    callback=check_probs)
-    launches = counters(attention, layernorm, edt)
+    launches = counters()
     n_clicks = sum(len(ious) for ious in all_ious)
     if len(all_ious) != len(scenes) or not all(
             1 <= len(ious) <= MAX_CLICKS for ious in all_ious):
         fail("predictor trajectories have bad lengths")
-    if launches != {"edt_row_envelope": 0, "mha_qkv": 12 * n_clicks,
-                    "layernorm": 25 * n_clicks}:
+    if launches != expected(mha_qkv=12 * n_clicks,
+                            layernorm=25 * n_clicks):
         fail(f"main path launches {launches} for {n_clicks} clicks")
 
     # the first click of scene 0 against the CPU predictor
@@ -613,13 +1039,14 @@ def main() -> int:
     print(f"target IoU {target:.6f}: lanes stop at clicks {stops}")
     run8 = evaluator(model, LOOP_BATCH, target)
     lane_s: list = []
-    zero_counters(attention, layernorm, edt)
+    zero_counters()
     t0 = time.time()
     got8 = device_eval.evaluate_dataset_device(run8, Scenes(loop_scenes),
                                                sample_times=lane_s)
     loop_wall = time.time() - t0
-    loop_launches = counters(attention, layernorm, edt)
-    want_launches = {k: v * run8.steps for k, v in PER_STEP.items()}
+    loop_launches = counters()
+    want_launches = expected(**{k: v * run8.steps
+                                for k, v in PER_STEP.items()})
     if loop_launches != want_launches:
         fail(f"device loop launched {loop_launches} in {run8.steps} steps, "
              f"expected {want_launches}")
@@ -653,32 +1080,9 @@ def main() -> int:
 
     # 9. no hidden syncs: one whole device-loop evaluation of the first
     # chunk under the sync debugger, lifted only around the allowed reads
-    jobs = [device_eval._pad_job(img, gt, 64)
-            for img, gt in loop_scenes[:LOOP_BATCH]]
-    chunk = [torch.from_numpy(np.stack([j[k] for j in jobs])).cuda()
-             for k in range(3)]
-    torch.cuda.synchronize()
-    steps0, reads0 = run8.steps, run8.host_reads
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        try:  # the debugger is live: a plain read must raise
-            bool(chunk[2].sum() > 0)
-            live = False
-        except RuntimeError:
-            live = True
-        ious_d, n_d = run8(*chunk)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    steps, reads = run8.steps - steps0, run8.host_reads - reads0
-    if not live:
-        fail("set_sync_debug_mode('error') did not catch a device read")
-    if reads != steps + 1:
-        fail(f"{reads} host reads in {steps} loop steps")
-    ious_d, n_d = ious_d.cpu().numpy(), n_d.cpu().numpy()
-    same_trajectories([ious_d[i][: int(n_d[i])] for i in range(LOOP_BATCH)],
-                      got8[:LOOP_BATCH], CACHE_TOL, "sync-checked run")
-    results["sync_check"] = {"steps": steps, "host_reads": reads,
-                             "debugger_live": live}
+    chunk = first_chunk(torch, device_eval, loop_scenes, LOOP_BATCH)
+    results["sync_check"] = sync_checked_run(torch, run8, chunk,
+                                             got8[:LOOP_BATCH], "flagship")
     print("sync_check", json.dumps(results["sync_check"]))
 
     # 10. the trunk cache at full width: after_backbone injection
@@ -765,7 +1169,11 @@ def main() -> int:
     print("step_split", json.dumps(split))
     results["step_split"] = split
 
-    # 12. the kernels of the paths, at the device loop's shapes (f32)
+    # 12. the learned-upsampler families (main paths 3-6)
+    families = {name: learned_family(torch, name) for name in UPSAMPLERS}
+    results["families"] = families
+
+    # 13. the kernels of the paths, at the device loops' shapes (f32)
     sources = {
         "mha_qkv": ("isegprobe_torch/csrc/attention.cu",
                     "isegprobe_tpu/ops/attention.py:172",
@@ -775,13 +1183,23 @@ def main() -> int:
                       [2 * LOOP_BATCH, 1025, 384]),
         "edt_row_envelope": ("isegprobe_torch/csrc/edt.cu",
                              "isegprobe_tpu/ops/edt.py:168",
-                             [LOOP_BATCH, 2, 514, 642])}
+                             [LOOP_BATCH, 2, 514, 642]),
+        "mha": ("isegprobe_torch/csrc/mha.cu",
+                "isegprobe_tpu/ops/attention.py:319",
+                [[loop_fwd, 64 * 448, 4, 101], [loop_fwd, 1024, 4, 101]]),
+        "jbu_filter": ("isegprobe_torch/csrc/jbu.cu",
+                       "isegprobe_tpu/ops/jbu_kernel.py:188",
+                       [loop_fwd, 512, 512, 384])}
+    paths = {"host_protocol": launches, "device_loop": loop_launches}
+    for fam in families.values():
+        paths.update(fam["path_launches"])
     kernels = []
     for name, (src, replaces, shape) in sources.items():
         c = next(c for c in checks if c["kernel"] == name
                  and c["dtype"] == "float32" and c["shape"] == shape)
-        by_path = {"host_protocol": launches[name],
-                   "device_loop": loop_launches[name]}
+        by_path = {p: counts[name] for p, counts in paths.items()}
+        if not any(by_path.values()):
+            fail(f"kernel {name} was launched on no main path: {by_path}")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": sum(by_path.values()),

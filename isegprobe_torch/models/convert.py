@@ -6,9 +6,15 @@ A param tree is nested dicts of numpy arrays (``params["backbone"]["model"]
 
 * Dense ``kernel [in, out]`` becomes Linear ``weight [out, in]``;
 * conv ``kernel`` HWIO becomes ``weight`` OIHW;
-* LayerNorm ``scale`` becomes ``weight``;
-* ``blocks_i`` becomes ``blocks.i`` and ``convs_i`` becomes ``convs.i``;
-* ``bias``, ``cls_token``, ``pos_embed`` and ``gamma`` pass through.
+* LayerNorm and FrozenBatchNorm ``scale`` becomes ``weight``;
+* ``blocks_i``, ``convs_i``, ``ca_i`` and ``ff_i`` become ``blocks.i``,
+  ``convs.i``, ``ca.i`` and ``ff.i``;
+* ``bias``, ``cls_token``, ``pos_embed`` and ``gamma`` pass through, and so
+  do the learned upsamplers' leaves: the packed attention projection
+  ``in_proj_weight`` / ``in_proj_bias`` (already in torch layout),
+  ``ImplicitFeaturizer.biases``, FrozenBatchNorm ``mean`` and ``var``,
+  ConvNeXtLayerNorm ``weight``, and JBU's scalars ``range_temp`` and
+  ``sigma_spatial``.
 
 Loading raises on any missing or unexpected key and on any shape mismatch.
 """
@@ -24,8 +30,10 @@ from torch import nn
 
 __all__ = ["jax_params_to_state_dict", "load_jax_params"]
 
-_INDEXED = re.compile(r"^(blocks|convs)_(\d+)$")
-_PASS_THROUGH = ("bias", "cls_token", "pos_embed", "gamma")
+_INDEXED = re.compile(r"^(blocks|convs|ca|ff)_(\d+)$")
+_PASS_THROUGH = ("bias", "cls_token", "pos_embed", "gamma", "weight",
+                 "in_proj_weight", "in_proj_bias", "biases", "mean", "var",
+                 "range_temp", "sigma_spatial")
 
 
 def _leaf(path: str, key: str, value) -> tuple[str, np.ndarray]:

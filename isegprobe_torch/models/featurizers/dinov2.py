@@ -27,7 +27,10 @@ INJECTION_MODES = ("no_injection", "before_backbone", "after_backbone")
 class DINOv2Featurizer(nn.Module):
     def __init__(self, arch: str = "dinov2_vits14",
                  feats_injection_mode: str = "no_injection",
-                 pretrain_grid=None) -> None:
+                 pretrain_grid=None, remat_blocks: bool = False) -> None:
+        """``remat_blocks`` (recompute blocks in the backward of high-res
+        training) is accepted for config compatibility: trained checkpoints
+        carry it, and it does not change the forward."""
         super().__init__()
         if arch not in DINOV2_ARCHS:
             raise NotImplementedError(f"Unknown DINOv2 arch: {arch}")

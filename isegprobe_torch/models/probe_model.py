@@ -4,9 +4,10 @@ Counterpart of ``isegprobe_tpu/models/probe_model.py:iSegProbeModel``: image
 normalization, click disk-map encoding, click patch embedding, the backbone
 with injected click tokens, upsampler, head and the final align-corners
 resize. It takes the JAX package's constructor config (so a checkpoint's
-``config["params"]`` builds it) and so far covers the flagship family:
-a DINOv2 backbone, a ``patchEmbed`` click encoder, a non-learnable
-upsampler and the ``convhead`` head. Other configurations raise
+``config["params"]`` builds it) and so far covers a DINOv2 backbone, a
+``patchEmbed`` click encoder, the ``convhead`` head and the upsamplers of
+``models.upsamplers``: the non-learnable ones (the flagship's identity),
+LoftUp and the JBU-FeatUp stack. Other configurations raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 
 Call as ``model(image, points)`` with image ``[B, H, W, 3]`` in [0, 1] (plus a
@@ -17,6 +18,7 @@ prev-mask channel when ``with_prev_mask``) and points ``[B, 2N, 3]`` rows of
 
 from __future__ import annotations
 
+import inspect
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -41,6 +43,27 @@ def _unsupported(what: str, item: str = _OTHER_FAMILIES):
         f"{what} is not ported to isegprobe_torch yet: {item}")
 
 
+def build_upsampler(utype: str, params: Optional[Dict],
+                    feat_dim: int) -> nn.Module:
+    """The upsampler of ``upsampler_cfg``, built with its ``params``
+    (counterpart of the JAX package's ``build_upsampler``). Raises on a
+    type or a parameter the port does not take, rather than building a
+    different module. ``feat_dim`` (the backbone's width) goes to the
+    upsamplers that need it at construction."""
+    if utype not in UPSAMPLER_REGISTRY:
+        raise _unsupported(f"upsampler type {utype!r}")
+    cls = UPSAMPLER_REGISTRY[utype]
+    kwargs = dict(params or {})
+    takes = set(inspect.signature(cls).parameters)
+    unknown = sorted(set(kwargs) - (takes - {"feat_dim"}))
+    if unknown:
+        raise TypeError(f"upsampler {utype!r} of isegprobe_torch does not "
+                        f"take {unknown}")
+    if "feat_dim" in takes:
+        kwargs["feat_dim"] = feat_dim
+    return cls(**kwargs)
+
+
 class iSegProbeModel(nn.Module):
     """backbone (+ injected click tokens) -> upsampler -> head.
 
@@ -50,7 +73,8 @@ class iSegProbeModel(nn.Module):
     click encoder then compute in bf16, the head in f32 from the
     bf16-rounded weights, as in the JAX package. ``attn_impl`` and
     ``cpu_dist_maps`` are accepted for config compatibility: the port always
-    uses its own kernels on a GPU. The model is built on ``device`` (CUDA
+    uses its own kernels on a GPU. ``quant`` must be None and
+    ``fuse_hr_head`` False (not ported yet). The model is built on ``device`` (CUDA
     unless the caller passes ``device="cpu"``) with placeholder parameters;
     load weights with ``models.convert.load_jax_params`` or draw them with
     ``models.vit.init_params``.
@@ -66,7 +90,8 @@ class iSegProbeModel(nn.Module):
                  use_rgb_conv: bool = False, use_leaky_relu: bool = False,
                  with_prev_mask: bool = False,
                  norm_mean_std: Tuple = (IMAGENET_MEAN, IMAGENET_STD),
-                 attn_impl: str = "auto", device=None) -> None:
+                 attn_impl: str = "auto", quant=None,
+                 fuse_hr_head: bool = False, device=None) -> None:
         super().__init__()
         if architecture != "backbone_upsampler_head":
             raise NotImplementedError(
@@ -76,6 +101,13 @@ class iSegProbeModel(nn.Module):
             raise _unsupported("the RITM maps transform (use_rgb_conv)",
                                "ROADMAP Queue 1 item 10 (adaptive RITM "
                                "protocol)")
+        if quant is not None:
+            raise _unsupported(f"quant={quant!r} (int8 W8A8 serving)",
+                               "ROADMAP Queue 1 item 11 (ops/quant.py)")
+        if fuse_hr_head:
+            raise _unsupported("the head fused into LoftUp's slab loop "
+                               "(fuse_hr_head)", "ROADMAP Queue 1 item 9 "
+                               "(LoftUp's mxu_pad layout and fused head)")
         self.norm_radius = norm_radius
         self.use_disks = use_disks
         self.with_prev_mask = with_prev_mask
@@ -89,9 +121,10 @@ class iSegProbeModel(nn.Module):
 
         self.upsampler_type = (upsampler_cfg["type"].lower() if upsampler_cfg
                                else "bilinear")
-        if self.upsampler_type not in UPSAMPLER_REGISTRY:
-            raise _unsupported(f"upsampler type {self.upsampler_type!r}")
-        self.upsampler = UPSAMPLER_REGISTRY[self.upsampler_type]()
+        self.upsampler = build_upsampler(
+            self.upsampler_type,
+            upsampler_cfg.get("params") if upsampler_cfg else None,
+            self.backbone.embed_dim)
 
         if head_cfg["type"] not in HEAD_REGISTRY:
             raise _unsupported(f"head type {head_cfg['type']!r}")

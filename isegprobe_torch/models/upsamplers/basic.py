@@ -40,7 +40,7 @@ class BicubicUpsampler(nn.Module):
                       align_corners=False)
 
 
-UPSAMPLER_REGISTRY = {
+BASIC_UPSAMPLERS = {
     "identity": IdentityUpsampler,
     "nearest": NearestUpsampler,
     "bilinear": BilinearUpsampler,

@@ -67,13 +67,14 @@ class LayerNorm(nn.Module):
     """LayerNorm with flax's f32 fast-variance statistics (``ops.layernorm``:
     the CUDA kernel on a GPU)."""
 
-    def __init__(self, dim: int) -> None:
+    def __init__(self, dim: int, eps: float = NORM_EPS) -> None:
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layernorm(x, self.weight, self.bias, NORM_EPS)
+        return layernorm(x.contiguous(), self.weight, self.bias, self.eps)
 
 
 class Attention(nn.Module):
@@ -183,11 +184,15 @@ class ViT(nn.Module):
 
 def init_params(module: nn.Module, seed: int) -> nn.Module:
     """Draw every parameter of ``module`` from a seeded CPU generator, with
-    flax's scales: normal linear and conv weights of variance 1/fan_in,
-    zero biases and cls token, unit LayerNorm scales, N(0, 0.02) pos
-    embeddings; LayerScale gammas are set to 1 (not 1e-5) so that every
-    block shapes the output of a randomly drawn model. The values do not
-    depend on the device the module lives on."""
+    flax's scales: normal linear and conv weights (and LoftUp's packed
+    ``in_proj_weight``) of variance 1/fan_in, zero biases and cls token,
+    unit LayerNorm scales, N(0, 0.02) pos embeddings, N(0, 1) Fourier-feature
+    biases; LayerScale gammas are set to 1 (not 1e-5) so that every block
+    shapes the output of a randomly drawn model. FrozenBatchNorm statistics
+    are drawn away from the identity (mean N(0, 0.5²), var U(0.5, 2)), and
+    JBU's learned scalars are set to range_temp 0.5 and sigma_spatial 0.8,
+    so that a drawn upsampler exercises them. The values do not depend on
+    the device the module lives on."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
@@ -196,7 +201,17 @@ def init_params(module: nn.Module, seed: int) -> nn.Module:
                 v = torch.ones(p.shape)
             elif leaf == "pos_embed":
                 v = torch.randn(p.shape, generator=g) * 0.02
-            elif leaf == "weight" and p.ndim >= 2:
+            elif leaf == "biases":
+                v = torch.randn(p.shape, generator=g)
+            elif leaf == "mean":
+                v = torch.randn(p.shape, generator=g) * 0.5
+            elif leaf == "var":
+                v = torch.rand(p.shape, generator=g) * 1.5 + 0.5
+            elif leaf == "range_temp":
+                v = torch.full(p.shape, 0.5)
+            elif leaf == "sigma_spatial":
+                v = torch.full(p.shape, 0.8)
+            elif leaf in ("weight", "in_proj_weight") and p.ndim >= 2:
                 fan_in = math.prod(p.shape[1:])
                 v = torch.randn(p.shape, generator=g) / math.sqrt(fan_in)
             elif leaf == "weight":

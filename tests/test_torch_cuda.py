@@ -10,7 +10,11 @@ be left out:
 Tolerances: f32 differs only in summation order, rsqrtf and the online
 softmax (~1e-6 relative), so 1e-5; bf16 outputs may differ by one bf16
 rounding step (2^-8 relative), so 2e-2. The EDT row kernel computes exact
-integers in f32 and is held bitwise to its plain version.
+integers in f32 and is held bitwise to its plain version. The JBU kernel
+(E) and its plain version clamp different normalisers, which agree where
+neither clamp binds (sigma 0.8 here); E's output is a weighted mean of 49
+inputs, which errs relative to the inputs summed, so its absolute tolerance
+is 1e-5 of max |hr|.
 """
 
 from types import SimpleNamespace
@@ -19,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from isegprobe_torch.ops import attention, edt, layernorm
+from isegprobe_torch.ops import attention, edt, jbu, layernorm
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
@@ -126,6 +130,115 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         edt.row_envelope(x.t())  # not contiguous
     with pytest.raises(ValueError):
         edt.row_envelope(_randn((2, 4097), 0, cuda_device))  # W > 4096
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nq,nk,heads,dh", [
+    (2, 1000, 1024, 4, 101), (1, 300, 77, 2, 64), (2, 129, 200, 3, 13),
+    (1, 64, 1, 1, 128), (1, 5, 130, 2, 40)])
+def test_cross_attention_kernel_matches_plain(cuda_device, dtype, b, nq, nk,
+                                              heads, dh):
+    q = _randn((b, nq, heads, dh), nq, cuda_device, dtype)
+    k = _randn((b, nk, heads, dh), nk, cuda_device, dtype)
+    v = _randn((b, nk, heads, dh), nk + 1, cuda_device, dtype)
+    before = attention.mha.launches
+    got = attention.mha(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.mha.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    want = attention._mha_plain(q, k, v, dh**-0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,k", [(2, 64, 64, 384, 32),
+                                       (1, 37, 50, 48, 32),
+                                       (2, 16, 258, 40, 20),
+                                       (1, 4, 5, 3, 33)])
+def test_jbu_kernel_matches_plain(cuda_device, b, h, w, c, k):
+    hr = _randn((b, h, w, c), c, cuda_device)
+    proj = _randn((b, h, w, k), k, cuda_device)
+    temp = torch.tensor(0.5, device=cuda_device)
+    sigma = torch.tensor(0.8, device=cuda_device)
+    before = jbu.jbu_filter.launches
+    got = jbu.jbu_filter(hr, proj, temp, sigma)
+    torch.cuda.synchronize()
+    assert jbu.jbu_filter.launches == before + 1
+    want = jbu._jbu_plain(hr, proj, temp, sigma)
+    scale = float(hr.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+    # bf16 features are filtered in f32 and returned in bf16
+    got16 = jbu.jbu_filter(hr.bfloat16(), proj, temp, sigma)
+    assert got16.dtype == torch.bfloat16
+    want16 = jbu._jbu_plain(hr.bfloat16(), proj, temp, sigma)
+    torch.testing.assert_close(got16.float(), want16.float(), rtol=2e-2,
+                               atol=2e-2 * scale)
+
+
+@pytest.mark.cuda
+def test_kernels_d_and_e_raise_on_what_they_do_not_take(cuda_device):
+    q = _randn((1, 9, 2, 16), 0, cuda_device)
+    with pytest.raises(TypeError):
+        attention.mha(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):
+        attention.mha(q[:, ::2], q, q)  # not contiguous
+    with pytest.raises(ValueError):
+        attention.mha(q, q[:, :, :1], q[:, :, :1])  # heads differ
+    big = _randn((1, 9, 1, 160), 0, cuda_device)
+    with pytest.raises(ValueError):
+        attention.mha(big, big, big)  # dh > 128
+    with pytest.raises(NotImplementedError):
+        attention.mha(q.requires_grad_(), q, q)
+    hr = _randn((1, 8, 8, 4), 0, cuda_device)
+    with pytest.raises(TypeError):
+        jbu.jbu_filter(hr.double(), hr, 0.5, 0.8)
+    with pytest.raises(ValueError):
+        jbu.jbu_filter(hr, hr[:, :4], 0.5, 0.8)  # proj of another size
+    with pytest.raises(ValueError):
+        jbu.jbu_filter(hr[:, :3], hr[:, :3], 0.5, 0.8)  # H < 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["loftup", "jbu_featup"])
+def test_small_learned_upsampler_probe_matches_cpu(cuda_device, family):
+    """A 112² probe of each learned family at full width (LoftUp banded in
+    slabs of 16 rows): the card's forward equals the CPU forward, with the
+    expected launches of kernels A, B, D and E."""
+    from isegprobe_torch.models.probe_model import (
+        flagship_config,
+        iSegProbeModel,
+    )
+    from isegprobe_torch.models.vit import init_params
+
+    up = {"loftup": dict(type="loftup", params=dict(
+              n_dim=384, query_chunk_rows=16, query_chunk_min_pixels=0)),
+          "jbu_featup": dict(type="jbu_featup", params=dict(
+              backbone_type="dinov2", use_norm=True))}[family]
+    cfg = dict(flagship_config((112, 112)), upsampler_cfg=up)
+    model = init_params(iSegProbeModel(**cfg, device=cuda_device),
+                        seed=0).eval()
+    cpu = iSegProbeModel(**cfg, device="cpu").eval()
+    cpu.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(0)
+    image = torch.from_numpy(rng.random((2, 112, 112, 4), dtype=np.float32))
+    points = torch.full((2, 8, 3), -1.0)
+    points[:, 0] = torch.tensor([50.0, 60.0, 0.0])
+    attention.mha_qkv.launches = layernorm.layernorm.launches = 0
+    attention.mha.launches = jbu.jbu_filter.launches = 0
+    with torch.inference_mode():
+        got = model(image.to(cuda_device), points.to(cuda_device))
+        got = got["instances"].cpu()
+        counts = (attention.mha_qkv.launches, layernorm.layernorm.launches,
+                  attention.mha.launches, jbu.jbu_filter.launches)
+        want = cpu(image, points)["instances"]
+    # LoftUp: 7 slabs of 16 rows, each 2 layers of kernel D and 8 norms,
+    # plus its input ChannelNorm; JBU: 4 stages of kernel E
+    assert counts == ((12, 25 + 1 + 7 * 8, 14, 0) if family == "loftup"
+                      else (12, 25, 0, 4))
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3 * max(1.0, scale))
 
 
 @pytest.mark.cuda

@@ -19,6 +19,8 @@ from tests.test_torch_model import (
     tiny_config,
 )
 from tests.test_torch_predictor import _scene, _Scenes
+from tests.test_torch_upsamplers import FAMILIES, family_model_and_params
+from tests.test_torch_upsamplers import tiny_arch as upsampler_arch  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -188,3 +190,27 @@ def test_unported_options_and_devices_raise():
             make_device_evaluator(model)
     run = make_device_evaluator(model, device="cpu")
     assert run.device == torch.device("cpu") and not run.use_cache
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_learned_upsampler_loop_matches_jax(upsampler_arch, family):  # noqa: F811
+    """The LoftUp (banded) and JBU-FeatUp probes through the on-device loop
+    at batch 2 (a padded tail of 3 jobs), against JAX make_device_evaluator
+    from the same weights: the lanes run the upsamplers batched, as JAX
+    vmaps them."""
+    from isegprobe_tpu.inference import device_eval as j_eval
+    from isegprobe_torch.inference import device_eval
+    from isegprobe_torch.models.convert import load_jax_params
+    from isegprobe_torch.models.probe_model import iSegProbeModel
+
+    cfg, jmodel, params = family_model_and_params(family, SIZE)
+    tmodel = load_jax_params(iSegProbeModel(**cfg, device="cpu"), params)
+    data = _Scenes([_scene(s) for s in (0, 3, 5)])
+    kw = _common(max_clicks=3, target_iou=0.3, min_crop_size=20)
+    want = j_eval.evaluate_dataset_device(
+        j_eval.make_device_evaluator(jmodel, batch_size=2, **kw), params,
+        data, batch_size=2)
+    run = device_eval.make_device_evaluator(tmodel, batch_size=2,
+                                            device="cpu", **kw)
+    _assert_same(device_eval.evaluate_dataset_device(run, data), want,
+                 IOU_TOL)

@@ -203,7 +203,11 @@ def test_unported_configs_raise():
     cfg = flagship_config((56, 56))
     for override in (
             dict(backbone_cfg=dict(type="mask_clip", params={})),
-            dict(upsampler_cfg=dict(type="loftup", params={})),
+            dict(upsampler_cfg=dict(type="lift", params={})),
+            dict(upsampler_cfg=dict(type="loftup",
+                                    params=dict(mxu_pad=True))),
+            dict(fuse_hr_head=True),
+            dict(quant="int8"),
             dict(head_cfg=dict(type="linear", params={})),
             dict(embed_coords_cfg=dict(type="simple_vit", params={})),
             dict(use_rgb_conv=True)):
@@ -252,3 +256,99 @@ def test_featurizer_injection_modes_match_jax(tiny_arch, mode):
         got = feat(torch.from_numpy(img), torch.from_numpy(clicks)).numpy()
     assert got.shape == want.shape == (2, 4, 3, 128)
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def _random_tree(cfg, size=56):
+    """The JAX probe's full param tree for ``cfg`` (shapes from
+    ``eval_shape``, values random)."""
+    from isegprobe_tpu.models.probe_model import iSegProbeModel as JModel
+
+    shapes = jax.eval_shape(
+        JModel(**cfg).init, jax.random.PRNGKey(0),
+        jnp.zeros((1, size, size, 4)), jnp.full((1, 8, 3), -1.0))["params"]
+    rng = np.random.default_rng(0)
+    return jax.tree.map(
+        lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
+
+
+def _family_config(upsampler_cfg):
+    from isegprobe_torch.models.probe_model import flagship_config
+
+    return dict(flagship_config((56, 56)), upsampler_cfg=upsampler_cfg)
+
+
+LOFTUP_CFG = dict(type="loftup", params=dict(upsampler_path="/weights/"
+                                             "loftup.pth", n_dim=384))
+JBU_CFG = dict(type="jbu_featup", params=dict(backbone_type="dinov2",
+                                              use_norm=True))
+
+
+def test_bridge_loads_learned_upsampler_trees():
+    """The full-width LoftUp and JBU-FeatUp probe trees (the trained LoftUp
+    checkpoint's config; random values) load with no key left over, with
+    the new leaves in the port's layout."""
+    from isegprobe_torch.models.probe_model import iSegProbeModel
+
+    tree = _random_tree(_family_config(LOFTUP_CFG))
+    model = load_jax_params(iSegProbeModel(**_family_config(LOFTUP_CFG),
+                                           device="cpu"), tree)
+    sd = model.state_dict()
+    assert len(sd) == len(jax.tree.leaves(tree))
+    up = tree["upsampler"]
+    ca1 = up["ca_transformer"]["ca_1"]
+    np.testing.assert_array_equal(
+        sd["upsampler.ca_transformer.ca.1.attention.in_proj_weight"].numpy(),
+        ca1["attention"]["in_proj_weight"])
+    np.testing.assert_array_equal(
+        sd["upsampler.ca_transformer.ca.1.attention.out_proj.weight"].numpy(),
+        ca1["attention"]["out_proj"]["kernel"].T)
+    np.testing.assert_array_equal(
+        sd["upsampler.ca_transformer.ff.0.fc1.weight"].numpy(),
+        up["ca_transformer"]["ff_0"]["fc1"]["kernel"].T)
+    bn = up["first_conv2"]["bn"]
+    for leaf, name in (("scale", "weight"), ("mean", "mean"), ("var", "var")):
+        np.testing.assert_array_equal(
+            sd[f"upsampler.first_conv2.bn.{name}"].numpy(), bn[leaf])
+    np.testing.assert_array_equal(sd["upsampler.fourier_feat.biases"].numpy(),
+                                  up["fourier_feat"]["biases"])
+    np.testing.assert_array_equal(sd["upsampler.final_ln.weight"].numpy(),
+                                  up["final_ln"]["weight"])
+
+    tree = _random_tree(_family_config(JBU_CFG))
+    model = load_jax_params(iSegProbeModel(**_family_config(JBU_CFG),
+                                           device="cpu"), tree)
+    sd = model.state_dict()
+    assert len(sd) == len(jax.tree.leaves(tree))
+    assert sd["upsampler.up3.range_temp"].shape == ()
+    assert float(sd["upsampler.up3.sigma_spatial"]) == float(
+        tree["upsampler"]["up3"]["sigma_spatial"])
+    np.testing.assert_array_equal(
+        sd["upsampler.up1.range_proj1.weight"].numpy(),
+        tree["upsampler"]["up1"]["range_proj1"]["kernel"].transpose(3, 2, 0, 1))
+
+
+def test_bridge_raises_on_upsampler_key_mismatch():
+    """A missing or an unexpected upsampler subtree raises (no silent
+    random upsampler), and so does a config parameter the port does not
+    take."""
+    from isegprobe_torch.models.probe_model import iSegProbeModel
+
+    cfg = _family_config(JBU_CFG)
+    tree = _random_tree(cfg)
+    model = iSegProbeModel(**cfg, device="cpu")
+    up = dict(tree["upsampler"])
+    del up["fixup_proj"]
+    with pytest.raises(KeyError, match="fixup_proj"):
+        load_jax_params(model, dict(tree, upsampler=up))
+    up = dict(tree["upsampler"], up5=tree["upsampler"]["up4"])
+    with pytest.raises(KeyError, match="up5"):
+        load_jax_params(model, dict(tree, upsampler=up))
+    no_upsampler = {k: v for k, v in tree.items() if k != "upsampler"}
+    with pytest.raises(KeyError, match="upsampler.up1.range_temp"):
+        load_jax_params(model, no_upsampler)
+    for params in (dict(n_dim=384, dtype="bfloat16"),
+                   dict(n_dim=384, fuse_hr_head=True)):
+        with pytest.raises(TypeError, match="does not take"):
+            iSegProbeModel(**_family_config(dict(type="loftup",
+                                                 params=params)),
+                           device="cpu")

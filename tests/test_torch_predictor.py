@@ -25,6 +25,8 @@ torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
 CKPT = REPO / "assets" / "trained" / "synthetic_dinov2_noup_160ep.ckpt"
+LOFTUP_CKPT = (REPO / "assets" / "trained"
+               / "synthetic_dinov2_loftup448_160ep.ckpt")
 IOU_TOL = 1e-3
 
 
@@ -95,11 +97,12 @@ def _load_evaluate_cli():
     return module
 
 
-def test_trained_checkpoint_trajectory_matches_jax():
-    """The trained flagship checkpoint at full width, merged over the JAX
-    package's frozen-backbone init and pos-embed pre-interpolation exactly
-    as evaluate.py loads it, bridged into the port: same clicks, IoUs and
-    NoC on synthetic scenes at a 112² ZoomIn crop."""
+def _trained_trajectories(ckpt, seeds):
+    """A trained checkpoint at full width, merged over the JAX package's
+    frozen-backbone (and frozen-upsampler) init and pos-embed
+    pre-interpolation exactly as evaluate.py loads it, bridged into the
+    port: same clicks, IoUs and NoC on synthetic scenes at a 112² ZoomIn
+    crop. Returns the port's trajectories."""
     import jax
 
     from isegprobe_tpu.data.datasets.synthetic import render_scene
@@ -110,24 +113,37 @@ def test_trained_checkpoint_trajectory_matches_jax():
     size = 112
     evaluate = _load_evaluate_cli()
     jmodel, params = evaluate.load_model_for_eval(
-        str(CKPT), {"dtype": "float32"}, target_size=(size, size))
+        str(ckpt), {"dtype": "float32"}, target_size=(size, size))
     params = jax.tree.map(np.asarray, jax.device_get(params))
     # the checkpoint's own constructor config builds the port's model; the
     # backbone config carries the pre-interpolated pos-embed grid
-    _, ckpt_config, _ = load_checkpoint(CKPT)
+    _, ckpt_config, _ = load_checkpoint(ckpt)
     cfg = dict(ckpt_config["params"], backbone_cfg=jmodel.backbone_cfg)
     assert cfg["backbone_cfg"]["params"]["pretrain_grid"] == (8, 8)
     tmodel = load_jax_params(iSegProbeModel(**cfg, device="cpu"), params)
 
     scenes = []
-    for seed in (11, 12):
+    for seed in seeds:
         rng = np.random.default_rng(seed)
         image, labels = render_scene(rng, (size, size), 2)
         obj = max(range(1, 3), key=lambda i: (labels == i).sum())
         scenes.append((image, (labels == obj).astype(np.int32)))
-    all_ious = _run_both(jmodel, params, tmodel, scenes, size, max_clicks=4,
-                         iou_thr=0.95)
+    return _run_both(jmodel, params, tmodel, scenes, size, max_clicks=4,
+                     iou_thr=0.95)
+
+
+def test_trained_checkpoint_trajectory_matches_jax():
+    all_ious = _trained_trajectories(CKPT, (11, 12))
     # the trained probe does segment: IoU rises above chance
+    assert max(float(a.max()) for a in all_ious) > 0.5
+
+
+def test_trained_loftup_checkpoint_trajectory_matches_jax():
+    """The trained 448² LoftUp checkpoint (DINOv2-S/14, LoftUp n_dim 384,
+    the upsampler from the JAX package's PRNGKey(0) init as evaluate.py
+    builds it): the LoftUp family's click trajectory in the port equals
+    the JAX predictor's."""
+    all_ious = _trained_trajectories(LOFTUP_CKPT, (11,))
     assert max(float(a.max()) for a in all_ious) > 0.5
 
 
