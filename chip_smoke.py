@@ -8,12 +8,13 @@ does not hold:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels of ``isegprobe_torch/csrc`` (A attention, B
-   LayerNorm, C EDT row envelope, D cross-attention, E JBU filter) with
-   nvcc, one process per source, all started together, and print the
-   ptxas report;
+   LayerNorm, C EDT row envelope, D cross-attention, E JBU filter, F and G
+   attention variants) with nvcc, one process per source, all started
+   together, and print the ptxas report;
 3. hold kernels A and B against their plain PyTorch versions on the card, at
    the flagship shapes in f32 and bf16, at the device loop's batch of 16
-   crops, and at attention shapes with dh != 64, and time kernel, plain
+   crops (A in f32 and bf16), and at attention shapes with dh != 64, and
+   time kernel, plain
    version and the one PyTorch call that computes the same function (a
    yardstick only: the port never calls it);
 4. hold kernel C bitwise against its plain version (max abs error exactly 0)
@@ -59,8 +60,19 @@ does not hold:
     Predictor; the JBU loop also under the sync debugger), and the split of
     one loop step into backbone, upsampler and head, with a profiler
     breakdown of the LoftUp forward by kernel;
-13. print the ``{"kernels": [...]}`` line (kernels A-E, launches by path)
-    and, last, the ``{"ok": true, "device": ...}`` line.
+13. the attention-variant sweep: kernels F (nodiv) and G (merged) against
+    their plain versions at every query tile and exp dtype they take, at
+    [2, 1025, 1152], at the sweep's [16, 1025, 1152] and at the ragged
+    [3, 77, 768] (4 heads), in f32 and bf16, and in f32 against kernel A;
+    their plain versions and SDPA timed at the sweep's shape. Then main
+    path 7, the sweep through its package entry (``isegprobe_torch.scripts.
+    bench_attn_variants.main``): every variant within tolerance of the f32
+    reference and timed (the kernel times of F and G in the ``kernels``
+    line), with every counter set to 0 just before and read just after, and
+    each variant's kernel launched exactly as often as the sweep calls it;
+14. print the ``{"kernels": [...]}`` line (kernels A-G, launches by path;
+    A, F and G also in bf16 at the sweep's shape) and, last, the
+    ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without a
 result when CUDA is not available or the port cannot be imported.
@@ -81,6 +93,10 @@ import numpy as np
 # every bound_ms is computed against
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+# special-function (exp) rate of the H100 SXM, from the FlashAttention-3
+# paper (Shah et al., 2024: "3.9 TFLOPS of special functions"):
+# an attention's B·H·Nq·Nk exps bound it as much as its bf16 products
+PEAK_EXPS_PER_S = 3.9e12
 
 # max |kernel - plain| <= ATOL + RTOL * |plain|: f32 differs only in
 # summation order (and rsqrtf / the online softmax, ~1e-6 relative); bf16
@@ -117,7 +133,8 @@ FORWARD_LAUNCHES = {
     "loftup": {"mha_qkv": 12, "layernorm": 25 + 1 + 7 * 8, "mha": 14},
     "jbu_featup": {"mha_qkv": 12, "layernorm": 25, "jbu_filter": 4},
 }
-KERNELS = ("edt_row_envelope", "mha_qkv", "layernorm", "mha", "jbu_filter")
+KERNELS = ("edt_row_envelope", "mha_qkv", "layernorm", "mha", "jbu_filter",
+           "mha_qkv_nodiv", "mha_qkv_merged")
 # what the loop's steps must launch, per step
 PER_STEP = {"edt_row_envelope": 1, **FORWARD_LAUNCHES["flagship"]}
 # the learned-upsampler families: crop size, device loop batch, clicks and
@@ -224,10 +241,64 @@ def attention_case(torch, F, attention, b, n, heads, dh, dtype, seed):
     itemsize = qkv.element_size()
     ops = 4.0 * b * heads * n * n * dh
     nbytes = (b * n * 3 * c + b * n * c) * itemsize
-    res.update(_bound(ops, nbytes, dtype))
+    res.update(_bound(ops, nbytes, dtype, exps=float(b * heads * n * n)))
     res.update(kernel="mha_qkv", shape=[b, n, 3 * c], heads=heads, dh=dh,
                dtype=dtype)
     return res
+
+
+def variant_cases(torch, F, attention, attn_variants, b, n, heads, dtype,
+                  seed, timed: bool) -> list:
+    """Hold kernels F (nodiv) and G (merged) against their plain versions at
+    one shape, at every query tile and every exp dtype the entries take
+    (bf16 inputs: f32 and bf16 exp), and in f32 against kernel A. With
+    ``timed``, the default tile of each (kernel, exp) gets its plain
+    version's and SDPA's times on the same q, k and v, and its bound; the
+    kernel itself is timed by the sweep. One record each."""
+    tdt = getattr(torch, dtype)
+    c = heads * 64
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, n, 3 * c), generator=g, device="cuda").to(tdt)
+    scale = 64**-0.5
+    expdts = ["float32"] + (["bfloat16"] if dtype == "bfloat16" else [])
+    kernel_a = (attention.mha_qkv(qkv, heads, scale)
+                if dtype == "float32" else None)
+    q, k, v = qkv.view(b, n, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
+    library_ms = None
+    records = []
+    for name, entry, plain, tiles in (
+            ("mha_qkv_nodiv", attn_variants.mha_qkv_nodiv,
+             attn_variants._nodiv_plain, attn_variants.NODIV_TILES),
+            ("mha_qkv_merged", attn_variants.mha_qkv_merged,
+             attn_variants._merged_plain, attn_variants.MERGED_TILES)):
+        for expdt in expdts:
+            edt = getattr(torch, expdt)
+            want = plain(qkv, heads, scale, edt)
+            for tile in tiles:
+                got = entry(qkv, heads, scale, expdt=edt, q_tile=tile)
+                torch.cuda.synchronize()
+                res = compare(torch, got, want, dtype)
+                if kernel_a is not None:
+                    vs_a = compare(torch, got, kernel_a, dtype)
+                    res["max_abs_err_vs_kernel_a"] = vs_a["max_abs_err"]
+                    res["ok"] = res["ok"] and vs_a["ok"]
+                res.update(kernel=name, shape=[b, n, 3 * c], heads=heads,
+                           dtype=dtype, expdt=expdt, tile=tile)
+                if timed and tile == tiles[0]:
+                    res["plain_ms"], _ = time_ms(
+                        torch, lambda: plain(qkv, heads, scale, edt), reps=3,
+                        rounds=3, graph=False)
+                    if library_ms is None:
+                        library_ms, _ = time_ms(
+                            torch, lambda: F.scaled_dot_product_attention(
+                                q, k, v, scale=scale))
+                    res["library_ms"] = library_ms
+                    res.update(_bound(4.0 * b * heads * n * n * 64,
+                                      4.0 * b * n * c * qkv.element_size(),
+                                      dtype, exps=float(b * heads * n * n)))
+                records.append(res)
+            del want
+    return records
 
 
 def layernorm_case(torch, F, layernorm, rows_shape, d, dtype, seed):
@@ -342,7 +413,8 @@ def cross_attention_case(torch, F, attention, b, nq, nk, heads, dh, dtype,
         reps=3, rounds=3, graph=False)
     ops = 4.0 * b * heads * nq * nk * dh
     nbytes = (2 * b * nq + 2 * b * nk) * heads * dh * q.element_size()
-    res.update(_bound(ops, nbytes, "float32"))
+    res.update(_bound(ops, nbytes, "float32",
+                      exps=float(b * heads * nq * nk)))
     res.update(kernel="mha", shape=[[b, nq, heads, dh], [b, nk, heads, dh]],
                dtype=dtype)
     return res
@@ -378,12 +450,17 @@ def jbu_case(torch, jbu, b, h, w, c, k, seed):
     return res
 
 
-def _bound(ops: float, nbytes: float, op_dtype: str) -> dict:
-    t_ops = ops / PEAK_OPS_PER_S[op_dtype] * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ops": ops, "bytes": nbytes}
+def _bound(ops: float, nbytes: float, op_dtype: str,
+           exps: float = 0.0) -> dict:
+    """The least time for the work: the largest of the products (or other
+    operations) at the dtype's peak, the exps at the special-function rate
+    and the bytes at the memory rate; ``bound_by`` names which."""
+    times = {"operations": ops / PEAK_OPS_PER_S[op_dtype] * 1e3,
+             "exps": exps / PEAK_EXPS_PER_S * 1e3,
+             "bytes": nbytes / PEAK_BYTES_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return {"bound_ms": times[by], "bound_by": by, "ops": ops,
+            "exps": exps, "bytes": nbytes}
 
 
 def scene(seed: int, hw=(480, 640)):
@@ -612,11 +689,14 @@ def forward_vs_cpu(torch, model, cpu_model, size: int, per_forward: dict,
 
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
-    from isegprobe_torch.ops import attention, edt, jbu, layernorm
+    from isegprobe_torch.ops import attention, attn_variants, edt, jbu
+    from isegprobe_torch.ops import layernorm
 
     return {"edt_row_envelope": edt.row_envelope,
             "mha_qkv": attention.mha_qkv, "layernorm": layernorm.layernorm,
-            "mha": attention.mha, "jbu_filter": jbu.jbu_filter}
+            "mha": attention.mha, "jbu_filter": jbu.jbu_filter,
+            "mha_qkv_nodiv": attn_variants.mha_qkv_nodiv,
+            "mha_qkv_merged": attn_variants.mha_qkv_merged}
 
 
 def counters() -> dict:
@@ -834,6 +914,56 @@ def learned_family(torch, name: str) -> dict:
     return res
 
 
+def variant_sweep(torch, F) -> tuple:
+    """Kernels F (nodiv) and G (merged) against their plain versions and
+    kernel A, at B=2, at the sweep's shape and at a ragged small shape; then
+    main path 7, the sweep through its package entry, with every counter set
+    to 0 just before and read just after: each variant launches its kernel
+    exactly ``LAUNCHES_PER_VARIANT`` times. The checks at the sweep's shape
+    take their kernel times from the sweep's records. Returns (the checks,
+    the sweep's records, its launches)."""
+    from isegprobe_torch.ops import attention, attn_variants
+    from isegprobe_torch.scripts import bench_attn_variants as bav
+
+    variant_checks = []
+    for i, (b, n, heads) in enumerate(((2, 1025, 6), (bav.BATCH, bav.N,
+                                                      bav.HEADS),
+                                       (3, 77, 4))):
+        for dtype in ("float32", "bfloat16"):
+            variant_checks += variant_cases(
+                torch, F, attention, attn_variants, b, n, heads, dtype,
+                seed=40 + i, timed=b == bav.BATCH)
+    for c in variant_checks:
+        print("check", json.dumps(c))
+    bad = [c for c in variant_checks if not c["ok"]]
+    if bad:
+        fail(f"kernel F or G disagrees with its plain version or kernel A: "
+             f"{bad}")
+    zero_counters()
+    sweep = bav.main()
+    sweep_launches = counters()
+    per = bav.LAUNCHES_PER_VARIANT
+    want = expected(**{k: per * sum(r["kernel"] == k for r in sweep)
+                       for k in ("mha_qkv", "mha_qkv_nodiv",
+                                 "mha_qkv_merged")})
+    if sweep_launches != want:
+        fail(f"the sweep launched {sweep_launches}, expected {want}")
+    bad = [r for r in sweep if not r["ok"] or r["launches"] != per
+           or not r["ms"] > 0]
+    if bad:
+        fail(f"sweep variants out of tolerance or untimed: {bad}")
+    print("sweep", json.dumps({"records": sweep, "launches": sweep_launches}))
+    ms = {(r["dtype"], r["variant"]): r["ms"] for r in sweep}
+    for c in variant_checks:
+        if "plain_ms" in c:
+            suffix = "_ebf16" if c["expdt"] == "bfloat16" else ""
+            c["ms"] = ms[(c["dtype"],
+                          c["kernel"].removeprefix("mha_qkv_")
+                          + f"{c['tile']}{suffix}")]
+            c["timing"] = "cuda_graph (sweep)"
+    return variant_checks, sweep, sweep_launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every result to this JSON "
@@ -896,8 +1026,9 @@ def main() -> int:
                                  "float32", seed=3))
     checks.append(attention_case(torch, F, attention, 1, 513, 2, 128,
                                  "float32", seed=4))
-    checks.append(attention_case(torch, F, attention, 2 * LOOP_BATCH, 1025,
-                                 6, 64, "float32", seed=5))
+    for dtype in ("float32", "bfloat16"):
+        checks.append(attention_case(torch, F, attention, 2 * LOOP_BATCH,
+                                     1025, 6, 64, dtype, seed=5))
     checks.append(layernorm_case(torch, F, layernorm, (2 * LOOP_BATCH, 1025),
                                  384, "float32", seed=6))
 
@@ -1173,7 +1304,15 @@ def main() -> int:
     families = {name: learned_family(torch, name) for name in UPSAMPLERS}
     results["families"] = families
 
-    # 13. the kernels of the paths, at the device loops' shapes (f32)
+    # 13. kernels F and G, and main path 7: the attention-variant sweep
+    variant_checks, sweep, sweep_launches = variant_sweep(torch, F)
+    checks += variant_checks
+    results["sweep"] = {"records": sweep, "launches": sweep_launches}
+
+    # 14. the kernels of the paths, at the device loops' shapes (f32; A, F
+    # and G also in bf16 at the sweep's shape)
+    from isegprobe_torch.scripts import bench_attn_variants as bav
+    sweep_shape = [bav.BATCH, bav.N, 3 * 64 * bav.HEADS]
     sources = {
         "mha_qkv": ("isegprobe_torch/csrc/attention.cu",
                     "isegprobe_tpu/ops/attention.py:172",
@@ -1189,25 +1328,42 @@ def main() -> int:
                 [[loop_fwd, 64 * 448, 4, 101], [loop_fwd, 1024, 4, 101]]),
         "jbu_filter": ("isegprobe_torch/csrc/jbu.cu",
                        "isegprobe_tpu/ops/jbu_kernel.py:188",
-                       [loop_fwd, 512, 512, 384])}
-    paths = {"host_protocol": launches, "device_loop": loop_launches}
+                       [loop_fwd, 512, 512, 384]),
+        "mha_qkv_nodiv": ("isegprobe_torch/csrc/attn_variants.cu",
+                          "scripts/bench_attn_variants.py:101",
+                          sweep_shape),
+        "mha_qkv_merged": ("isegprobe_torch/csrc/attn_variants.cu",
+                           "scripts/bench_attn_variants.py:101",
+                           sweep_shape)}
+    paths = {"host_protocol": launches, "device_loop": loop_launches,
+             "attn_variant_sweep": sweep_launches}
     for fam in families.values():
         paths.update(fam["path_launches"])
     kernels = []
+    timing_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms")
+
+    def timed_check(name, shape, dtype):
+        return next((c for c in checks if c["kernel"] == name
+                     and c["dtype"] == dtype and c["shape"] == shape
+                     and c.get("expdt", "float32") == "float32"
+                     and "ms" in c), None)
+
     for name, (src, replaces, shape) in sources.items():
-        c = next(c for c in checks if c["kernel"] == name
-                 and c["dtype"] == "float32" and c["shape"] == shape)
+        c = timed_check(name, shape, "float32")
         by_path = {p: counts[name] for p, counts in paths.items()}
         if not any(by_path.values()):
             fail(f"kernel {name} was launched on no main path: {by_path}")
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
-            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-            "shape": shape})
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
+                 **{k: c[k] for k in timing_keys}, "shape": shape}
+        c16 = timed_check(name, shape, "bfloat16")
+        if c16 is not None:
+            entry["bfloat16"] = {k: c16[k] for k in timing_keys}
+        if "tile" in c:
+            entry["tile"] = c["tile"]
+        kernels.append(entry)
     results["kernels"] = kernels
     results["seconds"] = time.time() - t_start
     if args.out:

@@ -4,14 +4,21 @@ the numerical reference.
 
 Layout mirrors the JAX package so each module's counterpart is easy to find:
     ops/        resize, click encoding, ZoomIn sampling, host and device EDT
-                with the device clicker rule, and the hand-written CUDA
-                kernels (attention, LayerNorm, EDT row envelope) with their
-                plain PyTorch versions
-    csrc/       CUDA C++ sources of those kernels, built with nvcc at first use
-    models/     ViT core, DINOv2 featurizer, upsamplers, heads, probe model,
-                and the weight bridge from the JAX package's param trees
+                with the device clicker rule, adaptive pooling (pool.py),
+                coordinate grids (grid.py), and the wrappers of the
+                hand-written CUDA kernels with their plain PyTorch versions:
+                A packed-qkv attention and D cross-attention (attention.py),
+                B LayerNorm (layernorm.py), C EDT row envelope (edt.py), E
+                JBU filter (jbu.py), F and G the sweep's attention variants
+                nodiv and merged (attn_variants.py)
+    csrc/       CUDA C++ sources of kernels A-G, built with nvcc at first use
+    models/     ViT core, DINOv2 featurizer, upsamplers (identity, LoftUp,
+                JBU-FeatUp), heads, probe model, and the weight bridge from
+                the JAX package's param trees
     inference/  clicker, predictor, NoC evaluation and metrics, and the
                 batched on-device NoC loop (device_eval)
+    scripts/    command-line entry points: the attention-variant sweep
+                (python -m isegprobe_torch.scripts.bench_attn_variants)
     utils/      bbox helpers
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without a

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("attention", "layernorm", "edt", "mha", "jbu")
+SOURCES = ("attention", "layernorm", "edt", "mha", "jbu", "attn_variants")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

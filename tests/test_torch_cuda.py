@@ -14,7 +14,10 @@ integers in f32 and is held bitwise to its plain version. The JBU kernel
 (E) and its plain version clamp different normalisers, which agree where
 neither clamp binds (sigma 0.8 here); E's output is a weighted mean of 49
 inputs, which errs relative to the inputs summed, so its absolute tolerance
-is 1e-5 of max |hr|.
+is 1e-5 of max |hr|. Kernels F and G (attention variants) take e against
+the running row max, where their plain versions take it against the final
+one, so bf16 roundings of e (and, with a bf16 exp, of s - m) fall at other
+points: within the bf16 tolerance.
 """
 
 from types import SimpleNamespace
@@ -23,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from isegprobe_torch.ops import attention, edt, jbu, layernorm
+from isegprobe_torch.ops import attention, attn_variants, edt, jbu, layernorm
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
@@ -323,3 +326,52 @@ def test_device_loop_matches_cpu(cuda_device):
     assert [len(a) for a in got] == [len(a) for a in want]
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-3)
+
+
+_VARIANT_PAIRS = [(torch.float32, torch.float32),
+                  (torch.bfloat16, torch.float32),
+                  (torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,expdt", _VARIANT_PAIRS)
+@pytest.mark.parametrize("kind", ["nodiv", "merged"])
+@pytest.mark.parametrize("b,n,heads", [(2, 1025, 6), (3, 77, 4), (1, 1, 2),
+                                       (1, 130, 2)])
+def test_attention_variant_kernels_match_plain(cuda_device, kind, dtype,
+                                               expdt, b, n, heads):
+    entry = {"nodiv": attn_variants.mha_qkv_nodiv,
+             "merged": attn_variants.mha_qkv_merged}[kind]
+    tiles = {"nodiv": attn_variants.NODIV_TILES,
+             "merged": attn_variants.MERGED_TILES}[kind]
+    qkv = _randn((b, n, 3 * heads * 64), n + heads, cuda_device, dtype)
+    plain = {"nodiv": attn_variants._nodiv_plain,
+             "merged": attn_variants._merged_plain}[kind]
+    want = plain(qkv, heads, 0.125, expdt)
+    for tile in tiles:
+        before = entry.launches
+        got = entry(qkv, heads, expdt=expdt, q_tile=tile)
+        torch.cuda.synchronize()
+        assert entry.launches == before + 1
+        assert got.shape == (b, n, heads * 64) and got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+    if dtype == torch.float32:  # kernel A computes the same function
+        torch.testing.assert_close(got, attention.mha_qkv(qkv, heads),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_attention_variant_kernels_raise(cuda_device):
+    qkv = _randn((1, 9, 3 * 2 * 64), 0, cuda_device)
+    for entry in (attn_variants.mha_qkv_nodiv, attn_variants.mha_qkv_merged):
+        with pytest.raises(ValueError):
+            entry(qkv[:, ::2], 2)  # not contiguous
+        with pytest.raises(ValueError):
+            entry(_randn((1, 9, 3 * 3 * 64), 0, cuda_device), 3)  # odd H
+        with pytest.raises(ValueError):
+            entry(_randn((1, 9, 3 * 4 * 32), 0, cuda_device), 4)  # dh 32
+        with pytest.raises(TypeError):
+            entry(qkv, 2, expdt=torch.bfloat16)  # f32 with a bf16 exp
+        with pytest.raises(NotImplementedError):
+            entry(qkv.clone().requires_grad_(), 2)
