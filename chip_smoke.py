@@ -13,10 +13,12 @@ does not hold:
    together, and print the ptxas report;
 3. hold kernels A and B against their plain PyTorch versions on the card, at
    the flagship shapes in f32 and bf16, at the device loop's batch of 16
-   crops (A in f32 and bf16), and at attention shapes with dh != 64, and
-   time kernel, plain
-   version and the one PyTorch call that computes the same function (a
-   yardstick only: the port never calls it);
+   crops, and at attention shapes with dh != 64 (A also at dh = 13, whose
+   bf16 rows take the element-load path), and time kernel, plain version
+   and the one PyTorch call that computes the same function (a yardstick
+   only: the port never calls it). A is checked and timed at the plan
+   ``ops/attention.py:_plan`` picks (recorded) and, forced through the
+   entry's ``plan``, at every other query tile and load path;
 4. hold kernel C bitwise against its plain version (max abs error exactly 0)
    at the device loop's shape [8, 2, 514, 642], at 64x64 and at a width
    that is no multiple of 32, on random masks with zero-free columns;
@@ -28,8 +30,9 @@ does not hold:
 6. main path 1, the host protocol: the Predictor answers NoC clicks
    (fixed-448 ZoomIn, flip TTA, f32) on two numpy-drawn scenes, with every
    launch counter set to 0 just before and read just after; prints the p50
-   ms per click. Then one bf16 forward is timed with the params cast as
-   evaluate.py casts them;
+   ms per click. Then one bf16 forward (params cast as evaluate.py casts
+   them) is timed: exact launches, and its logits within 0.05 of the f32
+   logits' scale;
 7. the on-device clicker (``next_click_from_error``, kernel C underneath)
    on 32 random lanes must click exactly where the host scipy ``Clicker``
    clicks;
@@ -50,11 +53,12 @@ does not hold:
     scenes) beside the host protocol's p50 per click, and the split of one
     f32 B=8 loop step (clicker, crop, forward at batch 16, paste);
 12. the learned-upsampler families, LoftUp and JBU-FeatUp on DINOv2-S/14 at
-    448² (drawn, calibrated): kernels D (cross-attention) and E (JBU
-    filter) against their plain versions at the families' shapes, timed
-    beside them; for each family one f32 forward on the card against the
-    CPU with its exact launches per forward (LoftUp 12 A + 82 B + 14 D, JBU
-    12 A + 25 B + 4 E), the host protocol (main path 3 and 5: p50 ms per
+    448² (drawn, calibrated): kernels D (cross-attention, f32 and bf16, at
+    every tile and load path as A) and E (JBU filter) against their plain
+    versions at the families' shapes, timed beside them; for each family
+    one f32 forward on the card against the CPU with its exact launches per
+    forward (LoftUp 12 A + 82 B + 14 D, JBU 12 A + 25 B + 4 E; LoftUp also
+    one bf16 forward, checked as the flagship's), the host protocol (main path 3 and 5: p50 ms per
     click), the device loop at B=4 (main paths 4 and 6: every step 1 C plus
     one forward's launches, trajectories equal to B=1 and to the host
     Predictor; the JBU loop also under the sync debugger), and the split of
@@ -70,9 +74,11 @@ does not hold:
     reference and timed (the kernel times of F and G in the ``kernels``
     line), with every counter set to 0 just before and read just after, and
     each variant's kernel launched exactly as often as the sweep calls it;
-14. print the ``{"kernels": [...]}`` line (kernels A-G, launches by path;
-    A, F and G also in bf16 at the sweep's shape) and, last, the
-    ``{"ok": true, "device": ...}`` line.
+14. print the ``{"kernels": [...]}`` line (kernels A-G, launches by path,
+    the flagship's and LoftUp's bf16 forwards among the paths; A, F and G
+    also in bf16 at the sweep's shape, D at the LoftUp loop's; A and D with
+    the plan their wrapper picked) and, last, the ``{"ok": true, "device":
+    ...}`` line.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without a
 result when CUDA is not available or the port cannot be imported.
@@ -108,6 +114,11 @@ TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
 FORWARD_RTOL = 1e-3
 # first-click probabilities, card vs CPU predictor
 PROBS_ATOL = 1e-3
+# a bf16 forward (params cast to bf16) against the f32 forward on the card:
+# bf16 weights, activations and attention probabilities through 12 blocks
+# (the flagship's differed by 0.0149 at a logit scale of 1.07 with the
+# lane-per-row attention kernel that preceded the flash core)
+BF16_LOGIT_RTOL = 0.05
 
 MAX_CLICKS = 5
 
@@ -220,8 +231,40 @@ def compare(torch, got, want, dtype: str, scale: float = 1.0) -> dict:
             "rtol": rtol, "atol": atol, "ok": ok}
 
 
-def attention_case(torch, F, attention, b, n, heads, dh, dtype, seed):
-    """Check and time the attention kernel at one shape."""
+def plan_records(torch, entry, args, plans, want, dtype, what: dict,
+                 chosen) -> list:
+    """Hold the kernel behind ``entry(*args, plan=...)`` against ``want``
+    at every forced (q_tile, aligned) in ``plans`` other than ``chosen``
+    (the plan the wrapper picks itself), each timed: one record each,
+    marked ``forced``."""
+    records = []
+    for plan in plans:
+        if plan == chosen:
+            continue
+        got = entry(*args, plan=plan)
+        torch.cuda.synchronize()
+        res = compare(torch, got, want, dtype)
+        del got
+        res["ms"], res["timing"] = time_ms(
+            torch, lambda: entry(*args, plan=plan))
+        res.update(what, plan=list(plan), forced=True)
+        records.append(res)
+    return records
+
+
+def every_plan(attention, dtype: str, dh: int) -> list:
+    """Every (q_tile, aligned) kernels A and D take at this dtype and dh."""
+    vec = 8 if dtype == "bfloat16" else 4
+    paths = [False] + ([True] if dh % vec == 0 else [])
+    return [(t, a) for t in attention.Q_TILES for a in paths]
+
+
+def attention_case(torch, F, attention, b, n, heads, dh, dtype, seed,
+                   all_plans: bool = False) -> list:
+    """Check and time the attention kernel at one shape, at the plan the
+    wrapper picks (recorded, with the plain version's, SDPA's and the bound
+    beside it) and, with ``all_plans``, at every other tile and load
+    path."""
     tdt = getattr(torch, dtype)
     c = heads * dh
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -242,9 +285,16 @@ def attention_case(torch, F, attention, b, n, heads, dh, dtype, seed):
     ops = 4.0 * b * heads * n * n * dh
     nbytes = (b * n * 3 * c + b * n * c) * itemsize
     res.update(_bound(ops, nbytes, dtype, exps=float(b * heads * n * n)))
-    res.update(kernel="mha_qkv", shape=[b, n, 3 * c], heads=heads, dh=dh,
-               dtype=dtype)
-    return res
+    what = dict(kernel="mha_qkv", shape=[b, n, 3 * c], heads=heads, dh=dh,
+                dtype=dtype)
+    chosen = attention._plan(b, n, heads, dh, tdt)
+    res.update(what, plan=list(chosen))
+    records = [res]
+    if all_plans:
+        records += plan_records(torch, attention.mha_qkv, (qkv, heads, scale),
+                                every_plan(attention, dtype, dh), want,
+                                dtype, what, chosen)
+    return records
 
 
 def variant_cases(torch, F, attention, attn_variants, b, n, heads, dtype,
@@ -385,10 +435,12 @@ def sdpa_backends(torch, F, q, k, v, scale) -> list:
 
 
 def cross_attention_case(torch, F, attention, b, nq, nk, heads, dh, dtype,
-                         seed):
-    """Check and time kernel D at one shape, beside its plain version and
-    ``scaled_dot_product_attention`` (recording which fused backends take
-    the shape; the default picks the first, else the math backend)."""
+                         seed, all_plans: bool = False) -> list:
+    """Check and time kernel D at one shape, at the plan the wrapper picks,
+    beside its plain version and ``scaled_dot_product_attention``
+    (recording which fused backends take the shape; the default picks the
+    first, else the math backend) and, with ``all_plans``, at every other
+    tile and load path."""
     tdt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, nq, heads, dh), generator=g, device="cuda").to(tdt)
@@ -399,7 +451,7 @@ def cross_attention_case(torch, F, attention, b, nq, nk, heads, dh, dtype,
     want = attention._mha_plain(q, k, v, scale)
     torch.cuda.synchronize()
     res = compare(torch, got, want, dtype)
-    del got, want
+    del got
     res["ms"], res["timing"] = time_ms(
         torch, lambda: attention.mha(q, k, v, scale))
     res["plain_ms"], _ = time_ms(
@@ -413,11 +465,18 @@ def cross_attention_case(torch, F, attention, b, nq, nk, heads, dh, dtype,
         reps=3, rounds=3, graph=False)
     ops = 4.0 * b * heads * nq * nk * dh
     nbytes = (2 * b * nq + 2 * b * nk) * heads * dh * q.element_size()
-    res.update(_bound(ops, nbytes, "float32",
-                      exps=float(b * heads * nq * nk)))
-    res.update(kernel="mha", shape=[[b, nq, heads, dh], [b, nk, heads, dh]],
-               dtype=dtype)
-    return res
+    res.update(_bound(ops, nbytes, dtype, exps=float(b * heads * nq * nk)))
+    what = dict(kernel="mha", shape=[[b, nq, heads, dh], [b, nk, heads, dh]],
+                dtype=dtype)
+    chosen = attention._plan(b, nq, heads, dh, tdt)
+    res.update(what, plan=list(chosen))
+    records = [res]
+    if all_plans:
+        records += plan_records(torch, attention.mha, (q, k, v, scale),
+                                every_plan(attention, dtype, dh), want,
+                                dtype, what, chosen)
+    del want
+    return records
 
 
 def jbu_case(torch, jbu, b, h, w, c, k, seed):
@@ -687,6 +746,42 @@ def forward_vs_cpu(torch, model, cpu_model, size: int, per_forward: dict,
     return img_d, pts_d, logits, record
 
 
+def bf16_forward(torch, model, cfg: dict, img_d, pts_d, logits,
+                 per_forward: dict, what: str) -> dict:
+    """One forward of ``model`` with its params cast to bf16 (as evaluate.py
+    casts them), on the f32 forward's inputs: finite logits of the same
+    shape within BF16_LOGIT_RTOL of the f32 logits' scale, with exactly
+    ``per_forward`` launches; timed. Returns (the bf16 model, the
+    record)."""
+    from isegprobe_torch.models.probe_model import iSegProbeModel
+
+    model16 = iSegProbeModel(**cfg).eval()
+    model16.load_state_dict(model.state_dict())
+    model16.to(torch.bfloat16)
+    with torch.inference_mode():
+        zero_counters()
+        got = model16(img_d, pts_d)["instances"]
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in counters().items() if v}
+        ms, _ = time_ms(torch, lambda: model16(img_d, pts_d), reps=3,
+                        rounds=3, graph=False)
+    diff = float((got.float() - logits).abs().max())
+    scale = float(logits.abs().max())
+    record = {"launches_per_forward": launches, "bf16_forward_ms": ms,
+              "bf16_vs_f32_max_abs_logit_diff": diff,
+              "f32_logit_scale": scale, "shape": list(got.shape)}
+    print(f"{what} bf16 forward", json.dumps(record))
+    if got.shape != logits.shape or not bool(torch.isfinite(got).all()):
+        fail(f"{what}: bad bf16 logits, shape {tuple(got.shape)}")
+    if launches != per_forward:
+        fail(f"{what}: expected {per_forward} launches per bf16 forward, "
+             f"got {launches}")
+    if diff > BF16_LOGIT_RTOL * scale:
+        fail(f"{what}: bf16 forward differs from the f32 forward by {diff} "
+             f"(logit scale {scale})")
+    return model16, record
+
+
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from isegprobe_torch.ops import attention, attn_variants, edt, jbu
@@ -737,8 +832,8 @@ def profile_forward(torch, model, crops, pts) -> dict:
             for e in kernels]
     if not rows:
         return {}
-    groups = {"D mha_kernel": "mha_kernel", "A attn_qkv_kernel":
-              "attn_qkv_kernel", "B ln_kernel": "ln_kernel",
+    groups = {"D mha_kernel": "mha_kernel", "A attn_qkv": "attn_qkv_",
+              "B ln_kernel": "ln_kernel",
               "E jbu_kernel": "jbu_kernel", "C edt": "edt"}
     out: dict = {k: 0.0 for k in groups}
     out.update(conv=0.0, gemm=0.0, other=0.0)
@@ -788,9 +883,12 @@ def learned_family(torch, name: str) -> dict:
     cpu_model = iSegProbeModel(**cfg, device="cpu").eval()
     cpu_model.load_state_dict(model.state_dict())
     # the CPU forward of the first sample alone: it takes tens of seconds
-    res["forward"] = forward_vs_cpu(torch, model, cpu_model, FAMILY_SIZE,
-                                    per_forward, name, cpu_batch=1)[-1]
+    img_d, pts_d, logits, res["forward"] = forward_vs_cpu(
+        torch, model, cpu_model, FAMILY_SIZE, per_forward, name, cpu_batch=1)
     del cpu_model
+    if name == "loftup":
+        res["bf16_forward"] = bf16_forward(torch, model, cfg, img_d, pts_d,
+                                           logits, per_forward, name)[1]
 
     # main path: the host predictor answers NoC clicks
     predictor = Predictor(model, target_size=size, with_flip=True,
@@ -911,6 +1009,9 @@ def learned_family(torch, name: str) -> dict:
     res["step_split"] = split
     res["path_launches"] = {f"{name}_host": host_launches,
                             f"{name}_loop": loop_launches}
+    if "bf16_forward" in res:
+        res["path_launches"][f"{name}_bf16_forward"] = expected(
+            **res["bf16_forward"]["launches_per_forward"])
     return res
 
 
@@ -1018,17 +1119,19 @@ def main() -> int:
     # batch 16 is the device loop's forward (8 lanes, flip TTA)
     checks = []
     for dtype in ("float32", "bfloat16"):
-        checks.append(attention_case(torch, F, attention, 2, 1025, 6, 64,
-                                     dtype, seed=1))
+        checks += attention_case(torch, F, attention, 2, 1025, 6, 64, dtype,
+                                 seed=1, all_plans=True)
         checks.append(layernorm_case(torch, F, layernorm, (2, 1025), 384,
                                      dtype, seed=2))
-    checks.append(attention_case(torch, F, attention, 2, 1025, 8, 32,
-                                 "float32", seed=3))
-    checks.append(attention_case(torch, F, attention, 1, 513, 2, 128,
-                                 "float32", seed=4))
-    for dtype in ("float32", "bfloat16"):
-        checks.append(attention_case(torch, F, attention, 2 * LOOP_BATCH,
-                                     1025, 6, 64, dtype, seed=5))
+        checks += attention_case(torch, F, attention, 2, 1025, 8, 32, dtype,
+                                 seed=3, all_plans=True)
+        checks += attention_case(torch, F, attention, 1, 513, 2, 128, dtype,
+                                 seed=4, all_plans=True)
+        checks += attention_case(torch, F, attention, 2 * LOOP_BATCH, 1025,
+                                 6, 64, dtype, seed=5, all_plans=True)
+    # an odd head width takes the element-load path in bf16
+    checks += attention_case(torch, F, attention, 2, 1025, 3, 13,
+                             "bfloat16", seed=7, all_plans=True)
     checks.append(layernorm_case(torch, F, layernorm, (2 * LOOP_BATCH, 1025),
                                  384, "float32", seed=6))
 
@@ -1047,11 +1150,14 @@ def main() -> int:
             (2, 64 * 448, 1024, 4, 101, "float32"),
             (2, 64 * 448, 1024, 4, 101, "bfloat16"),
             (loop_fwd, 64 * 448, 1024, 4, 101, "float32"),
+            (loop_fwd, 64 * 448, 1024, 4, 101, "bfloat16"),
             (2, 1000, 777, 4, 101, "float32"),
             (2, 1000, 777, 4, 101, "bfloat16"),
-            (2, 4096, 1024, 6, 64, "float32"))):
-        checks.append(cross_attention_case(torch, F, attention, b, nq, nk,
-                                           heads, dh, dtype, seed=20 + i))
+            (2, 4096, 1024, 6, 64, "float32"),
+            (2, 4096, 1024, 6, 64, "bfloat16"))):
+        checks += cross_attention_case(torch, F, attention, b, nq, nk, heads,
+                                       dh, dtype, seed=20 + i,
+                                       all_plans=True)
     for i, (b, h, w, c) in enumerate((
             (2, 64, 64, 384), (2, 128, 128, 384), (2, 256, 256, 384),
             (2, 512, 512, 384), (loop_fwd, 512, 512, 384),
@@ -1111,24 +1217,16 @@ def main() -> int:
              f"{probs_err}")
 
     # one bf16 forward, params cast as evaluate.py casts them
-    model_bf16 = iSegProbeModel(**cfg).eval()
-    model_bf16.load_state_dict(model.state_dict())
-    model_bf16.to(torch.bfloat16)
-    with torch.inference_mode():
-        logits_bf16 = model_bf16(img_d, pts_d)["instances"]
-        bf16_ms, _ = time_ms(torch, lambda: model_bf16(img_d, pts_d),
-                             reps=5, rounds=3, graph=False)
-    if not bool(torch.isfinite(logits_bf16).all()):
-        fail("bf16 forward produced non-finite logits")
+    model_bf16, bf16_rec = bf16_forward(torch, model, cfg, img_d, pts_d,
+                                        logits, FORWARD_LAUNCHES["flagship"],
+                                        "flagship")
     noc = {"clicks": n_clicks,
            "ious": [[float(v) for v in ious] for ious in all_ious],
            "per_click": latency_percentiles(click_s),
            "per_click_protocol": latency_percentiles(sample_s),
            "main_path_launches": launches,
            "first_click_probs_err_vs_cpu": probs_err,
-           "bf16_forward_ms": bf16_ms,
-           "bf16_vs_f32_max_abs_logit_diff": float(
-               (logits_bf16.float() - logits).abs().max())}
+           "bf16_forward": bf16_rec}
     print("noc", json.dumps(noc))
     print(f"p50 per click: {noc['per_click']['p50_ms']:.3f} ms over "
           f"{n_clicks} clicks (f32, fixed-448 ZoomIn, flip TTA)")
@@ -1336,6 +1434,8 @@ def main() -> int:
                            "scripts/bench_attn_variants.py:101",
                            sweep_shape)}
     paths = {"host_protocol": launches, "device_loop": loop_launches,
+             "flagship_bf16_forward": expected(
+                 **noc["bf16_forward"]["launches_per_forward"]),
              "attn_variant_sweep": sweep_launches}
     for fam in families.values():
         paths.update(fam["path_launches"])
@@ -1347,7 +1447,7 @@ def main() -> int:
         return next((c for c in checks if c["kernel"] == name
                      and c["dtype"] == dtype and c["shape"] == shape
                      and c.get("expdt", "float32") == "float32"
-                     and "ms" in c), None)
+                     and "plain_ms" in c), None)
 
     for name, (src, replaces, shape) in sources.items():
         c = timed_check(name, shape, "float32")
@@ -1361,8 +1461,11 @@ def main() -> int:
         c16 = timed_check(name, shape, "bfloat16")
         if c16 is not None:
             entry["bfloat16"] = {k: c16[k] for k in timing_keys}
-        if "tile" in c:
-            entry["tile"] = c["tile"]
+            if "plan" in c16:
+                entry["bfloat16"]["plan"] = c16["plan"]
+        for key in ("tile", "plan"):
+            if key in c:
+                entry[key] = c[key]
         kernels.append(entry)
     results["kernels"] = kernels
     results["seconds"] = time.time() - t_start

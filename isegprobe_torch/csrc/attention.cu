@@ -1,4 +1,5 @@
-// Packed-qkv multi-head self-attention for Hopper (sm_90a), f32 and bf16.
+// Kernel A: packed-qkv multi-head self-attention for Hopper (sm_90a), f32
+// and bf16, on the shared flash core (flash_core.cuh).
 //
 // Replaces the Pallas TPU kernels isegprobe_tpu/ops/attention.py:
 // _mha_qkv_pallas_pairs (two dh=64 heads per grid step, pallas_call at :172)
@@ -6,223 +7,78 @@
 //     out[b, i, h*dh:(h+1)*dh] = softmax_j(q_i . k_j * scale) v_j
 // over a packed qkv [B, N, 3C] (q, k, v at column offsets 0, C, 2C; head h at
 // h*dh inside each) and write [B, N, C]; they differ only in TPU lane layout.
-// This kernel reads q, k and v by stride from the packed tensor for any
-// dh <= 128 and writes the output in place: no relayout, no padding copy.
+// Here q, k and v are strided operands of the packed tensor (row stride 3C,
+// head offset h*dh) for any dh <= 128, and the output is written in place:
+// no relayout, no padding copy.
 //
-// Bound on this card: 4*B*H*N^2*dh operations (QK^T and PV). In f32 the
-// products are true f32 FMAs (no TF32), so the bound is the 67 TFLOP/s f32
-// rate; bf16 inputs are widened to f32 and take the same path (the bf16
-// tensor-core bound is far below what FMAs reach). The bytes (read qkv
-// once, write out once) are small beside the operations at N = 1025.
+// Bound on this card: 4*B*H*N^2*dh operations at the bf16 tensor-core rate
+// or the f32 CUDA-core rate, and B*H*N^2 exps; at [16, 1025, 1152] bf16 the
+// products (0.0261 ms) and the exps (0.0259 ms) bound it together. The
+// flash core's note says what the design does about them: bf16 on wgmma
+// tensor cores over a cp.async K/V ring, f32 on register-tiled FMAs.
 //
-// Design: one block per (query tile of 32 rows, head, batch); each lane owns
-// one query row. The block's four warps split the keys: warp w takes key
-// tiles w, w+4, ... of 32 keys, loads each K/V tile (widened to f32) into its
-// own shared-memory slot, and keeps a flash-style online softmax for its row
-// (running max and sum in registers, PV accumulated in f32 registers). The
-// split keeps 4x more warps in flight than one warp per 32 rows would. At the
-// end the four partial (max, sum, accumulator) triples are merged through
-// shared memory and the tile is written back row-contiguous (coalesced).
-// Scores and PV read K and V as warp-wide broadcasts of 16-byte shared loads,
-// four FMAs per load. Key columns >= N score -inf (N = 1025 is ragged).
-// wgmma and TMA are later work.
+// Instantiations: bf16 at DHP in {16, 32, 64, 112, 128}, f32 at DHP in {32,
+// 64, 104, 128}, each x query tiles of 64 and 128 rows x the 16-byte path
+// (16-byte aligned pointers and dh % 8 == 0 in bf16, % 4 in f32) or the
+// element-load path (any dh, e.g. 13).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_core.cuh"
 
 namespace {
 
-constexpr int kRows = 32;   // query rows per block, one per lane
-constexpr int kWarps = 4;   // key splits per block, one warp each
-constexpr int kKeys = 32;   // keys per K/V tile
+using flash::Args;
+using flash::bf16;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+template <int DHP, int WARPS, bool kAsync>
+__global__ void __launch_bounds__(flash::Bf16Tile<DHP, WARPS>::kThreads,
+                                  flash::Bf16Tile<DHP, WARPS>::kMinBlocks)
+attn_qkv_bf16(const Args<bf16> a) {
+  flash::flash_bf16<DHP, WARPS, kAsync, kAsync>(a);
 }
 
-template <int DHP>
-constexpr int smem_floats() {
-  // q tile, then the larger of the per-warp K/V tiles and the merge area
-  constexpr int qs = kRows * (DHP + 4);
-  constexpr int kv = kWarps * 2 * kKeys * DHP;
-  constexpr int merge = kWarps * kRows * (DHP + 4) + kWarps * kRows * 2;
-  return qs + (kv > merge ? kv : merge);
+template <int DHP, int GROUPS, bool kVec>
+__global__ void __launch_bounds__(flash::F32Tile<DHP, GROUPS>::kThreads,
+                                  flash::F32Tile<DHP, GROUPS>::kMinBlocks)
+attn_qkv_f32(const Args<float> a) {
+  flash::flash_f32<DHP, GROUPS, kVec, kVec>(a);
 }
 
-template <typename T, int DHP>
-__global__ void __launch_bounds__(kWarps * 32)
-attn_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, int n,
-                int heads, int dh, float scale) {
-  constexpr int QS = DHP + 4;  // padded row: lanes read their own q rows
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // [kRows][QS]
-  float* area = q_s + kRows * QS;
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int c = heads * dh;
-  const long rs = 3L * c;  // row stride of the packed tensor
-  const T* base = qkv + (long)b * n * rs + (long)h * dh;
-  const T* qg = base;
-  const T* kg = base + c;
-  const T* vg = base + 2 * c;
-
-  for (int i = threadIdx.x; i < kRows * DHP; i += blockDim.x) {
-    const int r = i / DHP, d = i % DHP, row = q0 + r;
-    q_s[r * QS + d] = (row < n && d < dh) ? to_f32(qg[row * rs + d]) : 0.f;
+// kernel A's instantiations: q, k, v and out all on the aligned path or not
+struct KernelA {
+  template <int DHP, int ROWS, bool kAligned>
+  static cudaError_t launch(const Args<bf16>& a, int heads, int batch,
+                            cudaStream_t s) {
+    using C = flash::Bf16Tile<DHP, ROWS / 16>;
+    static bool attr_set = false;
+    return flash::launch(attn_qkv_bf16<DHP, ROWS / 16, kAligned>, attr_set,
+                         C::kSmemBytes, C::kThreads, C::kRows, heads, batch,
+                         a, s);
   }
-  __syncthreads();
-
-  float* k_s = area + warp * 2 * kKeys * DHP;  // [kKeys][DHP]
-  float* v_s = k_s + kKeys * DHP;              // [kKeys][DHP]
-  const float* q_row = q_s + lane * QS;
-
-  float o[DHP];
-#pragma unroll
-  for (int d = 0; d < DHP; ++d) o[d] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  const int ntiles = (n + kKeys - 1) / kKeys;
-  for (int t = warp; t < ntiles; t += kWarps) {
-    const int k0 = t * kKeys;
-    __syncwarp();  // the previous tile's reads are done
-#pragma unroll 8
-    for (int i = lane; i < kKeys * DHP; i += 32) {
-      const int r = i / DHP, d = i % DHP, key = k0 + r;
-      const bool ok = key < n && d < dh;
-      const long off = key * rs + d;
-      k_s[i] = ok ? to_f32(kg[off]) : 0.f;
-      v_s[i] = ok ? to_f32(vg[off]) : 0.f;
-    }
-    __syncwarp();
-
-    float s[kKeys];
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) s[j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < DHP; d += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(q_row + d);
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const float4 kv = *reinterpret_cast<const float4*>(k_s + j * DHP + d);
-        s[j] = fmaf(qv.x, kv.x, s[j]);
-        s[j] = fmaf(qv.y, kv.y, s[j]);
-        s[j] = fmaf(qv.z, kv.z, s[j]);
-        s[j] = fmaf(qv.w, kv.w, s[j]);
-      }
-    }
-
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      s[j] = (k0 + j < n) ? s[j] * scale : -INFINITY;
-      tile_max = fmaxf(tile_max, s[j]);
-    }
-    // every tile holds at least one valid key, so m_new is finite; on the
-    // first tile m = -inf and corr = 0
-    const float m_new = fmaxf(m, tile_max);
-    const float corr = expf(m - m_new);
-    l *= corr;
-#pragma unroll
-    for (int d = 0; d < DHP; ++d) o[d] *= corr;
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      s[j] = expf(s[j] - m_new);  // 0 for masked keys
-      l += s[j];
-    }
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-#pragma unroll
-      for (int d = 0; d < DHP; d += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(v_s + j * DHP + d);
-        o[d] = fmaf(s[j], vv.x, o[d]);
-        o[d + 1] = fmaf(s[j], vv.y, o[d + 1]);
-        o[d + 2] = fmaf(s[j], vv.z, o[d + 2]);
-        o[d + 3] = fmaf(s[j], vv.w, o[d + 3]);
-      }
-    }
-    m = m_new;
+  template <int DHP, int ROWS, bool kAligned>
+  static cudaError_t launch(const Args<float>& a, int heads, int batch,
+                            cudaStream_t s) {
+    using C = flash::F32Tile<DHP, ROWS / 4>;
+    static bool attr_set = false;
+    return flash::launch(attn_qkv_f32<DHP, ROWS / 4, kAligned>, attr_set,
+                         C::kSmemBytes, C::kThreads, C::kRows, heads, batch,
+                         a, s);
   }
-
-  // merge the four key splits: O = sum_w o_w e^(m_w - M) / sum_w l_w e^(m_w - M)
-  __syncthreads();  // every warp is done with its K/V slot
-  float* o_s = area;                          // [kWarps][kRows][QS]
-  float* ml_s = area + kWarps * kRows * QS;   // [kWarps][kRows][2]
-  float* o_mine = o_s + (warp * kRows + lane) * QS;
-#pragma unroll
-  for (int d = 0; d < DHP; d += 4)
-    *reinterpret_cast<float4*>(o_mine + d) =
-        make_float4(o[d], o[d + 1], o[d + 2], o[d + 3]);
-  ml_s[(warp * kRows + lane) * 2] = m;
-  ml_s[(warp * kRows + lane) * 2 + 1] = l;
-  __syncthreads();
-
-  float big_m = -INFINITY;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w)
-    big_m = fmaxf(big_m, ml_s[(w * kRows + lane) * 2]);
-  float wgt[kWarps];
-  float big_l = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    wgt[w] = expf(ml_s[(w * kRows + lane) * 2] - big_m);  // 0 for idle warps
-    big_l += ml_s[(w * kRows + lane) * 2 + 1] * wgt[w];
-  }
-  const float inv_l = 1.f / big_l;
-  constexpr int kChunk = DHP / kWarps;  // this warp merges dims of its chunk
-  float* res = q_s + lane * QS;         // q is no longer read: reuse it
-#pragma unroll
-  for (int e = 0; e < kChunk; ++e) {
-    const int d = warp * kChunk + e;
-    float acc = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w)
-      acc = fmaf(o_s[(w * kRows + lane) * QS + d], wgt[w], acc);
-    res[d] = acc * inv_l;
-  }
-  __syncthreads();
-
-  T* og = out + (long)b * n * c + (long)h * dh;
-  for (int i = threadIdx.x; i < kRows * dh; i += blockDim.x) {
-    const int r = i / dh, d = i % dh, row = q0 + r;
-    if (row < n) store(og + (long)row * c + d, q_s[r * QS + d]);
-  }
-}
-
-template <typename T, int DHP>
-cudaError_t launch(const void* qkv, void* out, int batch, int n, int heads,
-                   int dh, float scale, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<DHP>() * (int)sizeof(float);
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        attn_qkv_kernel<T, DHP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
-  dim3 grid((n + kRows - 1) / kRows, heads, batch);
-  attn_qkv_kernel<T, DHP><<<grid, kWarps * 32, bytes, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), n, heads, dh, scale);
-  return cudaGetLastError();
-}
+};
 
 template <typename T>
-cudaError_t dispatch(const void* qkv, void* out, int batch, int n, int heads,
-                     int dh, float scale, cudaStream_t stream) {
-  if (dh <= 16) return launch<T, 16>(qkv, out, batch, n, heads, dh, scale, stream);
-  if (dh <= 32) return launch<T, 32>(qkv, out, batch, n, heads, dh, scale, stream);
-  if (dh <= 64) return launch<T, 64>(qkv, out, batch, n, heads, dh, scale, stream);
-  return launch<T, 128>(qkv, out, batch, n, heads, dh, scale, stream);
+Args<T> packed_args(const void* qkv, void* out, int n, int heads, int dh,
+                    float scale) {
+  const long c = (long)heads * dh, rs = 3 * c;
+  const T* base = static_cast<const T*>(qkv);
+  Args<T> a;
+  a.q = {base, n * rs, dh, rs};
+  a.k = {base + c, n * rs, dh, rs};
+  a.v = {base + 2 * c, n * rs, dh, rs};
+  a.out = {static_cast<T*>(out), n * c, dh, c};
+  a.nq = a.nk = n;
+  a.dh = dh;
+  a.scale = scale;
+  return a;
 }
 
 }  // namespace
@@ -230,18 +86,31 @@ cudaError_t dispatch(const void* qkv, void* out, int batch, int n, int heads,
 extern "C" {
 
 // qkv [batch, n, 3*heads*dh] and out [batch, n, heads*dh], both contiguous,
-// of one dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError().
+// of one dtype: 0 = float32, 1 = bfloat16. q_tile: query rows per block, 64
+// or 128. aligned = 1 takes the 16-byte path (cp.async in bf16, vector
+// loads in f32; needs dh a multiple of 16 bytes' worth of elements, 8 in
+// bf16 and 4 in f32, and both pointers 16-byte aligned), 0 element loads.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for what the kernel
+// does not take.
 int iseg_attention_qkv(const void* qkv, void* out, int batch, int n,
-                       int heads, int dh, float scale, int dtype,
-                       void* stream) {
+                       int heads, int dh, float scale, int dtype, int q_tile,
+                       int aligned, void* stream) {
   if (batch < 1 || n < 1 || heads < 1 || dh < 1 || dh > 128 ||
-      batch > 65535 || heads > 65535)
+      batch > 65535 || heads > 65535 || (q_tile != 64 && q_tile != 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch<float>(qkv, out, batch, n, heads, dh, scale, s);
+  const long elem = dtype == 1 ? 2 : 4;
+  if (aligned && !(flash::aligned16(qkv, elem, dh, 3L * heads * dh, 0) &&
+                   flash::aligned16(out, elem, dh, (long)heads * dh, 0)))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(qkv, out, batch, n, heads, dh, scale, s);
+    return (int)flash::dispatch<KernelA>(
+        packed_args<bf16>(qkv, out, n, heads, dh, scale), heads, batch,
+        q_tile, aligned, s);
+  if (dtype == 0)
+    return (int)flash::dispatch<KernelA>(
+        packed_args<float>(qkv, out, n, heads, dh, scale), heads, batch,
+        q_tile, aligned, s);
   return (int)cudaErrorInvalidValue;
 }
 

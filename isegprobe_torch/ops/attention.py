@@ -14,10 +14,12 @@ plain PyTorch versions.
   ``isegprobe_tpu/ops/attention.py:mha``. Its kernel D (``csrc/mha.cu``)
   replaces the Pallas TPU kernel ``_mha_pallas``.
 
-Each kernel's source note gives its bound (``4·B·H·Nq·Nk·dh`` operations) and
-design. On a CPU tensor both entries compute the plain version; on a CUDA
-tensor they launch the kernel or raise. ``mha_qkv.launches`` and
-``mha.launches`` count the launches.
+Both kernels run on one flash core (``csrc/flash_core.cuh``, whose note
+gives the bound and design): bf16 on tensor cores over an asynchronous K/V
+ring, f32 on register-tiled CUDA-core FMAs. :func:`_plan` picks the query
+tile and the load path from the shape. On a CPU tensor both entries compute
+the plain version; on a CUDA tensor they launch the kernel or raise.
+``mha_qkv.launches`` and ``mha.launches`` count the launches.
 """
 
 from __future__ import annotations
@@ -31,8 +33,60 @@ from isegprobe_torch.ops import cuda_lib
 __all__ = ["mha", "mha_qkv"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the card's streaming multiprocessors (H100 SXM)
+SMS = 132
+Q_TILES = (64, 128)
 _lib = None
 _mha_lib = None
+
+
+def _plan(b: int, n: int, heads: int, dh: int,
+          dtype: torch.dtype) -> tuple[int, bool]:
+    """The kernel's query tile and load path for ``b`` x ``heads`` heads of
+    ``n`` query rows of ``dh`` -> ``(q_tile, aligned)``.
+
+    A 128-row tile reads each head's K and V half as often as a 64-row one
+    but gives half the blocks: it is taken only where the grid then holds at
+    least two blocks per SM (at [2, 1025, 1152] it would give 108 blocks for
+    132 SMs; 64 rows give 204). In f32 with dh <= 64 the 64-row tile is
+    kept throughout: there the 128-row one was the slower on the H100 (A at
+    [16, 1025, 1152]: 0.970 against 0.920 ms), while at dh = 101 it was the
+    faster (D at LoftUp's [8, 28672, 4, 101]: 12.99 against 15.85 ms).
+    ``aligned``: a row of dh values is a whole number of 16-byte chunks (dh
+    % 8 == 0 in bf16, % 4 in f32), so the 16-byte load path can take it;
+    the wrapper also checks its pointers."""
+    blocks = -(-n // 128) * heads * b
+    big = blocks >= 2 * SMS and (dtype == torch.bfloat16 or dh > 64)
+    return (128 if big else 64), dh % _vec(dtype) == 0
+
+
+def _vec(dtype: torch.dtype) -> int:
+    """Elements of ``dtype`` in 16 bytes."""
+    return 16 // dtype.itemsize
+
+
+def _kv_width(dh: int, dtype: torch.dtype) -> int:
+    """The row width of kernel D's K/V scratch: dh rounded up to whole
+    32-byte sectors (LoftUp's 101: 112 in bf16, 104 in f32), so that every
+    row starts on a sector; the kernel reads whole 16-byte chunks of it."""
+    return -(-dh // (2 * _vec(dtype))) * 2 * _vec(dtype)
+
+
+def _launch_plan(plan, b: int, n: int, heads: int, dh: int,
+                 dtype: torch.dtype, ptrs, what: str) -> tuple[int, bool]:
+    """``plan`` if given and takeable, else :func:`_plan`'s, on the
+    16-byte path only where every pointer in ``ptrs`` is 16-byte aligned."""
+    if plan is None:
+        q_tile, aligned = _plan(b, n, heads, dh, dtype)
+        return q_tile, aligned and not any(p % 16 for p in ptrs)
+    q_tile, aligned = plan
+    if q_tile not in Q_TILES:
+        raise ValueError(f"{what} is built for query tiles {Q_TILES}, not "
+                         f"{q_tile}")
+    if aligned and (dh % _vec(dtype) or any(p % 16 for p in ptrs)):
+        raise ValueError(f"{what}: the 16-byte path takes rows of whole "
+                         f"16-byte chunks and 16-byte aligned tensors")
+    return q_tile, aligned
 
 
 def _mha_qkv_plain(qkv: torch.Tensor, num_heads: int,
@@ -55,14 +109,14 @@ def _load():
         lib = cuda_lib.load("attention")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.iseg_attention_qkv.argtypes = [vp, vp, ci, ci, ci, ci,
-                                           ctypes.c_float, ci, vp]
+                                           ctypes.c_float, ci, ci, ci, vp]
         lib.iseg_attention_qkv.restype = ci
         _lib = lib
     return _lib
 
 
-def _mha_qkv_cuda(qkv: torch.Tensor, num_heads: int,
-                  scale: float) -> torch.Tensor:
+def _mha_qkv_cuda(qkv: torch.Tensor, num_heads: int, scale: float,
+                  plan) -> torch.Tensor:
     b, n, three_c = qkv.shape
     c = three_c // 3
     dh = c // num_heads
@@ -80,19 +134,24 @@ def _mha_qkv_cuda(qkv: torch.Tensor, num_heads: int,
             "torch.no_grad() or on the CPU")
     lib = _load()
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+    q_tile, aligned = _launch_plan(plan, b, n, num_heads, dh, qkv.dtype,
+                                   (qkv.data_ptr(), out.data_ptr()),
+                                   "attention kernel")
     with torch.cuda.device(qkv.device):
         err = lib.iseg_attention_qkv(
             qkv.data_ptr(), out.data_ptr(), b, n, num_heads, dh, float(scale),
-            _DTYPE_CODES[qkv.dtype], cuda_lib.current_stream(qkv))
+            _DTYPE_CODES[qkv.dtype], q_tile, int(aligned),
+            cuda_lib.current_stream(qkv))
     cuda_lib.check(lib, err, "attention kernel launch")
     return out
 
 
-def mha_qkv(qkv: torch.Tensor, num_heads: int,
-            scale: float | None = None) -> torch.Tensor:
+def mha_qkv(qkv: torch.Tensor, num_heads: int, scale: float | None = None,
+            plan: tuple[int, bool] | None = None) -> torch.Tensor:
     """Self-attention over a packed ``[B, N, 3·C]`` qkv tensor -> ``[B, N, C]``
     (q, k, v at column offsets 0, C, 2C; ``num_heads`` heads of C/num_heads).
-    """
+    ``plan`` = ``(q_tile, aligned)`` overrides :func:`_plan` on the card
+    (both tiles and both load paths are checked that way)."""
     dh = qkv.shape[-1] // 3 // num_heads
     if scale is None:
         scale = dh**-0.5
@@ -100,7 +159,7 @@ def mha_qkv(qkv: torch.Tensor, num_heads: int,
         return _mha_qkv_plain(qkv, num_heads, scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"mha_qkv runs on cpu or cuda, not {qkv.device}")
-    out = _mha_qkv_cuda(qkv, num_heads, scale)
+    out = _mha_qkv_cuda(qkv, num_heads, scale, plan)
     mha_qkv.launches += 1
     return out
 
@@ -120,20 +179,34 @@ def _mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def _relayout_kv(k: torch.Tensor, v: torch.Tensor,
+                 width: int) -> torch.Tensor:
+    """K and V ``[B, Nk, H, dh]`` -> one head-major scratch ``[2, B, H, Nk,
+    width]`` (k, then v), zero beyond dh: rows that 16-byte copies can read
+    whatever dh is."""
+    b, nk, heads, dh = k.shape
+    kv = torch.empty((2, b, heads, nk, width), dtype=k.dtype,
+                     device=k.device)
+    kv[0, ..., :dh].copy_(k.transpose(1, 2))
+    kv[1, ..., :dh].copy_(v.transpose(1, 2))
+    kv[..., dh:].zero_()
+    return kv
+
+
 def _load_mha():
     global _mha_lib
     if _mha_lib is None:
         lib = cuda_lib.load("mha")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.iseg_mha.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                 ctypes.c_float, ci, vp]
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        lib.iseg_mha.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, cl, cl,
+                                 cl, ctypes.c_float, ci, ci, ci, vp]
         lib.iseg_mha.restype = ci
         _mha_lib = lib
     return _mha_lib
 
 
 def _mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              scale: float) -> torch.Tensor:
+              scale: float, plan) -> torch.Tensor:
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"attention kernel D takes float32 or bfloat16, got "
                         f"{q.dtype}")
@@ -145,6 +218,7 @@ def _mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"attention kernel D needs a contiguous 4-D "
                              f"{name} [B, N, H, Dh] on {q.device}")
     b, nq, heads, dh = q.shape
+    nk = k.shape[1]
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (heads, dh):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not match")
@@ -156,26 +230,34 @@ def _mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "torch.no_grad() or on the CPU")
     lib = _load_mha()
     out = torch.empty_like(q)
+    q_tile, aligned = _launch_plan(plan, b, nq, heads, dh, q.dtype,
+                                   (q.data_ptr(), out.data_ptr()),
+                                   "attention kernel D")
+    width = _kv_width(dh, q.dtype)
+    kv = _relayout_kv(k, v, width)
     with torch.cuda.device(q.device):
-        err = lib.iseg_mha(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           out.data_ptr(), b, nq, k.shape[1], heads, dh,
-                           float(scale), _DTYPE_CODES[q.dtype],
-                           cuda_lib.current_stream(q))
+        err = lib.iseg_mha(q.data_ptr(), kv[0].data_ptr(), kv[1].data_ptr(),
+                           out.data_ptr(), b, nq, nk, heads, dh,
+                           heads * nk * width, nk * width, width,
+                           float(scale), _DTYPE_CODES[q.dtype], q_tile,
+                           int(aligned), cuda_lib.current_stream(q))
     cuda_lib.check(lib, err, "attention kernel D launch")
     return out
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-        scale: float | None = None) -> torch.Tensor:
+        scale: float | None = None,
+        plan: tuple[int, bool] | None = None) -> torch.Tensor:
     """Attention over ``[B, Nq, H, Dh]`` queries and ``[B, Nk, H, Dh]`` keys
-    and values -> ``[B, Nq, H, Dh]`` in q's dtype (no masking)."""
+    and values -> ``[B, Nq, H, Dh]`` in q's dtype (no masking). ``plan`` =
+    ``(q_tile, aligned)`` overrides :func:`_plan` on the card."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return _mha_plain(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"mha runs on cpu or cuda, not {q.device}")
-    out = _mha_cuda(q, k, v, scale)
+    out = _mha_cuda(q, k, v, scale, plan)
     mha.launches += 1
     return out
 

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library, loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds). Libraries land in
-``csrc/build/`` (git-ignored) under a name that hashes the source and the
-flags, so an edited source is rebuilt and a stale library is never loaded.
+``csrc/build/`` (git-ignored) under a name that hashes the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.
 
 Building happens at first use, never at import: the CPU tests import every
 module on machines without ``nvcc``. :func:`build` compiles several sources
@@ -47,9 +48,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """Where the library of ``csrc/<name>.cu`` lives: the name hashes the
+    source, every shared header ``csrc/*.cuh`` (a source may include any of
+    them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict[str, str]:

@@ -9,7 +9,9 @@ be left out:
 
 Tolerances: f32 differs only in summation order, rsqrtf and the online
 softmax (~1e-6 relative), so 1e-5; bf16 outputs may differ by one bf16
-rounding step (2^-8 relative), so 2e-2. The EDT row kernel computes exact
+rounding step (2^-8 relative), so 2e-2. Kernels A and D (one flash core)
+are held at both query tiles and both load paths, forced through the
+entries' ``plan``. The EDT row kernel computes exact
 integers in f32 and is held bitwise to its plain version. The JBU kernel
 (E) and its plain version clamp different normalisers, which agree where
 neither clamp binds (sigma 0.8 here); E's output is a weighted mean of 49
@@ -43,11 +45,30 @@ def _randn(shape, seed, device, dtype=torch.float32):
     return torch.randn(shape, generator=g).to(device, dtype)
 
 
+def _plans(dtype, dh):
+    """Every (q_tile, aligned) the kernels take for this dtype and dh."""
+    vec = 8 if dtype == torch.bfloat16 else 4
+    paths = [False] + ([True] if dh % vec == 0 else [])
+    return [(tile, a) for tile in attention.Q_TILES for a in paths]
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 2 elements past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 2, dtype=t.dtype, device=t.device)
+    out = buf[2:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,heads,dh", [(2, 1025, 6, 64), (2, 131, 3, 16),
                                            (1, 77, 2, 128), (1, 5, 2, 40),
-                                           (2, 257, 8, 32)])
+                                           (2, 257, 8, 32), (2, 63, 3, 13),
+                                           (1, 64, 2, 101), (2, 65, 2, 64),
+                                           (1, 128, 3, 40), (1, 129, 2, 16),
+                                           (2, 1, 2, 64), (1, 1025, 2, 101)])
 def test_attention_kernel_matches_plain(cuda_device, dtype, b, n, heads, dh):
     qkv = _randn((b, n, 3 * heads * dh), n, cuda_device, dtype)
     before = attention.mha_qkv.launches
@@ -58,6 +79,37 @@ def test_attention_kernel_matches_plain(cuda_device, dtype, b, n, heads, dh):
     want = attention._mha_qkv_plain(qkv, heads, dh**-0.5)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,heads,dh", [(2, 1, 2, 64), (1, 63, 2, 13),
+                                           (2, 64, 3, 16), (1, 65, 2, 40),
+                                           (2, 128, 2, 64), (1, 129, 2, 101),
+                                           (2, 1025, 6, 64),
+                                           (1, 1025, 2, 128)])
+def test_attention_kernel_every_tile_and_load_path(cuda_device, dtype, b, n,
+                                                   heads, dh):
+    """Both query tiles and both load paths, forced through the entry's
+    plan: N = 65 and 129 leave a query tile with one valid row, N = 1, 63,
+    65 and 129 a key tile with one or most of its keys masked; and a qkv
+    that starts off a 16-byte boundary takes the element path."""
+    qkv = _randn((b, n, 3 * heads * dh), n + dh, cuda_device, dtype)
+    want = attention._mha_qkv_plain(qkv, heads, dh**-0.5)
+    for plan in _plans(dtype, dh):
+        before = attention.mha_qkv.launches
+        got = attention.mha_qkv(qkv, heads, plan=plan)
+        torch.cuda.synchronize()
+        assert attention.mha_qkv.launches == before + 1, plan
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+    odd = _misaligned(qkv)
+    assert odd.data_ptr() % 16 != 0
+    got = attention.mha_qkv(odd, heads)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    with pytest.raises(ValueError):
+        attention.mha_qkv(odd, heads, plan=(64, True))
 
 
 @pytest.mark.cuda
@@ -121,6 +173,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         attention.mha_qkv(qkv.half(), 2)
     with pytest.raises(ValueError):
         attention.mha_qkv(_randn((1, 9, 3 * 256), 0, cuda_device), 1)  # dh 256
+    with pytest.raises(ValueError):
+        attention.mha_qkv(qkv, 2, plan=(32, False))  # no such tile
+    with pytest.raises(ValueError):  # dh 13: no 16-byte path
+        attention.mha_qkv(_randn((1, 9, 3 * 13), 0, cuda_device), 1,
+                          plan=(64, True))
     with pytest.raises(NotImplementedError):
         attention.mha_qkv(qkv.requires_grad_(), 2)
     x = _randn((4, 2048), 0, cuda_device)
@@ -139,7 +196,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,nq,nk,heads,dh", [
     (2, 1000, 1024, 4, 101), (1, 300, 77, 2, 64), (2, 129, 200, 3, 13),
-    (1, 64, 1, 1, 128), (1, 5, 130, 2, 40)])
+    (1, 64, 1, 1, 128), (1, 5, 130, 2, 40), (2, 1025, 777, 2, 16),
+    (1, 65, 1024, 4, 101), (2, 63, 777, 2, 64), (1, 1, 1, 1, 13)])
 def test_cross_attention_kernel_matches_plain(cuda_device, dtype, b, nq, nk,
                                               heads, dh):
     q = _randn((b, nq, heads, dh), nq, cuda_device, dtype)
@@ -153,6 +211,37 @@ def test_cross_attention_kernel_matches_plain(cuda_device, dtype, b, nq, nk,
     want = attention._mha_plain(q, k, v, dh**-0.5)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nq,nk,heads,dh", [
+    (1, 1, 1, 2, 64), (2, 63, 777, 2, 13), (1, 64, 1024, 2, 16),
+    (2, 65, 1, 1, 40), (1, 128, 777, 2, 101), (2, 129, 1024, 4, 101),
+    (1, 1025, 777, 2, 64), (1, 129, 65, 1, 128)])
+def test_cross_attention_every_tile_and_load_path(cuda_device, dtype, b, nq,
+                                                  nk, heads, dh):
+    """Kernel D at both query tiles and both q/out load paths, forced
+    through the entry's plan (Nk = 1 and 65 leave a key tile with one valid
+    key; Nq = 65 and 129 a query tile with one valid row), and a q off a
+    16-byte boundary on the element path."""
+    q = _randn((b, nq, heads, dh), nq + dh, cuda_device, dtype)
+    k = _randn((b, nk, heads, dh), nk, cuda_device, dtype)
+    v = _randn((b, nk, heads, dh), nk + 1, cuda_device, dtype)
+    want = attention._mha_plain(q, k, v, dh**-0.5)
+    for plan in _plans(dtype, dh):
+        before = attention.mha.launches
+        got = attention.mha(q, k, v, plan=plan)
+        torch.cuda.synchronize()
+        assert attention.mha.launches == before + 1, plan
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+    odd = _misaligned(q)
+    got = attention.mha(odd, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    with pytest.raises(ValueError):
+        attention.mha(odd, k, v, plan=(128, True))
 
 
 @pytest.mark.cuda
@@ -192,6 +281,11 @@ def test_kernels_d_and_e_raise_on_what_they_do_not_take(cuda_device):
     big = _randn((1, 9, 1, 160), 0, cuda_device)
     with pytest.raises(ValueError):
         attention.mha(big, big, big)  # dh > 128
+    with pytest.raises(ValueError):
+        attention.mha(q, q, q, plan=(256, False))  # no such tile
+    with pytest.raises(ValueError):  # dh 101: no 16-byte path for q
+        r = _randn((1, 9, 1, 101), 0, cuda_device, torch.bfloat16)
+        attention.mha(r, r, r, plan=(128, True))
     with pytest.raises(NotImplementedError):
         attention.mha(q.requires_grad_(), q, q)
     hr = _randn((1, 8, 8, 4), 0, cuda_device)
