@@ -9,8 +9,10 @@ does not hold:
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels of ``isegprobe_torch/csrc`` (A attention, B
    LayerNorm, C EDT row envelope, D cross-attention, E JBU filter, F and G
-   attention variants) with nvcc, one process per source, all started
-   together, and print the ptxas report;
+   attention variants; A, D, F and G on the flash core
+   ``csrc/flash_core.cuh``) with nvcc, one process per source, all started
+   together, print the ptxas report and, on a line of its own, the count of
+   its C7515 lines (wgmma serialized by ptxas);
 3. hold kernels A and B against their plain PyTorch versions on the card, at
    the flagship shapes in f32 and bf16, at the device loop's batch of 16
    crops, and at attention shapes with dh != 64 (A also at dh = 13, whose
@@ -67,7 +69,9 @@ does not hold:
 13. the attention-variant sweep: kernels F (nodiv) and G (merged) against
     their plain versions at every query tile and exp dtype they take, at
     [2, 1025, 1152], at the sweep's [16, 1025, 1152] and at the ragged
-    [3, 77, 768] (4 heads), in f32 and bf16, and in f32 against kernel A;
+    [3, 77, 768] (4 heads), in f32 and bf16, and bit for bit against the
+    core they share with kernel A (G equals F at the same tile and exp; F
+    with an f32 exp equals A at the same plan);
     their plain versions and SDPA timed at the sweep's shape. Then main
     path 7, the sweep through its package entry (``isegprobe_torch.scripts.
     bench_attn_variants.main``): every variant within tolerance of the f32
@@ -75,6 +79,7 @@ does not hold:
     line), with every counter set to 0 just before and read just after, and
     each variant's kernel launched exactly as often as the sweep calls it;
 14. print the ``{"kernels": [...]}`` line (kernels A-G, launches by path,
+    the flash core named beside A, D, F and G,
     the flagship's and LoftUp's bf16 forwards among the paths; A, F and G
     also in bf16 at the sweep's shape, D at the LoftUp loop's; A and D with
     the plan their wrapper picked) and, last, the ``{"ok": true, "device":
@@ -287,7 +292,7 @@ def attention_case(torch, F, attention, b, n, heads, dh, dtype, seed,
     res.update(_bound(ops, nbytes, dtype, exps=float(b * heads * n * n)))
     what = dict(kernel="mha_qkv", shape=[b, n, 3 * c], heads=heads, dh=dh,
                 dtype=dtype)
-    chosen = attention._plan(b, n, heads, dh, tdt)
+    chosen = attention._plan(b, n, heads, dh, tdt, qkv.device)
     res.update(what, plan=list(chosen))
     records = [res]
     if all_plans:
@@ -301,7 +306,9 @@ def variant_cases(torch, F, attention, attn_variants, b, n, heads, dtype,
                   seed, timed: bool) -> list:
     """Hold kernels F (nodiv) and G (merged) against their plain versions at
     one shape, at every query tile and every exp dtype the entries take
-    (bf16 inputs: f32 and bf16 exp), and in f32 against kernel A. With
+    (bf16 inputs: f32 and bf16 exp), and bit for bit against the flash core
+    they share with kernel A: G's output equals F's at the same tile and
+    exp, and F's with an f32 exp equals A's at the same plan. With
     ``timed``, the default tile of each (kernel, exp) gets its plain
     version's and SDPA's times on the same q, k and v, and its bound; the
     kernel itself is timed by the sweep. One record each."""
@@ -311,11 +318,10 @@ def variant_cases(torch, F, attention, attn_variants, b, n, heads, dtype,
     qkv = torch.randn((b, n, 3 * c), generator=g, device="cuda").to(tdt)
     scale = 64**-0.5
     expdts = ["float32"] + (["bfloat16"] if dtype == "bfloat16" else [])
-    kernel_a = (attention.mha_qkv(qkv, heads, scale)
-                if dtype == "float32" else None)
     q, k, v = qkv.view(b, n, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
     library_ms = None
     records = []
+    kernel_f = {}  # (expdt, tile) -> F's output
     for name, entry, plain, tiles in (
             ("mha_qkv_nodiv", attn_variants.mha_qkv_nodiv,
              attn_variants._nodiv_plain, attn_variants.NODIV_TILES),
@@ -328,10 +334,17 @@ def variant_cases(torch, F, attention, attn_variants, b, n, heads, dtype,
                 got = entry(qkv, heads, scale, expdt=edt, q_tile=tile)
                 torch.cuda.synchronize()
                 res = compare(torch, got, want, dtype)
-                if kernel_a is not None:
-                    vs_a = compare(torch, got, kernel_a, dtype)
-                    res["max_abs_err_vs_kernel_a"] = vs_a["max_abs_err"]
-                    res["ok"] = res["ok"] and vs_a["ok"]
+                if name == "mha_qkv_nodiv":
+                    kernel_f[expdt, tile] = got
+                    if expdt == "float32":
+                        same = torch.equal(got, attention.mha_qkv(
+                            qkv, heads, scale, plan=(tile, True)))
+                        res["bitwise_equal_kernel_a"] = same
+                        res["ok"] = res["ok"] and same
+                else:
+                    same = torch.equal(got, kernel_f[expdt, tile])
+                    res["bitwise_equal_kernel_f"] = same
+                    res["ok"] = res["ok"] and same
                 res.update(kernel=name, shape=[b, n, 3 * c], heads=heads,
                            dtype=dtype, expdt=expdt, tile=tile)
                 if timed and tile == tiles[0]:
@@ -348,6 +361,7 @@ def variant_cases(torch, F, attention, attn_variants, b, n, heads, dtype,
                                       dtype, exps=float(b * heads * n * n)))
                 records.append(res)
             del want
+    del kernel_f
     return records
 
 
@@ -468,7 +482,7 @@ def cross_attention_case(torch, F, attention, b, nq, nk, heads, dh, dtype,
     res.update(_bound(ops, nbytes, dtype, exps=float(b * heads * nq * nk)))
     what = dict(kernel="mha", shape=[[b, nq, heads, dh], [b, nk, heads, dh]],
                 dtype=dtype)
-    chosen = attention._plan(b, nq, heads, dh, tdt)
+    chosen = attention._plan(b, nq, heads, dh, tdt, q.device)
     res.update(what, plan=list(chosen))
     records = [res]
     if all_plans:
@@ -1017,7 +1031,8 @@ def learned_family(torch, name: str) -> dict:
 
 def variant_sweep(torch, F) -> tuple:
     """Kernels F (nodiv) and G (merged) against their plain versions and
-    kernel A, at B=2, at the sweep's shape and at a ragged small shape; then
+    bit for bit against each other and kernel A, at B=2, at the sweep's
+    shape and at a ragged small shape; then
     main path 7, the sweep through its package entry, with every counter set
     to 0 just before and read just after: each variant launches its kernel
     exactly ``LAUNCHES_PER_VARIANT`` times. The checks at the sweep's shape
@@ -1038,8 +1053,8 @@ def variant_sweep(torch, F) -> tuple:
         print("check", json.dumps(c))
     bad = [c for c in variant_checks if not c["ok"]]
     if bad:
-        fail(f"kernel F or G disagrees with its plain version or kernel A: "
-             f"{bad}")
+        fail(f"kernel F or G disagrees with its plain version, or G with F "
+             f"or F with kernel A bit for bit: {bad}")
     zero_counters()
     sweep = bav.main()
     sweep_launches = counters()
@@ -1110,10 +1125,16 @@ def main() -> int:
     results["build_s"] = time.time() - t0
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C7515" in line:
                 print(f"[ptxas {name}] {line.strip()}")
     print(f"built {sorted(reports) or 'nothing (cached)'} in "
           f"{results['build_s']:.1f} s")
+    # wgmma serialized by ptxas (C7515) in the sources built by this run
+    results["ptxas_c7515_lines"] = sum(
+        "C7515" in line for log in reports.values()
+        for line in log.splitlines())
+    print(f"ptxas C7515 lines: {results['ptxas_c7515_lines']} (sources "
+          f"built in this run: {sorted(reports)})")
 
     # 3. kernels A and B against their plain versions, timed beside them;
     # batch 16 is the device loop's forward (8 lanes, flip TTA)
@@ -1433,6 +1454,8 @@ def main() -> int:
         "mha_qkv_merged": ("isegprobe_torch/csrc/attn_variants.cu",
                            "scripts/bench_attn_variants.py:101",
                            sweep_shape)}
+    # the kernels whose source instantiates the shared flash core
+    on_core = ("mha_qkv", "mha", "mha_qkv_nodiv", "mha_qkv_merged")
     paths = {"host_protocol": launches, "device_loop": loop_launches,
              "flagship_bf16_forward": expected(
                  **noc["bf16_forward"]["launches_per_forward"]),
@@ -1455,6 +1478,8 @@ def main() -> int:
         if not any(by_path.values()):
             fail(f"kernel {name} was launched on no main path: {by_path}")
         entry = {"name": name, "route": "cuda", "source": src,
+                 **({"core": "isegprobe_torch/csrc/flash_core.cuh"}
+                    if name in on_core else {}),
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
                  **{k: c[k] for k in timing_keys}, "shape": shape}

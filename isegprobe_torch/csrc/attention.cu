@@ -65,22 +65,6 @@ struct KernelA {
   }
 };
 
-template <typename T>
-Args<T> packed_args(const void* qkv, void* out, int n, int heads, int dh,
-                    float scale) {
-  const long c = (long)heads * dh, rs = 3 * c;
-  const T* base = static_cast<const T*>(qkv);
-  Args<T> a;
-  a.q = {base, n * rs, dh, rs};
-  a.k = {base + c, n * rs, dh, rs};
-  a.v = {base + 2 * c, n * rs, dh, rs};
-  a.out = {static_cast<T*>(out), n * c, dh, c};
-  a.nq = a.nk = n;
-  a.dh = dh;
-  a.scale = scale;
-  return a;
-}
-
 }  // namespace
 
 extern "C" {
@@ -105,11 +89,11 @@ int iseg_attention_qkv(const void* qkv, void* out, int batch, int n,
     return (int)cudaErrorInvalidValue;
   if (dtype == 1)
     return (int)flash::dispatch<KernelA>(
-        packed_args<bf16>(qkv, out, n, heads, dh, scale), heads, batch,
+        flash::packed_args<bf16>(qkv, out, n, heads, dh, scale), heads, batch,
         q_tile, aligned, s);
   if (dtype == 0)
     return (int)flash::dispatch<KernelA>(
-        packed_args<float>(qkv, out, n, heads, dh, scale), heads, batch,
+        flash::packed_args<float>(qkv, out, n, heads, dh, scale), heads, batch,
         q_tile, aligned, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,8 @@
 // The flash-attention core shared by kernel A (csrc/attention.cu, packed-qkv
-// self-attention) and kernel D (csrc/mha.cu, cross-attention), for Hopper
-// (sm_90a).
+// self-attention), kernel D (csrc/mha.cu, cross-attention) and the sweep's
+// variants F and G (csrc/attn_variants.cu), for Hopper (sm_90a).
 //
-// Both compute, for each (batch b, head h, query row i),
+// All compute, for each (batch b, head h, query row i),
 //     out[b, i, h, :] = sum_j softmax_j(q[b,i,h] . k[b,j,h] * scale) v[b,j,h]
 // over nq queries and nk keys of dh <= 128 values each, with f32 scores,
 // softmax and accumulation and the output in the input dtype. q, k, v and
@@ -10,7 +10,14 @@
 // p + b*batch + h*head + r*row + d, so one core reads A's packed [B, N, 3C]
 // tensor and D's [B, N, H, dh] tensors (or D's head-major K/V relayout)
 // without a copy. The .cu files hold the __global__ entries (one name per
-// kernel, so a profile tells A from D) and the dispatch.
+// kernel, so a profile tells A, D, F and G apart) and the dispatch.
+//
+// Two template options serve the sweep. HP, the heads of a block: 1, or 2
+// (kernel G) for a pair of heads whose columns lie side by side (head
+// stride == dh == DHP): the pair's 2*DHP columns of q, K and V are staged
+// once and each warpgroup (bf16) or group of lanes (f32) computes one head
+// from its half, exactly as a one-head block computes it. kExpBf16 (bf16
+// only): e is taken by Hopper's packed bf16 ex2 (below).
 //
 // Bound on this card: 4*B*H*nq*nk*dh operations (QK^T and PV) at the bf16
 // tensor-core rate (989 TFLOP/s) or the f32 CUDA-core rate (67 TFLOP/s),
@@ -30,9 +37,15 @@
 // * QK^T: DHP/16 wgmma.m64n64k16 per warpgroup, q and K both read from
 //   shared memory by descriptor (K-major). PV: 4 wgmma.m64nDHPk16, e from
 //   registers (the score accumulators' layout is the A fragment's) and V
-//   by descriptor (MN-major, transposed by the instruction). PV is left in
-//   flight across the next tile's barrier and QK^T, and one wait retires
-//   both. The descriptors are written out in PTX (smem_desc).
+//   by descriptor (MN-major, transposed by the instruction). Each product
+//   is retired (wgmma.wait_group 0) in its own tile, PV at the tile's end.
+//   The descriptors are written out in PTX (smem_desc).
+// * Why PV is not left in flight across the next tile's barrier and QK^T
+//   (times in PERF.md): with o zeroed before the loop, ptxas then
+//   serialized every wgmma of the loop (C7515, "non wgmma instructions
+//   defining accumulator registers"); leaving o to the first PV cleared
+//   that, but e's fragments, live beside the scores, spilled at the
+//   128-register cap and the kernels were slower than serialized.
 // * Layout: q, K and V tiles are stored in the 32-byte swizzle (blocks of
 //   16 columns, rows of 32 bytes, 16-byte chunk c of row r at chunk c ^
 //   ((r / 4) % 2)), which wgmma reads without bank conflicts at every DHP,
@@ -40,16 +53,28 @@
 //   101] took 0.526 ms with unswizzled 8x16-byte core matrices; A at
 //   [16, 1025, 1152] 0.124 ms with the 128-byte swizzle, which only 64- and
 //   128-wide rows can take (PERF.md gives this layout's times).
-// * This replaced a checked intermediate of the same ring with mma.sync.
-//   m16n8k16 products on ldmatrix fragments (kernel F's code): 0.152 ms at
-//   [16, 1025, 1152] and 0.513 ms at D's [2, 28672, 4, 101] (PERF.md).
+// * wgmma replaced a checked intermediate of the same ring with mma.sync.
+//   m16n8k16 products on ldmatrix fragments: 0.152 ms at [16, 1025, 1152]
+//   and 0.513 ms at D's [2, 28672, 4, 101] (PERF.md).
 // * Online softmax (flash form): the running max and sum are f32; e =
 //   exp(s - m_running) is rounded to bf16 as PV's operand, the sum takes
 //   the f32 e, and the output is divided once, after PV. The plain version
 //   rounds the normalised probabilities to bf16 instead
 //   (ops/attention.py:_mha_qkv_plain, _mha_plain): the two differ by at
 //   most one bf16 rounding of each term, inside the bf16 tolerance
-//   1e-2 + 1e-2|x|.
+//   1e-2 + 1e-2|x|. This is also kernel F's function
+//   (scripts/bench_attn_variants.py:_kernel_nodiv), e against the running
+//   max where the reference takes the row's final max.
+// * kExpBf16: scores are held in log2 units (s * scale * log2 e), so the
+//   argument x2 = s2 - m2 is rounded to bf16 once and raised by
+//   ex2.approx.ftz.bf16x2, two exps an instruction, whose bf16 result is
+//   PV's operand as it stands; the row sum adds those bf16 values in f32.
+//   _kernel_nodiv rounds its argument once too, but in natural units and
+//   against the final max, then takes exp in f32 and rounds e. Each
+//   rounding moves the argument by up to 2^-9 |x| (x in natural units), so
+//   the two e differ by up to about 2^-8 |x| exp(-|x|) <= 2^-8 / e (1.4e-3)
+//   of the row's largest e, besides the rounding of e that both make:
+//   within the bf16 tolerance.
 // * Load paths: with kKvAsync (resp. kQoAsync) K and V (resp. q and out) go
 //   through 16-byte copies and stores, which need the base, head offset and
 //   row stride all multiples of 16 bytes and dh a multiple of 8; otherwise
@@ -57,8 +82,8 @@
 //   same ring and layout) and writes out element by element.
 // * Query rows >= nq are read as zeros and never written; keys >= nk score
 //   -inf. Registers are capped at 128 a thread, so that two 128-row blocks
-//   share an SM; ptxas then spills 16-228 bytes in some of the wider
-//   instantiations (chip_smoke.py prints its report).
+//   share an SM; ptxas then spills in some of the wider instantiations
+//   (chip_smoke.py prints its report).
 //
 // f32 (flash_f32): CUDA-core FMAs, no TF32 (parity with the HIGHEST-
 // precision reference), register-tiled like a CUDA-core GEMM: a block of
@@ -355,18 +380,34 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int DHP, int WARPS>
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+// 2^x of two bf16 values at once, each result rounded to bf16
+__device__ __forceinline__ uint32_t ex2_bf16x2(uint32_t x) {
+  uint32_t y;
+  asm("ex2.approx.ftz.bf16x2 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// WARPS warps for HP heads: each head's query tile is WARPS / (4 HP)
+// warpgroups of 64 rows
+template <int DHP, int WARPS, int HP = 1>
 struct Bf16Tile {
+  static_assert(HP == 1 || HP == 2, "one head or a pair per block");
+  static_assert(WARPS % (4 * HP) == 0, "whole warpgroups per head");
   static constexpr int kThreads = 32 * WARPS;
-  static constexpr int kRows = 16 * WARPS;  // query rows: WARPS / 4 x 64
-  static constexpr int kKeys = 64;          // keys per ring stage
-  // ring stages; tile t+kStages-2 is loaded while tile t is multiplied (PV
-  // of tile t-1 may still read its stage)
-  static constexpr int kStages = DHP <= 64 ? 4 : 3;
-  static constexpr int kTile = kKeys * DHP;  // elements of a K or V tile
+  static constexpr int kRows = 16 * WARPS / HP;  // query rows per head
+  static constexpr int kWidth = HP * DHP;        // columns staged
+  static constexpr int kKeys = 64;               // keys per ring stage
+  // ring stages; tile t+kStages-2 is loaded while tile t is multiplied (one
+  // tile deeper, into tile t-1's stage, measured no faster on the H100)
+  static constexpr int kStages = kWidth <= 64 ? 4 : 3;
+  static constexpr int kTile = kKeys * kWidth;  // elements of a K or V tile
   // + 256: the base is aligned up to the swizzle atom
   static constexpr int kSmemBytes =
-      (kRows * DHP + kStages * 2 * kTile) * 2 + 256;
+      (kRows * kWidth + kStages * 2 * kTile) * 2 + 256;
   // blocks per SM that keep a thread at 128 registers or fewer
   static constexpr int kMinBlocks = 65536 / (128 * kThreads);
 };
@@ -408,46 +449,54 @@ __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
   }
 }
 
-template <int DHP, int WARPS, bool kKvAsync, bool kQoAsync>
+template <int DHP, int WARPS, bool kKvAsync, bool kQoAsync, int HP = 1,
+          bool kExpBf16 = false>
 __device__ __forceinline__ void flash_bf16(const Args<bf16>& a) {
-  using C = Bf16Tile<DHP, WARPS>;
+  using C = Bf16Tile<DHP, WARPS, HP>;
   constexpr int KT = C::kKeys, S = C::kStages, NT = C::kThreads;
+  constexpr int W = C::kWidth, BLK = DHP / 16;  // 16-column blocks a head
   extern __shared__ uint4 smem_bf16[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_bf16);  // kRows x DHP
+  bf16* q_s = reinterpret_cast<bf16*>(smem_bf16);  // kRows x W
   q_s += ((256 - (smem_addr(q_s) & 255)) & 255) / 2;  // swizzle atom
-  bf16* ring = q_s + C::kRows * DHP;  // S x (k, v), KT x DHP each
+  bf16* ring = q_s + C::kRows * W;  // S x (k, v), KT x W each
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  // this warpgroup's head of the block and 64-row slice of its query tile
+  // (constants for one head, which saves registers)
+  const int hh = HP == 1 ? 0 : warp / 4 / (WARPS / 4 / HP);
+  const int wr = HP == 1 ? warp / 4 : warp / 4 % (WARPS / 4 / HP);
   const int q0 = blockIdx.x * C::kRows;
-  const int h = blockIdx.y;
+  const int h0 = blockIdx.y * HP;  // the block's first head
   const int b = blockIdx.z;
-  const bf16* qg = a.q.p + b * a.q.batch + h * a.q.head + q0 * a.q.row;
-  const bf16* kg = a.k.p + b * a.k.batch + h * a.k.head;
-  const bf16* vg = a.v.p + b * a.v.batch + h * a.v.head;
+  const bf16* qg = a.q.p + b * a.q.batch + h0 * a.q.head + q0 * a.q.row;
+  const bf16* kg = a.k.p + b * a.k.batch + h0 * a.k.head;
+  const bf16* vg = a.v.p + b * a.v.batch + h0 * a.v.head;
+  const int width = HP == 1 ? a.dh : W;  // valid columns staged
   const int ntiles = (a.nk + KT - 1) / KT;
   const float sl2 = a.scale * kLog2e;  // scores in log2 units
 
   auto load_kv = [&](int t) {
     const int k0 = t * KT, valid = min(KT, a.nk - k0);
     bf16* ks = ring + (t % S) * 2 * C::kTile;
-    stage_tile<DHP, KT, NT, kKvAsync>(ks, kg + k0 * a.k.row, a.k.row, valid,
-                                      a.dh);
-    stage_tile<DHP, KT, NT, kKvAsync>(ks + C::kTile, vg + k0 * a.v.row,
-                                      a.v.row, valid, a.dh);
+    stage_tile<W, KT, NT, kKvAsync>(ks, kg + k0 * a.k.row, a.k.row, valid,
+                                    width);
+    stage_tile<W, KT, NT, kKvAsync>(ks + C::kTile, vg + k0 * a.v.row,
+                                    a.v.row, valid, width);
   };
 
   // prologue: q joins the first group, then tiles 0 .. S-3
-  stage_tile<DHP, C::kRows, NT, kQoAsync>(q_s, qg, a.q.row,
-                                          min(C::kRows, a.nq - q0), a.dh);
+  stage_tile<W, C::kRows, NT, kQoAsync>(q_s, qg, a.q.row,
+                                        min(C::kRows, a.nq - q0), width);
 #pragma unroll
   for (int t = 0; t < S - 2; ++t) {
     if (t < ntiles) load_kv(t);
     cp_async_commit();
   }
 
-  // this warpgroup's 64 query rows: QK^T's A operand, by descriptor
-  const bf16* q_wg = q_s + (warp / 4) * 64 * 16;
+  // this warpgroup's 64 query rows: QK^T's A operand, by descriptor. Head
+  // hh's columns are the stages' 16-column blocks BLK*hh .. BLK*hh + BLK-1
+  const bf16* q_wg = q_s + (hh * BLK * C::kRows + wr * 64) * 16;
   // accumulators: for 8-column block j, [4j], [4j+1] hold row lane/4 and
   // [4j+2], [4j+3] row lane/4 + 8 of the warp's 16, columns 8j + 2(lane%4)
   // and the next
@@ -458,7 +507,7 @@ __device__ __forceinline__ void flash_bf16(const Args<bf16>& a) {
   float l_r[2] = {0.f, 0.f};  // this lane's share of the row sums
 
   // PV's A fragments: e of tile t as bf16 pairs, read by the PV of tile t
-  // while it is in flight (until the next tile's wait)
+  // while it is in flight
   uint32_t pa[KT / 16][4];
 
   for (int t = 0; t < ntiles; ++t) {
@@ -470,17 +519,17 @@ __device__ __forceinline__ void flash_bf16(const Args<bf16>& a) {
     __syncthreads();
     if (t + S - 2 < ntiles) load_kv(t + S - 2);
     cp_async_commit();
-    const bf16* k_s = ring + (t % S) * 2 * C::kTile;
+    // this warpgroup's head in the stage: its K and V column blocks
+    const bf16* k_s = ring + (t % S) * 2 * C::kTile + hh * BLK * KT * 16;
     const bf16* v_s = k_s + C::kTile;
     const int k0 = t * KT;
 
-    // S = Q K^T: DHP/16 steps of m64n64k16, both operands K-major. The PV
-    // of tile t-1 is still in flight; one wait retires both.
+    // S = Q K^T: DHP/16 steps of m64n64k16, both operands K-major
     float s[KT / 2];
     pin(s);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < DHP / 16; ++ks)  // a k-step is a 16-column block
+    for (int ks = 0; ks < BLK; ++ks)  // a k-step is a 16-column block
       wgmma_ss64(s, smem_desc(q_wg + ks * C::kRows * 16, 16, 256),
                  smem_desc(k_s + ks * KT * 16, 16, 256), ks);
     wgmma_commit();
@@ -521,17 +570,30 @@ __device__ __forceinline__ void flash_bf16(const Args<bf16>& a) {
     // 16kt + 15 are score blocks 2kt and 2kt + 1
 #pragma unroll
     for (int j = 0; j < KT / 8; ++j) {
-      const float e0 = ex2(s[4 * j] - m_r[0]), e1 = ex2(s[4 * j + 1] - m_r[0]);
-      const float e2 = ex2(s[4 * j + 2] - m_r[1]);
-      const float e3 = ex2(s[4 * j + 3] - m_r[1]);
-      l_r[0] += e0 + e1;
-      l_r[1] += e2 + e3;
-      pa[j / 2][2 * (j % 2)] = pack_bf16(e0, e1);
-      pa[j / 2][2 * (j % 2) + 1] = pack_bf16(e2, e3);
+      uint32_t e01, e23;
+      if constexpr (kExpBf16) {  // the argument rounded once, packed ex2
+        e01 = ex2_bf16x2(pack_bf16(s[4 * j] - m_r[0], s[4 * j + 1] - m_r[0]));
+        e23 = ex2_bf16x2(
+            pack_bf16(s[4 * j + 2] - m_r[1], s[4 * j + 3] - m_r[1]));
+        const float2 f01 = unpack_bf16(e01), f23 = unpack_bf16(e23);
+        l_r[0] += f01.x + f01.y;
+        l_r[1] += f23.x + f23.y;
+      } else {
+        const float e0 = ex2(s[4 * j] - m_r[0]);
+        const float e1 = ex2(s[4 * j + 1] - m_r[0]);
+        const float e2 = ex2(s[4 * j + 2] - m_r[1]);
+        const float e3 = ex2(s[4 * j + 3] - m_r[1]);
+        l_r[0] += e0 + e1;
+        l_r[1] += e2 + e3;
+        e01 = pack_bf16(e0, e1);
+        e23 = pack_bf16(e2, e3);
+      }
+      pa[j / 2][2 * (j % 2)] = e01;
+      pa[j / 2][2 * (j % 2) + 1] = e23;
     }
 
-    // O += E V: KT/16 steps of m64nDHPk16, E from registers, V MN-major;
-    // left in flight across the next tile's barrier and QK^T
+    // O += E V: KT/16 steps of m64nDHPk16, E from registers, V MN-major,
+    // retired before the next tile
     pin(o);
     pin(pa);
     wgmma_fence();
@@ -540,10 +602,10 @@ __device__ __forceinline__ void flash_bf16(const Args<bf16>& a) {
       Wgmma<DHP, 1>::run(o, pa[kt], smem_desc(v_s + kt * 256, KT * 32, 256),
                          1);
     wgmma_commit();
+    wgmma_wait();
+    pin(o);
+    pin(pa);
   }
-  wgmma_wait();
-  pin(o);
-  pin(pa);
   cp_async_wait<0>();
 
   float inv[2];
@@ -553,8 +615,8 @@ __device__ __forceinline__ void flash_bf16(const Args<bf16>& a) {
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     inv[r] = 1.f / l_r[r];
   }
-  const int row0 = q0 + 16 * warp + (lane >> 2);
-  bf16* og = a.out.p + b * a.out.batch + h * a.out.head;
+  const int row0 = q0 + 64 * wr + 16 * (warp % 4) + (lane >> 2);
+  bf16* og = a.out.p + b * a.out.batch + (h0 + hh) * a.out.head;
 #pragma unroll
   for (int j = 0; j < DHP / 8; ++j) {
     const int col = 8 * j + 2 * (lane & 3);
@@ -578,17 +640,22 @@ __device__ __forceinline__ void flash_bf16(const Args<bf16>& a) {
 
 // ------------------------------------------------------------------- f32 --
 
-template <int DHP, int GROUPS>
+// GROUPS row groups of 8 lanes for HP heads, GROUPS / HP a head
+template <int DHP, int GROUPS, int HP = 1>
 struct F32Tile {
+  static_assert(HP == 1 || (HP == 2 && DHP % 32 == 0 && GROUPS % 2 == 0),
+                "a pair of heads stages whole 32-float V rows");
   static constexpr int kThreads = 8 * GROUPS;
-  static constexpr int kRows = 4 * GROUPS;  // query rows per block
+  static constexpr int kRows = 4 * GROUPS / HP;  // query rows per head
   static constexpr int kKeys = 32;  // keys per chunk: 8 key lanes x 4
-  static constexpr int QS = DHP + 4;                // q and k row stride
-  static constexpr int DVP = (DHP + 31) / 32 * 32;  // v row stride
+  static constexpr int QS = DHP + 4;                // q row stride
+  static constexpr int KS = HP * DHP + 4;           // k row stride
+  static constexpr int DVP = (DHP + 31) / 32 * 32;  // a head's v columns
+  static constexpr int VS = HP * DVP;               // v row stride
   static constexpr int NJ = DVP / 32;               // float4 output groups
-  static constexpr int PS = kRows + 4;              // e row stride (per key)
+  static constexpr int PS = 4 * GROUPS + 4;         // e row stride (per key)
   static constexpr int kSmemBytes =
-      (kRows * QS + kKeys * QS + kKeys * DVP + kKeys * PS) * 4;
+      (HP * kRows * QS + kKeys * KS + kKeys * VS + kKeys * PS) * 4;
   static constexpr int kMinBlocks = 65536 / (128 * kThreads);
 };
 
@@ -644,32 +711,36 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-template <int DHP, int GROUPS, bool kKvVec, bool kQoVec>
+template <int DHP, int GROUPS, bool kKvVec, bool kQoVec, int HP = 1>
 __device__ __forceinline__ void flash_f32(const Args<float>& a) {
-  using C = F32Tile<DHP, GROUPS>;
-  constexpr int G = GROUPS, KC = C::kKeys, QS = C::QS, DVP = C::DVP;
-  constexpr int PS = C::PS, NT = C::kThreads;
+  using C = F32Tile<DHP, GROUPS, HP>;
+  constexpr int G = GROUPS / HP, KC = C::kKeys, QS = C::QS, KS = C::KS;
+  constexpr int DVP = C::DVP, VS = C::VS, PS = C::PS, NT = C::kThreads;
   extern __shared__ float4 smem_f32[];
-  float* q_s = reinterpret_cast<float*>(smem_f32);  // [kRows][QS]
-  float* k_s = q_s + C::kRows * QS;                 // [KC][QS]
-  float* v_s = k_s + KC * QS;                       // [KC][DVP]
-  float* p_s = v_s + KC * DVP;                      // [KC][PS]
+  float* q_s = reinterpret_cast<float*>(smem_f32);  // [HP][kRows][QS]
+  float* k_s = q_s + HP * C::kRows * QS;            // [KC][KS]
+  float* v_s = k_s + KC * KS;                       // [KC][VS]
+  float* p_s = v_s + KC * VS;                       // [KC][PS]
 
   const int tx = threadIdx.x & 7;   // key and dim lane of the row group
-  const int ty = threadIdx.x >> 3;  // row group: rows ty + G*rr
+  const int ty = threadIdx.x >> 3;  // row group
+  const int hh = ty / G;            // of head hh of the block
+  const int gy = ty % G;            // its rows gy + G*rr
   const int q0 = blockIdx.x * C::kRows;
-  const int h = blockIdx.y;
+  const int h0 = blockIdx.y * HP;  // the block's first head
   const int b = blockIdx.z;
-  const float* qg = a.q.p + b * a.q.batch + h * a.q.head + q0 * a.q.row;
-  const float* kg = a.k.p + b * a.k.batch + h * a.k.head;
-  const float* vg = a.v.p + b * a.v.batch + h * a.v.head;
+  const float* qg = a.q.p + b * a.q.batch + h0 * a.q.head + q0 * a.q.row;
+  const float* kg = a.k.p + b * a.k.batch + h0 * a.k.head;
+  const float* vg = a.v.p + b * a.v.batch + h0 * a.v.head;
+  const int width = HP == 1 ? a.dh : HP * DHP;  // valid K/V columns staged
 
   {  // q, once: a plain loop (its loads need not be batched)
     constexpr int kChunks = DHP / 4;
     const int valid = min(C::kRows, a.nq - q0);
-    for (int i = threadIdx.x; i < C::kRows * kChunks; i += NT) {
-      const int r = i / kChunks, c = (i % kChunks) * 4;
-      const float* row = qg + r * a.q.row;
+    for (int i = threadIdx.x; i < HP * C::kRows * kChunks; i += NT) {
+      const int r = i / kChunks % C::kRows, c = (i % kChunks) * 4;
+      const int qh = i / (kChunks * C::kRows);  // head of the block
+      const float* row = qg + qh * a.q.head + r * a.q.row;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
       if (r < valid) {
         if constexpr (kQoVec) {
@@ -681,9 +752,14 @@ __device__ __forceinline__ void flash_f32(const Args<float>& a) {
           if (c + 3 < a.dh) x.w = row[c + 3];
         }
       }
-      *reinterpret_cast<float4*>(q_s + r * QS + c) = x;
+      *reinterpret_cast<float4*>(q_s + (qh * C::kRows + r) * QS + c) = x;
     }
   }
+
+  // this row group's head: its q rows and its K and V columns
+  const float* q_me = q_s + (hh * C::kRows + gy) * QS;
+  const float* k_me = k_s + hh * DHP;
+  const float* v_me = v_s + hh * DVP;
 
   float o[4][C::NJ * 4];
 #pragma unroll
@@ -697,13 +773,13 @@ __device__ __forceinline__ void flash_f32(const Args<float>& a) {
   for (int c0 = 0; c0 < a.nk; c0 += KC) {
     __syncthreads();  // q staged / the previous chunk's reads are done
     const int valid = min(KC, a.nk - c0);
-    stage_f32<DHP, QS, KC, NT, kKvVec>(k_s, kg + c0 * a.k.row, a.k.row,
-                                       valid, a.dh);
-    stage_f32<DVP, DVP, KC, NT, kKvVec>(v_s, vg + c0 * a.v.row, a.v.row,
-                                        valid, a.dh);
+    stage_f32<HP * DHP, KS, KC, NT, kKvVec>(k_s, kg + c0 * a.k.row,
+                                            a.k.row, valid, width);
+    stage_f32<VS, VS, KC, NT, kKvVec>(v_s, vg + c0 * a.v.row, a.v.row,
+                                      valid, width);
     __syncthreads();
 
-    // scores of rows (ty + G*rr) against chunk keys (tx + 8*kk)
+    // scores of rows (gy + G*rr) against chunk keys (tx + 8*kk)
 #pragma unroll
     for (int rr = 0; rr < 4; ++rr)
 #pragma unroll
@@ -713,11 +789,12 @@ __device__ __forceinline__ void flash_f32(const Args<float>& a) {
       float4 kf[4];
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        kf[kk] = *reinterpret_cast<const float4*>(k_s + (tx + 8 * kk) * QS + d);
+        kf[kk] = *reinterpret_cast<const float4*>(k_me + (tx + 8 * kk) * KS +
+                                                  d);
 #pragma unroll
       for (int rr = 0; rr < 4; ++rr) {
         const float4 qf =
-            *reinterpret_cast<const float4*>(q_s + (ty + G * rr) * QS + d);
+            *reinterpret_cast<const float4*>(q_me + G * rr * QS + d);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           s[rr][kk] = fmaf(qf.x, kf[kk].x, s[rr][kk]);
@@ -767,7 +844,7 @@ __device__ __forceinline__ void flash_f32(const Args<float>& a) {
 #pragma unroll
       for (int j = 0; j < C::NJ; ++j) {
         const float4 v =
-            *reinterpret_cast<const float4*>(v_s + key * DVP + tx * 4 + 32 * j);
+            *reinterpret_cast<const float4*>(v_me + key * VS + tx * 4 + 32 * j);
 #pragma unroll
         for (int rr = 0; rr < 4; ++rr) {
           o[rr][4 * j] = fmaf(pr[rr], v.x, o[rr][4 * j]);
@@ -780,10 +857,10 @@ __device__ __forceinline__ void flash_f32(const Args<float>& a) {
     __syncwarp();  // e is read before the next chunk overwrites it
   }
 
-  float* og = a.out.p + b * a.out.batch + h * a.out.head;
+  float* og = a.out.p + b * a.out.batch + (h0 + hh) * a.out.head;
 #pragma unroll
   for (int rr = 0; rr < 4; ++rr) {
-    const int row = q0 + ty + G * rr;
+    const int row = q0 + gy + G * rr;
     if (row >= a.nq) continue;
     const float inv = 1.f / l[rr];
     float* dst = og + row * a.out.row;
@@ -864,6 +941,25 @@ cudaError_t dispatch(const Args<T>& a, int heads, int batch, int q_tile,
     case 128: return go(integral_constant<int, 128>{});
   }
   return cudaErrorInvalidValue;
+}
+
+// A packed qkv [batch, n, 3*heads*dh] (q, k, v at column offsets 0, C, 2C
+// with C = heads*dh; head h at h*dh inside each) and out [batch, n, C], as
+// the core's strided operands (kernels A, F and G)
+template <typename T>
+Args<T> packed_args(const void* qkv, void* out, int n, int heads, int dh,
+                    float scale) {
+  const long c = (long)heads * dh, rs = 3 * c;
+  const T* base = static_cast<const T*>(qkv);
+  Args<T> a;
+  a.q = {base, n * rs, dh, rs};
+  a.k = {base + c, n * rs, dh, rs};
+  a.v = {base + 2 * c, n * rs, dh, rs};
+  a.out = {static_cast<T*>(out), n * c, dh, c};
+  a.nq = a.nk = n;
+  a.dh = dh;
+  a.scale = scale;
+  return a;
 }
 
 // whether a pointer and element offsets allow 16-byte copies

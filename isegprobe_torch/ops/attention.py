@@ -25,6 +25,7 @@ the plain version; on a CUDA tensor they launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -33,30 +34,48 @@ from isegprobe_torch.ops import cuda_lib
 __all__ = ["mha", "mha_qkv"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the card's streaming multiprocessors (H100 SXM)
+# streaming multiprocessors of the plan made without a card (an H100 SXM's)
 SMS = 132
 Q_TILES = (64, 128)
 _lib = None
 _mha_lib = None
 
 
-def _plan(b: int, n: int, heads: int, dh: int,
-          dtype: torch.dtype) -> tuple[int, bool]:
+@functools.lru_cache(maxsize=None)
+def _cuda_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device=None) -> int:
+    """The streaming multiprocessors of ``device``: read from the card for
+    a CUDA device (once per device), :data:`SMS` for the CPU or none."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    if device.type != "cuda":
+        return SMS
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return _cuda_sms(index)
+
+
+def _plan(b: int, n: int, heads: int, dh: int, dtype: torch.dtype,
+          device=None) -> tuple[int, bool]:
     """The kernel's query tile and load path for ``b`` x ``heads`` heads of
-    ``n`` query rows of ``dh`` -> ``(q_tile, aligned)``.
+    ``n`` query rows of ``dh`` on ``device`` -> ``(q_tile, aligned)``.
 
     A 128-row tile reads each head's K and V half as often as a 64-row one
     but gives half the blocks: it is taken only where the grid then holds at
-    least two blocks per SM (at [2, 1025, 1152] it would give 108 blocks for
-    132 SMs; 64 rows give 204). In f32 with dh <= 64 the 64-row tile is
-    kept throughout: there the 128-row one was the slower on the H100 (A at
-    [16, 1025, 1152]: 0.970 against 0.920 ms), while at dh = 101 it was the
-    faster (D at LoftUp's [8, 28672, 4, 101]: 12.99 against 15.85 ms).
+    least two blocks per SM of the device (:func:`sm_count`; at [2, 1025,
+    1152] it would give 108 blocks for an H100's 132 SMs; 64 rows give
+    204). In f32 with dh <= 64 the 64-row tile is kept throughout: there
+    the 128-row one was the slower on the H100 (A at [16, 1025, 1152]:
+    0.970 against 0.920 ms), while at dh = 101 it was the faster (D at
+    LoftUp's [8, 28672, 4, 101]: 12.99 against 15.85 ms).
     ``aligned``: a row of dh values is a whole number of 16-byte chunks (dh
     % 8 == 0 in bf16, % 4 in f32), so the 16-byte load path can take it;
     the wrapper also checks its pointers."""
     blocks = -(-n // 128) * heads * b
-    big = blocks >= 2 * SMS and (dtype == torch.bfloat16 or dh > 64)
+    big = blocks >= 2 * sm_count(device) and (dtype == torch.bfloat16
+                                               or dh > 64)
     return (128 if big else 64), dh % _vec(dtype) == 0
 
 
@@ -73,11 +92,12 @@ def _kv_width(dh: int, dtype: torch.dtype) -> int:
 
 
 def _launch_plan(plan, b: int, n: int, heads: int, dh: int,
-                 dtype: torch.dtype, ptrs, what: str) -> tuple[int, bool]:
+                 dtype: torch.dtype, device, ptrs,
+                 what: str) -> tuple[int, bool]:
     """``plan`` if given and takeable, else :func:`_plan`'s, on the
     16-byte path only where every pointer in ``ptrs`` is 16-byte aligned."""
     if plan is None:
-        q_tile, aligned = _plan(b, n, heads, dh, dtype)
+        q_tile, aligned = _plan(b, n, heads, dh, dtype, device)
         return q_tile, aligned and not any(p % 16 for p in ptrs)
     q_tile, aligned = plan
     if q_tile not in Q_TILES:
@@ -135,6 +155,7 @@ def _mha_qkv_cuda(qkv: torch.Tensor, num_heads: int, scale: float,
     lib = _load()
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     q_tile, aligned = _launch_plan(plan, b, n, num_heads, dh, qkv.dtype,
+                                   qkv.device,
                                    (qkv.data_ptr(), out.data_ptr()),
                                    "attention kernel")
     with torch.cuda.device(qkv.device):
@@ -230,7 +251,7 @@ def _mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "torch.no_grad() or on the CPU")
     lib = _load_mha()
     out = torch.empty_like(q)
-    q_tile, aligned = _launch_plan(plan, b, nq, heads, dh, q.dtype,
+    q_tile, aligned = _launch_plan(plan, b, nq, heads, dh, q.dtype, q.device,
                                    (q.data_ptr(), out.data_ptr()),
                                    "attention kernel D")
     width = _kv_width(dh, q.dtype)

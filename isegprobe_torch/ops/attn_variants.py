@@ -12,11 +12,16 @@ Counterparts of the two bodies of the Pallas TPU kernel in
 
 Both take ``[B, N, 3·C]`` with heads of 64 and an even head count, and the
 exp in float32 or (``expdt=torch.bfloat16``, bf16 inputs only) in bf16. The
-kernels live in ``csrc/attn_variants.cu``, whose note gives their bound and
-design; each is built for two query tiles (``NODIV_TILES``,
-``MERGED_TILES``). On a CPU tensor the entries compute the plain version;
-on a CUDA tensor they launch the kernel or raise. ``mha_qkv_nodiv.launches``
-and ``mha_qkv_merged.launches`` count the launches.
+kernels are instantiations of the flash core of kernels A and D
+(``csrc/flash_core.cuh``) under their own names in ``csrc/attn_variants.cu``,
+whose note gives their bound and design: F is A's instantiation (with an
+f32 exp its output equals kernel A's bit for bit), G stages a head pair's
+columns once and computes each head as F does (its output equals F's).
+Each is built for query tiles of 64 and 128 rows per head
+(``NODIV_TILES``, ``MERGED_TILES``). On a CPU tensor the entries compute
+the plain version; on a CUDA tensor they launch the kernel or raise.
+``mha_qkv_nodiv.launches`` and ``mha_qkv_merged.launches`` count the
+launches.
 """
 
 from __future__ import annotations
@@ -30,10 +35,10 @@ from isegprobe_torch.ops import cuda_lib
 __all__ = ["MERGED_TILES", "NODIV_TILES", "mha_qkv_merged", "mha_qkv_nodiv"]
 
 DH = 64
-# query rows per block (per head) each kernel is built for; the first is
-# the default
+# query rows per block (per head) each kernel is built for, multiples of a
+# wgmma warpgroup's 64; the first is the default
 NODIV_TILES = (64, 128)
-MERGED_TILES = (64, 32)
+MERGED_TILES = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (input dtype, exp dtype) pairs the kernels take
 _PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
@@ -121,8 +126,9 @@ def _check(qkv: torch.Tensor, num_heads: int, expdt: torch.dtype,
 def _launch(qkv: torch.Tensor, num_heads: int, scale: float,
             expdt: torch.dtype, merged: bool, q_tile: int,
             what: str) -> torch.Tensor:
-    if not qkv.is_contiguous():
-        raise ValueError(f"{what} needs a contiguous qkv tensor")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError(f"{what} needs a contiguous, 16-byte aligned qkv "
+                         f"tensor")
     if torch.is_grad_enabled() and qkv.requires_grad:
         raise NotImplementedError(f"{what} has no backward; run under "
                                   f"torch.no_grad() or on the CPU")

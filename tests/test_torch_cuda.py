@@ -19,7 +19,8 @@ inputs, which errs relative to the inputs summed, so its absolute tolerance
 is 1e-5 of max |hr|. Kernels F and G (attention variants) take e against
 the running row max, where their plain versions take it against the final
 one, so bf16 roundings of e (and, with a bf16 exp, of s - m) fall at other
-points: within the bf16 tolerance.
+points: within the bf16 tolerance. F and G run on the flash core of A and
+D: G's output equals F's, and F's with an f32 exp equals A's, bit for bit.
 """
 
 from types import SimpleNamespace
@@ -425,22 +426,25 @@ def test_device_loop_matches_cpu(cuda_device):
 _VARIANT_PAIRS = [(torch.float32, torch.float32),
                   (torch.bfloat16, torch.float32),
                   (torch.bfloat16, torch.bfloat16)]
+# N = 1, 63 and 65 leave a key tile with one or most of its keys masked and
+# a query tile with few valid rows; 1025 is the sweep's N
+_VARIANT_SHAPES = [(2, 1, 2), (1, 63, 4), (2, 64, 2), (1, 65, 6),
+                   (2, 1025, 6)]
+_VARIANTS = {"nodiv": (attn_variants.mha_qkv_nodiv, attn_variants._nodiv_plain,
+                       attn_variants.NODIV_TILES),
+             "merged": (attn_variants.mha_qkv_merged,
+                        attn_variants._merged_plain,
+                        attn_variants.MERGED_TILES)}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,expdt", _VARIANT_PAIRS)
 @pytest.mark.parametrize("kind", ["nodiv", "merged"])
-@pytest.mark.parametrize("b,n,heads", [(2, 1025, 6), (3, 77, 4), (1, 1, 2),
-                                       (1, 130, 2)])
+@pytest.mark.parametrize("b,n,heads", _VARIANT_SHAPES)
 def test_attention_variant_kernels_match_plain(cuda_device, kind, dtype,
                                                expdt, b, n, heads):
-    entry = {"nodiv": attn_variants.mha_qkv_nodiv,
-             "merged": attn_variants.mha_qkv_merged}[kind]
-    tiles = {"nodiv": attn_variants.NODIV_TILES,
-             "merged": attn_variants.MERGED_TILES}[kind]
+    entry, plain, tiles = _VARIANTS[kind]
     qkv = _randn((b, n, 3 * heads * 64), n + heads, cuda_device, dtype)
-    plain = {"nodiv": attn_variants._nodiv_plain,
-             "merged": attn_variants._merged_plain}[kind]
     want = plain(qkv, heads, 0.125, expdt)
     for tile in tiles:
         before = entry.launches
@@ -450,22 +454,53 @@ def test_attention_variant_kernels_match_plain(cuda_device, kind, dtype,
         assert got.shape == (b, n, heads * 64) and got.dtype == dtype
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=TOL[dtype], atol=TOL[dtype])
-    if dtype == torch.float32:  # kernel A computes the same function
-        torch.testing.assert_close(got, attention.mha_qkv(qkv, heads),
-                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,expdt", _VARIANT_PAIRS)
+@pytest.mark.parametrize("b,n,heads", _VARIANT_SHAPES)
+def test_attention_variants_are_bitwise_the_core(cuda_device, dtype, expdt,
+                                                 b, n, heads):
+    """G computes each head as F does (the same key tiles in the same
+    order), so their outputs are equal bit for bit at the same tile and exp;
+    with an f32 exp F is kernel A's instantiation at the same plan."""
+    qkv = _randn((b, n, 3 * heads * 64), 2 * n + heads, cuda_device, dtype)
+    launches = (attn_variants.mha_qkv_nodiv.launches,
+                attn_variants.mha_qkv_merged.launches,
+                attention.mha_qkv.launches)
+    for tile in attn_variants.NODIV_TILES:
+        f = attn_variants.mha_qkv_nodiv(qkv, heads, expdt=expdt, q_tile=tile)
+        g = attn_variants.mha_qkv_merged(qkv, heads, expdt=expdt, q_tile=tile)
+        assert torch.equal(f, g), tile
+        if expdt == torch.float32:
+            a = attention.mha_qkv(qkv, heads, plan=(tile, True))
+            assert torch.equal(f, a), tile
+    k = len(attn_variants.NODIV_TILES)
+    assert (attn_variants.mha_qkv_nodiv.launches,
+            attn_variants.mha_qkv_merged.launches,
+            attention.mha_qkv.launches) == (
+        launches[0] + k, launches[1] + k,
+        launches[2] + (k if expdt == torch.float32 else 0))
 
 
 @pytest.mark.cuda
 def test_attention_variant_kernels_raise(cuda_device):
     qkv = _randn((1, 9, 3 * 2 * 64), 0, cuda_device)
     for entry in (attn_variants.mha_qkv_nodiv, attn_variants.mha_qkv_merged):
+        before = entry.launches
         with pytest.raises(ValueError):
             entry(qkv[:, ::2], 2)  # not contiguous
+        with pytest.raises(ValueError):
+            entry(_misaligned(qkv), 2)  # off a 16-byte boundary
         with pytest.raises(ValueError):
             entry(_randn((1, 9, 3 * 3 * 64), 0, cuda_device), 3)  # odd H
         with pytest.raises(ValueError):
             entry(_randn((1, 9, 3 * 4 * 32), 0, cuda_device), 4)  # dh 32
+        for tile in (32, 96, 256):  # G's old tile 32; tiles the core lacks
+            with pytest.raises(ValueError):
+                entry(qkv, 2, q_tile=tile)
         with pytest.raises(TypeError):
             entry(qkv, 2, expdt=torch.bfloat16)  # f32 with a bf16 exp
         with pytest.raises(NotImplementedError):
             entry(qkv.clone().requires_grad_(), 2)
+        assert entry.launches == before

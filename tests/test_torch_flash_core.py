@@ -1,8 +1,10 @@
-"""What surrounds the shared flash core of kernels A and D
+"""What surrounds the shared flash core of kernels A, D, F and G
 (``isegprobe_torch/csrc/flash_core.cuh``) that runs on the CPU: the library
-hash over shared headers, the tile plan, and kernel D's K/V relayout."""
+hash over shared headers, the tile plan and the SM count it reads, and
+kernel D's K/V relayout."""
 
 import shutil
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -56,8 +58,36 @@ def test_plan_picks_the_tile_by_the_grid(dtype, b, n, heads, dh, tile):
         tile = 64
     assert q_tile == tile
     blocks128 = -(-n // 128) * heads * b
-    assert (q_tile == 128) <= (blocks128 >= 2 * attention.SMS)
+    assert (q_tile == 128) <= (blocks128 >= 2 * attention.sm_count())
     assert aligned == (dh % (8 if dtype == torch.bfloat16 else 4) == 0)
+
+
+def test_plan_follows_the_cards_sm_count(monkeypatch):
+    """On a CUDA device the tile rule reads the card's SM count (once per
+    device): [4, 1025, 7 x 64] in bf16 is 252 blocks of 128 rows, two an SM
+    on 114 SMs but not on an H100's 132."""
+    sms = {0: 114, 1: 132}
+    calls = []
+
+    def props(index):
+        calls.append(index)
+        return SimpleNamespace(multi_processor_count=sms[index])
+
+    attention._cuda_sms.cache_clear()
+    monkeypatch.setattr(torch.cuda, "get_device_properties", props)
+    try:
+        assert attention.sm_count(torch.device("cuda", 0)) == 114
+        assert attention.sm_count("cuda:1") == 132
+        assert attention.sm_count() == attention.sm_count("cpu") == 132
+        plan = [attention._plan(4, 1025, 7, 64, torch.bfloat16, device)
+                for device in ("cuda:0", torch.device("cuda", 1), None)]
+        assert [t for t, _ in plan] == [128, 64, 64]
+        # f32 at dh <= 64 keeps 64 rows on any card
+        assert attention._plan(4, 1025, 7, 64, torch.float32,
+                               "cuda:0")[0] == 64
+        assert sorted(set(calls)) == [0, 1] and len(calls) == 2
+    finally:
+        attention._cuda_sms.cache_clear()
 
 
 @pytest.mark.parametrize("dh,bf16,f32", [(13, False, False),
@@ -120,3 +150,14 @@ def test_cpu_entries_take_a_plan_and_compute_the_plain_version():
     q = qkv[..., :32].reshape(2, 9, 2, 16).contiguous()
     got = attention.mha(q, q, q, plan=(64, False))
     torch.testing.assert_close(got, attention._mha_plain(q, q, q, 0.25))
+
+
+def test_bench_flash_core_needs_a_card():
+    """The core's timing script refuses to run without a CUDA device (it
+    times on the card only; chip_smoke.py checks the kernels)."""
+    from isegprobe_torch.scripts import bench_flash_core
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        bench_flash_core.main()
