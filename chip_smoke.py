@@ -12,7 +12,10 @@ does not hold:
    attention variants; A, D, F and G on the flash core
    ``csrc/flash_core.cuh``) with nvcc, one process per source, all started
    together, print the ptxas report and, on a line of its own, the count of
-   its C7515 lines (wgmma serialized by ptxas);
+   its C7515 lines (wgmma serialized by ptxas); read kernel E's tiling,
+   resident blocks an SM, registers and local bytes from its library and
+   its ptxas entry from this run's build (a spill, or fewer than the two
+   blocks an SM of its design, fails the run);
 3. hold kernels A and B against their plain PyTorch versions on the card, at
    the flagship shapes in f32 and bf16, at the device loop's batch of 16
    crops, and at attention shapes with dh != 64 (A also at dh = 13, whose
@@ -56,7 +59,8 @@ does not hold:
     f32 B=8 loop step (clicker, crop, forward at batch 16, paste);
 12. the learned-upsampler families, LoftUp and JBU-FeatUp on DINOv2-S/14 at
     448² (drawn, calibrated): kernels D (cross-attention, f32 and bf16, at
-    every tile and load path as A) and E (JBU filter) against their plain
+    every tile and load path as A) and E (JBU filter; also at the edges of
+    its tiling and on bases off 16-byte alignment) against their plain
     versions at the families' shapes, timed beside them; for each family
     one f32 forward on the card against the CPU with its exact launches per
     forward (LoftUp 12 A + 82 B + 14 D, JBU 12 A + 25 B + 4 E; LoftUp also
@@ -82,7 +86,9 @@ does not hold:
     the flash core named beside A, D, F and G,
     the flagship's and LoftUp's bf16 forwards among the paths; A, F and G
     also in bf16 at the sweep's shape, D at the LoftUp loop's; A and D with
-    the plan their wrapper picked) and, last, the ``{"ok": true, "device":
+    the plan their wrapper picked, E with the tiling and resources its
+    library reports and its ptxas entry) and,
+    last, the ``{"ok": true, "device":
     ...}`` line.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without a
@@ -493,13 +499,25 @@ def cross_attention_case(torch, F, attention, b, nq, nk, heads, dh, dtype,
     return records
 
 
-def jbu_case(torch, jbu, b, h, w, c, k, seed):
+def misaligned(torch, t):
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary (kernel E then copies 4 bytes at a time)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def jbu_case(torch, jbu, b, h, w, c, k, seed, aligned: bool = True):
     """Check and time kernel E at one shape (f32, temp 0.5, sigma 0.8, as
-    the drawn probes carry). No single PyTorch call computes this function,
-    so there is no library time."""
+    the drawn probes carry), with hr and proj 16-byte aligned or not. No
+    single PyTorch call computes this function, so there is no library
+    time."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     hr = torch.randn((b, h, w, c), generator=g, device="cuda")
     proj = torch.randn((b, h, w, k), generator=g, device="cuda")
+    if not aligned:
+        hr, proj = misaligned(torch, hr), misaligned(torch, proj)
     temp = torch.full((), 0.5, device="cuda")
     sigma = torch.full((), 0.8, device="cuda")
     got = jbu.jbu_filter(hr, proj, temp, sigma)
@@ -519,7 +537,7 @@ def jbu_case(torch, jbu, b, h, w, c, k, seed):
     res.update(_bound(2.0 * jbu.NTAP * (k + c) * px, 4.0 * (2 * c + k) * px,
                       "float32"))
     res.update(kernel="jbu_filter", shape=[b, h, w, c], key_dim=k,
-               dtype="float32")
+               dtype="float32", aligned=aligned)
     return res
 
 
@@ -1135,6 +1153,24 @@ def main() -> int:
         for line in log.splitlines())
     print(f"ptxas C7515 lines: {results['ptxas_c7515_lines']} (sources "
           f"built in this run: {sorted(reports)})")
+    # kernel E's tiling and resources as its library reports them on this
+    # card (whether or not this run built it: blocks an SM from CUDA's
+    # occupancy calculator, local bytes for stack and spills), and its ptxas
+    # entry where this run built it
+    jbu_ptxas = next((v for n, v in cuda_lib.ptxas_entries(
+        reports.get("jbu", "")).items() if "jbu_kernel" in n), None)
+    jbu_config = jbu.kernel_config()
+    results["jbu_ptxas"], results["jbu_config"] = jbu_ptxas, jbu_config
+    print(f"kernel E: {json.dumps(jbu_config)}; "
+          f"ptxas {json.dumps(jbu_ptxas)}")
+    if "jbu" in reports and jbu_ptxas is None:
+        fail("kernel E has no entry in its ptxas report")
+    if jbu_config["local_bytes"] or (jbu_ptxas and (
+            jbu_ptxas["spill_stores"] or jbu_ptxas["spill_loads"])):
+        fail(f"kernel E spills: {jbu_config}, ptxas {jbu_ptxas}")
+    if jbu_config["blocks_per_sm"] < 2:
+        fail(f"kernel E fits fewer than the two blocks an SM of its design: "
+             f"{jbu_config}")
 
     # 3. kernels A and B against their plain versions, timed beside them;
     # batch 16 is the device loop's forward (8 lanes, flip TTA)
@@ -1165,7 +1201,10 @@ def main() -> int:
     # heads of 101) at B=2 and at the family loop's batch (flip TTA doubles
     # it), at a ragged Nq and Nk, and at dh=64; kernel E at the four JBU
     # stages at B=2, the last at the loop's batch, at a width and height
-    # that are no multiple of 16, and at C=100
+    # that are no multiple of 16, at C=100; at the tiling's edges: W one
+    # past a strip of 8 and H one past a tile of 8 (and 16) rows, C=70 (no
+    # multiple of 4: 4-byte copies), K=1, H = W = 4, and bases off 16-byte
+    # alignment
     loop_fwd = 2 * FAMILY_BATCH
     for i, (b, nq, nk, heads, dh, dtype) in enumerate((
             (2, 64 * 448, 1024, 4, 101, "float32"),
@@ -1184,6 +1223,12 @@ def main() -> int:
             (2, 512, 512, 384), (loop_fwd, 512, 512, 384),
             (1, 60, 90, 384), (2, 64, 64, 100))):
         checks.append(jbu_case(torch, jbu, b, h, w, c, 32, seed=30 + i))
+    for i, (b, h, w, c, k, aligned) in enumerate((
+            (1, 17, 41, 384, 32, True), (2, 64, 64, 70, 32, True),
+            (2, 40, 24, 384, 1, True), (3, 4, 4, 384, 32, True),
+            (2, 33, 50, 384, 32, False))):
+        checks.append(jbu_case(torch, jbu, b, h, w, c, k, seed=40 + i,
+                               aligned=aligned))
     for c in checks:
         print("check", json.dumps(c))
     results["checks"] = checks
@@ -1491,6 +1536,8 @@ def main() -> int:
         for key in ("tile", "plan"):
             if key in c:
                 entry[key] = c[key]
+        if name == "jbu_filter":
+            entry.update(tile=jbu_config, ptxas=jbu_ptxas)
         kernels.append(entry)
     results["kernels"] = kernels
     results["seconds"] = time.time() - t_start

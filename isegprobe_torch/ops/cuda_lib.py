@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,6 +30,13 @@ BUILD_DIR = CSRC / "build"
 SOURCES = ("attention", "layernorm", "edt", "mha", "jbu", "attn_variants")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# one entry of nvcc's -Xptxas -v report; the "Used N registers" line
+# follows an entry function's properties, not a device function's
+_PTXAS_ENTRY = re.compile(
+    r"Function properties for (\S+)\s+(\d+) bytes stack frame, (\d+) bytes "
+    r"spill stores, (\d+) bytes spill loads(?:\s*ptxas info\s*: Used (\d+) "
+    r"registers)?")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -60,9 +68,9 @@ def library_path(name: str) -> Path:
 
 def build(names=SOURCES) -> dict[str, str]:
     """Compile every named source whose library is missing, in parallel.
-    Returns nvcc's output (the ptxas register and spill report) for each
-    source compiled by this call; raises with the compiler's output if any
-    build fails."""
+    Returns nvcc's output (the ptxas register and spill report, read by
+    :func:`ptxas_entries`) for each source compiled by this call; raises
+    with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in names:
@@ -87,6 +95,17 @@ def build(names=SOURCES) -> dict[str, str]:
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return reports
+
+
+def ptxas_entries(log: str) -> dict[str, dict]:
+    """Per function of a :func:`build` report (nvcc ``-Xptxas -v``):
+    registers (None where the report gives none), stack frame and spill
+    bytes."""
+    return {name: {"registers": int(regs) if regs else None,
+                   "stack_bytes": int(stack), "spill_stores": int(stores),
+                   "spill_loads": int(loads)}
+            for name, stack, stores, loads, regs in
+            _PTXAS_ENTRY.findall(log)}
 
 
 def load(name: str) -> ctypes.CDLL:

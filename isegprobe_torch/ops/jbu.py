@@ -17,7 +17,9 @@ binds for σ above 0.25, and the two agree (σ = 0.8 and 1.0 in the tests).
 
 On a CPU tensor :func:`jbu_filter` computes the plain version; on a CUDA
 tensor it launches the kernel or raises. ``jbu_filter.launches`` counts the
-launches.
+launches. The kernel stages hr and proj with 16-byte copies where the
+channel count is a multiple of 4 and the tensor's base is 16-byte aligned,
+and with 4-byte copies otherwise.
 """
 
 from __future__ import annotations
@@ -35,6 +37,10 @@ __all__ = ["jbu_filter"]
 RADIUS = 3
 DIAM = 2 * RADIUS + 1
 NTAP = DIAM * DIAM  # 49
+
+# what iseg_jbu_config reports, in its order
+CONFIG_KEYS = ("tile_h", "tile_w", "chunk", "stages", "strip", "threads",
+               "smem_bytes", "blocks_per_sm", "registers", "local_bytes")
 
 _lib = None
 
@@ -86,8 +92,24 @@ def _load():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.iseg_jbu.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.iseg_jbu.restype = ci
+        lib.iseg_jbu_config.argtypes = [ctypes.POINTER(ci)]
+        lib.iseg_jbu_config.restype = ci
         _lib = lib
     return _lib
+
+
+def kernel_config(device=None) -> dict:
+    """Kernel E's tiling as its library was compiled, and its resources as
+    loaded on a CUDA ``device`` (default: the current one), from the
+    library itself: ``CONFIG_KEYS``, among them the resident blocks an SM
+    from CUDA's occupancy calculator and the local (stack and spill) bytes
+    a thread."""
+    lib = _load()
+    buf = (ctypes.c_int * len(CONFIG_KEYS))()
+    with torch.cuda.device(device):
+        err = lib.iseg_jbu_config(buf)
+    cuda_lib.check(lib, err, "JBU kernel E's configuration")
+    return dict(zip(CONFIG_KEYS, buf))
 
 
 def _jbu_cuda(hr: torch.Tensor, proj: torch.Tensor, temp,

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import sys
 import time
 
@@ -43,11 +42,9 @@ def build_report() -> dict:
     reports = cuda_lib.build(SOURCES)
     spills = {}
     for name, log in reports.items():
-        for entry, stores in re.findall(
-                r"Function properties for (\S+)\n\s+\d+ bytes stack frame, "
-                r"(\d+) bytes spill stores", log):
-            if "bf16" in entry and int(stores):
-                spills.setdefault(name, {})[entry] = int(stores)
+        for entry, rec in cuda_lib.ptxas_entries(log).items():
+            if "bf16" in entry and rec["spill_stores"]:
+                spills.setdefault(name, {})[entry] = rec["spill_stores"]
     return {"built": sorted(reports), "build_s": time.time() - t0,
             "c7515": sum(log.count("C7515") for log in reports.values()),
             "bf16_spill_stores": spills}

@@ -246,13 +246,21 @@ def test_cross_attention_every_tile_and_load_path(cuda_device, dtype, b, nq,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,w,c,k", [(2, 64, 64, 384, 32),
-                                       (1, 37, 50, 48, 32),
-                                       (2, 16, 258, 40, 20),
-                                       (1, 4, 5, 3, 33)])
-def test_jbu_kernel_matches_plain(cuda_device, b, h, w, c, k):
+@pytest.mark.parametrize("b,h,w,c,k,aligned", [
+    (2, 64, 64, 384, 32, True), (1, 37, 50, 48, 32, True),
+    (2, 16, 258, 40, 20, True), (1, 4, 5, 3, 33, True),
+    # the tiling's edges: W one past a strip of 8 and H one past a tile of
+    # 8 (and 16) rows, C no multiple of 4 or of the 32-channel chunk, K = 1,
+    # H = W = 4, and bases off 16-byte alignment (4-byte copies)
+    (1, 17, 41, 64, 32, True), (2, 20, 24, 70, 32, True),
+    (1, 12, 9, 40, 1, True), (2, 4, 4, 36, 32, True),
+    (2, 19, 23, 48, 32, False)])
+def test_jbu_kernel_matches_plain(cuda_device, b, h, w, c, k, aligned):
     hr = _randn((b, h, w, c), c, cuda_device)
     proj = _randn((b, h, w, k), k, cuda_device)
+    if not aligned:
+        hr, proj = _misaligned(hr), _misaligned(proj)
+    assert (hr.data_ptr() % 16 == 0) is aligned  # else 4-byte copies
     temp = torch.tensor(0.5, device=cuda_device)
     sigma = torch.tensor(0.8, device=cuda_device)
     before = jbu.jbu_filter.launches
@@ -268,6 +276,20 @@ def test_jbu_kernel_matches_plain(cuda_device, b, h, w, c, k):
     want16 = jbu._jbu_plain(hr.bfloat16(), proj, temp, sigma)
     torch.testing.assert_close(got16.float(), want16.float(), rtol=2e-2,
                                atol=2e-2 * scale)
+
+
+@pytest.mark.cuda
+def test_jbu_kernel_reports_its_tiling_and_resources(cuda_device):
+    """Kernel E's library reports the tiling it was compiled with and what
+    the card gives it: two 128-thread blocks of 8x16 pixels an SM (the
+    design's occupancy), and no local memory (nothing spilled)."""
+    cfg = jbu.kernel_config(cuda_device)
+    assert set(cfg) == set(jbu.CONFIG_KEYS)
+    assert (cfg["tile_h"], cfg["tile_w"], cfg["threads"]) == (8, 16, 128)
+    assert (cfg["chunk"], cfg["stages"], cfg["strip"]) == (32, 2, 8)
+    assert cfg["blocks_per_sm"] >= 2
+    assert 2 * cfg["smem_bytes"] <= 228 * 1024
+    assert cfg["local_bytes"] == 0 and 0 < cfg["registers"] <= 255
 
 
 @pytest.mark.cuda

@@ -161,3 +161,28 @@ def test_bench_flash_core_needs_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit, match="needs a CUDA device"):
         bench_flash_core.main()
+
+
+def test_bench_flash_core_build_report_reads_the_ptxas_report(monkeypatch):
+    """The core's build summary counts C7515 lines and names the bf16
+    entries that spill, from the report ``cuda_lib.build`` returns."""
+    from isegprobe_torch.scripts import bench_flash_core
+
+    log = ("ptxas info    : Function properties for k_bf16_64\n"
+           "    0 bytes stack frame, 24 bytes spill stores, 24 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 128 registers, used 1 barriers\n"
+           "ptxas info    : Function properties for k_f32_64\n"
+           "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 128 registers, used 1 barriers\n"
+           "ptxas info    : Function properties for k_bf16_128\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 168 registers, used 1 barriers\n"
+           "ptxas warning : (C7515) wgmma serialized in k_bf16_128\n")
+    monkeypatch.setattr(cuda_lib, "build",
+                        lambda names: {"attention": log, "mha": ""})
+    rep = bench_flash_core.build_report()
+    assert rep["built"] == ["attention", "mha"] and rep["c7515"] == 1
+    assert rep["bf16_spill_stores"] == {"attention": {"k_bf16_64": 24}}

@@ -89,12 +89,16 @@ def test_mha_plain_rounds_bf16_probabilities():
     _close(got.float().numpy(), want, 1e-2)
 
 
-JBU_SHAPES = [(16, 16), (20, 36), (34, 130), (16, 258)]
+# tests/test_jbu_kernel.py's shapes, then the edges of kernel E's tiling
+# (8x16 tiles, strips of 8): H one past a tile and W one past a strip, and
+# the smallest frame reflect padding takes
+JBU_SHAPES = [(16, 16), (20, 36), (34, 130), (16, 258), (17, 41), (4, 4)]
 
 
 @pytest.mark.parametrize("hw", JBU_SHAPES)
 def test_jbu_filter_plain_matches_jax(hw):
-    """The shapes of tests/test_jbu_kernel.py, against the XLA composition
+    """The shapes of tests/test_jbu_kernel.py and the tiling's edges,
+    against the XLA composition
     and the Pallas kernel in interpret mode (temp 0.5, sigma 0.8: neither
     normaliser clamp binds, so the two JAX forms agree)."""
     from isegprobe_tpu.ops.jbu_kernel import (
