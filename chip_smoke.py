@@ -15,7 +15,9 @@ does not hold:
    its C7515 lines (wgmma serialized by ptxas); read kernel E's tiling,
    resident blocks an SM, registers and local bytes from its library and
    its ptxas entry from this run's build (a spill, or fewer than the two
-   blocks an SM of its design, fails the run);
+   blocks an SM of its design, fails the run), and kernel C's layout at the
+   loop's row width (rows a block, threads, segment width, shared bytes,
+   blocks an SM, registers, local bytes: any local byte fails the run);
 3. hold kernels A and B against their plain PyTorch versions on the card, at
    the flagship shapes in f32 and bf16, at the device loop's batch of 16
    crops, and at attention shapes with dh != 64 (A also at dh = 13, whose
@@ -25,8 +27,13 @@ does not hold:
    ``ops/attention.py:_plan`` picks (recorded) and, forced through the
    entry's ``plan``, at every other query tile and load path;
 4. hold kernel C bitwise against its plain version (max abs error exactly 0)
-   at the device loop's shape [8, 2, 514, 642], at 64x64 and at a width
-   that is no multiple of 32, on random masks with zero-free columns;
+   at the device loop's shape [8, 2, 514, 642] on the three inputs of
+   ``bench_edt.py`` (random masks with zero-free columns, the clicker's
+   error maps, one zero a column), timed; on random masks at 64x64 and at
+   a width that is no multiple of 32; and over the rest of its domain
+   (``bench_edt.domain_inputs``: W = 4096, W = 1, sentinel rows, single
+   sources, column passes of height 5000, where g > 4096, and 40,000, where
+   G > 2^30 and C takes its int64 path);
 5. build the full-width flagship probe (DINOv2-S/14, 448², weights drawn
    from a seed, classifier bias set so that masks answer clicks), run
    one f32 forward on the card and the same forward on the CPU (plain
@@ -56,7 +63,8 @@ does not hold:
     recomputed on some clicks but not all;
 11. throughput of the device loop (f32 B=8, bf16 B=8 and B=16 on sixteen
     scenes) beside the host protocol's p50 per click, and the split of one
-    f32 B=8 loop step (clicker, crop, forward at batch 16, paste);
+    f32 B=8 loop step (clicker, crop, forward at batch 16, paste; kernel C
+    on the step's own error maps, bitwise against its plain version);
 12. the learned-upsampler families, LoftUp and JBU-FeatUp on DINOv2-S/14 at
     448² (drawn, calibrated): kernels D (cross-attention, f32 and bf16, at
     every tile and load path as A) and E (JBU filter; also at the edges of
@@ -87,7 +95,8 @@ does not hold:
     the flagship's and LoftUp's bf16 forwards among the paths; A, F and G
     also in bf16 at the sweep's shape, D at the LoftUp loop's; A and D with
     the plan their wrapper picked, E with the tiling and resources its
-    library reports and its ptxas entry) and,
+    library reports and its ptxas entry, C with its layout, its ptxas
+    entry and its times on each of the three inputs) and,
     last, the ``{"ok": true, "device":
     ...}`` line.
 
@@ -142,6 +151,9 @@ LOOP_CLICKS = 20
 LOOP_BATCH = 8
 LOOP_JOBS = 10
 LOOP_IOU_TOL = 1e-3
+# the clicker's row pass in the device loop at B=8: 2 error maps of 480x640
+# scenes padded by one pixel
+EDT_SHAPE = (LOOP_BATCH, 2, 514, 642)
 STOP_MARGIN = 2e-3
 # trunk cache: the same arithmetic from a cached trunk
 CACHE_TOL = 1e-4
@@ -398,17 +410,13 @@ def layernorm_case(torch, F, layernorm, rows_shape, d, dtype, seed):
     return res
 
 
-def edt_case(torch, edt, shape, seed):
-    """Hold kernel C bitwise against its plain version at one shape: the
-    column pass of random masks (about 2% zeros; column 1 and, for the
-    leading rows, the last column zero-free, so g = 1e6 reaches the row
-    pass) through both, timed beside each other. No single PyTorch call
-    computes this function, so there is no library time."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    zero = torch.rand(shape, generator=g, device="cuda") < 0.02
-    zero[..., 1] = False
-    zero[..., : max(1, shape[-2] // 2), -1] = False
-    gcol = edt._column_pass(zero).contiguous()
+def edt_case(torch, edt, gcol, kind: str, timed: bool = True):
+    """Hold kernel C bitwise against its plain version on one column-pass
+    output ``gcol`` (``bench_edt.column_input`` or ``domain_inputs``),
+    timed beside it. C's work depends on the data; its bound counts what
+    the function needs: ~20 integer operations a source for an envelope,
+    and g read and the result written once (bytes bound it). No single
+    PyTorch call computes this function, so there is no library time."""
     got = edt.row_envelope(gcol)
     want = edt._row_envelope_plain(gcol)
     torch.cuda.synchronize()
@@ -416,19 +424,17 @@ def edt_case(torch, edt, shape, seed):
            "bitwise_equal": bool(torch.equal(got, want)),
            "clamped_values": int((want == edt.BIG2).sum())}
     res["ok"] = res["bitwise_equal"] and res["max_abs_err"] == 0.0
-    res["ms"], res["timing"] = time_ms(torch,
-                                       lambda: edt.row_envelope(gcol))
-    res["plain_ms"], _ = time_ms(torch,
-                                 lambda: edt._row_envelope_plain(gcol))
-    res["library_ms"] = None
-    w = shape[-1]
+    if timed:
+        res["ms"], res["timing"] = time_ms(torch,
+                                           lambda: edt.row_envelope(gcol))
+        res["plain_ms"], _ = time_ms(
+            torch, lambda: edt._row_envelope_plain(gcol))
+        res["library_ms"] = None
+    w = gcol.shape[-1]
     rows = gcol.numel() // w
-    # brute force: an add and a min for each of the W candidates of each of
-    # the rows * W outputs; bytes: g read once, the result written once
-    res.update(_bound(2.0 * rows * w * w, 8.0 * rows * w, "float32"))
-    res["bytes_bound_ms"] = 8.0 * rows * w / PEAK_BYTES_PER_S * 1e3
-    res.update(kernel="edt_row_envelope", shape=list(shape), rows=rows,
-               dtype="float32")
+    res.update(_bound(20.0 * rows * w, 8.0 * rows * w, "float32"))
+    res.update(kernel="edt_row_envelope", input=kind,
+               shape=list(gcol.shape), rows=rows, dtype="float32")
     return res
 
 
@@ -1126,6 +1132,7 @@ def main() -> int:
     )
     from isegprobe_torch.models.vit import init_params
     from isegprobe_torch.ops import attention, cuda_lib, edt, jbu, layernorm
+    from isegprobe_torch.scripts import bench_edt
 
     t_start = time.time()
     results: dict = {}
@@ -1171,6 +1178,18 @@ def main() -> int:
     if jbu_config["blocks_per_sm"] < 2:
         fail(f"kernel E fits fewer than the two blocks an SM of its design: "
              f"{jbu_config}")
+    # kernel C's layout at the loop's row width, as its library reports it
+    edt_ptxas = next((v for n, v in cuda_lib.ptxas_entries(
+        reports.get("edt", "")).items() if "row_envelope_kernel" in n), None)
+    edt_config = edt.kernel_config(EDT_SHAPE[-1])
+    results["edt_ptxas"], results["edt_config"] = edt_ptxas, edt_config
+    print(f"kernel C: {json.dumps(edt_config)}; "
+          f"ptxas {json.dumps(edt_ptxas)}")
+    if "edt" in reports and edt_ptxas is None:
+        fail("kernel C has no entry in its ptxas report")
+    if edt_config["local_bytes"] or (edt_ptxas and (
+            edt_ptxas["spill_stores"] or edt_ptxas["spill_loads"])):
+        fail(f"kernel C spills: {edt_config}, ptxas {edt_ptxas}")
 
     # 3. kernels A and B against their plain versions, timed beside them;
     # batch 16 is the device loop's forward (8 lanes, flip TTA)
@@ -1192,10 +1211,20 @@ def main() -> int:
     checks.append(layernorm_case(torch, F, layernorm, (2 * LOOP_BATCH, 1025),
                                  384, "float32", seed=6))
 
-    # 4. kernel C against its plain version: bitwise
-    for i, shape in enumerate(((LOOP_BATCH, 2, 514, 642), (64, 64),
-                               (3, 5, 37, 333))):
-        checks.append(edt_case(torch, edt, shape, seed=10 + i))
+    # 4. kernel C against its plain version, bitwise: the three inputs of
+    # bench_edt.py at the device loop's shape (random first: the kernels
+    # line reads it), random masks at two more shapes, and the rest of its
+    # domain (W = 4096 and 1, sentinel rows, single sources, g > 4096,
+    # G > 2^30)
+    cuda = torch.device("cuda")
+    for i, (kind, shape) in enumerate((
+            ("random", EDT_SHAPE), ("clicker", EDT_SHAPE),
+            ("adversarial", EDT_SHAPE), ("random", (64, 64)),
+            ("random", (3, 5, 37, 333)))):
+        checks.append(edt_case(torch, edt, bench_edt.column_input(
+            kind, shape, cuda, seed=10 + i), kind))
+    for kind, gcol in bench_edt.domain_inputs(cuda, seed=15).items():
+        checks.append(edt_case(torch, edt, gcol, kind, timed=False))
 
     # kernel D at LoftUp's slab (64 rows of 448 queries against 32² keys, 4
     # heads of 101) at B=2 and at the family loop's batch (flip TTA doubles
@@ -1458,8 +1487,22 @@ def main() -> int:
                 st, sel["roi"], run8._merge_flip(step_logits,
                                                  LOOP_BATCH)))[0],
         }
-    split["row_envelope_ms"] = next(
-        c["ms"] for c in checks if c["kernel"] == "edt_row_envelope")
+        # kernel C on this step's own column pass (the clicker's fn and fp
+        # maps, padded with background), as next_click_from_error builds it
+        pred = st["prev"][..., 0] > 0.49
+        err = torch.stack([st["gt"] & ~pred, ~st["gt"] & pred], 1)
+        err &= st["not_ignore"][:, None]
+        fg = err.new_zeros((*err.shape[:-2], err.shape[-2] + 2,
+                            err.shape[-1] + 2))
+        fg[..., 1:-1, 1:-1] = err
+        gcol = edt._column_pass(~fg).contiguous()
+        split["row_envelope_ms"] = time_ms(
+            torch, lambda: edt.row_envelope(gcol))[0]
+        split["row_envelope_shape"] = list(gcol.shape)
+        if not torch.equal(edt.row_envelope(gcol),
+                           edt._row_envelope_plain(gcol)):
+            fail("kernel C differs from its plain version on the loop's "
+                 "own error maps")
     split["loop_ms_per_step"] = throughput[0]["ms_per_step"]
     print("step_split", json.dumps(split))
     results["step_split"] = split
@@ -1486,7 +1529,7 @@ def main() -> int:
                       [2 * LOOP_BATCH, 1025, 384]),
         "edt_row_envelope": ("isegprobe_torch/csrc/edt.cu",
                              "isegprobe_tpu/ops/edt.py:168",
-                             [LOOP_BATCH, 2, 514, 642]),
+                             list(EDT_SHAPE)),
         "mha": ("isegprobe_torch/csrc/mha.cu",
                 "isegprobe_tpu/ops/attention.py:319",
                 [[loop_fwd, 64 * 448, 4, 101], [loop_fwd, 1024, 4, 101]]),
@@ -1538,6 +1581,11 @@ def main() -> int:
                 entry[key] = c[key]
         if name == "jbu_filter":
             entry.update(tile=jbu_config, ptxas=jbu_ptxas)
+        if name == "edt_row_envelope":
+            entry.update(layout=edt_config, ptxas=edt_ptxas, by_input={
+                e["input"]: {k: e[k] for k in ("ms", "plain_ms", "bound_ms")}
+                for e in checks if e["kernel"] == name
+                and e["shape"] == shape})
         kernels.append(entry)
     results["kernels"] = kernels
     results["seconds"] = time.time() - t_start

@@ -12,9 +12,10 @@ Counterpart of ``isegprobe_tpu/ops/edt.py``.
   shape: a column pass (``torch.cummax``/``cummin``) and the row pass
   :func:`row_envelope`, the wrapper around the hand-written CUDA kernel C
   (``csrc/edt.cu``, replacing the Pallas TPU kernel
-  ``_row_envelope_pallas``). Every finite value is an integer that float32
-  holds exactly and ``min`` is exact in any order, so the kernel is bitwise
-  equal to its plain version and decisions match the host path bitwise.
+  ``_row_envelope_pallas``): an exact lower envelope of parabolas in
+  integers, one warp a row, its minimum rounded once to float32, so the
+  kernel is bitwise equal to its plain version and decisions match the host
+  path bitwise.
 * :func:`next_click_from_error` — the clicker's decision rule over a leading
   lane axis, for the on-device click loop.
 
@@ -39,8 +40,11 @@ __all__ = ["edt_l2sq", "edt_l2sq_device", "next_click_from_error",
 _BIG = 1.0e6  # "infinity" for column distances; squared stays finite in f32
 # the clamp of every squared distance: float32(1e12) = 999999995904
 BIG2 = float(np.float32(_BIG**2))
-# widest row kernel C takes: (j − j')² stays exact in float32
+# widest row kernel C takes: its columns fit int16
 MAX_ROW_WIDTH = 4096
+# what iseg_edt_config reports, in its order
+CONFIG_KEYS = ("rows_per_block", "threads", "segment", "smem_bytes",
+               "blocks_per_sm", "registers", "local_bytes")
 # plain row pass: elements of its [rows, W, block] candidate temporary
 _PLAIN_TMP_ELEMS = 1 << 25
 _lib = None
@@ -116,8 +120,24 @@ def _load():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.iseg_edt_row_envelope.argtypes = [vp, vp, ci, ci, vp]
         lib.iseg_edt_row_envelope.restype = ci
+        lib.iseg_edt_config.argtypes = [ci, ctypes.POINTER(ci)]
+        lib.iseg_edt_config.restype = ci
         _lib = lib
     return _lib
+
+
+def kernel_config(w: int, device=None) -> dict:
+    """Kernel C's layout at row width ``w`` as its library was compiled,
+    and its resources as loaded on a CUDA ``device`` (default: the current
+    one), from the library itself: ``CONFIG_KEYS``, among them the segment
+    width of a lane, the resident blocks an SM from CUDA's occupancy
+    calculator and the local (stack and spill) bytes a thread."""
+    lib = _load()
+    buf = (ctypes.c_int * len(CONFIG_KEYS))()
+    with torch.cuda.device(device):
+        err = lib.iseg_edt_config(w, buf)
+    cuda_lib.check(lib, err, "EDT row kernel C's configuration")
+    return dict(zip(CONFIG_KEYS, buf))
 
 
 def _row_envelope_cuda(g: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,9 @@ Tolerances: f32 differs only in summation order, rsqrtf and the online
 softmax (~1e-6 relative), so 1e-5; bf16 outputs may differ by one bf16
 rounding step (2^-8 relative), so 2e-2. Kernels A and D (one flash core)
 are held at both query tiles and both load paths, forced through the
-entries' ``plan``. The EDT row kernel computes exact
-integers in f32 and is held bitwise to its plain version. The JBU kernel
+entries' ``plan``. The EDT row kernel (C) computes an exact integer
+minimum and rounds it once, and is held bitwise to its plain version over
+its domain. The JBU kernel
 (E) and its plain version clamp different normalisers, which agree where
 neither clamp binds (sigma 0.8 here); E's output is a weighted mean of 49
 inputs, which errs relative to the inputs summed, so its absolute tolerance
@@ -151,6 +152,46 @@ def test_edt_row_kernel_matches_plain_bitwise(cuda_device, shape):
     assert torch.equal(got, want)
     ones = torch.ones((2, 9, 13), dtype=torch.bool, device=cuda_device)
     assert bool((edt.edt_l2sq_device(ones) == edt.BIG2).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "random", "clicker", "adversarial", "w4096_random", "w4096_adversarial",
+    "w1_random", "w1_adversarial", "sentinel_rows", "single_source_rows",
+    "tall_5000x7", "tall_40000x7"])
+def test_edt_row_kernel_bitwise_over_its_domain(cuda_device, name):
+    """Kernel C on bench_edt.py's three inputs at the device loop's shape
+    [8, 2, 514, 642] (random masks, the clicker's error maps, one zero a
+    column) and on its domain inputs (W = 4096 and 1, sentinel rows, single
+    sources, g > 4096 where fl(g²) + d² passes 2^24): bit for bit the plain
+    version."""
+    from isegprobe_torch.scripts import bench_edt
+
+    if name in bench_edt.KINDS:
+        g = bench_edt.column_input(name, bench_edt.SHAPES[0], cuda_device)
+    else:
+        g = bench_edt.domain_inputs(cuda_device)[name]
+    got = edt.row_envelope(g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, edt._row_envelope_plain(g))
+
+
+@pytest.mark.cuda
+def test_edt_kernel_reports_its_layout_and_resources(cuda_device):
+    """Kernel C's library reports its layout at a row width: one warp a
+    row, eight rows a block at the loop's 642 columns (55,488 shared bytes,
+    four blocks an SM), one at 4096, and no local memory (nothing
+    spilled)."""
+    cfg = edt.kernel_config(642, cuda_device)
+    assert set(cfg) == set(edt.CONFIG_KEYS)
+    assert (cfg["rows_per_block"], cfg["threads"], cfg["segment"]) == (
+        8, 256, 21)
+    assert cfg["smem_bytes"] == 55488 and cfg["blocks_per_sm"] == 4
+    assert cfg["local_bytes"] == 0 and 0 < cfg["registers"] <= 64
+    wide = edt.kernel_config(edt.MAX_ROW_WIDTH, cuda_device)
+    assert (wide["rows_per_block"], wide["threads"], wide["segment"]) == (
+        1, 32, 128)
+    assert wide["smem_bytes"] == 41472 and wide["blocks_per_sm"] >= 5
 
 
 @pytest.mark.cuda

@@ -183,3 +183,95 @@ def test_inverse_paste_per_lane_rois_match_jax_and_host_roi():
 def test_row_envelope_rejects_other_devices():
     with pytest.raises(ValueError):
         t_edt.row_envelope(torch.zeros(4, 8, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# The row pass over the rest of its domain: the yardstick of kernel C's GPU
+# tests (the plain version) against the JAX package's row pass
+# ---------------------------------------------------------------------------
+
+
+def _edge_zero_masks():
+    """Zero masks at the domain's edges, by name: columns taller than 4096
+    (g above 4096, so fl(g²) and fl(g²) + d² round in f32), no zero at all
+    (rows of sentinels only), W = 1, and one zero a column (at row 0, so g
+    runs down every column and minima lie far away)."""
+    rng = np.random.default_rng(9)
+    tall = np.zeros((4200, 5), bool)  # column 4 has no zero
+    tall[0, :4] = True
+    tall[50, 2] = True
+    one_zero = np.zeros((2, 70, 45), bool)
+    one_zero[:, 0, :] = True
+    return {"height_4200": tall,
+            "sentinel_rows": np.zeros((3, 9, 40), bool),
+            "w1": rng.random((2, 50, 1)) < 0.1,
+            "one_zero_a_column": one_zero}
+
+
+@pytest.mark.parametrize("name", ["height_4200", "sentinel_rows", "w1",
+                                  "one_zero_a_column"])
+def test_row_pass_and_edt_match_jax_at_the_domain_edges(name):
+    from isegprobe_tpu.ops.edt import _column_pass, _row_envelope
+    from isegprobe_tpu.ops.edt import edt_l2sq_device as j_edt
+
+    zero = _edge_zero_masks()[name]
+    g_want = np.asarray(_column_pass(jnp.asarray(zero)))
+    g = t_edt._column_pass(torch.from_numpy(zero))
+    np.testing.assert_array_equal(g.numpy(), g_want)
+    want = np.asarray(_row_envelope(jnp.asarray(g_want)))
+    np.testing.assert_array_equal(t_edt.row_envelope(g).numpy(), want)
+    np.testing.assert_array_equal(
+        t_edt.edt_l2sq_device(torch.from_numpy(~zero)).numpy(),
+        np.asarray(j_edt(jnp.asarray(~zero))))
+    if name == "height_4200":
+        assert g.max() > 4096  # g² rounds in f32
+        assert (want > 2**24).any() and (want < 1e12).all()
+    if name == "sentinel_rows":
+        assert (want == np.float32(1e12)).all()
+
+
+@pytest.mark.parametrize("name", ["w4096_random", "w4096_adversarial",
+                                  "w1_random", "w1_adversarial",
+                                  "sentinel_rows", "single_source_rows",
+                                  "tall_5000x7", "tall_40000x7"])
+def test_domain_inputs_of_kernel_c_match_jax(name):
+    """The inputs on which the GPU tests and chip_smoke.py hold kernel C
+    bitwise to the plain version: the plain version equals the JAX row
+    pass on each."""
+    from isegprobe_tpu.ops.edt import _row_envelope
+
+    from isegprobe_torch.scripts import bench_edt
+
+    g = bench_edt.domain_inputs(torch.device("cpu"))[name]
+    want = np.asarray(_row_envelope(jnp.asarray(g.numpy())))
+    np.testing.assert_array_equal(t_edt._row_envelope_plain(g).numpy(),
+                                  want)
+
+
+def test_bench_edt_runs_on_cpu_at_a_tiny_size():
+    from isegprobe_torch.scripts import bench_edt
+
+    assert tuple(bench_edt.domain_inputs(torch.device("cpu"))) == \
+        bench_edt.DOMAIN_NAMES
+    before = t_edt.row_envelope.launches
+    rec = bench_edt.main(device="cpu", label="tiny",
+                         shapes=[(2, 2, 12, 20), (1, 2, 7, 33)])
+    assert rec["label"] == "tiny" and rec["device"] == "cpu"
+    assert [(c["shape"], c["kind"]) for c in rec["cases"]] == [
+        (list(s), k) for s in [(2, 2, 12, 20), (1, 2, 7, 33)]
+        for k in bench_edt.KINDS]
+    assert all(c["bitwise_equal"] and c["ms"] is None
+               for c in rec["cases"])  # CPU: the plain version, not timed
+    assert t_edt.row_envelope.launches == before
+    adv = rec["cases"][2]
+    assert adv["kind"] == "adversarial" and adv["max_finite_g"] == 11.0
+    assert rec["cases"][1]["zeros"] > 0.5  # the clicker's maps: background
+
+
+def test_bench_edt_raises_without_a_gpu_unless_asked_for_the_cpu(
+        monkeypatch):
+    from isegprobe_torch.scripts import bench_edt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        bench_edt.main(shapes=[(1, 2, 4, 4)])
