@@ -65,6 +65,27 @@ does not hold:
     scenes) beside the host protocol's p50 per click, and the split of one
     f32 B=8 loop step (clicker, crop, forward at batch 16, paste; kernel C
     on the step's own error maps, bitwise against its plain version);
+11b. the trained probes (main paths 8-13): the 160-epoch flagship
+    checkpoint loaded through ``isegprobe_torch.evaluate.
+    load_model_for_eval`` (frozen backbone rebuilt from PRNGKey(0) in numpy:
+    its seconds and 22,056,192 parameters printed) and held against the
+    JAX package's results stored in ``isegprobe_torch/fixtures/
+    synthetic2026_50.npz`` (the Synthetic scenes, 78 objects): the f32
+    device loop at B=8 on every object (IoUs within 1e-3 of JAX's up to an
+    object's first click that differs, at most 2 objects differing, each
+    printed; NoC@80/85/90 within 0.05; every step 1 C, 12 A and 25 B), the
+    f32 host protocol on the first 8 objects (checked the same way; p50 ms
+    per click and per get_prediction), the bf16 loops at B=8 and B=16 (NoC
+    and lane-clicks/s beside f32's, a report); then the 448² LoftUp
+    checkpoint (its missing upsampler_path must warn) through the f32 loop
+    on the fixture's 2 objects and 4 clicks against JAX's, with no object
+    differing (every step 1 C, 12 A, 82 B and 14 D), and timed on all 78
+    objects at the family loop's 4 lanes and 8 clicks (a report, every step
+    launching the same). Kernels A, B, C and D are also checked at these
+    paths' shapes: A and B in bf16 at the B=16 loop's forward batch 32, B
+    at LoftUp's widths (404 on the slab and key rows, 203 on the stem, 384
+    in the ChannelNorm) at both LoftUp loops' forward batches, C on 258²
+    rows, D at forward batch 4;
 12. the learned-upsampler families, LoftUp and JBU-FeatUp on DINOv2-S/14 at
     448² (drawn, calibrated): kernels D (cross-attention, f32 and bf16, at
     every tile and load path as A) and E (JBU filter; also at the edges of
@@ -112,6 +133,7 @@ import subprocess
 import sys
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 
@@ -187,6 +209,33 @@ UPSAMPLERS = {
     "jbu_featup": dict(type="jbu_featup", params=dict(backbone_type="dinov2",
                                                       use_norm=True)),
 }
+
+
+# the trained probes (isegprobe_torch/evaluate.py) on the JAX package's
+# Synthetic scenes: the checkpoints, their frozen parameters (rebuilt from
+# PRNGKey(0)), evaluate.py's protocol (20 clicks, target IoU 0.9, threshold
+# 0.5), the loop's batch, the objects of the host protocol and of the
+# LoftUp leg against JAX (the timed LoftUp report runs every object at
+# FAMILY_BATCH lanes and FAMILY_CLICKS), and the gates against the JAX
+# results: at most
+# TRAINED_MAX_DIVERGED of the 78 objects may click differently (a pixel at
+# p = 0.5 or a tied deepest error can flip between CPU JAX and the card),
+# NoC within TRAINED_NOC_TOL
+TRAINED_CKPTS = {
+    name: str(Path(__file__).resolve().parent / "assets" / "trained" / ckpt)
+    for name, ckpt in (("flagship", "synthetic_dinov2_noup_160ep.ckpt"),
+                       ("loftup", "synthetic_dinov2_loftup448_160ep.ckpt"))}
+TRAINED_FROZEN = {"flagship": 22_056_192, "loftup": 22_056_192 + 4_305_510}
+TRAINED_CLICKS = 20
+TRAINED_TARGET = 0.9
+TRAINED_THRESH = 0.5
+TRAINED_BATCH = 8
+TRAINED_SCENE = 256
+TRAINED_HOST_OBJECTS = 8
+TRAINED_LOFTUP_OBJECTS = 2
+TRAINED_LOFTUP_CLICKS = 4
+TRAINED_MAX_DIVERGED = 2
+TRAINED_NOC_TOL = 0.05
 
 
 def fail(msg: str):
@@ -383,7 +432,8 @@ def variant_cases(torch, F, attention, attn_variants, b, n, heads, dtype,
     return records
 
 
-def layernorm_case(torch, F, layernorm, rows_shape, d, dtype, seed):
+def layernorm_case(torch, F, layernorm, rows_shape, d, dtype, seed,
+                   eps: float = 1e-6):
     """Check and time the LayerNorm kernel at one shape (weights in the IO
     dtype, as the model passes them)."""
     tdt = getattr(torch, dtype)
@@ -392,16 +442,16 @@ def layernorm_case(torch, F, layernorm, rows_shape, d, dtype, seed):
          ).to(tdt)
     w = (torch.randn(d, generator=g, device="cuda") * 0.5 + 1).to(tdt)
     bias = torch.randn(d, generator=g, device="cuda").to(tdt)
-    got = layernorm.layernorm(x, w, bias, 1e-6)
-    want = layernorm._ln_plain(x, w, bias, 1e-6)
+    got = layernorm.layernorm(x, w, bias, eps)
+    want = layernorm._ln_plain(x, w, bias, eps)
     torch.cuda.synchronize()
     res = compare(torch, got, want, dtype)
     res["ms"], res["timing"] = time_ms(
-        torch, lambda: layernorm.layernorm(x, w, bias, 1e-6))
+        torch, lambda: layernorm.layernorm(x, w, bias, eps))
     res["plain_ms"], _ = time_ms(
-        torch, lambda: layernorm._ln_plain(x, w, bias, 1e-6))
+        torch, lambda: layernorm._ln_plain(x, w, bias, eps))
     res["library_ms"], _ = time_ms(
-        torch, lambda: F.layer_norm(x, (d,), w, bias, 1e-6))
+        torch, lambda: F.layer_norm(x, (d,), w, bias, eps))
     n = x.numel()
     nbytes = 2 * n * x.element_size() + 2 * d * w.element_size()
     ops = 8.0 * n  # sum, square-sum, centre, scale, affine (f32 math)
@@ -1053,6 +1103,297 @@ def learned_family(torch, name: str) -> dict:
     return res
 
 
+def against_fixture(ious, clicks, want_ious, want_n, want_clicks,
+                    what: str, max_diverged: int) -> dict:
+    """Hold per-object trajectories against the JAX package's (the
+    fixture's): each object's IoUs within LOOP_IOU_TOL up to its first click
+    that differs from JAX's in position or sign (or where one run stops and
+    the other clicks on), all of them where none does; at most
+    ``max_diverged`` objects may differ at all, each printed."""
+    diverged, err = [], 0.0
+    for i, (got_i, got_c) in enumerate(zip(ious, clicks)):
+        n = int(want_n[i])
+        want_c = [tuple(int(v) for v in c) for c in want_clicks[i, :n]]
+        got_c = [tuple(int(v) for v in c) for c in got_c]
+        k = next((j for j, (a, b) in enumerate(zip(got_c, want_c))
+                  if a != b), None)
+        if k is None and len(got_c) != n:
+            k = min(len(got_c), n)
+        upto = len(got_c) if k is None else k
+        if upto:
+            err = max(err, float(np.abs(np.asarray(got_i[:upto])
+                                        - want_ious[i, :upto]).max()))
+        if k is not None:
+            diverged.append({"object": i, "click": k + 1,
+                             "got": got_c[k] if k < len(got_c) else "stop",
+                             "want": want_c[k] if k < n else "stop"})
+    for d in diverged:
+        print(f"{what}: object {d['object']} clicks differently from JAX at "
+              f"click {d['click']}: {d['got']} (y, x, positive) here, "
+              f"{d['want']} in JAX")
+    if err > LOOP_IOU_TOL:
+        fail(f"{what}: IoUs differ from JAX's by {err} > {LOOP_IOU_TOL} "
+             f"before any click differs")
+    if len(diverged) > max_diverged:
+        fail(f"{what}: {len(diverged)} objects click differently from JAX "
+             f"(at most {max_diverged} allowed)")
+    return {"max_iou_diff_before_divergence": err, "diverged": diverged}
+
+
+def trained_phase(torch, cuda) -> dict:
+    """Main paths of the trained probes: the 160-epoch flagship checkpoint
+    and the 448² LoftUp one, loaded through ``isegprobe_torch.evaluate.
+    load_model_for_eval`` (frozen parts rebuilt from PRNGKey(0) in numpy)
+    and held against the JAX package's results on the stored Synthetic
+    scenes (``isegprobe_torch/fixtures/synthetic2026_50.npz``): the f32
+    device loop on every object, the host protocol on the first
+    TRAINED_HOST_OBJECTS, the bf16 loops as a report, and LoftUp's f32 loop
+    on the fixture's objects, then timed on every object. Returns the
+    records, the path launches and the kernel checks at the paths'
+    shapes."""
+    import warnings
+
+    from isegprobe_torch.data.scenes import SYNTHETIC_FIXTURE, SceneDataset
+    from isegprobe_torch.evaluate import load_model_for_eval
+    from isegprobe_torch.inference import device_eval
+    from isegprobe_torch.inference.evaluation import (
+        evaluate_sample,
+        latency_percentiles,
+    )
+    from isegprobe_torch.inference.metrics import compute_noc_metric
+    from isegprobe_torch.inference.predictor import Predictor
+    from isegprobe_torch.models.upsamplers.loftup import LN_EPS
+    from isegprobe_torch.ops import attention, edt, layernorm
+    from isegprobe_torch.scripts import bench_edt
+
+    F = torch.nn.functional
+    res: dict = {}
+    fx = dict(np.load(SYNTHETIC_FIXTURE))
+    data = SceneDataset(SYNTHETIC_FIXTURE)
+    n_obj = data.n_objects
+    # kernels A-D at the shapes these paths give them: 224² scenes pad to
+    # 256², so C's rows are 258 wide; the bf16 B=16 loop runs forwards of
+    # 32 crops; LoftUp's loops of 2 and 4 lanes forwards of 4 and 8, whose
+    # LayerNorms run 404 wide on a slab's 64 × 448 query rows and the 32²
+    # key rows, 203 wide on the stem's 68 × 448 rows, 384 in the
+    # ChannelNorm
+    side = TRAINED_SCENE + 2
+    fwd32 = 2 * 2 * TRAINED_BATCH
+    checks = [edt_case(torch, edt, bench_edt.column_input(
+        "clicker", (b, 2, side, side), cuda, seed=50 + b), "clicker")
+        for b in (TRAINED_BATCH, 2 * TRAINED_BATCH)]
+    checks += cross_attention_case(torch, F, attention,
+                                   2 * TRAINED_LOFTUP_OBJECTS, 64 * 448, 1024,
+                                   4, 101, "float32", seed=52)
+    checks += attention_case(torch, F, attention, fwd32, 1025, 6, 64,
+                             "bfloat16", seed=53)
+    checks.append(layernorm_case(torch, F, layernorm, (fwd32, 1025), 384,
+                                 "bfloat16", seed=54))
+    seed = 55
+    for b in (2 * TRAINED_LOFTUP_OBJECTS, 2 * FAMILY_BATCH):
+        for rows, d in (((64 * 448,), 404), ((1024,), 404),
+                        ((68, 448), 203), ((1024,), 384)):
+            checks.append(layernorm_case(torch, F, layernorm, (b, *rows), d,
+                                         "float32", seed=seed, eps=LN_EPS))
+            seed += 1
+
+    def evaluator(model, batch, max_clicks=TRAINED_CLICKS,
+                  record_clicks=False):
+        return device_eval.make_device_evaluator(
+            model, target_size=(448, 448), batch_size=batch,
+            max_clicks=max_clicks, net_clicks_limit=max_clicks,
+            pred_thr=TRAINED_THRESH, target_iou=TRAINED_TARGET,
+            record_clicks=record_clicks)
+
+    def noc_of(all_ious, max_clicks=TRAINED_CLICKS):
+        return compute_noc_metric(all_ious, [0.8, 0.85, 0.9],
+                                  max_clicks)[0]
+
+    want_noc = [float(v) for v in fx["flagship_noc"]]
+    models = {}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.time()
+        models[dtype], info = load_model_for_eval(
+            TRAINED_CKPTS["flagship"], getattr(torch, dtype), (448, 448))
+        res[f"load_{dtype}"] = {"load_s": time.time() - t0,
+                                "init_tree_s": info["init_seconds"],
+                                "frozen_params": info["frozen_params"]}
+        print(f"trained flagship {dtype}: init tree built in "
+              f"{info['init_seconds']:.2f} s, {info['frozen_params']:,} "
+              f"frozen parameters, loaded in {time.time() - t0:.2f} s")
+        if info["frozen_params"] != TRAINED_FROZEN["flagship"]:
+            fail(f"trained flagship: {info['frozen_params']} frozen "
+                 f"parameters, expected {TRAINED_FROZEN['flagship']}")
+
+    # the device loops: f32 at B=8, held against JAX; bf16 at B=8 and 16
+    paths, loops = {}, []
+    for dtype, batch in (("float32", TRAINED_BATCH),
+                         ("bfloat16", TRAINED_BATCH),
+                         ("bfloat16", 2 * TRAINED_BATCH)):
+        model = models[dtype]
+        device_eval.evaluate_dataset_device(  # warm-up: per-device constants
+            evaluator(model, batch, max_clicks=1), data)
+        gated = dtype == "float32"  # only the f32 loop is held against JAX
+        run = evaluator(model, batch, record_clicks=gated)
+        clicks = [] if gated else None
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.time()
+        got = device_eval.evaluate_dataset_device(run, data, clicks=clicks)
+        wall = time.time() - t0
+        launches = counters()
+        want = expected(**{k: v * run.steps for k, v in PER_STEP.items()})
+        if launches != want:
+            fail(f"trained {dtype} B={batch} loop launched {launches} in "
+                 f"{run.steps} steps, expected {want}")
+        if len(got) != n_obj or not all(
+                np.isfinite(a).all() and 1 <= len(a) <= TRAINED_CLICKS
+                for a in got):
+            fail(f"trained {dtype} B={batch} loop: bad trajectories")
+        n_clicks = sum(len(a) for a in got)
+        rec = {"dtype": dtype, "batch": batch, "objects": len(got),
+               "steps": run.steps, "clicks": n_clicks, "wall_s": wall,
+               "ms_per_step": 1e3 * wall / run.steps,
+               "lane_clicks_per_s": n_clicks / wall, "noc": noc_of(got),
+               "jax_cpu_noc": want_noc, "launches": launches,
+               "records_clicks": gated}
+        if gated:
+            rec.update(against_fixture(
+                got, clicks, fx["flagship_ious"], fx["flagship_n"],
+                fx["flagship_clicks"], "trained f32 device loop",
+                TRAINED_MAX_DIVERGED))
+            gap = max(abs(a - b) for a, b in zip(rec["noc"], want_noc))
+            if gap > TRAINED_NOC_TOL:
+                fail(f"trained f32 NoC@80/85/90 {rec['noc']} differ from "
+                     f"JAX's {want_noc} by {gap} > {TRAINED_NOC_TOL}")
+        print("trained_loop", json.dumps(
+            {k: v for k, v in rec.items() if k != "diverged"}))
+        print(f"trained flagship {dtype} B={batch}: NoC@80/85/90 "
+              + " / ".join(f"{v:.4f}" for v in rec["noc"]) + " (JAX f32 "
+              "on the CPU: " + " / ".join(f"{v:.4f}" for v in want_noc)
+              + f"), {rec['lane_clicks_per_s']:.2f} lane-clicks/s, "
+              f"{rec['ms_per_step']:.3f} ms/step")
+        loops.append(rec)
+        paths[f"trained_loop_{dtype}_b{batch}"] = launches
+    res["device_loops"] = loops
+
+    # the host protocol, f32, on the first objects
+    predictor = Predictor(models["float32"], target_size=(448, 448),
+                          with_flip=True, net_clicks_limit=TRAINED_CLICKS)
+    host_data = SceneDataset(SYNTHETIC_FIXTURE,
+                             objects=slice(0, TRAINED_HOST_OBJECTS))
+    samples = [host_data.get_sample(i) for i in range(len(host_data))]
+    evaluate_sample(samples[0].image, samples[0].gt_mask(0), predictor,
+                    max_iou_thr=2.0, max_clicks=1)  # warm-up
+    click_s = time_clicks(predictor)
+    per_click, host_ious, host_clicks = [], [], []
+    zero_counters()
+    for sample in samples:
+        t0 = time.time()
+        cl, ious, _ = evaluate_sample(
+            sample.image, sample.gt_mask(0), predictor,
+            max_iou_thr=TRAINED_TARGET, pred_thr=TRAINED_THRESH,
+            max_clicks=TRAINED_CLICKS)
+        per_click.append((time.time() - t0) / len(ious))
+        host_ious.append(ious)
+        host_clicks.append([(*c.coords, int(c.is_positive)) for c in cl])
+    host_launches = counters()
+    n_clicks = sum(len(a) for a in host_ious)
+    if host_launches != expected(mha_qkv=12 * n_clicks,
+                                 layernorm=25 * n_clicks):
+        fail(f"trained host protocol launched {host_launches} for "
+             f"{n_clicks} clicks")
+    k = TRAINED_HOST_OBJECTS
+    host = {"objects": k, "clicks": n_clicks, "launches": host_launches,
+            "per_get_prediction": latency_percentiles(click_s),
+            "per_click_protocol": latency_percentiles(per_click),
+            **against_fixture(host_ious, host_clicks, fx["flagship_ious"][:k],
+                              fx["flagship_n"][:k],
+                              fx["flagship_clicks"][:k],
+                              "trained f32 host protocol",
+                              TRAINED_MAX_DIVERGED)}
+    print("trained_host", json.dumps(host))
+    print(f"trained host protocol: p50 "
+          f"{host['per_click_protocol']['p50_ms']:.3f} ms per click, "
+          f"{host['per_get_prediction']['p50_ms']:.3f} ms per "
+          "get_prediction")
+    res["host"] = host
+    paths["trained_host"] = host_launches
+    del models, predictor
+
+    # LoftUp: its configured upsampler_path is missing, so it must warn and
+    # keep the PRNGKey(0) upsampler, as the JAX package's evaluation did
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.time()
+        model, info = load_model_for_eval(TRAINED_CKPTS["loftup"],
+                                          torch.float32, (448, 448))
+        load_s = time.time() - t0
+    warned = [str(w.message) for w in caught
+              if "upsampler_path" in str(w.message)]
+    print(f"trained LoftUp: init tree built in {info['init_seconds']:.2f} s, "
+          f"{info['frozen_params']:,} frozen parameters; warned: {warned}")
+    if not warned:
+        fail("trained LoftUp: no warning for its missing upsampler_path")
+    if info["frozen_params"] != TRAINED_FROZEN["loftup"]:
+        fail(f"trained LoftUp: {info['frozen_params']} frozen parameters, "
+             f"expected {TRAINED_FROZEN['loftup']}")
+    per_step = dict(edt_row_envelope=1, **FORWARD_LAUNCHES["loftup"])
+
+    def loftup_loop(dataset, batch, max_clicks, clicks):
+        run = evaluator(model, batch, max_clicks=max_clicks,
+                        record_clicks=clicks is not None)
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.time()
+        got = device_eval.evaluate_dataset_device(run, dataset,
+                                                  clicks=clicks)
+        wall = time.time() - t0
+        launches = counters()
+        want = expected(**{k: v * run.steps for k, v in per_step.items()})
+        if launches != want:
+            fail(f"trained LoftUp B={batch} loop launched {launches} in "
+                 f"{run.steps} steps, expected {want}")
+        return got, {"objects": len(got), "batch": batch,
+                     "max_clicks": max_clicks, "steps": run.steps,
+                     "clicks": sum(len(a) for a in got), "wall_s": wall,
+                     "ms_per_step": 1e3 * wall / run.steps,
+                     "launches": launches}
+
+    # against JAX on the fixture's objects, then timed on every object
+    m = TRAINED_LOFTUP_OBJECTS
+    clicks = []
+    got, loftup = loftup_loop(SceneDataset(SYNTHETIC_FIXTURE,
+                                           objects=slice(0, m)),
+                              m, TRAINED_LOFTUP_CLICKS, clicks)
+    loftup.update(ious=[[float(v) for v in a] for a in got],
+                  load_s=load_s, init_tree_s=info["init_seconds"],
+                  frozen_params=info["frozen_params"],
+                  **against_fixture(got, clicks, fx["loftup_ious"],
+                                    fx["loftup_n"], fx["loftup_clicks"],
+                                    "trained LoftUp f32 device loop", 0))
+    print("trained_loftup", json.dumps(loftup))
+    got, timed = loftup_loop(data, FAMILY_BATCH, FAMILY_CLICKS, None)
+    if len(got) != n_obj or not all(
+            np.isfinite(a).all() and 1 <= len(a) <= FAMILY_CLICKS
+            for a in got):
+        fail("trained LoftUp timed loop: bad trajectories")
+    timed.update(lane_clicks_per_s=timed["clicks"] / timed["wall_s"],
+                 noc=noc_of(got, FAMILY_CLICKS))
+    print("trained_loftup_timed", json.dumps(timed))
+    print(f"trained LoftUp f32 B={FAMILY_BATCH}, {n_obj} objects, <= "
+          f"{FAMILY_CLICKS} clicks: {timed['ms_per_step']:.1f} ms/step, "
+          f"{timed['lane_clicks_per_s']:.2f} lane-clicks/s, NoC@80/85/90 "
+          + " / ".join(f"{v:.4f}" for v in timed["noc"]))
+    res["loftup"] = loftup
+    res["loftup_timed"] = timed
+    paths["trained_loftup_loop"] = loftup["launches"]
+    paths["trained_loftup_timed"] = timed["launches"]
+    res["path_launches"] = paths
+    res["checks"] = checks
+    return res
+
+
 def variant_sweep(torch, F) -> tuple:
     """Kernels F (nodiv) and G (merged) against their plain versions and
     bit for bit against each other and kernel A, at B=2, at the sweep's
@@ -1507,6 +1848,16 @@ def main() -> int:
     print("step_split", json.dumps(split))
     results["step_split"] = split
 
+    # 11b. the trained probes against the JAX package's results
+    trained = trained_phase(torch, cuda)
+    results["trained"] = {k: v for k, v in trained.items() if k != "checks"}
+    for c in trained["checks"]:
+        print("check", json.dumps(c))
+    checks += trained["checks"]
+    bad = [c for c in trained["checks"] if not c["ok"]]
+    if bad:
+        fail(f"kernel disagrees with its plain version: {bad}")
+
     # 12. the learned-upsampler families (main paths 3-6)
     families = {name: learned_family(torch, name) for name in UPSAMPLERS}
     results["families"] = families
@@ -1548,6 +1899,7 @@ def main() -> int:
              "flagship_bf16_forward": expected(
                  **noc["bf16_forward"]["launches_per_forward"]),
              "attn_variant_sweep": sweep_launches}
+    paths.update(trained["path_launches"])
     for fam in families.values():
         paths.update(fam["path_launches"])
     kernels = []

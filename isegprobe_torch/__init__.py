@@ -13,13 +13,18 @@ Layout mirrors the JAX package so each module's counterpart is easy to find:
                 nodiv and merged (attn_variants.py)
     csrc/       CUDA C++ sources of kernels A-G, built with nvcc at first use
     models/     ViT core, DINOv2 featurizer, upsamplers (identity, LoftUp,
-                JBU-FeatUp), heads, probe model, and the weight bridge from
-                the JAX package's param trees
+                JBU-FeatUp), heads, probe model, the weight bridge from
+                the JAX package's param trees, and their PRNGKey(0) init
+                rebuilt in numpy (init_tree)
     inference/  clicker, predictor, NoC evaluation and metrics, and the
                 batched on-device NoC loop (device_eval)
+    data/       the stored evaluation scenes (scenes), over fixtures/
+    evaluate.py the trained checkpoints by NoC (python -m
+                isegprobe_torch.evaluate checkpoint=...)
     scripts/    command-line entry points: the attention-variant sweep
                 (python -m isegprobe_torch.scripts.bench_attn_variants)
-    utils/      bbox helpers
+    utils/      bbox helpers, the checkpoint reader (serialization) and
+                JAX's threefry PRNG in numpy (jax_rng)
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without a
 GPU and without that request they raise (see :func:`resolve_device`).

@@ -102,14 +102,18 @@ class DeviceEvaluator:
     valid_hw ``[2]`` -> (ious ``[max_clicks]``, n ``[]``). ``batch_size >
     1``: the same with a leading lane axis of ``batch_size``. Counters, for
     the caller to read: ``steps`` (loop steps run), ``host_reads`` (device
-    reads inside the loop) and ``trunk_recomputes``."""
+    reads inside the loop) and ``trunk_recomputes``. With
+    ``record_clicks``, ``clicks`` holds a call's clicks ``[B, max_clicks,
+    3]`` (y, x, is_positive; -1 past each lane's count) after it; without,
+    the loop keeps no click record and ``clicks`` stays None."""
 
     def __init__(self, model, *, target_size: Tuple[int, int],
                  max_clicks: int, net_clicks_limit: int, pred_thr: float,
                  target_iou: float, min_clicks: int, with_flip: bool,
                  roi_prob_thresh: float, expansion_ratio: float,
                  min_crop_size: int, recompute_thresh_iou: float,
-                 batch_size: int, use_cache: bool, device) -> None:
+                 batch_size: int, use_cache: bool, record_clicks: bool,
+                 device) -> None:
         self.model = model
         self.target_size = tuple(target_size)
         self.max_clicks = max_clicks
@@ -125,11 +129,13 @@ class DeviceEvaluator:
         self.recompute_thresh_iou = recompute_thresh_iou
         self.batch_size = batch_size
         self.use_cache = use_cache
+        self.record_clicks = record_clicks
         self.device = device
         self.with_prev = getattr(model, "with_prev_mask", False)
         self.steps = 0
         self.host_reads = 0
         self.trunk_recomputes = 0
+        self.clicks: Optional[torch.Tensor] = None
 
     # -- the loop's allowed host reads --------------------------------------
 
@@ -193,6 +199,9 @@ class DeviceEvaluator:
             n=lanes(0, torch.long),
             done=lanes(False, torch.bool),
         )
+        if self.record_clicks:  # every click (y, x, is_positive), -1 past n
+            st["clicks"] = torch.full((b, self.max_clicks, 3), -1,
+                                      dtype=torch.long, device=dev)
         if self.use_cache:
             # serves click 1: with an empty prediction the first ROI
             # candidate is the full frame, which this trunk was computed for
@@ -266,6 +275,13 @@ class DeviceEvaluator:
                    pos_ymin=pos_ymin, pos_ymax=pos_ymax, pos_xmin=pos_xmin,
                    pos_xmax=pos_xmax, roi=roi,
                    roi_set=torch.ones_like(st["roi_set"]))
+        if self.record_clicks:
+            at_n = (torch.arange(self.max_clicks, device=dev)[None, :]
+                    == st["n"][:, None])
+            sel["clicks"] = torch.where(
+                at_n[..., None],
+                torch.stack([cy, cx, is_pos.long()], 1)[:, None],
+                st["clicks"])
         return sel, torch.cat([pos_pts, neg_pts], dim=1)
 
     def _roi_points(self, roi, points):
@@ -355,7 +371,8 @@ class DeviceEvaluator:
         new = {**st, **sel, **fin}
         if self.use_cache:
             new["trunk"], new["trunk_roi"] = trunk, trunk_roi
-        for k in ("ious", "n", "done"):
+        for k in ("ious", "n", "done") + (
+                ("clicks",) if self.record_clicks else ()):
             new[k] = _lane_where(active, new[k], st[k])
         return new
 
@@ -376,6 +393,7 @@ class DeviceEvaluator:
                 break
             st = self._body(st, active)
             self.steps += 1
+        self.clicks = st.get("clicks")
         return st["ious"], st["n"]
 
     def __call__(self, images: torch.Tensor, gts: torch.Tensor,
@@ -396,6 +414,7 @@ def make_device_evaluator(model, target_size: Tuple[int, int] = (448, 448),
                           recompute_thresh_iou: float = 0.5,
                           batch_size: int = 1, mesh=None,
                           trunk_cache: str = "auto", group_api: bool = False,
+                          record_clicks: bool = False,
                           device=None) -> DeviceEvaluator:
     """Build the on-device NoC evaluator for ``model`` (an
     ``iSegProbeModel`` living on ``device``: CUDA unless ``device="cpu"``).
@@ -404,17 +423,20 @@ def make_device_evaluator(model, target_size: Tuple[int, int] = (448, 448),
 
     ``trunk_cache``: ``'auto'`` caches the click-independent trunk when the
     backbone injects clicks ``after_backbone``; ``'on'`` forces it (and
-    raises for other injection modes); ``'off'`` disables it. ``mesh`` and
+    raises for other injection modes); ``'off'`` disables it.
+    ``record_clicks`` keeps every click on the device for the caller
+    (``DeviceEvaluator.clicks``; the JAX evaluator has no such record), at
+    a few small ops a step. ``mesh`` and
     ``group_api`` are not ported yet and raise ``NotImplementedError``."""
     if mesh is not None:
         raise NotImplementedError(
             "the mesh-sharded device evaluator is not ported to "
-            "isegprobe_torch yet: ROADMAP Queue 1 item 11 (parallel/mesh.py "
+            "isegprobe_torch yet: ROADMAP Queue 1 item 9 (parallel/mesh.py "
             "on torch.distributed)")
     if group_api:
         raise NotImplementedError(
             "the continuous-batching group API is not ported to "
-            "isegprobe_torch yet: ROADMAP Queue 1 item 7 (continuous "
+            "isegprobe_torch yet: ROADMAP Queue 1 item 5 (continuous "
             "batching)")
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
@@ -442,7 +464,7 @@ def make_device_evaluator(model, target_size: Tuple[int, int] = (448, 448),
         roi_prob_thresh=roi_prob_thresh, expansion_ratio=expansion_ratio,
         min_crop_size=min_crop_size,
         recompute_thresh_iou=recompute_thresh_iou, batch_size=batch_size,
-        use_cache=use_cache, device=device)
+        use_cache=use_cache, record_clicks=record_clicks, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -500,7 +522,8 @@ def evaluate_sample_device(run_fn: DeviceEvaluator, image: np.ndarray,
 
 def evaluate_dataset_device(run_fn: DeviceEvaluator, dataset,
                             bucket: int = 64,
-                            sample_times: Optional[list] = None
+                            sample_times: Optional[list] = None,
+                            clicks: Optional[list] = None
                             ) -> List[np.ndarray]:
     """Every object of ``dataset`` through the device loop; per-click IoUs
     in dataset order.
@@ -508,10 +531,15 @@ def evaluate_dataset_device(run_fn: DeviceEvaluator, dataset,
     With ``run_fn.batch_size > 1`` jobs are grouped by padded shape and
     chunked into batches; the tail chunk is padded with its last job, whose
     duplicates are discarded. ``sample_times`` (a list) receives one wall
-    time per sample: the run of the chunk it rode in. Chunks run one after
+    time per sample: the run of the chunk it rode in; ``clicks`` (a list)
+    each sample's clicks ``[n, 3]`` (y, x, is_positive; ``run_fn`` must
+    record them). Chunks run one after
     the other: the loop's per-click reads keep host and device in step, so
     there is nothing for the JAX package's ``depth`` pipelining to overlap in
     eager PyTorch, and the port has no such parameter."""
+    if clicks is not None and not run_fn.record_clicks:
+        raise ValueError("clicks= needs an evaluator made with "
+                         "record_clicks=True")
     b = run_fn.batch_size
     if b == 1:
         all_ious = []
@@ -523,10 +551,14 @@ def evaluate_dataset_device(run_fn: DeviceEvaluator, dataset,
                     run_fn, sample.image, sample.gt_mask(object_id), bucket))
                 if sample_times is not None:
                     sample_times.append(time() - t0)
+                if clicks is not None:
+                    clicks.append(run_fn.clicks[0, :len(all_ious[-1])]
+                                  .cpu().numpy())
         return all_ious
 
     jobs, by_shape = _build_jobs(dataset, bucket)
     results: List[Optional[np.ndarray]] = [None] * len(jobs)
+    job_clicks: List[Optional[np.ndarray]] = [None] * len(jobs)
     for group in by_shape.values():
         for lo in range(0, len(group), b):
             chunk = group[lo:lo + b]
@@ -538,12 +570,18 @@ def evaluate_dataset_device(run_fn: DeviceEvaluator, dataset,
             ious, n = run_fn(imgs, gts, hws)
             ious, n = ious.cpu().numpy(), n.cpu().numpy()
             wall = time() - t0
+            if clicks is not None:
+                lane_clicks = run_fn.clicks.cpu().numpy()
             seen = set()
             for lane, (order_idx, *_rest) in enumerate(chunk):
                 if order_idx in seen:  # tail padding repeats the last job
                     continue
                 seen.add(order_idx)
                 results[order_idx] = ious[lane][: int(n[lane])]
+                if clicks is not None:
+                    job_clicks[order_idx] = lane_clicks[lane][: int(n[lane])]
                 if sample_times is not None:
                     sample_times.append(wall)
+    if clicks is not None:
+        clicks.extend(job_clicks)
     return results

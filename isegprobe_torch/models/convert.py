@@ -17,18 +17,26 @@ A param tree is nested dicts of numpy arrays (``params["backbone"]["model"]
   ``sigma_spatial``.
 
 Loading raises on any missing or unexpected key and on any shape mismatch.
+
+``load_upsampler_params`` reads the frozen upsampler weights a config's
+``upsampler_path`` names, and ``interpolate_pos_embed_params`` resizes a
+pos-embed to the eval grid once (counterparts of the JAX package's functions
+of those names).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Mapping
+import warnings
+from pathlib import Path
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["jax_params_to_state_dict", "load_jax_params"]
+__all__ = ["jax_params_to_state_dict", "load_jax_params",
+           "load_upsampler_params", "interpolate_pos_embed_params"]
 
 _INDEXED = re.compile(r"^(blocks|convs|ca|ff)_(\d+)$")
 _PASS_THROUGH = ("bias", "cls_token", "pos_embed", "gamma", "weight",
@@ -92,3 +100,56 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> nn.Module:
         for name, value in incoming.items():
             own[name].copy_(value)
     return module
+
+
+def load_upsampler_params(upsampler_cfg: Optional[Mapping]):
+    """The frozen LoftUp or LiFT weights that ``upsampler_cfg["params"]
+    ["upsampler_path"]`` names, as a flax param tree, or None when no path
+    is configured (counterpart of ``isegprobe_tpu/models/convert.py:
+    load_upsampler_params``).
+
+    A ``.msgpack`` file (the JAX package's converted weights) is read with
+    ``utils.serialization.msgpack_restore``. A raw torch checkpoint of the
+    reference raises ``NotImplementedError``: its converters are not ported.
+    A configured path that does not exist warns and returns None, so the
+    upsampler keeps its PRNGKey(0) init; the JAX package returns None there
+    without a word."""
+    utype = str((upsampler_cfg or {}).get("type", "")).lower()
+    uparams = (upsampler_cfg or {}).get("params") or {}
+    path = uparams.get("upsampler_path")
+    if not path or utype not in ("loftup", "lift"):
+        return None
+    p = Path(str(path))
+    if not p.exists():
+        warnings.warn(
+            f"upsampler_path {str(path)!r} of the {utype} upsampler does not "
+            "exist: the upsampler keeps its PRNGKey(0) init", stacklevel=2)
+        return None
+    if p.suffix == ".msgpack":
+        from isegprobe_torch.utils.serialization import msgpack_restore
+
+        return msgpack_restore(p.read_bytes())
+    raise NotImplementedError(
+        f"{p}: converting a reference torch checkpoint of the {utype} "
+        "upsampler is not ported to isegprobe_torch yet: ROADMAP Queue 1 "
+        "item 7 (the converters for reference torch checkpoints)")
+
+
+def interpolate_pos_embed_params(pos_embed, old_grid, new_grid,
+                                 num_extra_tokens: int = 1) -> np.ndarray:
+    """The eval-time pos-embed resize: size-based bicubic, align_corners
+    False, no '+0.1' offset (``isegprobe_tpu/models/convert.py:
+    interpolate_pos_embed_params``). ``pos_embed``: ``[1, extra + gh*gw,
+    D]``; returns float32 numpy."""
+    from isegprobe_torch.ops.resize import resize
+
+    pe = np.asarray(pos_embed, dtype=np.float32)
+    (gh0, gw0), (gh, gw) = tuple(old_grid), tuple(new_grid)
+    if (gh0, gw0) == (gh, gw):
+        return pe
+    patch = torch.from_numpy(
+        np.ascontiguousarray(pe[:, num_extra_tokens:].reshape(1, gh0, gw0,
+                                                              -1)))
+    patch = resize(patch, (gh, gw), "bicubic", align_corners=False).numpy()
+    return np.concatenate([pe[:, :num_extra_tokens],
+                           patch.reshape(1, gh * gw, -1)], axis=1)

@@ -35,7 +35,7 @@ from isegprobe_torch.ops.resize import resize
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
-_OTHER_FAMILIES = "ROADMAP Queue 1 item 9 (other model families)"
+_OTHER_FAMILIES = "ROADMAP Queue 1 item 7 (other model families)"
 
 
 def _unsupported(what: str, item: str = _OTHER_FAMILIES):
@@ -99,14 +99,14 @@ class iSegProbeModel(nn.Module):
                 "the reference too")
         if use_rgb_conv:
             raise _unsupported("the RITM maps transform (use_rgb_conv)",
-                               "ROADMAP Queue 1 item 10 (adaptive RITM "
+                               "ROADMAP Queue 1 item 8 (adaptive RITM "
                                "protocol)")
         if quant is not None:
             raise _unsupported(f"quant={quant!r} (int8 W8A8 serving)",
-                               "ROADMAP Queue 1 item 11 (ops/quant.py)")
+                               "ROADMAP Queue 1 item 9 (ops/quant.py)")
         if fuse_hr_head:
             raise _unsupported("the head fused into LoftUp's slab loop "
-                               "(fuse_hr_head)", "ROADMAP Queue 1 item 9 "
+                               "(fuse_hr_head)", "ROADMAP Queue 1 item 7 "
                                "(LoftUp's mxu_pad layout and fused head)")
         self.norm_radius = norm_radius
         self.use_disks = use_disks

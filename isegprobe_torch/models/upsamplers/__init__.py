@@ -2,7 +2,7 @@
 
 Counterpart of ``isegprobe_tpu/models/upsamplers/__init__.py``; the learned
 families are registered beside the basic ones (LiFT waits for ROADMAP
-Queue 1 item 9)."""
+Queue 1 item 7)."""
 
 from isegprobe_torch.models.upsamplers.basic import BASIC_UPSAMPLERS
 from isegprobe_torch.models.upsamplers.jbu import JBUFeatUpUpsampler

@@ -3,7 +3,7 @@ conv on NHWC tensors.
 
 Counterpart of ``isegprobe_tpu/models/upsamplers/lift.py``. So far only
 ``FrozenBatchNorm`` is ported (LoftUp's conv stem needs it); the LiFT
-upsampler itself waits for ROADMAP Queue 1 item 9.
+upsampler itself waits for ROADMAP Queue 1 item 7.
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@ parameter names follow the JAX param tree (``ca.i`` for ``ca_i``).
 
 Not ported (raise ``NotImplementedError``): the MXU-aligned zero-padded
 layout ``mxu_pad=True`` and the fused head ``tail``, both exact re-layouts
-of the same function (ROADMAP Queue 1 item 9).
+of the same function (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from isegprobe_torch.ops.attention import mha
 from isegprobe_torch.ops.grid import linspace
 
 LN_EPS = 1e-5
-_ROADMAP = "ROADMAP Queue 1 item 9 (LoftUp's mxu_pad layout and fused head)"
+_ROADMAP = "ROADMAP Queue 1 item 7 (LoftUp's mxu_pad layout and fused head)"
 
 
 class ChannelNorm(nn.Module):

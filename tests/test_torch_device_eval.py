@@ -171,6 +171,36 @@ def test_evaluate_dataset_device_order_and_times(tiny_arch):  # noqa: F811
         evaluate_sample_device(run2, *scenes[0])
 
 
+@pytest.mark.parametrize("batch", [1, 2])
+def test_click_record_is_opt_in(tiny_arch, batch):  # noqa: F811
+    """Without ``record_clicks`` the loop keeps no click record and
+    ``clicks=`` raises; with it, the same IoUs, and one (y, x, positive)
+    row a click, -1 past each lane's count."""
+    from isegprobe_torch.inference.device_eval import (
+        evaluate_dataset_device,
+        make_device_evaluator,
+    )
+
+    _, _, tmodel = _models()
+    data = _Scenes([_scene(s, (60, 70)) for s in (0, 3, 5)])
+    kw = _common(max_clicks=3, target_iou=0.3, batch_size=batch)
+    plain = make_device_evaluator(tmodel, device="cpu", **kw)
+    want = evaluate_dataset_device(plain, data)
+    assert plain.clicks is None
+    with pytest.raises(ValueError, match="record_clicks"):
+        evaluate_dataset_device(plain, data, clicks=[])
+    rec = make_device_evaluator(tmodel, record_clicks=True, device="cpu",
+                                **kw)
+    clicks: list = []
+    got = evaluate_dataset_device(rec, data, clicks=clicks)
+    _assert_same(got, want, 0.0)
+    assert [len(c) for c in clicks] == [len(a) for a in want]
+    for c, (img, gt) in zip(clicks, data.scenes):
+        assert (c >= 0).all() and c[0, 2] == 1 and gt[c[0, 0], c[0, 1]] == 1
+    n_last = len(want[-1])
+    assert (rec.clicks[0, n_last:] == -1).all()
+
+
 def test_unported_options_and_devices_raise():
     from isegprobe_torch.inference.device_eval import make_device_evaluator
     from isegprobe_torch.models.probe_model import (

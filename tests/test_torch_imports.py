@@ -1,5 +1,5 @@
 """The port stands alone: no module of isegprobe_torch, and not
-chip_smoke.py, imports JAX, flax, OpenCV or the JAX package (the GPU
+chip_smoke.py, imports JAX, flax, msgpack, OpenCV or the JAX package (the GPU
 machine has none of them). Checked on the source text (AST), so lazy
 imports inside functions count too."""
 
@@ -9,7 +9,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cv2", "isegprobe_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cv2", "msgpack",
+             "isegprobe_tpu"}
 SOURCES = sorted((REPO / "isegprobe_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
 
