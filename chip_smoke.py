@@ -76,7 +76,8 @@ does not hold:
     printed; NoC@80/85/90 within 0.05; every step 1 C, 12 A and 25 B), the
     f32 host protocol on the first 8 objects (checked the same way; p50 ms
     per click and per get_prediction), the bf16 loops at B=8 and B=16 (NoC
-    and lane-clicks/s beside f32's, a report); then the 448² LoftUp
+    within 0.04 of JAX's f32 NoC, lane-clicks/s beside f32's); then the
+    448² LoftUp
     checkpoint (its missing upsampler_path must warn) through the f32 loop
     on the fixture's 2 objects and 4 clicks against JAX's, with no object
     differing (every step 1 C, 12 A, 82 B and 14 D), and timed on all 78
@@ -86,6 +87,25 @@ does not hold:
     at LoftUp's widths (404 on the slab and key rows, 203 on the stem, 384
     in the ChannelNorm) at both LoftUp loops' forward batches, C on 258²
     rows, D at forward batch 4;
+11c. training (main paths 14-16, ``isegprobe_torch/train.py``): kernels A
+    and B under autograd at the train step's shapes ([8, 257, 1152] and
+    [8, 257, 384], f32: the forward with grad equal to the no-grad kernel
+    bitwise with one launch, the gradients equal to autograd through the
+    plain version; forward + backward timed beside the plain version's),
+    A, B and C forward-checked at those shapes; the Synthetic training
+    items built without OpenCV from the seeds of ``isegprobe_torch/
+    fixtures/synthetic_train_step.npz`` against its JAX items (masks and
+    points equal, images within 1 grey level on 0.1% of pixels; the count
+    of exact items printed); the full-width step from ``init_tree(config,
+    0)`` on that batch at num_iters=0, twice: losses within 1e-5 of JAX's
+    and every trainable leaf's sum, L2 norm and first 16 values within
+    tolerance of JAX's, with a profiler split of one step; one epoch of
+    320 items (40 steps at B=8, 0-3 simulated clicks) with validation
+    through the command line's trainer: every step launching exactly
+    (1 + num_iters) × (12 A + 25 B) + num_iters C, median ms a step, data
+    wait, the first and last 10 steps' mean loss, and the checkpoint read
+    back by ``load_model_for_eval`` giving the trainer's logits within
+    1e-5 of their scale;
 12. the learned-upsampler families, LoftUp and JBU-FeatUp on DINOv2-S/14 at
     448² (drawn, calibrated): kernels D (cross-attention, f32 and bf16, at
     every tile and load path as A) and E (JBU filter; also at the edges of
@@ -112,6 +132,7 @@ does not hold:
     line), with every counter set to 0 just before and read just after, and
     each variant's kernel launched exactly as often as the sweep calls it;
 14. print the ``{"kernels": [...]}`` line (kernels A-G, launches by path,
+    the training paths among them, A and B with their autograd times,
     the flash core named beside A, D, F and G,
     the flagship's and LoftUp's bf16 forwards among the paths; A, F and G
     also in bf16 at the sweep's shape, D at the LoftUp loop's; A and D with
@@ -236,6 +257,38 @@ TRAINED_LOFTUP_OBJECTS = 2
 TRAINED_LOFTUP_CLICKS = 4
 TRAINED_MAX_DIVERGED = 2
 TRAINED_NOC_TOL = 0.05
+# the trained bf16 loops' NoC@80/85/90 against the JAX f32 results: bf16
+# may move a click of an object (1/78 = 0.0128 of NoC); up to three such
+# moves pass
+TRAINED_BF16_NOC_TOL = 0.04
+
+# training (isegprobe_torch/train.py, models/synthetic/dinov2_noup.py):
+# the JAX items and train step stored in the fixture, the step's shapes
+# (batch 8 at 224²: 257 tokens), one epoch of 320 items with 4 loader
+# threads, and the gates: gradients of A and B under autograd against
+# autograd through the plain version (the backward is that plain version
+# recomputed: equal but for the forward's rounding, 1e-5 of the gradient
+# scale); images of the items within 1 grey level on 0.1% of pixels (the
+# float64 noise resize may round a value the other way), masks and points
+# equal; the two steps' losses within 1e-5 relative of JAX's and the
+# trainable leaves within the tolerances of tests/test_torch_training.py;
+# the checkpoint read back at the pretraining grid within 1e-5 of the
+# logit scale
+TRAIN_FIXTURE = (Path(__file__).resolve().parent / "isegprobe_torch"
+                 / "fixtures" / "synthetic_train_step.npz")
+TRAIN_BATCH = 8
+TRAIN_CROP = 224
+TRAIN_STEPS = 40
+TRAIN_WORKERS = 4
+TRAIN_GRAD_TOL = 1e-5
+TRAIN_IMAGE_TOL = {"grey_levels": 1, "pixel_share": 1e-3}
+TRAIN_LR = 5e-5
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_DIGEST_RTOL = 1e-4
+TRAIN_DIGEST_ATOL = 2.5e-4
+TRAIN_FLIPS = 10
+TRAIN_READBACK = 518
+TRAIN_READBACK_TOL = 1e-5
 
 
 def fail(msg: str):
@@ -1257,6 +1310,13 @@ def trained_phase(torch, cuda) -> dict:
                "lane_clicks_per_s": n_clicks / wall, "noc": noc_of(got),
                "jax_cpu_noc": want_noc, "launches": launches,
                "records_clicks": gated}
+        if dtype == "bfloat16":
+            gap = max(abs(a - b) for a, b in zip(rec["noc"], want_noc))
+            rec["noc_gap_to_jax_f32"] = gap
+            if gap > TRAINED_BF16_NOC_TOL:
+                fail(f"trained bf16 B={batch} NoC@80/85/90 {rec['noc']} "
+                     f"differ from JAX's f32 {want_noc} by {gap} > "
+                     f"{TRAINED_BF16_NOC_TOL}")
         if gated:
             rec.update(against_fixture(
                 got, clicks, fx["flagship_ious"], fx["flagship_n"],
@@ -1391,6 +1451,286 @@ def trained_phase(torch, cuda) -> dict:
     paths["trained_loftup_timed"] = timed["launches"]
     res["path_launches"] = paths
     res["checks"] = checks
+    return res
+
+
+def autograd_case(torch, module, name: str, shape, seed: int) -> dict:
+    """Kernel A or B under autograd at a training shape (f32): the forward
+    with grad equals the no-grad kernel output bitwise and launches exactly
+    one kernel; the gradients equal autograd through the plain version
+    within TRAIN_GRAD_TOL; forward + backward timed beside the plain
+    version's."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if name == "mha_qkv":
+        heads = shape[-1] // 3 // 64
+        inputs = [torch.randn(shape, generator=g, device="cuda")]
+
+        def kernel(*ts):
+            return module.mha_qkv(ts[0], heads)
+
+        def plain(*ts):
+            return module._mha_qkv_plain(ts[0], heads, 64**-0.5)
+    else:
+        d = shape[-1]
+        inputs = [torch.randn(shape, generator=g, device="cuda") * 3 + 1,
+                  torch.randn(d, generator=g, device="cuda") * 0.5 + 1,
+                  torch.randn(d, generator=g, device="cuda")]
+
+        def kernel(*ts):
+            return module.layernorm(*ts, 1e-6)
+
+        def plain(*ts):
+            return module._ln_plain(*ts, 1e-6)
+    wrapper = kernel_wrappers()[name]
+    with torch.no_grad():
+        ref = kernel(*inputs)
+    ts = [t.clone().requires_grad_(True) for t in inputs]
+    before = wrapper.launches
+    out = kernel(*ts)
+    launched = wrapper.launches - before
+    bitwise = bool(torch.equal(out.detach(), ref))
+    cot = torch.randn(out.shape, generator=g, device="cuda")
+    out.backward(cot)
+    refs = [t.clone().requires_grad_(True) for t in inputs]
+    plain(*refs).backward(cot)
+    errs = []
+    for t, r in zip(ts, refs):
+        scale = float(r.grad.abs().max())
+        errs.append(float((t.grad - r.grad).abs().max()) / max(scale, 1e-30))
+    ok = bitwise and launched == 1 and max(errs) <= TRAIN_GRAD_TOL
+
+    def fwd_bwd(fn):
+        xs = [t.detach().requires_grad_(True) for t in inputs]
+        fn(*xs).backward(cot)
+
+    rec = {"kernel": name, "shape": list(shape), "dtype": "float32",
+           "autograd": True, "forward_bitwise": bitwise,
+           "launches_per_forward": launched, "grad_rel_err": errs,
+           "grad_tol": TRAIN_GRAD_TOL, "ok": ok}
+    rec["fwd_bwd_ms"], _ = time_ms(torch, lambda: fwd_bwd(kernel),
+                                   reps=10, rounds=3, graph=False)
+    rec["plain_fwd_bwd_ms"], _ = time_ms(torch, lambda: fwd_bwd(plain),
+                                         reps=10, rounds=3, graph=False)
+    return rec
+
+
+def digest(tree, prefix="") -> dict:
+    """Per leaf of a flax-named param tree: sum, L2 norm and the first 16
+    values (NaN past a smaller leaf's end), float64 (the fixture's)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(digest(v, f"{prefix}{k}/"))
+        else:
+            a = np.asarray(v, np.float64).ravel()
+            first = np.full(16, np.nan)
+            first[:min(16, a.size)] = a[:16]
+            out[prefix + k] = np.concatenate(
+                [[a.sum(), np.sqrt((a * a).sum())], first])
+    return out
+
+
+def training_phase(torch) -> dict:
+    """Main paths of training (``isegprobe_torch.train``): (a) kernels A
+    and B under autograd at the train step's shapes; (b) the Synthetic
+    training items built without OpenCV against the JAX items of
+    ``isegprobe_torch/fixtures/synthetic_train_step.npz``; (c) the
+    full-width step from ``init_tree(config, 0)`` on that batch against
+    JAX's loss and trainable leaves after two Adam steps; (d) one epoch of
+    320 items through the command line's trainer, with validation, every
+    step's launches checked, and the checkpoint read back by
+    ``isegprobe_torch.evaluate.load_model_for_eval``. Returns the records,
+    the path launches and the kernel checks at the step's shapes."""
+    import tempfile
+
+    from isegprobe_torch import train as train_cli
+    from isegprobe_torch.evaluate import load_model_for_eval
+    from isegprobe_torch.ops import attention, edt, layernorm
+    from isegprobe_torch.scripts import bench_edt
+
+    F = torch.nn.functional
+    res: dict = {}
+    fx = dict(np.load(TRAIN_FIXTURE))
+    b, n_tok = TRAIN_BATCH, (TRAIN_CROP // 14) ** 2 + 1
+
+    # (a) A and B under autograd, and forward-checked at the step's shapes
+    checks = attention_case(torch, F, attention, b, n_tok, 6, 64, "float32",
+                            seed=70)
+    checks.append(layernorm_case(torch, F, layernorm, (b, n_tok), 384,
+                                 "float32", seed=71))
+    checks.append(edt_case(torch, edt, bench_edt.column_input(
+        "clicker", (b, 2, TRAIN_CROP + 2, TRAIN_CROP + 2), torch.device(
+            "cuda"), seed=72), "clicker"))
+    grads = [autograd_case(torch, attention, "mha_qkv", (b, n_tok, 1152),
+                           73),
+             autograd_case(torch, layernorm, "layernorm", (b, n_tok, 384),
+                           74)]
+    for g in grads:
+        print("train_autograd", json.dumps(g))
+    if not all(g["ok"] for g in grads):
+        fail(f"a kernel under autograd disagrees: {grads}")
+    res["autograd"] = grads
+
+    # (b) the data layer without OpenCV against the JAX items
+    trainset, _ = train_cli.synthetic_datasets()
+    t0 = time.time()
+    items = [trainset.get_item(int(p), int(s))
+             for p, s in zip(fx["positions"], fx["seeds"])]
+    build_s = time.time() - t0
+    exact, worst = 0, {"grey_levels": 0, "pixel_share": 0.0}
+    for i, item in enumerate(items):
+        for key in ("points", "instances"):
+            if not np.array_equal(item[key], fx[key][i]):
+                fail(f"training item {i}: {key} differ from the JAX item")
+        diff = np.abs(item["images"].astype(int) - fx["images"][i])
+        share = float((diff > 0).mean())
+        worst = {"grey_levels": max(worst["grey_levels"], int(diff.max())),
+                 "pixel_share": max(worst["pixel_share"], share)}
+        exact += int(diff.max() == 0)
+    data = {"items": len(items), "exact": exact, "worst": worst,
+            "build_ms_per_item": 1e3 * build_s / len(items),
+            "image_tol": TRAIN_IMAGE_TOL}
+    print("train_data", json.dumps(data))
+    print(f"training items: {exact} of {len(items)} equal to the JAX items "
+          f"exactly (masks and points equal in all); "
+          f"{data['build_ms_per_item']:.1f} ms an item, one thread")
+    if (worst["grey_levels"] > TRAIN_IMAGE_TOL["grey_levels"]
+            or worst["pixel_share"] > TRAIN_IMAGE_TOL["pixel_share"]):
+        fail(f"training images differ from the JAX items by {worst}")
+    res["data"] = data
+
+    # (c) the full-width step against JAX's, from init_tree(config, 0)
+    t0 = time.time()
+    trainer = train_cli.build_trainer(train_cli.parse_args(
+        ["model=synthetic_dinov2_noup", "dataloader.workers=0"]))
+    init_s = time.time() - t0
+    batch = trainer._upload({k: fx[k] for k in ("images", "points",
+                                                 "instances")})
+    torch.cuda.synchronize()
+    zero_counters()
+    losses = [float(trainer._step(batch, 0)[0]) for _ in range(2)]
+    step_launches = counters()
+    if step_launches != expected(**{k: 2 * v for k, v in
+                                    FORWARD_LAUNCHES["flagship"].items()}):
+        fail(f"two train steps launched {step_launches}")
+    dig = digest(trainer.full_params(("embed_coords", "head")))
+    loss_err = float(np.max(np.abs(np.asarray(losses) / fx["losses"] - 1)))
+    digest_err = {}
+    for name, want in zip(fx["digest_names"], fx["digests"]):
+        got = dig[str(name)]
+        tol_sum = TRAIN_DIGEST_RTOL * want[1] + TRAIN_FLIPS * 4.4 * TRAIN_LR
+        e_sum = float(np.abs(got[:2] - want[:2]).max())
+        e_first = float(np.nanmax(np.abs(got[2:] - want[2:])))
+        digest_err[str(name)] = {"sum_l2": e_sum, "sum_l2_tol": tol_sum,
+                                 "first16": e_first}
+        if e_sum > tol_sum or e_first > TRAIN_DIGEST_ATOL or not np.array_equal(
+                np.isnan(got), np.isnan(want)):
+            fail(f"trainable leaf {name} after two steps differs from "
+                 f"JAX's: {digest_err[str(name)]}")
+    if loss_err > TRAIN_LOSS_RTOL:
+        fail(f"train step losses {losses} differ from JAX's "
+             f"{list(fx['losses'])} by {loss_err} > {TRAIN_LOSS_RTOL}")
+    step = {"losses": losses, "jax_cpu_losses": [float(v) for v in
+                                                 fx["losses"]],
+            "loss_rel_err": loss_err, "digests": digest_err,
+            "init_tree_s": init_s, "launches": step_launches}
+    print("train_step_vs_jax", json.dumps(step))
+    print(f"full-width train step: losses {losses} (JAX on the CPU "
+          f"{[float(v) for v in fx['losses']]}), max rel err {loss_err:.2e}")
+    res["step_vs_jax"] = step
+    # where a step's time goes: one step with two simulated clicks under
+    # torch.profiler (device time by kernel group, device-busy share)
+    trainer._step(batch, 2)  # warm-up of the clicker's constants
+    prof = profile_forward(torch, lambda *_: trainer._step(batch, 2), None,
+                           None)
+    print("train_step_profile", json.dumps(prof))
+    res["step_profile"] = prof
+    trainer.shutdown()
+    del trainer
+
+    # (d) one epoch through the command line's trainer, with validation
+    per_step = {"train": [], "val": []}
+
+    def on_step(kind, index, num_iters):
+        got = counters()
+        want = expected(mha_qkv=12 * (1 + num_iters),
+                        layernorm=25 * (1 + num_iters),
+                        edt_row_envelope=num_iters)
+        if got != want:
+            fail(f"{kind} step {index} (num_iters {num_iters}) launched "
+                 f"{got}, expected {want}")
+        per_step[kind].append(got)
+        zero_counters()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = train_cli.parse_args([
+            "model=synthetic_dinov2_noup", "training_params.epochs=1",
+            f"dataloader.workers={TRAIN_WORKERS}", f"exp_path={tmp}"])
+        t0 = time.time()
+        trainer = train_cli.build_trainer(cfg, on_step=on_step)
+        build_s = time.time() - t0
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.time()
+        trainer.run(1, validation=True)
+        wall = time.time() - t0
+        trainer.shutdown()
+        launches = {kind: {k: sum(c[k] for c in per_step[kind])
+                           for k in KERNELS} for kind in per_step}
+        st = trainer.stats
+        if len(st["num_iters"]) != TRAIN_STEPS:
+            fail(f"the epoch ran {len(st['num_iters'])} steps, expected "
+                 f"{TRAIN_STEPS}")
+        losses = st["loss"]
+        if not np.isfinite(losses).all():
+            fail(f"non-finite training losses {losses}")
+        # the checkpoint, read back as evaluate.py reads it: at 518² the
+        # pos-embed grid is the pretraining one, so neither side resizes it
+        ckpt = Path(tmp) / "checkpoints" / "last_checkpoint.ckpt"
+        model, _ = load_model_for_eval(str(ckpt), torch.float32,
+                                       (TRAIN_READBACK, TRAIN_READBACK))
+        g = torch.Generator(device="cuda").manual_seed(75)
+        image = torch.rand((1, TRAIN_READBACK, TRAIN_READBACK, 4),
+                           generator=g, device="cuda")
+        pts = torch.full((1, 48, 3), -1.0, device="cuda")
+        pts[0, 0] = torch.tensor([200.0, 300.0, 0.0])
+        pts[0, 24] = torch.tensor([50.0, 60.0, 1.0])
+        with torch.no_grad():
+            want = trainer.model(image, pts)["instances"]
+            got = model(image, pts)["instances"]
+        scale = float(want.abs().max())
+        readback_err = float((got - want).abs().max()) / scale
+        if not readback_err <= TRAIN_READBACK_TOL:
+            fail(f"the checkpoint read back gives logits {readback_err} of "
+                 f"the logit scale from the trainer's model")
+    wait = np.asarray(st["data_wait_s"]) * 1e3
+    epoch = {"steps": TRAIN_STEPS, "workers": TRAIN_WORKERS, "wall_s": wall,
+             "build_s": build_s,
+             "ms_per_step_median": 1e3 * float(np.median(st["step_wall_s"])),
+             "device_ms_per_step_median": float(np.median(
+                 st["step_device_ms"])),
+             "data_wait_ms_median": float(np.median(wait)),
+             "data_wait_ms_mean": float(wait.mean()),
+             "num_iters": st["num_iters"],
+             "loss_first10": float(np.mean(losses[:10])),
+             "loss_last10": float(np.mean(losses[-10:])),
+             "val_loss": getattr(trainer, "val_loss", None),
+             "val_steps": len(per_step["val"]),
+             "launches": launches, "readback_rel_err": readback_err}
+    print("train_epoch", json.dumps(epoch))
+    print(f"training epoch: {TRAIN_STEPS} steps in {wall:.2f} s, median "
+          f"{epoch['ms_per_step_median']:.2f} ms a step (device "
+          f"{epoch['device_ms_per_step_median']:.2f} ms), data wait "
+          f"median {epoch['data_wait_ms_median']:.2f} ms; loss first 10 "
+          f"{epoch['loss_first10']:.4f}, last 10 "
+          f"{epoch['loss_last10']:.4f}; checkpoint read back within "
+          f"{readback_err:.2e} of the logit scale")
+    res["epoch"] = epoch
+    res["path_launches"] = {
+        "train_step_vs_jax": step_launches,
+        "train_epoch": launches["train"],
+        "train_validation": launches["val"]}
+    res["checks"] = checks + grads
     return res
 
 
@@ -1858,6 +2198,18 @@ def main() -> int:
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
 
+    # 11c. training: A and B under autograd, the data layer, the step
+    # against JAX's, one epoch through the command line's trainer
+    training = training_phase(torch)
+    results["training"] = {k: v for k, v in training.items()
+                           if k != "checks"}
+    for c in training["checks"]:
+        print("check", json.dumps(c))
+    checks += [c for c in training["checks"] if not c.get("autograd")]
+    bad = [c for c in training["checks"] if not c["ok"]]
+    if bad:
+        fail(f"kernel disagrees with its plain version: {bad}")
+
     # 12. the learned-upsampler families (main paths 3-6)
     families = {name: learned_family(torch, name) for name in UPSAMPLERS}
     results["families"] = families
@@ -1900,6 +2252,7 @@ def main() -> int:
                  **noc["bf16_forward"]["launches_per_forward"]),
              "attn_variant_sweep": sweep_launches}
     paths.update(trained["path_launches"])
+    paths.update(training["path_launches"])
     for fam in families.values():
         paths.update(fam["path_launches"])
     kernels = []
@@ -1931,6 +2284,13 @@ def main() -> int:
         for key in ("tile", "plan"):
             if key in c:
                 entry[key] = c[key]
+        # under autograd (training): forward + backward beside the plain
+        # version's
+        ag = next((g for g in training["autograd"] if g["kernel"] == name),
+                  None)
+        if ag is not None:
+            entry["autograd"] = {k: ag[k] for k in (
+                "shape", "fwd_bwd_ms", "plain_fwd_bwd_ms", "grad_rel_err")}
         if name == "jbu_filter":
             entry.update(tile=jbu_config, ptxas=jbu_ptxas)
         if name == "edt_row_envelope":

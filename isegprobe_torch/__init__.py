@@ -18,13 +18,20 @@ Layout mirrors the JAX package so each module's counterpart is easy to find:
                 rebuilt in numpy (init_tree)
     inference/  clicker, predictor, NoC evaluation and metrics, and the
                 batched on-device NoC loop (device_eval)
-    data/       the stored evaluation scenes (scenes), over fixtures/
+    data/       the stored evaluation scenes (scenes), over fixtures/, and
+                the training data without OpenCV: OpenCV's fills and
+                resizes in numpy (raster), augmentations, click sampler,
+                samples, the Synthetic dataset and the threaded loader
+    training/   losses, metrics, optimizers and the trainer with on-card
+                click simulation
     evaluate.py the trained checkpoints by NoC (python -m
                 isegprobe_torch.evaluate checkpoint=...)
+    train.py    training the flagship probe (python -m
+                isegprobe_torch.train model=synthetic_dinov2_noup)
     scripts/    command-line entry points: the attention-variant sweep
                 (python -m isegprobe_torch.scripts.bench_attn_variants)
-    utils/      bbox helpers, the checkpoint reader (serialization) and
-                JAX's threefry PRNG in numpy (jax_rng)
+    utils/      bbox and label helpers, the checkpoint reader and writer
+                (serialization) and JAX's threefry PRNG in numpy (jax_rng)
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without a
 GPU and without that request they raise (see :func:`resolve_device`).

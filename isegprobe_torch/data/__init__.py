@@ -1,1 +1,1 @@
-"""Evaluation datasets the port reads without OpenCV."""
+"""Datasets without OpenCV: the stored evaluation scenes and the training pipeline (rendering, augmentation, click synthesis, loader)."""

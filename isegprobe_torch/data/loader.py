@@ -1,0 +1,115 @@
+"""Host data loader: items built in a worker pool, stacked as numpy.
+
+Counterpart of ``isegprobe_tpu/data/loader.py``. Item ``k`` of epoch ``e``
+is built from the seed ``SeedSequence([seed, crc32(salt), e, k])
+.generate_state(1)[0]`` (``iSegBaseDataset.get_item``), the seed the JAX
+loader's process workers give the global ``random`` and ``np.random``
+before they build that item. So the items do not depend on the worker
+count or on which worker builds them, and they are the JAX package's
+process-mode items. Workers are threads (item assembly is Python-heavy
+and holds the GIL; the JAX loader's process workers, ``dataloader.mp``, are
+not ported); ``num_workers=0`` builds in the caller's thread. Batches are
+stacked numpy arrays (uint8 images, int8 masks) that the trainer uploads.
+"""
+
+from __future__ import annotations
+
+import random
+import zlib
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, List
+
+import numpy as np
+
+__all__ = ["DataLoader", "item_seed"]
+
+
+def item_seed(seed: int, salt: int, epoch: int, position: int) -> int:
+    """The seed of item ``position`` of ``epoch`` (the JAX loader's
+    ``_process_worker_get``)."""
+    return int(np.random.SeedSequence(
+        [seed, salt, epoch, position]).generate_state(1)[0])
+
+
+def _stack(items: List[Dict]) -> Dict[str, np.ndarray]:
+    out = {}
+    for key in items[0]:
+        arrays = [np.asarray(it[key]) for it in items]
+        if any(a.dtype != arrays[0].dtype for a in arrays):
+            # a silent promotion would skip the step's uint8 normalization
+            # for part of the batch
+            raise TypeError(f"batch key {key!r} mixes dtypes "
+                            f"{sorted({str(a.dtype) for a in arrays})}")
+        out[key] = np.stack(arrays)
+    return out
+
+
+class DataLoader:
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 num_workers: int = 4, seed: int = 0,
+                 prefetch: int = 2, salt: str = "") -> None:
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.num_workers = num_workers
+        self.seed = seed
+        self.prefetch = prefetch
+        self.salt = zlib.crc32(salt.encode())
+        self._epoch = 0
+        self._pool = None
+
+    def __len__(self) -> int:
+        return len(self.dataset) // self.batch_size  # the tail is dropped
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def _indices(self) -> List[int]:
+        idx = list(range(len(self.dataset)))
+        if self.shuffle:
+            random.Random(self.seed + self._epoch).shuffle(idx)
+        return idx
+
+    def item(self, epoch: int, position: int, index: int) -> Dict:
+        """Item ``position`` of ``epoch`` (dataset index ``index``)."""
+        return self.dataset.get_item(
+            index, item_seed(self.seed, self.salt, epoch, position))
+
+    def _submit(self, epoch: int, position: int, index: int):
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(self.num_workers)
+        return self._pool.submit(self.item, epoch, position, index)
+
+    def shutdown(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool = None
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        indices = self._indices()
+        total = min(len(self) * self.batch_size, len(indices))
+        epoch = self._epoch
+        if self.num_workers <= 0:
+            for start in range(0, total, self.batch_size):
+                yield _stack([self.item(epoch, p, indices[p]) for p in
+                              range(start, min(start + self.batch_size,
+                                               total))])
+            self._epoch += 1
+            return
+        window = self.batch_size * (self.prefetch + 1) + self.num_workers
+        futures: deque = deque()
+        pos = 0
+        while pos < total and len(futures) < window:
+            futures.append(self._submit(epoch, pos, indices[pos]))
+            pos += 1
+        batch: List[Dict] = []
+        while futures:
+            batch.append(futures.popleft().result())
+            if pos < total:
+                futures.append(self._submit(epoch, pos, indices[pos]))
+                pos += 1
+            if len(batch) == self.batch_size:
+                yield _stack(batch)
+                batch = []
+        self._epoch += 1

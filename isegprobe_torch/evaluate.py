@@ -13,9 +13,14 @@ Usage (on a CUDA GPU; ``device=cpu`` runs the plain PyTorch path):
         checkpoint=assets/trained/synthetic_dinov2_noup_160ep.ckpt \\
         scenes=isegprobe_torch/fixtures/synthetic2026_50.npz \\
         device_loop=true device_batch=8 [dtype=bfloat16] [eval_mode=fixed448]
-        [n_clicks=20] [target_iou=0.9]
+        [n_clicks=20] [target_iou=0.9] [print_ious=true] [min_n_clicks=1]
+        [thresh=0.5] [clicks_limit=null]
 
-It prints the results table and mIoU@k as the root ``evaluate.py`` does.
+It prints the results table and, with ``print_ious``, mIoU@k as the root
+``evaluate.py`` does, with its rule for the target IoU: 1.01 (every object
+runs all ``n_clicks``) when ``print_ious`` is on and ``min_n_clicks <= 1``,
+as with ``configs/eval_cfg.yaml``'s defaults, else ``target_iou`` floored
+at 0.8 (``print_ious=false`` gives the early-stop protocol).
 """
 
 from __future__ import annotations
@@ -138,7 +143,8 @@ _NOT_PORTED = {
 _DEFAULTS = dict(checkpoint=None, scenes=str(SYNTHETIC_FIXTURE),
                  eval_mode="fixed448", device_loop="false", device_batch="1",
                  dtype="float32", n_clicks="20", target_iou="0.90",
-                 device=None)
+                 print_ious="true", min_n_clicks="1", thresh="0.5",
+                 clicks_limit="null", device=None)
 
 
 def parse_args(argv) -> Dict:
@@ -174,8 +180,19 @@ def parse_args(argv) -> Dict:
     cfg["device_loop"] = cfg["device_loop"].lower() in ("true", "1")
     cfg["device_batch"] = int(cfg["device_batch"])
     cfg["n_clicks"] = int(cfg["n_clicks"])
-    # the root evaluate.py's floor on the target IoU
-    cfg["target_iou"] = max(0.8, float(cfg["target_iou"]))
+    cfg["print_ious"] = cfg["print_ious"].lower() in ("true", "1")
+    cfg["min_n_clicks"] = int(cfg["min_n_clicks"])
+    cfg["thresh"] = float(cfg["thresh"])
+    limit = cfg["clicks_limit"]
+    cfg["clicks_limit"] = (None if limit.lower() in ("null", "none", "")
+                           else int(limit))
+    # the root evaluate.py's rule: every click when the IoUs are printed
+    # (iou_analysis, the rule's other key, raises above), else the target
+    # floored at 0.8
+    if cfg["print_ious"] and cfg["min_n_clicks"] <= 1:
+        cfg["target_iou"] = 1.01
+    else:
+        cfg["target_iou"] = max(0.8, float(cfg["target_iou"]))
     return cfg
 
 
@@ -199,20 +216,22 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None) -> Dict:
                                        DTYPES[cfg["dtype"]],
                                        cfg["target_size"], device)
     dataset = SceneDataset(cfg["scenes"])
-    protocol = dict(pred_thr=0.5, min_clicks=1, max_clicks=cfg["n_clicks"])
+    protocol = dict(pred_thr=cfg["thresh"], min_clicks=cfg["min_n_clicks"],
+                    max_clicks=cfg["n_clicks"])
+    net_clicks_limit = cfg["clicks_limit"] or cfg["n_clicks"]
     latencies: list = []
     t0 = time()
     if cfg["device_loop"]:
         run = make_device_evaluator(
             model, target_size=cfg["target_size"],
-            net_clicks_limit=cfg["n_clicks"], target_iou=cfg["target_iou"],
+            net_clicks_limit=net_clicks_limit, target_iou=cfg["target_iou"],
             with_flip=True, batch_size=cfg["device_batch"], device=device,
             **protocol)
         all_ious = evaluate_dataset_device(run, dataset)
     else:
         predictor = Predictor(model, target_size=cfg["target_size"],
                               skip_clicks=-1, with_flip=True,
-                              net_clicks_limit=cfg["n_clicks"],
+                              net_clicks_limit=net_clicks_limit,
                               device=device)
         all_ious, _ = evaluate_dataset(dataset, predictor,
                                        latencies=latencies,
@@ -233,9 +252,11 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None) -> Dict:
 
 
 def main(argv=None) -> int:
-    out = evaluate(parse_args(sys.argv[1:] if argv is None else argv))
+    cfg = parse_args(sys.argv[1:] if argv is None else argv)
+    out = evaluate(cfg)
     print(out["table"])
-    print("mIoU@k:", " ".join(f"{v:.3f}" for v in out["miou"]))
+    if cfg["print_ious"]:
+        print("mIoU@k:", " ".join(f"{v:.3f}" for v in out["miou"]))
     if out["latency"]:
         print("per-click latency:", out["latency"])
     return 0

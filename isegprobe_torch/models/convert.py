@@ -17,6 +17,8 @@ A param tree is nested dicts of numpy arrays (``params["backbone"]["model"]
   ``sigma_spatial``.
 
 Loading raises on any missing or unexpected key and on any shape mismatch.
+:func:`state_dict_to_jax_params` runs the bridge the other way, onto the
+names and layouts of a template param tree (the trainer's checkpoints).
 
 ``load_upsampler_params`` reads the frozen upsampler weights a config's
 ``upsampler_path`` names, and ``interpolate_pos_embed_params`` resizes a
@@ -35,7 +37,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["jax_params_to_state_dict", "load_jax_params",
+__all__ = ["jax_params_to_state_dict", "state_dict_to_jax_params",
+           "load_jax_params",
            "load_upsampler_params", "interpolate_pos_embed_params"]
 
 _INDEXED = re.compile(r"^(blocks|convs|ca|ff)_(\d+)$")
@@ -60,23 +63,55 @@ def _leaf(path: str, key: str, value) -> tuple[str, np.ndarray]:
     raise KeyError(f"{path}: no bridge rule for param {key!r}")
 
 
+def _leaves(tree: Mapping):
+    """(flax path, port prefix, key, leaf) of every leaf of a param tree."""
+    def walk(node: Mapping, path: tuple, prefix: list):
+        for key, value in node.items():
+            if isinstance(value, Mapping):
+                m = _INDEXED.match(key)
+                yield from walk(value, path + (key,),
+                                prefix + ([m[1], m[2]] if m else [key]))
+            else:
+                yield path + (key,), prefix, key, value
+
+    yield from walk(tree, (), [])
+
+
 def jax_params_to_state_dict(tree: Mapping) -> dict[str, torch.Tensor]:
     """Flatten a flax param tree into a float32 torch state dict with the
     port's names and layouts."""
     out: dict[str, torch.Tensor] = {}
+    for path, prefix, key, value in _leaves(tree):
+        name, arr = _leaf("/".join(path), key, value)
+        out[".".join(prefix + [name])] = torch.from_numpy(
+            np.array(arr, order="C"))  # a writable copy
+    return out
 
-    def walk(node: Mapping, prefix: list[str]) -> None:
-        for key, value in node.items():
-            if isinstance(value, Mapping):
-                m = _INDEXED.match(key)
-                walk(value, prefix + ([m[1], m[2]] if m else [key]))
-            else:
-                path = "/".join(prefix + [key])
-                name, arr = _leaf(path, key, value)
-                out[".".join(prefix + [name])] = torch.from_numpy(
-                    np.array(arr, order="C"))  # a writable copy
 
-    walk(tree, [])
+def state_dict_to_jax_params(state_dict: Mapping, template: Mapping) -> dict:
+    """The inverse of :func:`jax_params_to_state_dict` for the leaves of
+    ``template`` (a flax param tree whose values give only the names and
+    shapes): a nested dict of float32 numpy arrays in flax's layouts, read
+    from the port's ``state_dict``. Raises ``KeyError`` on a leaf the state
+    dict lacks and ``ValueError`` on a shape mismatch."""
+    out: dict = {}
+    for path, prefix, key, value in _leaves(template):
+        name, _ = _leaf("/".join(path), key, np.zeros(np.shape(value)))
+        port_name = ".".join(prefix + [name])
+        if port_name not in state_dict:
+            raise KeyError(f"{'/'.join(path)}: no {port_name!r} in the "
+                           "state dict")
+        arr = state_dict[port_name].detach().float().cpu().numpy()
+        if key == "kernel":
+            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+        if arr.shape != tuple(np.shape(value)):
+            raise ValueError(f"{'/'.join(path)}: shape {arr.shape} in the "
+                             f"state dict, {tuple(np.shape(value))} in the "
+                             "template")
+        node = out
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[key] = np.ascontiguousarray(arr, dtype=np.float32)
     return out
 
 

@@ -108,6 +108,19 @@ class iSegProbeModel(nn.Module):
             raise _unsupported("the head fused into LoftUp's slab loop "
                                "(fuse_hr_head)", "ROADMAP Queue 1 item 7 "
                                "(LoftUp's mxu_pad layout and fused head)")
+        # the constructor config, with the JAX package's field names and
+        # order (``utils.serialization.model_config`` writes it)
+        self.ctor_config = dict(
+            backbone_cfg=backbone_cfg, head_cfg=head_cfg,
+            embed_coords_cfg=embed_coords_cfg, neck_cfg=neck_cfg,
+            upsampler_cfg=upsampler_cfg, save_cfg=save_cfg,
+            architecture=architecture, with_aux_output=with_aux_output,
+            norm_radius=norm_radius, use_disks=use_disks,
+            cpu_dist_maps=cpu_dist_maps, use_rgb_conv=use_rgb_conv,
+            use_leaky_relu=use_leaky_relu, with_prev_mask=with_prev_mask,
+            norm_mean_std=norm_mean_std, attn_impl=attn_impl, quant=quant,
+            fuse_hr_head=fuse_hr_head)
+        self.save_cfg = save_cfg
         self.norm_radius = norm_radius
         self.use_disks = use_disks
         self.with_prev_mask = with_prev_mask
@@ -148,9 +161,12 @@ class iSegProbeModel(nn.Module):
         copy per forward would be a sync inside the on-device click loop."""
         key = (dtype, device)
         if key not in self._norm_cache:
-            self._norm_cache[key] = tuple(
-                torch.tensor(v, dtype=dtype, device=device)
-                for v in self.norm_mean_std)
+            # normal tensors even when first made under inference mode, so
+            # that a later training forward can use them
+            with torch.inference_mode(False):
+                self._norm_cache[key] = tuple(
+                    torch.tensor(v, dtype=dtype, device=device)
+                    for v in self.norm_mean_std)
         return self._norm_cache[key]
 
     def prepare_input(self, image: torch.Tensor):
@@ -220,6 +236,44 @@ class iSegProbeModel(nn.Module):
         h, w = image.shape[1], image.shape[2]
         out = resize(out, (h, w), "bilinear", align_corners=True)
         return {"instances": out, "instances_aux": None}
+
+
+def filter_state_dict(params: Dict, save_cfg: Optional[Dict]) -> Dict:
+    """Filter a param tree by a ``save_cfg`` include/exclude tree (the JAX
+    package's ``filter_state_dict``): its keys are top-level modules mapped
+    to True/False or ``{'save': bool, 'exclude': [names]}``."""
+    if not save_cfg:
+        return params
+
+    def included(path: Tuple[str, ...]) -> bool:
+        cfg = save_cfg
+        for part in path:
+            if isinstance(cfg, dict):
+                if "exclude" in cfg and part in cfg["exclude"]:
+                    return False
+                cfg = cfg.get(part, None)
+                if cfg is False:
+                    return False
+                if cfg is None:
+                    return True
+                if isinstance(cfg, dict) and "save" in cfg \
+                        and not cfg["save"]:
+                    return False
+        return cfg is not False
+
+    def walk(tree: Dict, path: Tuple[str, ...]) -> Dict:
+        out = {}
+        for k, v in tree.items():
+            p = path + (k,)
+            if isinstance(v, dict):
+                sub = walk(v, p)
+                if sub:
+                    out[k] = sub
+            elif included(p):
+                out[k] = v
+        return out
+
+    return walk(params, ())
 
 
 def flagship_config(img_size=(448, 448)) -> Dict:

@@ -19,7 +19,12 @@ gives the bound and design): bf16 on tensor cores over an asynchronous K/V
 ring, f32 on register-tiled CUDA-core FMAs. :func:`_plan` picks the query
 tile and the load path from the shape. On a CPU tensor both entries compute
 the plain version; on a CUDA tensor they launch the kernel or raise.
-``mha_qkv.launches`` and ``mha.launches`` count the launches.
+``mha_qkv.launches`` and ``mha.launches`` count the launches. Under autograd
+kernel A runs inside :class:`AttentionKernel`, the counterpart of the JAX
+package's ``_mha_qkv_pallas_ad``: kernel forward, backward through the
+plain version (the JAX ``custom_vjp`` recomputes ``_mha_qkv_jnp``). Kernel
+D has no backward yet and raises under autograd on CUDA (LoftUp training,
+ROADMAP Queue 2 A item 2).
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import torch
 
 from isegprobe_torch.ops import cuda_lib
 
-__all__ = ["mha", "mha_qkv"]
+__all__ = ["AttentionKernel", "mha", "mha_qkv"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # streaming multiprocessors of the plan made without a card (an H100 SXM's)
@@ -148,10 +153,6 @@ def _mha_qkv_cuda(qkv: torch.Tensor, num_heads: int, scale: float,
     if three_c != 3 * c or c != num_heads * dh or not 1 <= dh <= 128:
         raise ValueError(f"qkv last dim {three_c} does not split into 3 x "
                          f"{num_heads} heads of dh <= 128")
-    if torch.is_grad_enabled() and qkv.requires_grad:
-        raise NotImplementedError(
-            "the attention kernel has no backward yet; run under "
-            "torch.no_grad() or on the CPU")
     lib = _load()
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     q_tile, aligned = _launch_plan(plan, b, n, num_heads, dh, qkv.dtype,
@@ -167,6 +168,27 @@ def _mha_qkv_cuda(qkv: torch.Tensor, num_heads: int, scale: float,
     return out
 
 
+class AttentionKernel(torch.autograd.Function):
+    """Kernel A forward, backward through the plain version (the JAX
+    package's ``_mha_qkv_pallas_ad``): it saves ``qkv`` and returns the VJP
+    of :func:`_mha_qkv_plain`."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale, plan):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return _mha_qkv_cuda(qkv, num_heads, scale, plan)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (qkv,) = ctx.saved_tensors
+        qkv = qkv.detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = _mha_qkv_plain(qkv, ctx.num_heads, ctx.scale)
+            (gqkv,) = torch.autograd.grad(out, qkv, grad)
+        return gqkv, None, None, None
+
+
 def mha_qkv(qkv: torch.Tensor, num_heads: int, scale: float | None = None,
             plan: tuple[int, bool] | None = None) -> torch.Tensor:
     """Self-attention over a packed ``[B, N, 3·C]`` qkv tensor -> ``[B, N, C]``
@@ -180,7 +202,10 @@ def mha_qkv(qkv: torch.Tensor, num_heads: int, scale: float | None = None,
         return _mha_qkv_plain(qkv, num_heads, scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"mha_qkv runs on cpu or cuda, not {qkv.device}")
-    out = _mha_qkv_cuda(qkv, num_heads, scale, plan)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        out = AttentionKernel.apply(qkv, num_heads, scale, plan)
+    else:
+        out = _mha_qkv_cuda(qkv, num_heads, scale, plan)
     mha_qkv.launches += 1
     return out
 
@@ -247,8 +272,8 @@ def _mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"attention kernel D takes dh <= 128, got {dh}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
-            "attention kernel D has no backward yet; run under "
-            "torch.no_grad() or on the CPU")
+            "attention kernel D has no backward yet (ROADMAP Queue 2 A "
+            "item 2); run under torch.no_grad() or on the CPU")
     lib = _load_mha()
     out = torch.empty_like(q)
     q_tile, aligned = _launch_plan(plan, b, nq, heads, dh, q.dtype, q.device,

@@ -10,7 +10,11 @@ kernel's source note gives its bound (bytes) and design.
 
 On a CPU tensor :func:`layernorm` computes the plain version; on a CUDA
 tensor it launches the kernel or raises. ``layernorm.launches`` counts the
-launches.
+launches. Under autograd the kernel runs inside :class:`LayerNormKernel`,
+the counterpart of the JAX package's ``_ln_pallas_ad``: the forward is the
+kernel, and the backward recomputes the plain version and returns its VJP
+(the JAX ``custom_vjp`` does the same with ``_ln_jnp``), so a click encoder
+trains through the frozen backbone's LayerNorms.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch
 
 from isegprobe_torch.ops import cuda_lib
 
-__all__ = ["layernorm"]
+__all__ = ["LayerNormKernel", "layernorm"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 1024
@@ -65,11 +69,6 @@ def _ln_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         raise ValueError("weight and bias must be [D] tensors of one dtype")
     if not 1 <= d <= _MAX_D:
         raise ValueError(f"layernorm kernel takes D <= {_MAX_D}, got {d}")
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
-                                    or bias.requires_grad):
-        raise NotImplementedError(
-            "the layernorm kernel has no backward yet; run under "
-            "torch.no_grad() or on the CPU")
     lib = _load()
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -81,6 +80,29 @@ def _ln_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y
 
 
+class LayerNormKernel(torch.autograd.Function):
+    """Kernel B forward, backward through the plain version: it saves
+    ``x``, ``weight`` and ``bias`` and returns the VJP of :func:`_ln_plain`
+    for the inputs that need a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.eps = eps
+        return _ln_cuda(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            y = _ln_plain(*inputs, ctx.eps)
+            grads = iter(torch.autograd.grad(y, wanted, grad))
+        return (*(next(grads) if t.requires_grad else None
+                  for t in inputs), None)
+
+
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis with f32 fast-variance statistics."""
@@ -88,7 +110,11 @@ def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         return _ln_plain(x, weight, bias, eps)
     if x.device.type != "cuda":
         raise ValueError(f"layernorm runs on cpu or cuda, not {x.device}")
-    out = _ln_cuda(x, weight, bias, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        out = LayerNormKernel.apply(x, weight, bias, eps)
+    else:
+        out = _ln_cuda(x, weight, bias, eps)
     layernorm.launches += 1
     return out
 

@@ -35,14 +35,17 @@ def _window_matrix(in_size: int, out_size: int) -> np.ndarray:
 def _avg_weights_on(in_size: int, out_size: int,
                     device: torch.device) -> torch.Tensor:
     w = _window_matrix(in_size, out_size)
-    return torch.from_numpy(
-        (w / w.sum(axis=1, keepdims=True)).astype(np.float32)).to(device)
+    # a normal tensor even when first made under inference mode
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            (w / w.sum(axis=1, keepdims=True)).astype(np.float32)).to(device)
 
 
 @functools.lru_cache(maxsize=128)
 def _mask_on(in_size: int, out_size: int,
              device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_window_matrix(in_size, out_size)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(_window_matrix(in_size, out_size)).to(device)
 
 
 def _pool_axis(x: torch.Tensor, out_size: int, axis: int,

@@ -94,9 +94,12 @@ def resize_matrix(in_size: int, out_size: int, mode: str = "bilinear",
 @functools.lru_cache(maxsize=256)
 def _matrix_on(in_size, out_size, mode, align_corners, scale,
                device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(
-        resize_matrix(in_size, out_size, mode, align_corners, scale)
-    ).to(device)
+    # a normal tensor even when first made under inference mode, so that
+    # a later training forward can save it for backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            resize_matrix(in_size, out_size, mode, align_corners, scale)
+        ).to(device)
 
 
 def resize(x: torch.Tensor, size: tuple[int, int], mode: str = "bilinear",

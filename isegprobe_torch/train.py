@@ -1,0 +1,254 @@
+"""Train the flagship probe with the port.
+
+Counterpart of the root ``train.py`` with ``models/synthetic/
+dinov2_noup.py`` and ``models/common.py:train``: DINOv2-S/14 with clicks
+patch-embedded before the backbone, identity upsampler, 2-layer 3×3
+convhead and the prev mask, trained on the procedural Synthetic scenes
+with the JAX package's defaults (``models/defaults.py``: the Synthetic
+augmentations and click sampler, NFL with alpha 0.5 and gamma 2, Adam at
+lr 5e-5 with betas (0.9, 0.999) and eps 1e-8, the multistep schedule at
+``lr_milestones`` with gamma 0.1, ``max_num_next_clicks=3``). The frozen
+backbone starts from ``init_tree(config, seed)``, the JAX trainer's
+``model.init(PRNGKey(seed))``. Checkpoints are the JAX package's, which
+both ``evaluate.py`` and ``python -m isegprobe_torch.evaluate`` read.
+
+Usage (on a CUDA GPU; ``device=cpu`` runs the plain PyTorch path):
+
+    python -m isegprobe_torch.train model=synthetic_dinov2_noup \\
+        [training_params.epochs=20] [dataloader.batch_size=8] \\
+        [epoch_len=320] [exp_path=./experiments/torch] [device=cpu] ...
+
+Keys: those of ``configs/train_cfg.yaml`` that apply (``dataloader.*``,
+``training_params.*``, ``training.seed``, ``training.start_epoch``), plus
+the port's ``model``, ``device``, ``exp_path`` (checkpoints go to
+``<exp_path>/checkpoints``), and ``epoch_len`` / ``val_epoch_len`` (items
+an epoch; the JAX package's 320 and 48 by default). Another model script,
+``training_params.dtype=bfloat16``, ``training.model_parallel > 1``,
+``dataloader.mp=true``, resuming and wandb raise ``NotImplementedError`` naming their ROADMAP
+items; a key that is not known raises ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import ast
+import logging
+import sys
+import time
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+from isegprobe_torch import resolve_device
+
+__all__ = ["DEFAULTS", "parse_args", "flagship_train_config",
+           "synthetic_datasets", "loss_cfg", "build_trainer", "main"]
+
+MODELS = {"synthetic_dinov2_noup":
+          "synthetic_dinov2_noup_convhead_patchembed_earlyinject_224"}
+_LATER = "ROADMAP Queue 1 item 6"
+_NOT_PORTED = {
+    "training.resume_exp": f"{_LATER} (training: resume)",
+    "training.weights": f"{_LATER} (training: resume)",
+    "training.n_devices": "ROADMAP Queue 1 item 9 (parallel/mesh.py)",
+    "training.model_parallel": "ROADMAP Queue 1 item 9 (parallel/tp.py)",
+    "wandb.log_wandb": f"{_LATER} (training: TensorBoard and wandb)",
+    "dataloader.mp": f"{_LATER} (data: process workers)",
+}
+# configs/train_cfg.yaml's keys that apply, with its defaults
+DEFAULTS: Dict[str, object] = {
+    "model": None,
+    "dataloader.workers": 4,
+    "dataloader.batch_size": 8,
+    "dataloader.val_batch_size": 8,
+    "dataloader.mp": False,
+    "training_params.epochs": 20,
+    "training_params.crop_size": [224, 224],
+    "training_params.dtype": "float32",
+    "training_params.checkpoint_interval": [[0, 3], [15, 1]],
+    "training_params.lr_milestones": [17, 20],
+    "training_params.do_validation": True,
+    "training_params.num_max_points": 24,
+    "training_params.lr": 5e-5,
+    "training_params.render_size": None,
+    "training_params.aug_scale_range": None,
+    "training.seed": 0,
+    "training.n_devices": None,
+    "training.model_parallel": 1,
+    "training.resume_exp": None,
+    "training.start_epoch": 0,
+    "training.weights": None,
+    "wandb.log_wandb": False,
+    "epoch_len": 320,
+    "val_epoch_len": 48,
+    "exp_path": "./experiments/torch",
+    "device": None,
+}
+
+
+def _value(text: str):
+    low = text.lower()
+    if low in ("true", "false"):
+        return low == "true"
+    if low in ("null", "none", "~"):
+        return None
+    try:
+        return ast.literal_eval(text)
+    except (ValueError, SyntaxError):
+        return text
+
+
+def parse_args(argv) -> Dict:
+    """``key=value`` overrides onto :data:`DEFAULTS` (YAML-like values:
+    numbers, lists, true/false, null)."""
+    cfg = dict(DEFAULTS)
+    for arg in argv:
+        key, sep, text = arg.partition("=")
+        if not sep:
+            raise ValueError(f"expected key=value, got {arg!r}")
+        if key not in cfg:
+            raise ValueError(f"unknown key {key!r}; takes {sorted(cfg)}")
+        cfg[key] = _value(text)
+    if cfg["model"] not in MODELS:
+        raise NotImplementedError(
+            f"model={cfg['model']}: only synthetic_dinov2_noup is ported to "
+            f"isegprobe_torch.train; the other model scripts are ROADMAP "
+            f"Queue 1 item 7 (other model families)")
+    if str(cfg["training_params.dtype"]) not in ("float32", "f32"):
+        raise NotImplementedError(
+            f"training_params.dtype={cfg['training_params.dtype']}: "
+            f"mixed-precision training is not ported yet: {_LATER} "
+            "(training: bf16)")
+    for key, item in _NOT_PORTED.items():
+        value = cfg[key]
+        off = value is None or value is False or value == ""
+        if key.endswith(("model_parallel", "n_devices")):
+            off = off or value == 1
+        if not off:
+            raise NotImplementedError(f"{key}={value} is not ported to "
+                                      f"isegprobe_torch.train yet: {item}")
+    return cfg
+
+
+def flagship_train_config(crop_size=(224, 224)) -> Dict:
+    """``models/synthetic/dinov2_noup.py``'s model, as the JAX package's
+    ``init_model_from_modules_cfg`` builds it: the constructor config."""
+    return dict(
+        backbone_cfg=dict(type="dinov2",
+                          params=dict(feats_injection_mode="before_backbone")),
+        head_cfg=dict(type="convhead",
+                      params=dict(in_channels=384, num_layers=2,
+                                  num_classes=1)),
+        embed_coords_cfg=dict(type="patchEmbed",
+                              params=dict(img_size=list(crop_size),
+                                          patch_size=(14, 14),
+                                          embed_dim=384)),
+        neck_cfg=None,
+        upsampler_cfg=dict(type="identity", params=dict()),
+        save_cfg=dict(embed_coords=True, backbone=False, upsampler=False,
+                      head=True),
+        architecture="backbone_upsampler_head",
+        use_disks=True, norm_radius=5, with_prev_mask=True)
+
+
+def synthetic_datasets(crop_size=(224, 224), num_max_points: int = 24,
+                       epoch_len: int = 320, val_epoch_len: int = 48,
+                       render_size=None, aug_scale_range=None) -> Tuple:
+    """``models/defaults.py:get_synthetic_train_val_datasets``: the train
+    set (320 scenes, seed 17, the train augmentator) and the val set (48
+    scenes, seed 999), with one shared click sampler."""
+    from isegprobe_torch.data import transforms as T
+    from isegprobe_torch.data.datasets import SyntheticShapesDataset
+    from isegprobe_torch.data.points_sampler import MultiPointSampler
+
+    crop = tuple(crop_size)
+    render = tuple(render_size or crop)
+    scale_range = tuple(aug_scale_range or (0.75, 1.25))
+    train_aug = T.Compose([
+        T.UniformRandomResize(scale_range=scale_range),
+        T.Flip(),
+        T.RandomRotate90(),
+        T.PadIfNeeded(min_height=crop[0], min_width=crop[1]),
+        T.RandomCrop(*crop),
+        T.RandomBrightnessContrast(brightness_limit=(-0.2, 0.2),
+                                   contrast_limit=(-0.1, 0.3), p=0.5),
+    ], p=1.0)
+    val_aug = T.Compose([
+        T.PadIfNeeded(min_height=crop[0], min_width=crop[1]),
+        T.RandomCrop(*crop),
+    ], p=1.0)
+    sampler = MultiPointSampler(num_max_points, prob_gamma=0.80,
+                                merge_objects_prob=0.15,
+                                max_num_merged_objects=2)
+    area_scale = (render[0] * render[1]) / (224 * 224)
+    trainset = SyntheticShapesDataset(
+        n_samples=320, seed=17, image_size=render, augmentator=train_aug,
+        min_object_area=int(80 * area_scale), keep_background_prob=0.01,
+        points_sampler=sampler, epoch_len=epoch_len)
+    valset = SyntheticShapesDataset(
+        n_samples=48, seed=999, image_size=render, augmentator=val_aug,
+        min_object_area=int(80 * area_scale), points_sampler=sampler,
+        epoch_len=val_epoch_len)
+    return trainset, valset
+
+
+def loss_cfg() -> Dict:
+    """``models/defaults.py:get_loss_cfg``."""
+    from isegprobe_torch.training.losses import NormalizedFocalLossSigmoid
+
+    return {"instance_loss": NormalizedFocalLossSigmoid(alpha=0.5, gamma=2),
+            "instance_loss_weight": 1.0}
+
+
+def build_trainer(cfg: Dict, on_step=None, params: Optional[Dict] = None):
+    """The model, datasets and trainer of a parsed command line."""
+    from types import SimpleNamespace
+
+    from isegprobe_torch.models.probe_model import iSegProbeModel
+    from isegprobe_torch.training.metrics import AdaptiveIoU
+    from isegprobe_torch.training.trainer import iSegTrainer
+
+    device = resolve_device(cfg["device"])
+    crop = tuple(cfg["training_params.crop_size"])
+    model = iSegProbeModel(**flagship_train_config(crop), device=device)
+    trainset, valset = synthetic_datasets(
+        crop, cfg["training_params.num_max_points"], cfg["epoch_len"],
+        cfg["val_epoch_len"], cfg["training_params.render_size"],
+        cfg["training_params.aug_scale_range"])
+    exp_path = Path(cfg["exp_path"])
+    tcfg = SimpleNamespace(
+        dataloader=SimpleNamespace(
+            batch_size=cfg["dataloader.batch_size"],
+            val_batch_size=cfg["dataloader.val_batch_size"],
+            workers=cfg["dataloader.workers"]),
+        training=SimpleNamespace(start_epoch=cfg["training.start_epoch"],
+                                 weights=None),
+        CHECKPOINTS_PATH=str(exp_path / "checkpoints"))
+    lr = float(cfg["training_params.lr"])
+    return iSegTrainer(
+        model, tcfg, loss_cfg(), trainset, valset, optimizer="adam",
+        optimizer_params={"lr": lr, "betas": (0.9, 0.999), "eps": 1e-8},
+        lr_scheduler={"milestones": cfg["training_params.lr_milestones"],
+                      "gamma": 0.1},
+        checkpoint_interval=[tuple(x) for x in
+                             cfg["training_params.checkpoint_interval"]],
+        metrics=[AdaptiveIoU()], max_num_next_clicks=3, seed=cfg["training.seed"], params=params,
+        device=device, on_step=on_step)
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    cfg = parse_args(sys.argv[1:] if argv is None else argv)
+    t0 = time.time()
+    trainer = build_trainer(cfg)
+    try:
+        trainer.run(cfg["training_params.epochs"],
+                    validation=cfg["training_params.do_validation"])
+    finally:
+        trainer.shutdown()
+    print(f"trained {cfg['training_params.epochs']} epochs in "
+          f"{time.time() - t0:.1f} s; checkpoints in "
+          f"{Path(cfg['exp_path']) / 'checkpoints'}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,8 @@
-"""Bounding-box helpers used by the ZoomIn ROI state machine.
+"""Bounding-box helpers used by the ZoomIn ROI state machine, and the
+label counter of the data layer.
 
-Counterpart of the bbox helpers of ``isegprobe_tpu/utils/misc.py``, with the
-same semantics.
+Counterpart of the bbox helpers and ``get_labels_with_sizes`` of
+``isegprobe_tpu/utils/misc.py``, with the same semantics.
 """
 
 from __future__ import annotations
@@ -59,3 +60,12 @@ def get_segments_iou(s1, s2) -> float:
 def get_bbox_iou(b1: Bbox, b2: Bbox) -> float:
     return (get_segments_iou(b1[:2], b2[:2])
             * get_segments_iou(b1[2:4], b2[2:4]))
+
+
+def get_labels_with_sizes(x: np.ndarray):
+    """Positive instance labels present in a mask and their pixel counts.
+    Background (0) and ignore regions (negative labels) are never objects."""
+    instances = x.reshape(-1)
+    counts = np.bincount(instances[instances > 0])
+    labels = np.nonzero(counts)[0]
+    return labels.tolist(), counts[labels].tolist()

@@ -1,4 +1,5 @@
-"""The JAX package's self-describing checkpoints, read without flax.
+"""The JAX package's self-describing checkpoints, read and written without
+flax.
 
 Counterpart of ``isegprobe_tpu/utils/serialization.py``. A ``.ckpt`` is a
 pickle of ``{"config": {"class", "params"}, "state_dict": <bytes>,
@@ -11,6 +12,12 @@ and 3 (numpy scalar). Anything else raises, naming what it met.
 
 The pickle itself is read by an unpickler that resolves no global: a
 checkpoint holds only dicts, lists, tuples, strings, numbers and bytes.
+
+:func:`save_checkpoint` writes the same file: :func:`msgpack_serialize`
+encodes the param tree as flax does (maps of str keys, arrays as ext type
+1), so the JAX package's ``load_checkpoint`` reads it, and
+:func:`model_config` gives the port's model the config the JAX package
+writes for its counterpart.
 """
 
 from __future__ import annotations
@@ -22,8 +29,8 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 
-__all__ = ["msgpack_restore", "load_checkpoint", "merge_params",
-           "build_model"]
+__all__ = ["msgpack_restore", "msgpack_serialize", "load_checkpoint",
+           "save_checkpoint", "merge_params", "model_config", "build_model"]
 
 # the class the JAX package writes into a checkpoint's config: the port's
 # iSegProbeModel is its counterpart (mapped by name: the port never imports
@@ -145,6 +152,71 @@ def msgpack_restore(data: bytes) -> Any:
     return out
 
 
+def _pack(obj, out: bytearray) -> None:
+    """Append the msgpack encoding of ``obj`` to ``out``."""
+    if obj is None:
+        out += b"\xc0"
+    elif obj is True or obj is False:
+        out += b"\xc3" if obj else b"\xc2"
+    elif isinstance(obj, int):
+        if 0 <= obj <= 0x7F or -32 <= obj < 0:
+            out += struct.pack(">b" if obj < 0 else ">B", obj)
+        elif obj >= 0:
+            out += struct.pack(">BQ", 0xCF, obj)
+        else:
+            out += struct.pack(">Bq", 0xD3, obj)
+    elif isinstance(obj, float):
+        out += struct.pack(">Bd", 0xCB, obj)
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        out += (bytes([0xA0 | len(data)]) if len(data) < 32
+                else struct.pack(">BI", 0xDB, len(data)))
+        out += data
+    elif isinstance(obj, (bytes, bytearray)):
+        out += struct.pack(">BI", 0xC6, len(obj)) + bytes(obj)
+    elif isinstance(obj, (list, tuple)):
+        out += struct.pack(">BI", 0xDD, len(obj))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, dict):
+        out += struct.pack(">BI", 0xDF, len(obj))
+        for k, v in obj.items():
+            if not isinstance(k, str):
+                raise TypeError(f"msgpack map keys must be str, got {k!r}")
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        arr = np.asarray(obj)
+        if arr.dtype.kind not in "biuf":
+            raise TypeError(f"array of dtype {arr.dtype} in a param tree")
+        payload = bytearray()
+        _pack([list(arr.shape), arr.dtype.name,
+               np.ascontiguousarray(arr).tobytes()], payload)
+        code = _EXT_NDARRAY if isinstance(obj, np.ndarray) else _EXT_NPSCALAR
+        out += struct.pack(">BIb", 0xC9, len(payload), code) + payload
+    else:
+        raise TypeError(f"{type(obj).__name__} in a param tree")
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """``flax.serialization.msgpack_serialize`` for a param tree of nested
+    dicts of numpy arrays (arrays over 2**30 bytes, which flax splits into
+    chunks, raise)."""
+    out = bytearray()
+
+    def check(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                check(v)
+        elif isinstance(node, np.ndarray) and node.nbytes > 2**30:
+            raise ValueError("arrays over 2**30 bytes are not written by "
+                             "isegprobe_torch")
+
+    check(tree)
+    _pack(tree, out)
+    return bytes(out)
+
+
 class _NoGlobals(pickle.Unpickler):
     def find_class(self, module: str, name: str):
         raise pickle.UnpicklingError(
@@ -160,6 +232,30 @@ def load_checkpoint(path: Union[str, Path]
         payload = _NoGlobals(f).load()
     params = msgpack_restore(payload["state_dict"])
     return params, payload["config"], payload.get("extra")
+
+
+def save_checkpoint(params: Dict, config: Dict, path: Union[str, Path],
+                    extra: Optional[Dict] = None) -> None:
+    """Write ``{"config", "state_dict", "extra"}`` as the JAX package's
+    ``save_checkpoint`` does: ``params`` (nested dicts of numpy arrays)
+    msgpack-encoded, the file pickled, written to a temporary name and
+    moved into place."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    payload = {"config": config, "state_dict": msgpack_serialize(params)}
+    if extra:
+        payload["extra"] = extra
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+    tmp.replace(path)
+
+
+def model_config(model) -> Dict:
+    """The config the JAX package writes for the counterpart of ``model``
+    (an ``iSegProbeModel`` of the port): its class name and constructor
+    fields, so that either package's ``build_model`` rebuilds it."""
+    return {"class": _JAX_MODEL_CLASS, "params": dict(model.ctor_config)}
 
 
 def merge_params(full_params: Dict, loaded: Dict) -> Dict:

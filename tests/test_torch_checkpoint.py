@@ -282,9 +282,19 @@ def test_evaluate_cli_arguments():
 
     cfg = parse_args(["checkpoint=x.ckpt", "eval_mode=fixed448,336",
                       "device_loop=true", "device_batch=8",
-                      "target_iou=0.5"])
+                      "target_iou=0.5", "print_ious=false"])
     assert cfg["target_size"] == (448, 336) and cfg["device_loop"]
     assert cfg["device_batch"] == 8 and cfg["target_iou"] == 0.8
+    # the root evaluate.py's defaults print the IoUs: every click runs
+    cfg = parse_args(["checkpoint=x.ckpt", "target_iou=0.5"])
+    assert cfg["target_iou"] == 1.01 and cfg["print_ious"]
+    assert (cfg["min_n_clicks"], cfg["thresh"], cfg["clicks_limit"]) == (
+        1, 0.5, None)
+    cfg = parse_args(["checkpoint=x.ckpt", "min_n_clicks=2",
+                      "clicks_limit=5"])
+    assert cfg["target_iou"] == 0.9 and cfg["clicks_limit"] == 5
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        parse_args(["checkpoint=x", "iou_analysis=true"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         parse_args(["checkpoint=x", "device_refill=true"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
@@ -311,8 +321,9 @@ def test_evaluate_main_matches_jax(tmp_path, capsys):
         scenes = tmp_path / "scenes.npz"
         np.savez(scenes, images=fx["images"][:2], labels=fx["labels"][:2],
                  objects=fx["objects"][:3])
+    # the early-stop protocol (target IoU 0.9) of the JAX run below
     args = [f"checkpoint={FLAGSHIP}", f"scenes={scenes}", "eval_mode=fixed112",
-            "n_clicks=3", "device=cpu"]
+            "n_clicks=3", "device=cpu", "print_ious=false"]
     jmodel, jparams = _evaluate_cli().load_model_for_eval(
         str(FLAGSHIP), {"dtype": "float32"}, target_size=(112, 112))
     want, _ = evaluate_dataset(
@@ -325,7 +336,8 @@ def test_evaluate_main_matches_jax(tmp_path, capsys):
         assert [len(a) for a in got["all_ious"]] == [len(a) for a in want]
         for g, w in zip(got["all_ious"], want):
             np.testing.assert_allclose(g, w, rtol=0, atol=1e-3)
-    assert main(args + ["device_loop=true", "device_batch=2"]) == 0
+    assert main(args + ["device_loop=true", "device_batch=2",
+                        "print_ious=true"]) == 0
     out = capsys.readouterr().out
     assert "Eval results for model: synthetic_dinov2_noup_160ep" in out
     assert "NoC@90%" in out and "mIoU@k:" in out

@@ -207,6 +207,37 @@ def test_clicker_ties_take_the_first_maximum(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 257, 3 * 384), (2, 65, 3 * 128)])
+def test_kernels_under_autograd_match_plain(cuda_device, shape):
+    """Kernels A and B under autograd (training): the forward is the
+    kernel's, bitwise, and the gradients are autograd's through the plain
+    version (the backward recomputes it)."""
+    heads = shape[-1] // 3 // 64
+    qkv = _randn(shape, 0, cuda_device)
+    with torch.no_grad():
+        ref = attention.mha_qkv(qkv, heads)
+    t = qkv.clone().requires_grad_(True)
+    out = attention.mha_qkv(t, heads)
+    assert torch.equal(out.detach(), ref)
+    g = _randn(out.shape, 1, cuda_device)
+    out.backward(g)
+    t2 = qkv.clone().requires_grad_(True)
+    attention._mha_qkv_plain(t2, heads, 64**-0.5).backward(g)
+    torch.testing.assert_close(t.grad, t2.grad, rtol=1e-5, atol=1e-6)
+    d = shape[-1] // 3
+    x = _randn((*shape[:2], d), 2, cuda_device)
+    w, b = _randn((d,), 3, cuda_device), _randn((d,), 4, cuda_device)
+    ts = [v.clone().requires_grad_(True) for v in (x, w, b)]
+    y = layernorm.layernorm(*ts)
+    assert torch.equal(y.detach(), layernorm.layernorm(x, w, b))
+    y.backward(x)
+    refs = [v.clone().requires_grad_(True) for v in (x, w, b)]
+    layernorm._ln_plain(*refs, 1e-6).backward(x)
+    for a, r in zip(ts, refs):
+        torch.testing.assert_close(a.grad, r.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     qkv = _randn((1, 9, 3 * 2 * 64), 0, cuda_device)
     with pytest.raises(ValueError):
@@ -220,8 +251,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):  # dh 13: no 16-byte path
         attention.mha_qkv(_randn((1, 9, 3 * 13), 0, cuda_device), 1,
                           plan=(64, True))
-    with pytest.raises(NotImplementedError):
-        attention.mha_qkv(qkv.requires_grad_(), 2)
+    # kernel A has a backward (through the plain version) since it trains
+    attention.mha_qkv(qkv.requires_grad_(), 2).sum().backward()
+    assert qkv.grad is not None and torch.isfinite(qkv.grad).all()
     x = _randn((4, 2048), 0, cuda_device)
     with pytest.raises(ValueError):
         layernorm.layernorm(x, torch.ones(2048, device=cuda_device),

@@ -50,8 +50,9 @@ TRAINED = REPO / "assets" / "trained"
 FLAGSHIP_CKPT = TRAINED / "synthetic_dinov2_noup_160ep.ckpt"
 LOFTUP_CKPT = TRAINED / "synthetic_dinov2_loftup448_160ep.ckpt"
 TARGET = (448, 448)
-# evaluate.py's defaults (configs/eval_cfg.yaml): n_clicks, target_iou,
-# thresh, min_n_clicks
+# the early-stop protocol: configs/eval_cfg.yaml's n_clicks, target_iou,
+# thresh and min_n_clicks, with a stop at the target IoU (the root
+# evaluate.py's defaults print the IoUs and so run every click instead)
 PROTOCOL = dict(max_clicks=20, net_clicks_limit=20, pred_thr=0.5,
                 target_iou=0.9, min_clicks=1, with_flip=True)
 LOFTUP_OBJECTS, LOFTUP_CLICKS = 2, 4
