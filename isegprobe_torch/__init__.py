@@ -12,10 +12,11 @@ Layout mirrors the JAX package so each module's counterpart is easy to find:
                 JBU filter (jbu.py), F and G the sweep's attention variants
                 nodiv and merged (attn_variants.py)
     csrc/       CUDA C++ sources of kernels A-G, built with nvcc at first use
-    models/     ViT core, DINOv2 featurizer, upsamplers (identity, LoftUp,
-                JBU-FeatUp), heads, probe model, the weight bridge from
-                the JAX package's param trees, and their PRNGKey(0) init
-                rebuilt in numpy (init_tree)
+    models/     ViT core, featurizers (DINOv2, DINO key probing, MaskCLIP,
+                the SimpleViT click encoder), upsamplers (identity, LiFT,
+                LoftUp, JBU-FeatUp), heads, probe model, the weight bridge
+                from the JAX package's param trees, and their PRNGKey(0)
+                init rebuilt in numpy (init_tree)
     inference/  clicker, predictor, NoC evaluation and metrics, and the
                 batched on-device NoC loop (device_eval)
     data/       the stored evaluation scenes (scenes), over fixtures/, and

@@ -11,7 +11,8 @@ Usage (on a CUDA GPU; ``device=cpu`` runs the plain PyTorch path):
 
     python -m isegprobe_torch.evaluate \\
         checkpoint=assets/trained/synthetic_dinov2_noup_160ep.ckpt \\
-        scenes=isegprobe_torch/fixtures/synthetic2026_50.npz \\
+        [datasets=Synthetic] \\
+        [scenes=isegprobe_torch/fixtures/synthetic2026_50.npz] \\
         device_loop=true device_batch=8 [dtype=bfloat16] [eval_mode=fixed448]
         [n_clicks=20] [target_iou=0.9] [print_ious=true] [min_n_clicks=1]
         [thresh=0.5] [clicks_limit=null]
@@ -44,6 +45,7 @@ from isegprobe_torch.models.convert import (
     load_jax_params,
     load_upsampler_params,
 )
+from isegprobe_torch.models.featurizers.dino import DINO_TRUNK
 from isegprobe_torch.models.featurizers.dinov2 import DINOV2_ARCHS
 from isegprobe_torch.models.init_tree import count_params, init_tree
 from isegprobe_torch.utils.serialization import (
@@ -71,9 +73,10 @@ def load_model_for_eval(checkpoint: str, dtype=torch.float32,
     ``model.init(PRNGKey(0))``'s; the checkpoint's subtrees replace theirs
     whole (a missing leaf fails the load). The upsampler's configured
     weights are overlaid when the file exists (``models.convert.
-    load_upsampler_params`` warns when it does not). The DINOv2 pos-embed is
-    resized once to the eval grid, as ``interpolate_backbone_pos_embed``
-    does, so that the forward's own interpolation is a no-op. In bf16 the
+    load_upsampler_params`` warns when it does not). The DINOv2 and DINO
+    pos-embeds are resized once to the eval grid, as
+    ``interpolate_backbone_pos_embed`` does, so that the forward's own
+    interpolation is a no-op (:func:`_preinterpolate_pos_embed`). In bf16 the
     f32 params are rounded into the bf16 model, as the root ``evaluate.py``
     casts its params. LoftUp's
     padded ``mxu_pad`` layout, which that script uses for bf16, is the same
@@ -99,13 +102,22 @@ def _preinterpolate_pos_embed(config: Dict, params: Dict,
                               ) -> Tuple[Dict, Dict]:
     """Resize the backbone pos-embed to the eval grid and set the config's
     ``pretrain_grid`` to it (root ``evaluate.py:
-    interpolate_backbone_pos_embed``, DINOv2 backbones)."""
+    interpolate_backbone_pos_embed``): DINOv2 at its arch's patch and grid,
+    the DINO ``vit`` at the config's patch (16 by default) from its 14²
+    grid. MaskCLIP interpolates its table on every forward and SimpleViT
+    has none, so those configs come back unchanged."""
     backbone_cfg = dict(config["params"]["backbone_cfg"])
+    btype = backbone_cfg["type"].lower()
     bparams = dict(backbone_cfg.get("params") or {})
-    arch = DINOV2_ARCHS[bparams.get("arch", "dinov2_vits14")]
-    old_grid = tuple(arch.pretrain_grid)
-    new_grid = (target_size[0] // arch.patch_size,
-                target_size[1] // arch.patch_size)
+    if btype == "dinov2":
+        arch = DINOV2_ARCHS[bparams.get("arch", "dinov2_vits14")]
+        patch, old_grid = arch.patch_size, tuple(arch.pretrain_grid)
+    elif btype == "vit":
+        patch = bparams.get("patch_size", 16)
+        old_grid = tuple(DINO_TRUNK.pretrain_grid)
+    else:
+        return config, params
+    new_grid = (target_size[0] // patch, target_size[1] // patch)
     if new_grid == old_grid:
         return config, params
     vit = dict(params["backbone"]["model"])
@@ -124,8 +136,6 @@ def _preinterpolate_pos_embed(config: Dict, params: Dict,
 # keys of the root evaluate.py that the port does not take yet, and the
 # ROADMAP item that brings each
 _NOT_PORTED = {
-    "datasets": "ROADMAP Queue 1 item 6 (the data layer: the other "
-                "datasets' loaders)",
     "mode": "ROADMAP Queue 1 item 9 (BRS)",
     "eval_ritm": "ROADMAP Queue 1 item 8 (adaptive RITM protocol)",
     "device_refill": "ROADMAP Queue 1 item 5 (continuous batching)",
@@ -140,7 +150,8 @@ _NOT_PORTED = {
     "wandb": "ROADMAP Queue 1 item 9 (eval_utils)",
     "profile_dir": "ROADMAP Queue 1 item 2 (the port's bench leg)",
 }
-_DEFAULTS = dict(checkpoint=None, scenes=str(SYNTHETIC_FIXTURE),
+_DEFAULTS = dict(checkpoint=None, datasets="Synthetic",
+                 scenes=str(SYNTHETIC_FIXTURE),
                  eval_mode="fixed448", device_loop="false", device_batch="1",
                  dtype="float32", n_clicks="20", target_iou="0.90",
                  print_ious="true", min_n_clicks="1", thresh="0.5",
@@ -166,6 +177,11 @@ def parse_args(argv) -> Dict:
         cfg[key] = value
     if not cfg["checkpoint"]:
         raise ValueError("checkpoint=<path to a .ckpt> is required")
+    if cfg["datasets"] != "Synthetic":
+        raise NotImplementedError(
+            f"datasets={cfg['datasets']}: the port evaluates the stored "
+            "Synthetic scenes only; the other datasets' loaders are ROADMAP "
+            "Queue 1 item 6 (the data layer)")
     mode = cfg["eval_mode"]
     if not mode.startswith("fixed"):
         raise NotImplementedError(

@@ -7,14 +7,18 @@ A param tree is nested dicts of numpy arrays (``params["backbone"]["model"]
 * Dense ``kernel [in, out]`` becomes Linear ``weight [out, in]``;
 * conv ``kernel`` HWIO becomes ``weight`` OIHW;
 * LayerNorm and FrozenBatchNorm ``scale`` becomes ``weight``;
-* ``blocks_i``, ``convs_i``, ``ca_i`` and ``ff_i`` become ``blocks.i``,
-  ``convs.i``, ``ca.i`` and ``ff.i``;
+* ``blocks_i``, ``convs_i``, ``ca_i``, ``ff_i``, ``attn_i`` (SimpleViT)
+  and ``resblocks_i`` (CLIP) become ``blocks.i``, ``convs.i``, ``ca.i``,
+  ``ff.i``, ``attn.i`` and ``resblocks.i``;
 * ``bias``, ``cls_token``, ``pos_embed`` and ``gamma`` pass through, and so
-  do the learned upsamplers' leaves: the packed attention projection
-  ``in_proj_weight`` / ``in_proj_bias`` (already in torch layout),
-  ``ImplicitFeaturizer.biases``, FrozenBatchNorm ``mean`` and ``var``,
-  ConvNeXtLayerNorm ``weight``, and JBU's scalars ``range_temp`` and
-  ``sigma_spatial``.
+  do the packed attention projection ``in_proj_weight`` / ``in_proj_bias``
+  of CLIP and LoftUp (already in torch layout), CLIP's
+  ``class_embedding``, ``positional_embedding`` and right-multiplied
+  ``proj`` ``[width, out]``, ``ImplicitFeaturizer.biases``, FrozenBatchNorm
+  ``mean`` and ``var``, ConvNeXtLayerNorm ``weight``, and JBU's scalars
+  ``range_temp`` and ``sigma_spatial``. A bias-free conv (CLIP's ``conv1``)
+  has no ``bias``, and LiFT's 2x2 transposed-conv kernel ``[2, 2, cin, f]``
+  takes the conv rule into ``[f, cin, 2, 2]``.
 
 Loading raises on any missing or unexpected key and on any shape mismatch.
 :func:`state_dict_to_jax_params` runs the bridge the other way, onto the
@@ -41,10 +45,11 @@ __all__ = ["jax_params_to_state_dict", "state_dict_to_jax_params",
            "load_jax_params",
            "load_upsampler_params", "interpolate_pos_embed_params"]
 
-_INDEXED = re.compile(r"^(blocks|convs|ca|ff)_(\d+)$")
+_INDEXED = re.compile(r"^(blocks|convs|ca|ff|attn|resblocks)_(\d+)$")
 _PASS_THROUGH = ("bias", "cls_token", "pos_embed", "gamma", "weight",
                  "in_proj_weight", "in_proj_bias", "biases", "mean", "var",
-                 "range_temp", "sigma_spatial")
+                 "range_temp", "sigma_spatial", "class_embedding",
+                 "positional_embedding", "proj")
 
 
 def _leaf(path: str, key: str, value) -> tuple[str, np.ndarray]:

@@ -1,9 +1,11 @@
 """Segmentation heads.
 
-Counterpart of ``isegprobe_tpu/models/heads.py:ConvSegHead``: N 3x3
-conv+ReLU layers, then a 1x1 classifier, NHWC in and out. The JAX package
-builds heads at float32 compute whatever the model dtype, so this head
-computes in float32 and widens parameters that were cast to bfloat16.
+Counterpart of ``isegprobe_tpu/models/heads.py``: ``linear`` (a 1x1 conv
+classifier), ``simple_conv`` (N 1x1 conv+ReLU layers, then the classifier)
+and ``convhead`` (N 3x3 conv+ReLU layers, then the classifier), NHWC in and
+out. The JAX package builds heads at float32 compute whatever the model
+dtype, so these heads compute in float32 and widen parameters that were
+cast to bfloat16.
 """
 
 from __future__ import annotations
@@ -18,6 +20,38 @@ def _conv_f32(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x, conv.weight.float(), bias, padding=conv.padding)
 
 
+def _head(convs, classifier: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    x = x.float().permute(0, 3, 1, 2)
+    for conv in convs:
+        x = torch.relu(_conv_f32(conv, x))
+    return _conv_f32(classifier, x).permute(0, 2, 3, 1)
+
+
+class SimpleClassifierHead(nn.Module):
+    """'linear': a single 1x1 conv classifier."""
+
+    def __init__(self, in_channels: int, num_classes: int = 1) -> None:
+        super().__init__()
+        self.classifier = nn.Conv2d(in_channels, num_classes, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _head((), self.classifier, x)
+
+
+class SimpleConvSegHead(nn.Module):
+    """'simple_conv': N 1x1 conv+ReLU layers, then the classifier."""
+
+    def __init__(self, in_channels: int, num_layers: int,
+                 num_classes: int = 1) -> None:
+        super().__init__()
+        self.convs = nn.ModuleList(nn.Conv2d(in_channels, in_channels, 1)
+                                   for _ in range(num_layers))
+        self.classifier = nn.Conv2d(in_channels, num_classes, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _head(self.convs, self.classifier, x)
+
+
 class ConvSegHead(nn.Module):
     """'convhead': the head of the flagship experiment."""
 
@@ -30,10 +64,8 @@ class ConvSegHead(nn.Module):
         self.classifier = nn.Conv2d(in_channels, num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float().permute(0, 3, 1, 2)
-        for conv in self.convs:
-            x = torch.relu(_conv_f32(conv, x))
-        return _conv_f32(self.classifier, x).permute(0, 2, 3, 1)
+        return _head(self.convs, self.classifier, x)
 
 
-HEAD_REGISTRY = {"convhead": ConvSegHead}
+HEAD_REGISTRY = {"linear": SimpleClassifierHead,
+                 "simple_conv": SimpleConvSegHead, "convhead": ConvSegHead}

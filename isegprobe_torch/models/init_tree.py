@@ -17,19 +17,26 @@ config's remat flags nor the init image's size moves a key. Values lie
 within two ulp of JAX's (``jax_rng``); paths, shapes and keys are exact
 (``tests/test_torch_checkpoint.py``).
 
-Covered: the DINOv2 backbone, the ``patchEmbed`` click encoder, the
-``convhead`` head and the identity, LoftUp and JBU-FeatUp upsamplers, the
-configurations ``models.probe_model.iSegProbeModel`` builds.
+Covered: the configurations ``models.probe_model.iSegProbeModel`` builds —
+the DINOv2, DINO ``vit`` and MaskCLIP backbones, the ``patchEmbed`` and
+``simple_vit`` click encoders, the three heads and the identity, LiFT,
+LoftUp and JBU-FeatUp upsamplers. flax creates a param when its module is
+first called, so a module that is declared but never called has none:
+MaskCLIP's last block keeps only ``ln_1`` and ``attn`` (its dense features
+take the block's value path).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Iterable, Tuple
 
 import numpy as np
 
+from isegprobe_torch.models.featurizers.dino import DINO_TRUNK
 from isegprobe_torch.models.featurizers.dinov2 import DINOV2_ARCHS
-from isegprobe_torch.models.vit import LAYERSCALE_INIT, MLP_RATIO
+from isegprobe_torch.models.featurizers.maskclip import CLIP_ARCHS
+from isegprobe_torch.models.vit import LAYERSCALE_INIT, MLP_RATIO, ViTConfig
 from isegprobe_torch.utils import jax_rng
 
 __all__ = ["init_tree", "count_params"]
@@ -72,16 +79,27 @@ class _Scope:
         self.tree[name] = np.asarray(init(key, tuple(shape)), np.float32)
 
 
-def _dense(scope: _Scope, name: str, fan_in: int, features: int) -> None:
+def _dense(scope: _Scope, name: str, fan_in: int, features: int,
+           bias: bool = True) -> None:
     s = scope.child(name)
     s.param("kernel", jax_rng.lecun_normal, (fan_in, features))
-    s.param("bias", _zeros, (features,))
+    if bias:
+        s.param("bias", _zeros, (features,))
 
 
-def _conv(scope: _Scope, name: str, k: int, cin: int, cout: int) -> None:
+def _conv(scope: _Scope, name: str, k: int, cin: int, cout: int,
+          bias: bool = True) -> None:
     s = scope.child(name)
     s.param("kernel", jax_rng.lecun_normal, (k, k, cin, cout))
-    s.param("bias", _zeros, (cout,))
+    if bias:
+        s.param("bias", _zeros, (cout,))
+
+
+def _frozen_bn(scope: _Scope, name: str, dim: int) -> None:
+    bn = scope.child(name)
+    for leaf, init in (("scale", _ones), ("bias", _zeros),
+                       ("mean", _zeros), ("var", _ones)):
+        bn.param(leaf, init, (dim,))
 
 
 def _layernorm(scope: _Scope, name: str, dim: int) -> None:
@@ -90,13 +108,10 @@ def _layernorm(scope: _Scope, name: str, dim: int) -> None:
     s.param("bias", _zeros, (dim,))
 
 
-# -- DINOv2 (isegprobe_tpu/models/vit.py, featurizers/dinov2.py) ------------
+# -- the ViT trunks (isegprobe_tpu/models/vit.py; featurizers/dinov2.py and
+# dino.py) ------------------------------------------------------------------
 
-def _dinov2(scope: _Scope, params: Dict) -> None:
-    arch = params.get("arch", "dinov2_vits14")
-    if arch not in DINOV2_ARCHS:
-        raise NotImplementedError(f"Unknown DINOv2 arch: {arch}")
-    cfg = DINOV2_ARCHS[arch]
+def _vit(scope: _Scope, cfg: ViTConfig) -> None:
     d = cfg.embed_dim
     vit = scope.child("model")
     _conv(vit.child("patch_embed"), "proj", cfg.patch_size, 3, d)
@@ -110,13 +125,106 @@ def _dinov2(scope: _Scope, params: Dict) -> None:
         attn = blk.child("attn")
         _dense(attn, "qkv", d, 3 * d)
         _dense(attn, "proj", d, d)
-        blk.child("ls1").param("gamma", _constant(LAYERSCALE_INIT), (d,))
+        if cfg.layerscale:
+            blk.child("ls1").param("gamma", _constant(LAYERSCALE_INIT), (d,))
         _layernorm(blk, "norm2", d)
         mlp = blk.child("mlp")
         _dense(mlp, "fc1", d, MLP_RATIO * d)
         _dense(mlp, "fc2", MLP_RATIO * d, d)
-        blk.child("ls2").param("gamma", _constant(LAYERSCALE_INIT), (d,))
+        if cfg.layerscale:
+            blk.child("ls2").param("gamma", _constant(LAYERSCALE_INIT), (d,))
     _layernorm(vit, "norm", d)
+
+
+def _dinov2_cfg(params: Dict) -> ViTConfig:
+    arch = params.get("arch", "dinov2_vits14")
+    if arch not in DINOV2_ARCHS:
+        raise NotImplementedError(f"Unknown DINOv2 arch: {arch}")
+    return DINOV2_ARCHS[arch]
+
+
+def _dino_cfg(params: Dict) -> ViTConfig:
+    return dataclasses.replace(DINO_TRUNK,
+                               patch_size=int(params.get("patch_size", 16)))
+
+
+# -- MaskCLIP's visual tower (isegprobe_tpu/models/featurizers/maskclip.py) --
+
+def _clip_arch(params: Dict) -> Dict:
+    name = params.get("model_name", "ViT-B/16")
+    if name not in CLIP_ARCHS:
+        raise ValueError(f"Currently unsupported model_name for MaskCLIP: "
+                         f"{name}")
+    return CLIP_ARCHS[name]
+
+
+def _maskclip(scope: _Scope, arch: Dict) -> None:
+    w, p, g0 = arch["width"], arch["patch_size"], arch["pretrain_grid"]
+    tower = scope.child("model")
+    _conv(tower, "conv1", p, 3, w, bias=False)
+    # the tower's setup order: class_embedding, positional_embedding, proj
+    tower.param("class_embedding", jax_rng.normal_init(w**-0.5), (w,))
+    tower.param("positional_embedding", jax_rng.normal_init(w**-0.5),
+                (g0 * g0 + 1, w))
+    _layernorm(tower, "ln_pre", w)
+    for i in range(arch["layers"]):
+        blk = tower.child(f"resblocks_{i}")
+        _layernorm(blk, "ln_1", w)
+        attn = blk.child("attn")
+        attn.param("in_proj_weight", jax_rng.xavier_uniform, (3 * w, w))
+        attn.param("in_proj_bias", _zeros, (3 * w,))
+        _dense(attn, "out_proj", w, w)
+        if i < arch["layers"] - 1:  # the last block runs its value path
+            _layernorm(blk, "ln_2", w)
+            _dense(blk, "c_fc", w, 4 * w)
+            _dense(blk, "c_proj", 4 * w, w)
+    _layernorm(tower, "ln_post", w)
+    tower.param("proj", jax_rng.normal_init(w**-0.5), (w, arch["output_dim"]))
+
+
+# -- SimpleViT (isegprobe_tpu/models/featurizers/simple_vit.py) -------------
+
+def _simple_vit(scope: _Scope, params: Dict, channels: int) -> None:
+    p = params["patch_size"]
+    ph, pw = tuple(p) if isinstance(p, (tuple, list)) else (p, p)
+    dim, mlp = int(params["embed_dim"]), int(params["mlp_dim"])
+    inner = int(params["heads"]) * int(params.get("dim_head", 64))
+    patch_dim = int(ph) * int(pw) * channels
+    _layernorm(scope, "patch_norm1", patch_dim)
+    _dense(scope, "patch_proj", patch_dim, dim)
+    _layernorm(scope, "patch_norm2", dim)
+    for i in range(int(params["depth"])):
+        attn = scope.child(f"attn_{i}")
+        _layernorm(attn, "norm", dim)
+        _dense(attn, "to_qkv", dim, 3 * inner, bias=False)
+        _dense(attn, "to_out", inner, dim, bias=False)
+        ff = scope.child(f"ff_{i}")
+        _layernorm(ff, "norm", dim)
+        _dense(ff, "fc1", dim, mlp)
+        _dense(ff, "fc2", mlp, dim)
+    _layernorm(scope, "final_norm", dim)
+
+
+# -- LiFT (isegprobe_tpu/models/upsamplers/lift.py) -------------------------
+
+def _lift(scope: _Scope, params: Dict) -> None:
+    c = int(params.get("n_dim", 384))
+
+    def conv_bn(parent: _Scope, name: str, cin: int, cout: int,
+                bias: bool) -> None:
+        cbr = parent.child(name)
+        _conv(cbr, "conv", 3, cin, cout, bias=bias)
+        _frozen_bn(cbr, "bn", cout)
+
+    conv_bn(scope, "image_convs_1a", 3, 32, True)
+    conv_bn(scope, "image_convs_1b", 32, 32, True)
+    conv_bn(scope, "image_convs_2", 32, 32, True)
+    # a 2x2 transposed conv: lecun_normal over its 2x2 receptive field
+    _conv(scope, "up_transpose", 2, c + 32, (c + 32) // 2)
+    double = scope.child("up_conv")
+    conv_bn(double, "c1", (c + 32) // 2 + 32, c // 2, False)
+    conv_bn(double, "c2", c // 2, c // 2, False)
+    _conv(scope, "outc", 1, c // 2, c)
 
 
 # -- LoftUp (isegprobe_tpu/models/upsamplers/loftup.py) ---------------------
@@ -139,10 +247,7 @@ def _loftup(scope: _Scope, params: Dict) -> None:
     for name, cin in (("first_conv1", stem), ("first_conv2", cdim)):
         cbr = scope.child(name)
         _conv(cbr, "conv", 3, cin, cdim)
-        bn = cbr.child("bn")
-        for leaf, init in (("scale", _ones), ("bias", _zeros),
-                           ("mean", _zeros), ("var", _ones)):
-            bn.param(leaf, init, (cdim,))
+        _frozen_bn(cbr, "bn", cdim)
     cat = scope.child("ca_transformer")
     for i in range(num_layers):
         ca = cat.child(f"ca_{i}")
@@ -192,14 +297,20 @@ def init_tree(config: Dict, seed: int = 0,
     root = _Scope(jax_rng.prng_key(seed))
     backbone_cfg = config["backbone_cfg"]
     btype = backbone_cfg["type"].lower()
-    if btype != "dinov2":
-        raise NotImplementedError(
-            f"backbone type {btype!r} is not ported to isegprobe_torch yet: "
-            f"{_OTHER_FAMILIES}")
     bparams = dict(backbone_cfg.get("params") or {})
-    feat_dim = DINOV2_ARCHS[bparams.get("arch", "dinov2_vits14")].embed_dim
+    if btype == "mask_clip":
+        arch = _clip_arch(bparams)
+        feat_dim = arch["output_dim"]
+    elif btype in ("dinov2", "vit"):
+        cfg = (_dinov2_cfg if btype == "dinov2" else _dino_cfg)(bparams)
+        feat_dim = cfg.embed_dim
+    else:
+        raise ValueError(f"Unsupported backbone type: {btype}")
     if "backbone" not in skip:
-        _dinov2(root.child("backbone"), bparams)
+        if btype == "mask_clip":
+            _maskclip(root.child("backbone"), arch)
+        else:
+            _vit(root.child("backbone"), cfg)
 
     ucfg = config.get("upsampler_cfg")
     utype = ucfg["type"].lower() if ucfg else "bilinear"
@@ -209,35 +320,38 @@ def init_tree(config: Dict, seed: int = 0,
             _loftup(root.child("upsampler"), uparams)
         elif utype == "jbu_featup":
             _jbu(root.child("upsampler"), uparams, feat_dim)
+        elif utype == "lift":
+            _lift(root.child("upsampler"), uparams)
         elif utype not in ("identity", "nearest", "bilinear", "bicubic"):
             raise NotImplementedError(
                 f"upsampler type {utype!r} is not ported to isegprobe_torch "
                 f"yet: {_OTHER_FAMILIES}")
 
     head_cfg = config["head_cfg"]
-    if head_cfg["type"] != "convhead":
-        raise NotImplementedError(
-            f"head type {head_cfg['type']!r} is not ported to "
-            f"isegprobe_torch yet: {_OTHER_FAMILIES}")
+    htype, hp = head_cfg["type"], head_cfg["params"]
+    if htype not in ("linear", "simple_conv", "convhead"):
+        raise ValueError(f"Unsupported head type: {htype}")
     if "head" not in skip:
-        hp = head_cfg["params"]
         head = root.child("head")
         c = int(hp["in_channels"])
-        for i in range(int(hp["num_layers"])):
-            _conv(head, f"convs_{i}", 3, c, c)
+        k = 3 if htype == "convhead" else 1
+        n_layers = 0 if htype == "linear" else int(hp["num_layers"])
+        for i in range(n_layers):
+            _conv(head, f"convs_{i}", k, c, c)
         _conv(head, "classifier", 1, c, int(hp.get("num_classes", 1)))
 
     ec = config["embed_coords_cfg"]
-    if ec["type"] != "patchEmbed":
-        raise NotImplementedError(
-            f"embed_coords type {ec['type']!r} is not ported to "
-            f"isegprobe_torch yet: {_OTHER_FAMILIES}")
+    if ec["type"] not in ("patchEmbed", "simple_vit"):
+        raise ValueError(f"Unknown embed_coords type: {ec['type']}")
     if "embed_coords" not in skip:
-        p = ec["params"]["patch_size"]
-        p = p[0] if isinstance(p, (tuple, list)) else p
         cin = 3 if config.get("with_prev_mask", False) else 2
-        _conv(root.child("embed_coords"), "proj", int(p), cin,
-              int(ec["params"]["embed_dim"]))
+        if ec["type"] == "simple_vit":
+            _simple_vit(root.child("embed_coords"), ec["params"], cin)
+        else:
+            p = ec["params"]["patch_size"]
+            p = p[0] if isinstance(p, (tuple, list)) else p
+            _conv(root.child("embed_coords"), "proj", int(p), cin,
+                  int(ec["params"]["embed_dim"]))
     return root.tree
 
 

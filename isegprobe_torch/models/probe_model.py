@@ -4,11 +4,12 @@ Counterpart of ``isegprobe_tpu/models/probe_model.py:iSegProbeModel``: image
 normalization, click disk-map encoding, click patch embedding, the backbone
 with injected click tokens, upsampler, head and the final align-corners
 resize. It takes the JAX package's constructor config (so a checkpoint's
-``config["params"]`` builds it) and so far covers a DINOv2 backbone, a
-``patchEmbed`` click encoder, the ``convhead`` head and the upsamplers of
-``models.upsamplers``: the non-learnable ones (the flagship's identity),
-LoftUp and the JBU-FeatUp stack. Other configurations raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+``config["params"]`` builds it): the ``dinov2``, ``vit`` (DINO key or token
+probing) and ``mask_clip`` backbones, the ``patchEmbed`` and ``simple_vit``
+click encoders, the heads of ``models.heads`` and the upsamplers of
+``models.upsamplers`` (the non-learnable ones, LiFT, LoftUp and the
+JBU-FeatUp stack). Other options raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 
 Call as ``model(image, points)`` with image ``[B, H, W, 3]`` in [0, 1] (plus a
 prev-mask channel when ``with_prev_mask``) and points ``[B, 2N, 3]`` rows of
@@ -25,7 +26,10 @@ import torch
 from torch import nn
 
 from isegprobe_torch import resolve_device
+from isegprobe_torch.models.featurizers.dino import DINOFeaturizer
 from isegprobe_torch.models.featurizers.dinov2 import DINOv2Featurizer
+from isegprobe_torch.models.featurizers.maskclip import MaskCLIPFeaturizer
+from isegprobe_torch.models.featurizers.simple_vit import SimpleViTFeaturizer
 from isegprobe_torch.models.heads import HEAD_REGISTRY
 from isegprobe_torch.models.upsamplers import UPSAMPLER_REGISTRY
 from isegprobe_torch.models.vit import PatchEmbed
@@ -36,11 +40,24 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 _OTHER_FAMILIES = "ROADMAP Queue 1 item 7 (other model families)"
+BACKBONES = {"dinov2": DINOv2Featurizer, "vit": DINOFeaturizer,
+             "mask_clip": MaskCLIPFeaturizer}
 
 
 def _unsupported(what: str, item: str = _OTHER_FAMILIES):
     return NotImplementedError(
         f"{what} is not ported to isegprobe_torch yet: {item}")
+
+
+def build_simple_vit(params: Dict, channels: int) -> SimpleViTFeaturizer:
+    """The ``simple_vit`` click encoder of ``embed_coords_cfg["params"]``,
+    with the config's key names (the JAX package's ``build_featurizer``),
+    for inputs of ``channels`` channels."""
+    return SimpleViTFeaturizer(
+        image_size=params["img_size"], patch_size=params["patch_size"],
+        dim=params["embed_dim"], depth=params["depth"],
+        heads=params["heads"], mlp_dim=params["mlp_dim"],
+        channels=channels, dim_head=params.get("dim_head", 64))
 
 
 def build_upsampler(utype: str, params: Optional[Dict],
@@ -128,9 +145,9 @@ class iSegProbeModel(nn.Module):
         self._norm_cache: Dict = {}
 
         btype = backbone_cfg["type"].lower()
-        if btype != "dinov2":
-            raise _unsupported(f"backbone type {btype!r}")
-        self.backbone = DINOv2Featurizer(**(backbone_cfg.get("params") or {}))
+        if btype not in BACKBONES:
+            raise ValueError(f"Unsupported backbone type: {btype}")
+        self.backbone = BACKBONES[btype](**(backbone_cfg.get("params") or {}))
 
         self.upsampler_type = (upsampler_cfg["type"].lower() if upsampler_cfg
                                else "bilinear")
@@ -140,17 +157,19 @@ class iSegProbeModel(nn.Module):
             self.backbone.embed_dim)
 
         if head_cfg["type"] not in HEAD_REGISTRY:
-            raise _unsupported(f"head type {head_cfg['type']!r}")
+            raise ValueError(f"Unsupported head type: {head_cfg['type']}")
         self.head = HEAD_REGISTRY[head_cfg["type"]](**head_cfg["params"])
 
-        if embed_coords_cfg["type"] != "patchEmbed":
-            raise _unsupported(
-                f"embed_coords type {embed_coords_cfg['type']!r}")
-        ec = embed_coords_cfg["params"]
-        p = ec["patch_size"]
-        p = p[0] if isinstance(p, (tuple, list)) else p
-        self.embed_coords = PatchEmbed(3 if with_prev_mask else 2, p,
-                                       ec["embed_dim"])
+        ec_type, ec = embed_coords_cfg["type"], embed_coords_cfg["params"]
+        in_chans = 3 if with_prev_mask else 2
+        if ec_type == "patchEmbed":
+            p = ec["patch_size"]
+            p = p[0] if isinstance(p, (tuple, list)) else p
+            self.embed_coords = PatchEmbed(in_chans, p, ec["embed_dim"])
+        elif ec_type == "simple_vit":
+            self.embed_coords = build_simple_vit(ec, in_chans)
+        else:
+            raise ValueError(f"Unknown embed_coords type: {ec_type}")
 
         self.to(resolve_device(device))
 
@@ -295,3 +314,65 @@ def flagship_config(img_size=(448, 448)) -> Dict:
         norm_radius=5,
         with_prev_mask=True,
     )
+
+
+def synthetic_config(name: str, img_size=(448, 448)) -> Dict:
+    """Constructor config of the model of ``models/synthetic/<name>.py``
+    (as the JAX package's ``init_model_from_modules_cfg`` builds it, with
+    ``img_size`` as the crop) for the other families the paper probes:
+    ``maskclip_noup`` (MaskCLIP ViT-B/16, clicks patch-embedded at its
+    width and added before the tower, convhead on its 512-wide features),
+    ``vit_noup`` (the DINO ViT-S/16 key probe, clicks added before),
+    ``dinov2_simplevit`` (DINOv2-S/14 with the SimpleViT click encoder
+    added after the trunk) and ``dinov2_lift`` (the flagship through the
+    LiFT upsampler, with the configured ``lift_path`` of
+    ``configs/main_cfg.yaml``)."""
+    size = list(img_size)
+    patch_embed = dict(type="patchEmbed",
+                       params=dict(img_size=size, patch_size=(14, 14),
+                                   embed_dim=384))
+    convhead = dict(type="convhead", params=dict(in_channels=384,
+                                                 num_layers=2, num_classes=1))
+    identity = dict(type="identity", params=dict())
+    early = dict(type="dinov2",
+                 params=dict(feats_injection_mode="before_backbone"))
+    modules = {
+        "maskclip_noup": (
+            dict(type="mask_clip",
+                 params=dict(model_name="ViT-B/16",
+                             feats_injection_mode="before_backbone")),
+            dict(type="patchEmbed", params=dict(
+                img_size=size, patch_size=(16, 16), embed_dim=768)),
+            dict(type="convhead", params=dict(in_channels=512, num_layers=2,
+                                              num_classes=1)),
+            identity),
+        "vit_noup": (
+            dict(type="vit", params=dict(
+                arch="vit_small_patch16_224", patch_size=16, feat_type="key",
+                feats_injection_mode="before_backbone")),
+            dict(type="patchEmbed", params=dict(
+                img_size=size, patch_size=(16, 16), embed_dim=384)),
+            convhead, identity),
+        "dinov2_simplevit": (
+            dict(type="dinov2",
+                 params=dict(feats_injection_mode="after_backbone")),
+            dict(type="simple_vit", params=dict(
+                img_size=size, patch_size=(14, 14), embed_dim=384, depth=6,
+                heads=8, mlp_dim=2048, channels=3, dim_head=64)),
+            convhead, identity),
+        "dinov2_lift": (
+            early, patch_embed, convhead,
+            dict(type="lift", params=dict(lift_path="/weights/lift.pth",
+                                          n_dim=384, patch=14))),
+    }
+    if name not in modules:
+        raise ValueError(f"no synthetic config {name!r}; takes "
+                         f"{sorted(modules)}")
+    backbone, embed_coords, head, upsampler = modules[name]
+    return dict(backbone_cfg=backbone, head_cfg=head,
+                embed_coords_cfg=embed_coords, neck_cfg=None,
+                upsampler_cfg=upsampler,
+                save_cfg=dict(embed_coords=True, backbone=False,
+                              upsampler=False, head=True),
+                architecture="backbone_upsampler_head", use_disks=True,
+                norm_radius=5, with_prev_mask=True)

@@ -1,12 +1,13 @@
-"""Vision Transformer core as ``nn.Module``s (the DINOv2 trunk).
+"""Vision Transformer core as ``nn.Module``s (the DINOv2 and DINO trunks).
 
 Counterpart of ``isegprobe_tpu/models/vit.py``: ``PatchEmbed``,
 ``Attention`` (the packed-qkv path), ``Mlp`` with exact GELU, ``LayerScale``,
 ``Block`` and ``ViT`` with the bicubic pos-embed interpolation and its
-exact-size short-circuit. Only the DINOv2 family is ported so far, so its
-constants (biases everywhere, LayerScale, a cls token, MLP ratio 4,
-LayerNorm eps 1e-6, the '+0.1' pos-embed scale trick) are fixed here rather
-than options; the other families bring the options they need. Module and
+exact-size short-circuit, the last block's keys for DINO's key probing, and
+the SimpleViT sin-cos embedding (``posemb_sincos_2d``). The two ported
+trunks differ only in LayerScale, ``ViTConfig``'s one family switch; what
+they share (qkv biases, a cls token, LayerNorm eps 1e-6, MLP ratio 4,
+exact GELU, the '+0.1' pos-embed scale trick) is fixed here. Module and
 parameter names follow the JAX param tree (``blocks.i`` for ``blocks_i``)
 so the weight bridge (``models/convert.py``) is a rename and a transpose.
 
@@ -19,8 +20,10 @@ kernels on a GPU and their plain versions on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -46,6 +49,9 @@ class ViTConfig:
     num_heads: int = 6
     # pos-embed grid the checkpoint was pretrained at (DINOv2-S/14: 518/14)
     pretrain_grid: tuple[int, int] = (37, 37)
+    # on in the DINOv2 trunk (the port's first, so the default here), off in
+    # DINO's and in the JAX dataclass
+    layerscale: bool = True
 
 
 class PatchEmbed(nn.Module):
@@ -115,14 +121,20 @@ class Block(nn.Module):
         d = cfg.embed_dim
         self.norm1 = LayerNorm(d)
         self.attn = Attention(d, cfg.num_heads)
-        self.ls1 = LayerScale(d)
+        self.ls1 = LayerScale(d) if cfg.layerscale else nn.Identity()
         self.norm2 = LayerNorm(d)
         self.mlp = Mlp(d, MLP_RATIO * d)
-        self.ls2 = LayerScale(d)
+        self.ls2 = LayerScale(d) if cfg.layerscale else nn.Identity()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.ls1(self.attn(self.norm1(x)))
         return x + self.ls2(self.mlp(self.norm2(x)))
+
+    def keys(self, x: torch.Tensor) -> torch.Tensor:
+        """The block's attention keys ``[B, N, C]`` (heads flattened): a
+        view of the packed qkv projection."""
+        c = x.shape[-1]
+        return self.attn.qkv(self.norm1(x))[..., c:2 * c]
 
 
 class ViT(nn.Module):
@@ -166,13 +178,21 @@ class ViT(nn.Module):
         return self.patch_embed(img)
 
     def forward_tokens(self, tokens: torch.Tensor,
-                       grid_hw: tuple[int, int]) -> dict:
-        """cls-concat + pos-embed + blocks + final norm."""
+                       grid_hw: tuple[int, int],
+                       return_last_k: bool = False) -> dict:
+        """cls-concat + pos-embed + blocks + final norm -> ``tokens`` and
+        ``patch_tokens``. With ``return_last_k`` the dict holds only
+        ``last_k`` ``[B, 1 + N, C]``, the last block's keys: what comes
+        after them in that block and the final norm do not reach them and
+        are not run (the JAX program computes them and XLA drops them)."""
         cls = self.cls_token.to(tokens.dtype).expand(tokens.shape[0], -1, -1)
         tokens = torch.cat([cls, tokens], dim=1)
         x = tokens + self.interpolated_pos_embed(grid_hw).to(tokens.dtype)
-        for blk in self.blocks:
+        blocks = self.blocks[:-1] if return_last_k else self.blocks
+        for blk in blocks:
             x = blk(x)
+        if return_last_k:
+            return {"last_k": self.blocks[-1].keys(x)}
         x = self.norm(x)
         return {"tokens": x, "patch_tokens": x[:, 1:]}
 
@@ -182,11 +202,31 @@ class ViT(nn.Module):
         return self.forward_tokens(self.embed_patches(img), grid_hw)
 
 
+@functools.lru_cache(maxsize=32)
+def posemb_sincos_2d(h: int, w: int, dim: int,
+                     device: torch.device) -> torch.Tensor:
+    """The SimpleViT fixed 2-D sin-cos embedding ``[h·w, dim]`` (float32,
+    computed in float64 as the JAX package's ``posemb_sincos_2d``) on
+    ``device``, made once per grid and device (a copy per forward would be a
+    sync in the on-device click loop), as a normal tensor even when first
+    made under inference mode."""
+    if dim % 4:
+        raise ValueError(f"sin-cos embedding width {dim} is no multiple of 4")
+    y, x = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    omega = 1.0 / 10000.0**(np.arange(dim // 4) / (dim // 4 - 1))
+    y = y.flatten()[:, None] * omega[None, :]
+    x = x.flatten()[:, None] * omega[None, :]
+    pe = np.concatenate([np.sin(x), np.cos(x), np.sin(y), np.cos(y)], axis=1)
+    with torch.inference_mode(False):
+        return torch.from_numpy(pe.astype(np.float32)).to(device)
+
+
 def init_params(module: nn.Module, seed: int) -> nn.Module:
     """Draw every parameter of ``module`` from a seeded CPU generator, with
     flax's scales: normal linear and conv weights (and LoftUp's packed
     ``in_proj_weight``) of variance 1/fan_in, zero biases and cls token,
-    unit LayerNorm scales, N(0, 0.02) pos embeddings, N(0, 1) Fourier-feature
+    unit LayerNorm scales, N(0, 0.02) pos and class embeddings, CLIP's
+    ``proj`` of variance 1/its rows, N(0, 1) Fourier-feature
     biases; LayerScale gammas are set to 1 (not 1e-5) so that every block
     shapes the output of a randomly drawn model. FrozenBatchNorm statistics
     are drawn away from the identity (mean N(0, 0.5²), var U(0.5, 2)), and
@@ -199,8 +239,11 @@ def init_params(module: nn.Module, seed: int) -> nn.Module:
             leaf = name.rsplit(".", 1)[-1]
             if leaf == "gamma":
                 v = torch.ones(p.shape)
-            elif leaf == "pos_embed":
+            elif leaf in ("pos_embed", "positional_embedding",
+                          "class_embedding"):
                 v = torch.randn(p.shape, generator=g) * 0.02
+            elif leaf == "proj":  # CLIP's right-multiplied projection
+                v = torch.randn(p.shape, generator=g) / math.sqrt(p.shape[0])
             elif leaf == "biases":
                 v = torch.randn(p.shape, generator=g)
             elif leaf == "mean":

@@ -110,8 +110,8 @@ def parse_args(argv) -> Dict:
     if cfg["model"] not in MODELS:
         raise NotImplementedError(
             f"model={cfg['model']}: only synthetic_dinov2_noup is ported to "
-            f"isegprobe_torch.train; the other model scripts are ROADMAP "
-            f"Queue 1 item 7 (other model families)")
+            f"isegprobe_torch.train; the other model scripts are {_LATER} "
+            "(train the vit, mask_clip, simple_vit and lift configs)")
     if str(cfg["training_params.dtype"]) not in ("float32", "f32"):
         raise NotImplementedError(
             f"training_params.dtype={cfg['training_params.dtype']}: "

@@ -202,14 +202,10 @@ def test_unported_configs_raise():
 
     cfg = flagship_config((56, 56))
     for override in (
-            dict(backbone_cfg=dict(type="mask_clip", params={})),
-            dict(upsampler_cfg=dict(type="lift", params={})),
             dict(upsampler_cfg=dict(type="loftup",
                                     params=dict(mxu_pad=True))),
             dict(fuse_hr_head=True),
             dict(quant="int8"),
-            dict(head_cfg=dict(type="linear", params={})),
-            dict(embed_coords_cfg=dict(type="simple_vit", params={})),
             dict(use_rgb_conv=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             iSegProbeModel(**{**cfg, **override}, device="cpu")
