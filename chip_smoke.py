@@ -81,7 +81,7 @@ does not hold:
     checkpoint (its missing upsampler_path must warn) through the f32 loop
     on the fixture's 2 objects and 4 clicks against JAX's, with no object
     differing (every step 1 C, 12 A, 82 B and 14 D), and timed on the first
-    16 objects at the family loop's 4 lanes and 8 clicks (a report, every
+    8 objects at the family loop's 4 lanes and 8 clicks (a report, every
     step launching the same). Kernels A, B, C and D are also checked at these
     paths' shapes: A and B in bf16 at the B=16 loop's forward batch 32, B
     at LoftUp's widths (404 on the slab and key rows, 203 on the stem, 384
@@ -127,6 +127,34 @@ does not hold:
     against the CPU and a loop of 4 lanes and 5 clicks on the drawn
     scenes with exact launches, and the linear and simple_conv heads on
     the key probe, a forward each;
+11e. ritm_and_refill, the RITM adaptive protocol and continuous batching
+    (main paths 29-36) on the trained flagship, loaded as ``eval_ritm``
+    loads it, over the 78 stored objects (20 clicks, target IoU 0.9):
+    (a) the adaptive f32 device loop at B=8 held against the JAX package's
+    adaptive results in ``isegprobe_torch/fixtures/synthetic_ritm.npz`` as
+    11b holds the fixed loop (IoUs within 1e-3 up to the first differing
+    click, at most 2 objects differing, NoC within 0.05; every step 1 C and
+    25 B, its attention the plain masked path); (b) the adaptive bf16 loop
+    at B=8 (NoC within 0.1 of JAX's f32); (c) the host transform chain on
+    the first 8 objects held against JAX's host chain in the fixture as
+    11b holds the host protocol (every click one true-size forward, 12 A +
+    25 B), and its gap to (a) reported (the chain averages the flip's
+    probabilities, the loop its logits: JAX's own pair parts by 0.0201 in
+    IoU on these objects); (d) the fixed-crop loop through
+    the job queue (``evaluate_dataset_group``) at B=8 f32 and B=16 bf16
+    beside 11b's lockstep loops (same models, batches and protocol): f32
+    click counts and clicks equal to lockstep's, IoUs
+    within 1e-4, NoC equal to the fixture's; (e) the adaptive loop through
+    the queue at B=8 f32 clicking as (a); (f) each loop's ms a step,
+    lane-clicks/s, useful clicks, lane-steps and clicking share, lockstep
+    beside refill; a profiler split of the masked forward at forward batch
+    16; the plain masked attention timed at [16, 842, 1152] f32 beside
+    kernel A at that shape; B at [16, 842, 384] f32 and bf16 and C at the
+    adaptive loop's [8, 2, 258, 258] against their plain versions; (g) the
+    drawn SimpleViT probe (late injection, trunk cache) through the queue
+    on 4 lanes, 7 jobs, clicking as its lockstep loop, with the refilled
+    lanes' poisoned trunk recomputed (launches: the click encoder's 6 A +
+    15 B a step, the trunk's 12 A + 25 B a recompute, 1 C a step);
 12. the learned-upsampler families, LoftUp and JBU-FeatUp on DINOv2-S/14 at
     448² (drawn, calibrated): kernels D (cross-attention, f32 and bf16, at
     every tile and load path as A) and E (JBU filter; also at the edges of
@@ -280,9 +308,9 @@ TRAINED_SCENE = 256
 TRAINED_HOST_OBJECTS = 8
 TRAINED_LOFTUP_OBJECTS = 2
 TRAINED_LOFTUP_CLICKS = 4
-# the timed LoftUp loop's objects: the first 16 of the 78 (all 78 took
-# 122 s of the run)
-TRAINED_LOFTUP_TIMED_OBJECTS = 16
+# the timed LoftUp loop's objects: the first 8 of the 78 (all 78 took
+# 122 s of the run, the first 16 25 s)
+TRAINED_LOFTUP_TIMED_OBJECTS = 8
 TRAINED_MAX_DIVERGED = 2
 TRAINED_NOC_TOL = 0.05
 # the trained bf16 loops' NoC@80/85/90 against the JAX f32 results: bf16
@@ -314,6 +342,26 @@ OTHER_FORWARD_LAUNCHES = {
     "dinov2_lift": {"mha_qkv": 12, "layernorm": 25},
 }
 OTHER_CLICKS = 5
+
+# the RITM adaptive protocol and continuous batching (phase 11e): the JAX
+# package's adaptive results for the trained flagship (its device loop on
+# every object, its host chain on the first 8), the RITM scalar target and
+# skip_clicks, the 224² scenes' adaptive canvas (256² padded frames:
+# ceil14(max(256, 400)) = 406, 29² patches and the cls token), refill
+# against lockstep (the same arithmetic for every lane: equality is
+# expected), the bf16 loop's NoC against JAX's f32, the
+# adaptive loop's launches a step (the clicker and the masked forward's
+# LayerNorms: its attention is the plain masked path, no kernel), and the
+# drawn SimpleViT probe's queue (jobs, lanes, clicks)
+RITM_FIXTURE = (Path(__file__).resolve().parent / "isegprobe_torch"
+                / "fixtures" / "synthetic_ritm.npz")
+RITM_TARGET = 400
+RITM_SKIP_CLICKS = 1
+RITM_TOKENS = 1 + (406 // 14) ** 2
+REFILL_TOL = 1e-4
+RITM_BF16_NOC_TOL = 0.1
+ADAPTIVE_PER_STEP = {"edt_row_envelope": 1, "layernorm": 25}
+REFILL_FAMILY_JOBS = 7
 
 # training (isegprobe_torch/train.py, models/synthetic/dinov2_noup.py):
 # the JAX items and train step stored in the fixture, the step's shapes
@@ -1306,7 +1354,9 @@ def trained_phase(torch, cuda) -> dict:
     on the fixture's objects, then timed on the first
     TRAINED_LOFTUP_TIMED_OBJECTS. Returns the
     records, the path launches and the kernel checks at the paths'
-    shapes."""
+    shapes, and under ``shared`` (not a record) the f32 and bf16 models
+    and the lockstep loops' trajectories, clicks and records, which phase
+    11e runs the job queue beside."""
     import warnings
 
     from isegprobe_torch.data.scenes import SYNTHETIC_FIXTURE, SceneDataset
@@ -1319,6 +1369,7 @@ def trained_phase(torch, cuda) -> dict:
 
     F = torch.nn.functional
     res: dict = {}
+    shared: dict = {}
     fx = dict(np.load(SYNTHETIC_FIXTURE))
     data = SceneDataset(SYNTHETIC_FIXTURE)
     n_obj = data.n_objects
@@ -1433,6 +1484,9 @@ def trained_phase(torch, cuda) -> dict:
               f"{rec['ms_per_step']:.3f} ms/step")
         loops.append(rec)
         paths[f"trained_loop_{dtype}_b{batch}"] = launches
+        # phase 11e runs the job queue beside these lockstep loops
+        shared[dtype, batch] = (got, clicks, dict(
+            rec, **share_of_steps(n_clicks, run.steps, batch)))
     res["device_loops"] = loops
 
     # the host protocol, f32, on the first objects
@@ -1444,7 +1498,7 @@ def trained_phase(torch, cuda) -> dict:
           f"{res['host']['per_get_prediction']['p50_ms']:.3f} ms per "
           "get_prediction")
     paths["trained_host"] = res["host"]["launches"]
-    del models
+    shared["models"] = models
 
     # LoftUp: its configured upsampler_path is missing, so it must warn and
     # keep the PRNGKey(0) upsampler, as the JAX package's evaluation did
@@ -1519,6 +1573,7 @@ def trained_phase(torch, cuda) -> dict:
     paths["trained_loftup_timed"] = timed["launches"]
     res["path_launches"] = paths
     res["checks"] = checks
+    res["shared"] = shared
     return res
 
 
@@ -1799,6 +1854,371 @@ def other_backbones_phase(torch) -> dict:
     for head in ("linear", "simple_conv"):
         res[f"vit_noup_{head}"] = drawn_family(torch, "vit_noup", head)
         paths.update(res[f"vit_noup_{head}"]["path_launches"])
+    res["path_launches"] = paths
+    res["checks"] = checks
+    return res
+
+
+def share_of_steps(useful: int, steps: int, batch: int) -> dict:
+    """Useful clicks, lane-steps and the share of lane-steps that click."""
+    return {"useful_clicks": useful, "lane_steps": steps * batch,
+            "clicking_share": useful / (steps * batch)}
+
+
+def timed_loop(torch, run_loop, what: str, batch: int, steps_of,
+               want_per_step=None) -> tuple:
+    """Run ``run_loop()`` (-> trajectories) with every counter set to 0
+    just before and read just after. Returns the trajectories and a record:
+    wall time, ms a step, lane-clicks/s, the clicking share of lane-steps
+    and the launches, held against ``want_per_step(steps)`` if given."""
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.time()
+    got = run_loop()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = counters()
+    steps = steps_of()
+    if want_per_step is not None and launches != want_per_step(steps):
+        fail(f"{what} launched {launches} in {steps} steps, expected "
+             f"{want_per_step(steps)}")
+    if not all(np.isfinite(a).all() and 1 <= len(a) <= TRAINED_CLICKS
+               for a in got):
+        fail(f"{what}: bad trajectories")
+    useful = sum(len(a) for a in got)
+    rec = {"batch": batch, "steps": steps, "wall_s": wall,
+           "ms_per_step": 1e3 * wall / steps,
+           "lane_clicks_per_s": useful / wall, "launches": launches,
+           **share_of_steps(useful, steps, batch)}
+    return got, rec
+
+
+def same_clicks(got, got_clicks, want, want_clicks, tol: float,
+                what: str) -> float:
+    """Fail unless every object stops at the same click, clicks at the same
+    pixels with the same sign and has IoUs within ``tol``; returns the
+    largest IoU difference."""
+    err = same_trajectories(got, want, tol, what)
+    for i, (a, b) in enumerate(zip(got_clicks, want_clicks)):
+        a = [tuple(int(v) for v in c) for c in a]
+        b = [tuple(int(v) for v in c) for c in b]
+        if a != b:
+            fail(f"{what}: object {i} clicks {a}, expected {b}")
+    return err
+
+
+def ritm_and_refill_phase(torch, cuda, shared: dict) -> dict:
+    """Main paths 29-36: the RITM adaptive protocol and continuous batching
+    on the trained flagship (phase 11e of the module docstring), the job
+    queue beside phase 11b's lockstep loops and models (``shared``).
+    Returns the records, the path launches and the kernel checks."""
+    from isegprobe_torch.data.scenes import SYNTHETIC_FIXTURE, SceneDataset
+    from isegprobe_torch.evaluate import load_model_for_eval
+    from isegprobe_torch.inference import adaptive_eval, device_eval
+    from isegprobe_torch.inference.evaluation import (
+        evaluate_sample,
+        latency_percentiles,
+    )
+    from isegprobe_torch.inference.metrics import compute_noc_metric
+    from isegprobe_torch.inference.predictor import get_predictor
+    from isegprobe_torch.models.probe_model import (
+        iSegProbeModel,
+        synthetic_config,
+    )
+    from isegprobe_torch.models.vit import canvas_token_mask, init_params
+    from isegprobe_torch.ops import attention, edt, layernorm
+    from isegprobe_torch.scripts import bench_edt
+
+    F = torch.nn.functional
+    f32, bf16 = "float32", "bfloat16"
+    res: dict = {}
+    paths: dict = {}
+    fx = dict(np.load(RITM_FIXTURE))
+    fixed_fx = dict(np.load(SYNTHETIC_FIXTURE))
+    data = SceneDataset(SYNTHETIC_FIXTURE)
+    n_obj = data.n_objects
+    if int(fx["ritm_objects"]) != n_obj:
+        fail(f"{RITM_FIXTURE.name} holds {int(fx['ritm_objects'])} "
+             f"objects, not all {n_obj}")
+    want_noc = [float(v) for v in fx["ritm_noc"]]
+    fwd = 2 * TRAINED_BATCH
+
+    # (f) kernels B and C at the adaptive loop's shapes: B on the masked
+    # forward's 842 token rows at forward batch 16, C on the clicker's
+    # padded frames (the frame's, not the canvas's: the clicker works on
+    # the full frame); A beside the plain masked attention at its shape
+    checks = [layernorm_case(torch, F, layernorm, (fwd, RITM_TOKENS), 384,
+                             dtype, seed=90 + i)
+              for i, dtype in enumerate((f32, bf16))]
+    side = TRAINED_SCENE + 2
+    checks.append(edt_case(torch, edt, bench_edt.column_input(
+        "clicker", (TRAINED_BATCH, 2, side, side), cuda, seed=92),
+        "clicker"))
+    checks += attention_case(torch, F, attention, fwd, RITM_TOKENS, 6, 64,
+                             f32, seed=93)
+    for c in checks:
+        c["adaptive"] = True
+    g = torch.Generator(device="cuda").manual_seed(94)
+    qkv = torch.randn((fwd, RITM_TOKENS, 1152), generator=g, device="cuda")
+    grids = torch.tensor([[29, 29], [29, 20], [16, 16], [25, 29]] * 4,
+                         device="cuda")
+    mask = canvas_token_mask((29, 29), grids)
+    masked_ms, method = time_ms(
+        torch, lambda: attention.mha_qkv(qkv, 6, key_mask=mask))
+    res["masked_attention"] = {
+        "shape": list(qkv.shape), "dtype": f32, "ms": masked_ms,
+        "timing": method, "kernel_a_unmasked_ms": checks[-1]["ms"],
+        "bound": _bound(4.0 * fwd * 6 * RITM_TOKENS ** 2 * 64,
+                        4.0 * qkv.numel() * 4 / 3, f32,
+                        exps=fwd * 6 * RITM_TOKENS ** 2)}
+    print("ritm masked_attention", json.dumps(res["masked_attention"]))
+    del qkv
+
+    # the models: the adaptive protocol's (eval_ritm: the pos-embed at its
+    # pretraining grid) and phase 11b's fixed-crop ones (resized to 448²)
+    models = {("fixed", dtype): m for dtype, m in shared["models"].items()}
+    for dtype in (f32, bf16):
+        models["ritm", dtype], info = load_model_for_eval(
+            TRAINED_CKPTS["flagship"], getattr(torch, dtype), eval_ritm=True)
+        if info["frozen_params"] != TRAINED_FROZEN["flagship"]:
+            fail(f"trained flagship (eval_ritm): {info['frozen_params']} "
+                 "frozen parameters")
+
+    def noc_of(all_ious):
+        return [float(v) for v in compute_noc_metric(
+            all_ious, [0.8, 0.85, 0.9], TRAINED_CLICKS)[0]]
+
+    protocol = dict(max_clicks=TRAINED_CLICKS,
+                    net_clicks_limit=TRAINED_CLICKS, pred_thr=TRAINED_THRESH,
+                    target_iou=TRAINED_TARGET)
+
+    def adaptive(dtype, batch, group=False, record=False, **kw):
+        return adaptive_eval.make_adaptive_evaluator(
+            models["ritm", dtype], RITM_TARGET, batch_size=batch,
+            group_api=group, skip_clicks=RITM_SKIP_CLICKS,
+            record_clicks=record, **dict(protocol, **kw))
+
+    def fixed(dtype, batch, group=False, record=False, **kw):
+        return device_eval.make_device_evaluator(
+            models["fixed", dtype], target_size=(448, 448),
+            batch_size=batch, group_api=group, record_clicks=record,
+            **dict(protocol, **kw))
+
+    def warm(run):  # per-device constants, outside the counted runs
+        device_eval.evaluate_dataset_device(
+            run, SceneDataset(SYNTHETIC_FIXTURE, objects=slice(0, 1)))
+
+    def adaptive_launches(steps):
+        return expected(**{k: v * steps
+                           for k, v in ADAPTIVE_PER_STEP.items()})
+
+    def fixed_launches(steps):
+        return expected(**{k: v * steps for k, v in PER_STEP.items()})
+
+    loops: dict = {}
+
+    def report(name, rec):
+        loops[name] = rec
+        print(f"ritm_loop {name}", json.dumps(
+            {k: v for k, v in rec.items() if k != "diverged"}))
+        print(f"{name}: {rec['ms_per_step']:.3f} ms a step, "
+              f"{rec['lane_clicks_per_s']:.2f} lane-clicks/s, "
+              f"{rec['useful_clicks']} clicks in {rec['lane_steps']} "
+              f"lane-steps ({100 * rec['clicking_share']:.1f}% clicking)"
+              + (f", NoC {rec['noc']}" if "noc" in rec else ""))
+
+    # (a) the adaptive f32 loop at B=8 against JAX's adaptive results
+    warm(adaptive(f32, 1, max_clicks=2))
+    run = adaptive(f32, TRAINED_BATCH, record=True)
+    clicks_a: list = []
+    got_a, rec = timed_loop(
+        torch, lambda: device_eval.evaluate_dataset_device(
+            run, data, clicks=clicks_a),
+        "adaptive f32 B=8 loop", TRAINED_BATCH, lambda: run.steps,
+        adaptive_launches)
+    rec.update(noc=noc_of(got_a), jax_cpu_noc=want_noc, **against_fixture(
+        got_a, clicks_a, fx["ritm_ious"], fx["ritm_n"], fx["ritm_clicks"],
+        "adaptive f32 device loop", TRAINED_MAX_DIVERGED))
+    gap = max(abs(a - b) for a, b in zip(rec["noc"], want_noc))
+    if gap > TRAINED_NOC_TOL:
+        fail(f"adaptive f32 NoC@80/85/90 {rec['noc']} differ from JAX's "
+             f"{want_noc} by {gap} > {TRAINED_NOC_TOL}")
+    report("adaptive_f32_b8", rec)
+    paths["ritm_adaptive_f32_b8"] = rec["launches"]
+
+    # (b) the adaptive bf16 loop at B=8
+    warm(adaptive(bf16, 1, max_clicks=2))
+    run = adaptive(bf16, TRAINED_BATCH)
+    got, rec = timed_loop(
+        torch, lambda: device_eval.evaluate_dataset_device(run, data),
+        "adaptive bf16 B=8 loop", TRAINED_BATCH, lambda: run.steps,
+        adaptive_launches)
+    rec.update(noc=noc_of(got), jax_cpu_noc=want_noc)
+    rec["noc_gap_to_jax_f32"] = max(abs(a - b)
+                                    for a, b in zip(rec["noc"], want_noc))
+    if rec["noc_gap_to_jax_f32"] > RITM_BF16_NOC_TOL:
+        fail(f"adaptive bf16 NoC@80/85/90 {rec['noc']} differ from JAX's "
+             f"f32 {want_noc} by more than {RITM_BF16_NOC_TOL}")
+    report("adaptive_bf16_b8", rec)
+    paths["ritm_adaptive_bf16_b8"] = rec["launches"]
+
+    # (c) the host transform chain on the first objects against (a)
+    chain = get_predictor(
+        models["ritm", f32], with_flip=True,
+        zoom_in_params={"skip_clicks": RITM_SKIP_CLICKS,
+                        "target_size": RITM_TARGET},
+        predictor_params={"net_clicks_limit": TRAINED_CLICKS})
+    m = TRAINED_HOST_OBJECTS
+    first = SceneDataset(SYNTHETIC_FIXTURE, objects=slice(0, m))
+    samples = [first.get_sample(i) for i in range(m)]
+    evaluate_sample(samples[0].image, samples[0].gt_mask(0), chain,
+                    max_iou_thr=2.0, max_clicks=2)  # warm-up
+    per_click, host_ious, host_clicks = [], [], []
+    zero_counters()
+    for sample in samples:
+        t0 = time.time()
+        cl, ious, _ = evaluate_sample(
+            sample.image, sample.gt_mask(0), chain,
+            max_iou_thr=TRAINED_TARGET, pred_thr=TRAINED_THRESH,
+            max_clicks=TRAINED_CLICKS)
+        per_click.append((time.time() - t0) / len(ious))
+        host_ious.append(ious)
+        host_clicks.append([(*c.coords, int(c.is_positive)) for c in cl])
+    launches = counters()
+    n_clicks = sum(len(a) for a in host_ious)
+    if launches != expected(**{k: v * n_clicks for k, v in
+                               FORWARD_LAUNCHES["flagship"].items()}):
+        fail(f"host chain launched {launches} for {n_clicks} clicks")
+    # the chain against JAX's chain (the same protocol); against the device
+    # loop a report: the chain averages the flip's probabilities, the loop
+    # its logits, and JAX's own pair parts by 0.0201 on these objects
+    res["host_chain"] = {
+        "objects": m, "clicks": n_clicks, "launches": launches,
+        "per_click_protocol": latency_percentiles(per_click),
+        **against_fixture(host_ious, host_clicks, fx["ritm_host_ious"],
+                          fx["ritm_host_n"], fx["ritm_host_clicks"],
+                          "host chain", TRAINED_MAX_DIVERGED),
+        "vs_device_loop": {
+            "same_counts": [len(a) for a in host_ious]
+            == [len(a) for a in got_a[:m]],
+            "objects_clicking_differently": sum(
+                [tuple(int(v) for v in c) for c in a]
+                != [tuple(int(v) for v in c) for c in b]
+                for a, b in zip(host_clicks, clicks_a[:m])),
+            "max_iou_diff": max(
+                float(np.abs(np.asarray(a[:len(b)])
+                             - np.asarray(b[:len(a)])).max())
+                for a, b in zip(host_ious, got_a[:m]))}}
+    print("ritm host_chain", json.dumps(res["host_chain"]))
+    paths["ritm_host_chain"] = launches
+
+    # (d) the fixed-crop loop through the job queue, beside phase 11b's
+    # lockstep loops of the same models, batch and protocol
+    fixed_noc = [float(v) for v in fixed_fx["flagship_noc"]]
+    for dtype, batch in ((f32, TRAINED_BATCH), (bf16, 2 * TRAINED_BATCH)):
+        gated = dtype == f32
+        got_l, lock_clicks, rec_l = shared[dtype, batch]
+        ev = fixed(dtype, batch, group=True, record=gated)
+        stats: dict = {}
+        ref_clicks = [] if gated else None
+        steps0 = ev.steps
+        got_r, rec_r = timed_loop(
+            torch, lambda: device_eval.evaluate_dataset_group(
+                ev, data, stats=stats, clicks=ref_clicks),
+            f"fixed {dtype} B={batch} refill", batch,
+            lambda: ev.steps - steps0, fixed_launches)
+        rec_r["stats"] = stats
+        if stats["useful_clicks"] != rec_r["useful_clicks"] or \
+                stats["steps"] != rec_r["steps"]:
+            fail(f"refill stats {stats} disagree with the run {rec_r}")
+        rec_r["noc"] = noc_of(got_r)
+        if gated:
+            rec_r["max_iou_diff_vs_lockstep"] = same_clicks(
+                got_r, ref_clicks, got_l, lock_clicks, REFILL_TOL,
+                f"fixed {dtype} B={batch} refill against lockstep")
+            if rec_r["noc"] != fixed_noc:
+                fail(f"fixed f32 refill NoC {rec_r['noc']} != the fixture's "
+                     f"{fixed_noc}")
+        report(f"fixed_{dtype}_b{batch}_lockstep (phase 11b)", rec_l)
+        report(f"fixed_{dtype}_b{batch}_refill", rec_r)
+        paths[f"refill_fixed_{dtype}_b{batch}"] = rec_r["launches"]
+
+    # (e) the adaptive loop through the job queue, against (a)
+    ev = adaptive(f32, TRAINED_BATCH, group=True, record=True)
+    stats, ref_clicks = {}, []
+    got, rec = timed_loop(
+        torch, lambda: device_eval.evaluate_dataset_group(
+            ev, data, stats=stats, clicks=ref_clicks),
+        "adaptive f32 B=8 refill", TRAINED_BATCH, lambda: ev.steps,
+        adaptive_launches)
+    rec.update(stats=stats, noc=noc_of(got),
+               max_iou_diff_vs_lockstep=same_clicks(
+                   got, ref_clicks, got_a, clicks_a, REFILL_TOL,
+                   "adaptive f32 refill against lockstep"))
+    report("adaptive_f32_b8_refill", rec)
+    paths["refill_adaptive_f32_b8"] = rec["launches"]
+    res["loops"] = loops
+
+    # (f) the masked forward's device time by kernel group, at forward
+    # batch 16 on canvases of four valid rects
+    model = models["ritm", f32]
+    vhw = torch.tensor([[406, 406], [406, 290], [224, 224], [350, 406]] * 4,
+                       device="cuda")
+    crops = torch.rand((fwd, 406, 406, 4), generator=g, device="cuda")
+    pts = torch.full((fwd, 2 * TRAINED_CLICKS, 3), -1.0, device="cuda")
+    pts[:, 0] = torch.tensor([100.0, 100.0, 0.0], device="cuda")
+    with torch.no_grad():
+        res["masked_forward_profile"] = profile_forward(
+            torch, lambda c, p: model.forward_masked(c, p, vhw), crops, pts)
+    print("ritm masked_forward_profile",
+          json.dumps(res["masked_forward_profile"]))
+    del crops, models
+
+    # (g) the drawn SimpleViT probe (trunk cache) through the job queue
+    cfg = synthetic_config("dinov2_simplevit", (FAMILY_SIZE, FAMILY_SIZE))
+    sv = init_params(iSegProbeModel(**cfg), seed=0).eval()
+    calibrate_classifier(torch, sv, FAMILY_SIZE, FAMILY_POSITIVE_SHARE)
+    scenes = Scenes([scene(30 + i) for i in range(REFILL_FAMILY_JOBS)])
+
+    def sv_run(target, group=False):
+        return device_eval.make_device_evaluator(
+            sv, target_size=(FAMILY_SIZE, FAMILY_SIZE),
+            batch_size=FAMILY_BATCH, target_iou=target, group_api=group,
+            net_clicks_limit=20, max_clicks=OTHER_CLICKS, record_clicks=True)
+
+    first = device_eval.evaluate_dataset_device(sv_run(2.0), scenes)
+    target, _ = pick_target(first, OTHER_CLICKS)
+    run = sv_run(target)
+    lock_clicks: list = []
+    got_l, rec_l = timed_loop(
+        torch, lambda: device_eval.evaluate_dataset_device(
+            run, scenes, clicks=lock_clicks),
+        "SimpleViT lockstep", FAMILY_BATCH, lambda: run.steps)
+    ev = sv_run(target, group=True)
+    stats, ref_clicks = {}, []
+    got_r, rec_r = timed_loop(
+        torch, lambda: device_eval.evaluate_dataset_group(
+            ev, scenes, stats=stats, clicks=ref_clicks),
+        "SimpleViT refill", FAMILY_BATCH, lambda: ev.steps)
+    recomputes = ev.protocol.trunk_recomputes
+    want = expected(
+        edt_row_envelope=rec_r["steps"],
+        mha_qkv=SIMPLEVIT_LAUNCHES["mha_qkv"] * rec_r["steps"]
+        + 12 * recomputes,
+        layernorm=SIMPLEVIT_LAUNCHES["layernorm"] * rec_r["steps"]
+        + 25 * recomputes)
+    if rec_r["launches"] != want:
+        fail(f"SimpleViT refill launched {rec_r['launches']}, expected "
+             f"{want} ({rec_r['steps']} steps, {recomputes} trunks)")
+    if recomputes < 2:
+        fail("SimpleViT refill recomputed the trunk on no refill")
+    rec_r.update(stats=stats, target_iou=target, trunk_recomputes=recomputes,
+                 max_iou_diff_vs_lockstep=same_clicks(
+                     got_r, ref_clicks, got_l, lock_clicks, REFILL_TOL,
+                     "SimpleViT refill against lockstep"))
+    res["simplevit_refill"] = {"lockstep": rec_l, "refill": rec_r}
+    print("ritm simplevit_refill", json.dumps(res["simplevit_refill"]))
+    paths["refill_simplevit_b4"] = rec_r["launches"]
     res["path_launches"] = paths
     res["checks"] = checks
     return res
@@ -2163,6 +2583,7 @@ def main() -> int:
     )
     from isegprobe_torch.models.vit import init_params
     from isegprobe_torch.ops import attention, cuda_lib, edt, jbu, layernorm
+    from isegprobe_torch.ops.sample import inverse_paste
     from isegprobe_torch.scripts import bench_edt
 
     t_start = time.time()
@@ -2514,9 +2935,10 @@ def main() -> int:
                 st["image"], st["prev"], sel["roi"], pts_full))[0],
             "forward_ms": time_ms(torch, lambda: model(crops, pts),
                                   reps=5, rounds=3, graph=False)[0],
-            "paste_iou_ms": time_ms(torch, lambda: run8._finish(
-                st, sel["roi"], run8._merge_flip(step_logits,
-                                                 LOOP_BATCH)))[0],
+            "paste_iou_ms": time_ms(torch, lambda: run8._score(
+                st, inverse_paste(
+                    run8._merge_flip(step_logits, LOOP_BATCH), sel["roi"],
+                    tuple(st["gt"].shape[1:]))))[0],
         }
         # kernel C on this step's own column pass (the clicker's fn and fp
         # maps, padded with background), as next_click_from_error builds it
@@ -2540,6 +2962,7 @@ def main() -> int:
 
     # 11b. the trained probes against the JAX package's results
     trained = trained_phase(torch, cuda)
+    shared = trained.pop("shared")
     results["trained"] = {k: v for k, v in trained.items() if k != "checks"}
     for c in trained["checks"]:
         print("check", json.dumps(c))
@@ -2570,6 +2993,19 @@ def main() -> int:
         print("check", json.dumps(c))
     checks += others["checks"]
     bad = [c for c in others["checks"] if not c["ok"]]
+    if bad:
+        fail(f"kernel disagrees with its plain version: {bad}")
+
+    # 11e. the RITM adaptive protocol and continuous batching on the
+    # trained flagship
+    ritm = ritm_and_refill_phase(torch, cuda, shared)
+    del shared
+    results["ritm_and_refill"] = {k: v for k, v in ritm.items()
+                                  if k != "checks"}
+    for c in ritm["checks"]:
+        print("check", json.dumps(c))
+    checks += ritm["checks"]
+    bad = [c for c in ritm["checks"] if not c["ok"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
 
@@ -2617,6 +3053,7 @@ def main() -> int:
     paths.update(trained["path_launches"])
     paths.update(training["path_launches"])
     paths.update(others["path_launches"])
+    paths.update(ritm["path_launches"])
     for fam in families.values():
         paths.update(fam["path_launches"])
     kernels = []
@@ -2664,6 +3101,13 @@ def main() -> int:
             for o in others["checks"] if o["kernel"] == name]
         if family_shapes:
             entry["other_backbone_shapes"] = family_shapes
+        # the adaptive loop's shapes (phase 11e)
+        adaptive_shapes = [
+            {"shape": o["shape"], "dtype": o["dtype"],
+             **{k: o[k] for k in timing_keys}}
+            for o in ritm["checks"] if o["kernel"] == name]
+        if adaptive_shapes:
+            entry["adaptive_shapes"] = adaptive_shapes
         if name == "jbu_filter":
             entry.update(tile=jbu_config, ptxas=jbu_ptxas)
         if name == "edt_row_envelope":

@@ -3,8 +3,11 @@ for an NVIDIA Hopper GPU, beside the JAX package ``isegprobe_tpu`` that stays
 the numerical reference.
 
 Layout mirrors the JAX package so each module's counterpart is easy to find:
-    ops/        resize, click encoding, ZoomIn sampling, host and device EDT
-                with the device clicker rule, adaptive pooling (pool.py),
+    ops/        resize and per-lane resizes (dynamic_resize.py), click
+                encoding, ZoomIn sampling at fixed and per-lane extents,
+                host and device EDT with the device clicker rule, the plain
+                masked attention of the adaptive canvas, adaptive pooling
+                (pool.py),
                 coordinate grids (grid.py), and the wrappers of the
                 hand-written CUDA kernels with their plain PyTorch versions:
                 A packed-qkv attention and D cross-attention (attention.py),
@@ -17,8 +20,10 @@ Layout mirrors the JAX package so each module's counterpart is easy to find:
                 LoftUp, JBU-FeatUp), heads, probe model, the weight bridge
                 from the JAX package's param trees, and their PRNGKey(0)
                 init rebuilt in numpy (init_tree)
-    inference/  clicker, predictor, NoC evaluation and metrics, and the
-                batched on-device NoC loop (device_eval)
+    inference/  clicker, predictors (fixed ZoomIn; the transform chain of
+                transforms.py), NoC evaluation and metrics, the batched
+                on-device NoC loop and its job queue (device_eval) and the
+                RITM adaptive loop (adaptive_eval)
     data/       the stored evaluation scenes (scenes), over fixtures/, and
                 the training data without OpenCV: OpenCV's fills and
                 resizes in numpy (raster), augmentations, click sampler,

@@ -1,7 +1,8 @@
 """Evaluate a trained checkpoint of the JAX package with the port, by NoC.
 
 Counterpart of the root ``evaluate.py`` (``load_model_for_eval`` and, in
-``main``, the ``Synthetic`` dataset with the fixed-crop ZoomIn). No JAX is
+``main``, the ``Synthetic`` dataset with the fixed-crop ZoomIn, the RITM
+adaptive ZoomIn and continuous batching). No JAX is
 involved: the checkpoint is read by ``utils/serialization.py``, the frozen
 parts it leaves out are rebuilt from ``PRNGKey(0)`` by
 ``models/init_tree.py``, and the scenes come from a stored file
@@ -14,8 +15,19 @@ Usage (on a CUDA GPU; ``device=cpu`` runs the plain PyTorch path):
         [datasets=Synthetic] \\
         [scenes=isegprobe_torch/fixtures/synthetic2026_50.npz] \\
         device_loop=true device_batch=8 [dtype=bfloat16] [eval_mode=fixed448]
+        [eval_ritm=false] [device_refill=false] [group_max_jobs=0]
         [n_clicks=20] [target_iou=0.9] [print_ious=true] [min_n_clicks=1]
         [thresh=0.5] [clicks_limit=null]
+
+``eval_mode`` and ``eval_ritm`` pick the ZoomIn as the root's
+``get_zoomin_params`` does: ``fixed<n>`` (or ``fixed<h>,<w>``) crops to
+that size, ``cvpr`` to 448² (672² on DAVIS), and ``eval_ritm=true
+eval_mode=cvpr`` runs the RITM adaptive protocol (scalar target 400, 600 on
+DAVIS, ``skip_clicks=1``): the host transform chain, or with
+``device_loop=true`` the adaptive device loop. ``device_refill=true`` with
+``device_batch > 1`` runs the device loop as a job queue (continuous
+batching, windows of ``group_max_jobs`` frames, 0 for 32); with
+``device_batch <= 1`` it warns and runs lockstep, as the root does.
 
 It prints the results table and, with ``print_ious``, mIoU@k as the root
 ``evaluate.py`` does, with its rule for the target IoU: 1.01 (every object
@@ -26,6 +38,7 @@ at 0.8 (``print_ious=false`` gives the early-stop protocol).
 
 from __future__ import annotations
 
+import logging
 import sys
 from time import time
 from typing import Dict, Optional, Tuple
@@ -61,7 +74,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def load_model_for_eval(checkpoint: str, dtype=torch.float32,
                         target_size: Tuple[int, int] = (448, 448),
-                        device=None) -> Tuple[torch.nn.Module, Dict]:
+                        device=None, eval_ritm: bool = False
+                        ) -> Tuple[torch.nn.Module, Dict]:
     """The checkpoint's probe as the root ``evaluate.py:load_model_for_eval``
     builds it, as a model of the port on ``device`` (CUDA unless ``device=
     "cpu"``) in ``dtype``. Returns (model, info): ``info`` holds the
@@ -78,7 +92,14 @@ def load_model_for_eval(checkpoint: str, dtype=torch.float32,
     ``interpolate_backbone_pos_embed`` does, so that the forward's own
     interpolation is a no-op (:func:`_preinterpolate_pos_embed`). In bf16 the
     f32 params are rounded into the bf16 model, as the root ``evaluate.py``
-    casts its params. LoftUp's
+    casts its params. ``eval_ritm`` (the RITM protocol) skips the pos-embed
+    resize, as the root's does. The root also forces ``use_rgb_conv`` on
+    there; the port builds the checkpoint's own model instead. Where the
+    root's build succeeds the two agree (a click embedding that takes the
+    RITM transform's 64 channels was trained with it, and its config says
+    so); a probe that embeds the raw click maps, as every probe of the paper
+    does, the root cannot build with the transform, and the port evaluates
+    it as it was trained. LoftUp's
     padded ``mxu_pad`` layout, which that script uses for bf16, is the same
     function with zero-padded channels and is not ported."""
     device = resolve_device(device)
@@ -91,7 +112,9 @@ def load_model_for_eval(checkpoint: str, dtype=torch.float32,
     if up_loaded is not None:
         params = dict(params, upsampler=merge_params(params["upsampler"],
                                                      up_loaded))
-    config, params = _preinterpolate_pos_embed(config, params, target_size)
+    if not eval_ritm:
+        config, params = _preinterpolate_pos_embed(config, params,
+                                                   target_size)
     model = load_jax_params(build_model(config, device, dtype), params)
     return model, dict(config=config, init_seconds=init_seconds,
                        frozen_params=count_params(frozen))
@@ -137,9 +160,6 @@ def _preinterpolate_pos_embed(config: Dict, params: Dict,
 # ROADMAP item that brings each
 _NOT_PORTED = {
     "mode": "ROADMAP Queue 1 item 9 (BRS)",
-    "eval_ritm": "ROADMAP Queue 1 item 8 (adaptive RITM protocol)",
-    "device_refill": "ROADMAP Queue 1 item 5 (continuous batching)",
-    "group_max_jobs": "ROADMAP Queue 1 item 5 (continuous batching)",
     "device_mesh": "ROADMAP Queue 1 item 9 (parallel/mesh.py)",
     "mxu_pad": "ROADMAP Queue 1 item 7 (LoftUp's mxu_pad layout)",
     "fuse_hr_head": "ROADMAP Queue 1 item 7 (the fused LoftUp head)",
@@ -152,7 +172,9 @@ _NOT_PORTED = {
 }
 _DEFAULTS = dict(checkpoint=None, datasets="Synthetic",
                  scenes=str(SYNTHETIC_FIXTURE),
-                 eval_mode="fixed448", device_loop="false", device_batch="1",
+                 eval_mode="fixed448", eval_ritm="false",
+                 device_loop="false", device_batch="1",
+                 device_refill="false", group_max_jobs="0",
                  dtype="float32", n_clicks="20", target_iou="0.90",
                  print_ious="true", min_n_clicks="1", thresh="0.5",
                  clicks_limit="null", device=None)
@@ -182,21 +204,35 @@ def parse_args(argv) -> Dict:
             f"datasets={cfg['datasets']}: the port evaluates the stored "
             "Synthetic scenes only; the other datasets' loaders are ROADMAP "
             "Queue 1 item 6 (the data layer)")
-    mode = cfg["eval_mode"]
-    if not mode.startswith("fixed"):
-        raise NotImplementedError(
-            f"eval_mode={mode}: only the fixed-crop ZoomIn is ported; the "
-            "adaptive 'cvpr' mode is ROADMAP Queue 1 item 8")
-    crop = mode[5:].split(",")
-    cfg["target_size"] = (int(crop[0]), int(crop[-1]))
+    cfg["eval_ritm"] = _flag(cfg["eval_ritm"])
+    cfg["zoomin"] = get_zoomin_params(cfg["eval_ritm"], cfg["eval_mode"],
+                                      cfg["datasets"])
+    size = cfg["zoomin"]["target_size"]
+    # the size the pos-embed is resized to (the root's _ts)
+    cfg["target_size"] = (size, size) if isinstance(size, int) else size
     if cfg["dtype"] not in DTYPES:
         raise NotImplementedError(
             f"dtype={cfg['dtype']}: the port evaluates in float32 or "
             "bfloat16; int8 W8A8 is ROADMAP Queue 1 item 9 (ops/quant.py)")
-    cfg["device_loop"] = cfg["device_loop"].lower() in ("true", "1")
+    cfg["device_loop"] = _flag(cfg["device_loop"])
     cfg["device_batch"] = int(cfg["device_batch"])
+    refill = cfg["device_refill"].lower()
+    if refill == "host":
+        raise ValueError("device_refill=host was removed (it measured 0.98x "
+                         "lockstep in the JAX package); use "
+                         "device_refill=true (on-device job queue)")
+    if refill not in ("false", "true", "0", "1", "device"):
+        raise ValueError(f"device_refill={refill!r} not recognized; use "
+                         "false or true/'device' (on-device job queue)")
+    cfg["device_refill"] = refill in ("true", "1", "device")
+    if cfg["device_refill"] and cfg["device_batch"] <= 1:
+        logging.getLogger(__name__).warning(
+            "device_refill ignored: continuous batching needs device_batch>1 "
+            f"(got {cfg['device_batch']})")
+        cfg["device_refill"] = False
+    cfg["group_max_jobs"] = int(cfg["group_max_jobs"])
     cfg["n_clicks"] = int(cfg["n_clicks"])
-    cfg["print_ious"] = cfg["print_ious"].lower() in ("true", "1")
+    cfg["print_ious"] = _flag(cfg["print_ious"])
     cfg["min_n_clicks"] = int(cfg["min_n_clicks"])
     cfg["thresh"] = float(cfg["thresh"])
     limit = cfg["clicks_limit"]
@@ -212,43 +248,95 @@ def parse_args(argv) -> Dict:
     return cfg
 
 
+def _flag(value: str) -> bool:
+    return value.lower() in ("true", "1")
+
+
+def _parse_fixed_mode(eval_mode: str) -> Tuple[int, int]:
+    """'fixed<n>' or 'fixed<h>,<w>' -> (h, w)."""
+    crop = eval_mode[5:].split(",")
+    return int(crop[0]), int(crop[-1])
+
+
+def get_zoomin_params(eval_ritm: bool, eval_mode: str,
+                      dataset_name: str) -> Dict:
+    """The ZoomIn of a run (the root ``evaluate.py:get_zoomin_params``):
+    ``skip_clicks`` and ``target_size``, a pair for the fixed crop and a
+    scalar for the RITM adaptive one."""
+    if eval_ritm:
+        if eval_mode == "cvpr":
+            return {"skip_clicks": 1,
+                    "target_size": 600 if dataset_name == "DAVIS" else 400}
+        if eval_mode.startswith("fixed"):
+            return {"skip_clicks": -1,
+                    "target_size": _parse_fixed_mode(eval_mode)}
+        raise NotImplementedError(f"Unknown eval_mode: {eval_mode}")
+    if eval_mode == "cvpr":
+        return {"skip_clicks": -1, "target_size": (672, 672)
+                if dataset_name == "DAVIS" else (448, 448)}
+    if eval_mode.startswith("fixed"):
+        return {"skip_clicks": -1,
+                "target_size": _parse_fixed_mode(eval_mode)}
+    raise NotImplementedError(f"Unknown eval_mode: {eval_mode}")
+
+
 def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None) -> Dict:
     """Run one checkpoint over the scenes with the settings of
     :func:`parse_args`. Returns the per-object IoUs, the NoC, mIoU@k, the
-    wall seconds and the results table."""
+    wall seconds, the results table and, for a job queue, its stats."""
+    from isegprobe_torch.inference.adaptive_eval import make_adaptive_evaluator
     from isegprobe_torch.inference.device_eval import (
         evaluate_dataset_device,
+        evaluate_dataset_group,
         make_device_evaluator,
     )
     from isegprobe_torch.inference.evaluation import (
         evaluate_dataset,
         latency_percentiles,
     )
-    from isegprobe_torch.inference.predictor import Predictor
+    from isegprobe_torch.inference.predictor import get_predictor
 
     device = resolve_device(cfg["device"])
     if model is None:
         model, _ = load_model_for_eval(cfg["checkpoint"],
                                        DTYPES[cfg["dtype"]],
-                                       cfg["target_size"], device)
+                                       cfg["target_size"], device,
+                                       eval_ritm=cfg["eval_ritm"])
     dataset = SceneDataset(cfg["scenes"])
+    zoom = cfg["zoomin"]
     protocol = dict(pred_thr=cfg["thresh"], min_clicks=cfg["min_n_clicks"],
                     max_clicks=cfg["n_clicks"])
     net_clicks_limit = cfg["clicks_limit"] or cfg["n_clicks"]
     latencies: list = []
+    stats: Optional[dict] = None
     t0 = time()
     if cfg["device_loop"]:
-        run = make_device_evaluator(
-            model, target_size=cfg["target_size"],
-            net_clicks_limit=net_clicks_limit, target_iou=cfg["target_iou"],
-            with_flip=True, batch_size=cfg["device_batch"], device=device,
-            **protocol)
-        all_ious = evaluate_dataset_device(run, dataset)
+        kw = dict(batch_size=cfg["device_batch"],
+                  net_clicks_limit=net_clicks_limit,
+                  target_iou=cfg["target_iou"], with_flip=True,
+                  device=device, **protocol)
+        refill = cfg["device_refill"]
+        if zoom["skip_clicks"] >= 0 and isinstance(zoom["target_size"], int):
+            # the RITM adaptive ZoomIn, scalar target
+            run = make_adaptive_evaluator(model, zoom["target_size"],
+                                          skip_clicks=zoom["skip_clicks"],
+                                          group_api=refill, **kw)
+        else:
+            run = make_device_evaluator(model,
+                                        target_size=zoom["target_size"],
+                                        group_api=refill, **kw)
+        if refill:
+            stats = {}
+            all_ious = evaluate_dataset_group(
+                run, dataset, stats=stats,
+                max_jobs_per_dispatch=cfg["group_max_jobs"])
+        else:
+            all_ious = evaluate_dataset_device(run, dataset)
     else:
-        predictor = Predictor(model, target_size=cfg["target_size"],
-                              skip_clicks=-1, with_flip=True,
-                              net_clicks_limit=net_clicks_limit,
-                              device=device)
+        predictor = get_predictor(
+            model, with_flip=True, zoom_in_params=zoom,
+            predictor_params={"net_clicks_limit": net_clicks_limit},
+            device=device)
         all_ious, _ = evaluate_dataset(dataset, predictor,
                                        latencies=latencies,
                                        max_iou_thr=cfg["target_iou"],
@@ -264,7 +352,8 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None) -> Dict:
     return dict(all_ious=all_ious, noc=noc, over_max=over_max,
                 miou=miou_at_k(all_ious, cfg["n_clicks"]), elapsed=elapsed,
                 table=table, latency=(latency_percentiles(latencies)
-                                      if latencies else None))
+                                      if latencies else None),
+                group_stats=stats)
 
 
 def main(argv=None) -> int:
@@ -275,6 +364,8 @@ def main(argv=None) -> int:
         print("mIoU@k:", " ".join(f"{v:.3f}" for v in out["miou"]))
     if out["latency"]:
         print("per-click latency:", out["latency"])
+    if out["group_stats"]:
+        print("group-eval stats:", out["group_stats"])
     return 0
 
 

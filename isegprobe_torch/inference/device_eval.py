@@ -27,6 +27,11 @@ backbone depends only on the ROI crop, so successive clicks reuse the cached
 trunk features and rerun only the click embedding, upsampler and head
 (``iSegProbeModel.forward_with_cached_trunk``). The trunk is recomputed when
 any active lane's ROI changed.
+
+Continuous batching (``group_api=True``, :class:`GroupEvaluator` and
+:func:`evaluate_dataset_group`): a lane that finishes takes the next job
+from a staged window of frames on the device, so lanes no longer idle until
+their batch's slowest one.
 """
 
 from __future__ import annotations
@@ -139,23 +144,46 @@ class DeviceEvaluator:
 
     # -- the loop's allowed host reads --------------------------------------
 
-    def _read(self, flag: torch.Tensor) -> bool:
-        """One allowed device-to-host read of a scalar flag. On CUDA, a
+    def _read(self, flag: torch.Tensor):
+        """One allowed device-to-host read: a scalar flag as a bool, or a
+        few flags stacked in one tensor as a list. On CUDA, a
         ``torch.cuda.set_sync_debug_mode`` set by the caller is lifted
         around it, so that mode catches every other sync of a click."""
         self.host_reads += 1
         mode = torch.cuda.get_sync_debug_mode() if flag.is_cuda else 0
         if not mode:
-            return bool(flag)
+            return flag.tolist()
         torch.cuda.set_sync_debug_mode(0)
         try:
-            return bool(flag)
+            return flag.tolist()
         finally:
             torch.cuda.set_sync_debug_mode(mode)
 
     # -- per-lane protocol steps, over the leading lane axis ----------------
 
     def _init_state(self, images, gts, valid_hws) -> Dict[str, torch.Tensor]:
+        st = self._init_lanes(images, gts, valid_hws)
+        if self.use_cache:
+            # serves click 1: with an empty prediction the first ROI
+            # candidate is the full frame, which this trunk was computed for
+            st["trunk"] = self._trunk(images, st["full_roi"])
+            st["trunk_roi"] = st["full_roi"]
+        return st
+
+    def _init_group_state(self, images, gts, valid_hws
+                          ) -> Dict[str, torch.Tensor]:
+        """The lane state a job queue starts from: every lane parked. The
+        trunk is not computed: every lane that takes a job has its trunk
+        ROI poisoned, so the first step recomputes it."""
+        st = self._init_lanes(images, gts, valid_hws)
+        st["done"] = torch.ones_like(st["done"])
+        if self.use_cache:
+            st["trunk"] = None
+            st["trunk_roi"] = torch.full_like(st["full_roi"], -1)
+        return st
+
+    def _init_lanes(self, images, gts, valid_hws) -> Dict[str, torch.Tensor]:
+        """Every lane's protocol state at its first click (no trunk)."""
         b, hp, wp = gts.shape
         dev = gts.device
         rows = torch.arange(hp, device=dev)[None, :, None]
@@ -202,17 +230,40 @@ class DeviceEvaluator:
         if self.record_clicks:  # every click (y, x, is_positive), -1 past n
             st["clicks"] = torch.full((b, self.max_clicks, 3), -1,
                                       dtype=torch.long, device=dev)
-        if self.use_cache:
-            # serves click 1: with an empty prediction the first ROI
-            # candidate is the full frame, which this trunk was computed for
-            st["trunk"] = self._trunk(images, full_roi)
-            st["trunk_roi"] = full_roi
         return st
 
     def _select(self, st):
         """Clicker, click bookkeeping and the ZoomIn ROI update of every
         lane. ``not_clicked`` and ``pos_mask`` are updated in place. Returns
         the updated state entries and the ``[B, 2·nmax, 3]`` points."""
+        sel, points, cand, has_mask = self._click(st)
+        # ZoomIn ROI state machine (reference: zoom_in.py:51-97): a candidate
+        # exists only when the predicted mask is non-empty
+        cand = torch.where(has_mask[:, None], cand, st["full_roi"])
+        update = ~st["roi_set"] | self._roi_stale(st, sel, cand)
+        sel.update(roi=torch.where(update[:, None], cand, st["roi"]),
+                   roi_set=torch.ones_like(st["roi_set"]))
+        return sel, points
+
+    def _roi_stale(self, st, sel, cand) -> torch.Tensor:
+        """``[B]``: the current ROI no longer holds every positive click
+        (half-open upper bounds) or overlaps the candidate by less than
+        ``recompute_thresh_iou``."""
+        cur = st["roi"].float()
+        clicks_inside = ((sel["pos_ymin"] >= cur[:, 0])
+                         & (sel["pos_ymax"] < cur[:, 1])
+                         & (sel["pos_xmin"] >= cur[:, 2])
+                         & (sel["pos_xmax"] < cur[:, 3])
+                         ) | ~torch.isfinite(sel["pos_ymin"])
+        iou_ok = _bbox_iou(cand.float(), cur) >= self.recompute_thresh_iou
+        return ~clicks_inside | ~iou_ok
+
+    def _click(self, st):
+        """The clicker and the click bookkeeping of every lane, and the
+        ZoomIn ROI candidate: the expanded, clamped bbox of the predicted
+        mask (at ``roi_prob_thresh``) with every positive click in it.
+        Returns (state entries, points ``[B, 2·nmax, 3]``, candidate
+        ``[B, 4]``, whether the predicted mask is non-empty ``[B]``)."""
         b, hp, wp = st["gt"].shape
         dev = st["gt"].device
         prev2d = st["prev"][..., 0]
@@ -249,9 +300,8 @@ class DeviceEvaluator:
         pos_xmin = extreme(torch.minimum, "pos_xmin", cxf)
         pos_xmax = extreme(torch.maximum, "pos_xmax", cxf)
 
-        # ZoomIn ROI state machine (reference: zoom_in.py:51-97): a candidate
-        # exists only when the predicted mask is non-empty; positive clicks
-        # join the mask before the bbox
+        # the ROI candidate: positive clicks join the predicted mask before
+        # the bbox
         roi_mask = (prev2d > self.roi_prob_thresh) & st["in_valid"]
         has_mask = roi_mask.flatten(1).any(dim=1)
         h_valid = st["valid_hw"][:, 0].float()
@@ -260,21 +310,11 @@ class DeviceEvaluator:
                              self.expansion_ratio, self.min_crop_size,
                              h_valid, w_valid)
         cand = torch.stack(cand, dim=1).long()
-        cand = torch.where(has_mask[:, None], cand, st["full_roi"])
-
-        cur = st["roi"].float()
-        clicks_inside = ((pos_ymin >= cur[:, 0]) & (pos_ymax < cur[:, 1])
-                         & (pos_xmin >= cur[:, 2]) & (pos_xmax < cur[:, 3])
-                         ) | ~torch.isfinite(pos_ymin)
-        iou_ok = _bbox_iou(cand.float(), cur) >= self.recompute_thresh_iou
-        update = ~st["roi_set"] | ~clicks_inside | ~iou_ok
-        roi = torch.where(update[:, None], cand, st["roi"])
 
         sel = dict(pos_pts=pos_pts, neg_pts=neg_pts, n_pos=n_pos, n_neg=n_neg,
                    not_clicked=not_clicked, pos_mask=pos_mask,
                    pos_ymin=pos_ymin, pos_ymax=pos_ymax, pos_xmin=pos_xmin,
-                   pos_xmax=pos_xmax, roi=roi,
-                   roi_set=torch.ones_like(st["roi_set"]))
+                   pos_xmax=pos_xmax)
         if self.record_clicks:
             at_n = (torch.arange(self.max_clicks, device=dev)[None, :]
                     == st["n"][:, None])
@@ -282,7 +322,7 @@ class DeviceEvaluator:
                 at_n[..., None],
                 torch.stack([cy, cx, is_pos.long()], 1)[:, None],
                 st["clicks"])
-        return sel, torch.cat([pos_pts, neg_pts], dim=1)
+        return sel, torch.cat([pos_pts, neg_pts], dim=1), cand, has_mask
 
     def _roi_points(self, roi, points):
         """Full-frame clicks ``[B, P, 3]`` in ROI-crop coordinates, -1 rows
@@ -334,9 +374,9 @@ class DeviceEvaluator:
             return torch.sigmoid(0.5 * (logits[:, 0] + logits[:, 1].flip(2)))
         return torch.sigmoid(logits[:, 0])
 
-    def _finish(self, st, roi, probs):
-        """Paste, IoU over ``not_ignore`` and the stopping rule."""
-        prev = inverse_paste(probs, roi, tuple(st["gt"].shape[1:]))
+    def _score(self, st, prev):
+        """The pasted probabilities ``prev``, their IoU over ``not_ignore``
+        and the stopping rule."""
         new_mask = prev[..., 0] > self.pred_thr
         inter = (new_mask & st["gt"] & st["not_ignore"]).flatten(1).sum(1)
         union = ((new_mask | st["gt"]) & st["not_ignore"]).flatten(1).sum(1)
@@ -367,10 +407,16 @@ class DeviceEvaluator:
                 crops, pts, trunk)["instances"]
         else:
             logits = self.model(crops, pts)["instances"]
-        fin = self._finish(st, sel["roi"], self._merge_flip(logits, b))
-        new = {**st, **sel, **fin}
+        prev = inverse_paste(self._merge_flip(logits, b), sel["roi"],
+                             tuple(st["gt"].shape[1:]))
+        new = {**st, **sel, **self._score(st, prev)}
         if self.use_cache:
             new["trunk"], new["trunk_roi"] = trunk, trunk_roi
+        return self._freeze(new, st, active)
+
+    def _freeze(self, new, st, active):
+        """``new`` with the outputs of lanes not in ``active`` kept as in
+        ``st``."""
         for k in ("ious", "n", "done") + (
                 ("clicks",) if self.record_clicks else ()):
             new[k] = _lane_where(active, new[k], st[k])
@@ -404,6 +450,127 @@ class DeviceEvaluator:
         return self._run(images, gts, valid_hws)
 
 
+class GroupEvaluator:
+    """Continuous batching: the click loop of a lane protocol (a
+    :class:`DeviceEvaluator`, or ``inference.adaptive_eval``'s adaptive
+    one) over an on-device job queue, the counterpart of the JAX package's
+    ``make_windowed_group_evaluator`` / ``_GroupEvaluator``. A lane that
+    finishes writes its job's results into the queue's output rows and
+    takes the next job from a staged window of frames at once, instead of
+    idling until its batch's slowest lane.
+
+    ``init(imgs, gts, hws)`` builds an all-parked lane state for the first
+    window; ``run(st, q, imgs, gts, hws, n_valid, win_base)`` runs the
+    protocol until every job is done or a lane wants a job beyond the
+    staged window (``want_refill``), and returns ``(st, q)``: the lane
+    state carries across windows, so a window switch pauses the busy lanes
+    at a step boundary rather than draining them. Jobs are handed out on
+    the device, without a host read of their own: a cumulative sum over the lanes that
+    want one and the window's index of each lane's next job. The loop reads
+    one pair of flags a step, ``any(active) & ~want_refill`` and whether a
+    lane took a job; only then are the taken frames gathered from the
+    window and their fresh lane state put in with ``torch.where``. With a
+    trunk cache a refilled lane poisons its trunk ROI, so that the
+    batch-level predicate recomputes the trunk for its first click.
+    ``fills`` counts the hand-outs that started a lane.
+    ``evaluate_dataset_group`` drives it."""
+
+    def __init__(self, protocol) -> None:
+        self.protocol = protocol
+        self.fills = 0
+        self.batch_size = protocol.batch_size
+        self.max_clicks = protocol.max_clicks
+        self.device = protocol.device
+        self.record_clicks = protocol.record_clicks
+
+    @property
+    def steps(self) -> int:
+        return self.protocol.steps
+
+    def init(self, imgs, gts, hws) -> Dict[str, torch.Tensor]:
+        b = self.batch_size
+        return self.protocol._init_group_state(imgs[:b], gts[:b], hws[:b])
+
+    def queue(self, n_rows: int) -> Dict[str, torch.Tensor]:
+        """An empty queue of ``n_rows`` output rows and one scratch row (the
+        target of idle lanes' writes); every lane parked on it."""
+        dev, b = self.device, self.batch_size
+        q = dict(job_id=torch.full((b,), n_rows, dtype=torch.long,
+                                   device=dev),
+                 next_job=torch.zeros((), dtype=torch.long, device=dev),
+                 out_ious=torch.zeros((n_rows + 1, self.max_clicks),
+                                      device=dev),
+                 out_n=torch.zeros((n_rows + 1,), dtype=torch.long,
+                                   device=dev),
+                 want_refill=torch.zeros((), dtype=torch.bool, device=dev))
+        if self.record_clicks:
+            q["out_clicks"] = torch.full((n_rows + 1, self.max_clicks, 3),
+                                         -1, dtype=torch.long, device=dev)
+        return q
+
+    @staticmethod
+    def _hand_out(q, want, w: int, n_valid, win_base):
+        """The window's next jobs for the lanes in ``want``, in lane order:
+        the lanes that take one, each lane's window index and the queue
+        after. A lane whose next job lies beyond the window stays parked
+        and raises ``want_refill``."""
+        cand = q["next_job"] + torch.cumsum(want.long(), 0) - 1
+        in_sweep = cand < n_valid
+        take = want & in_sweep & (cand < win_base + w)
+        q = dict(q, job_id=torch.where(take, cand, q["job_id"]),
+                 next_job=q["next_job"] + take.sum(),
+                 want_refill=q["want_refill"]
+                 | (want & in_sweep & ~take).any())
+        return take, (cand - win_base).clamp(0, w - 1), q
+
+    def _fill(self, st, take, rel, win):
+        """``st`` with the lanes in ``take`` started on window frames
+        ``rel``."""
+        imgs, gts, hws = win
+        fresh = self.protocol._init_lanes(imgs[rel], gts[rel], hws[rel])
+        st = dict(st)
+        for k, v in fresh.items():
+            st[k] = _lane_where(take, v, st[k])
+        if self.protocol.use_cache:
+            st["trunk_roi"] = st["trunk_roi"].masked_fill(take[:, None], -1)
+        return st
+
+    @torch.inference_mode()
+    def run(self, st, q, imgs, gts, hws, n_valid: torch.Tensor,
+            win_base: torch.Tensor):
+        p, mc = self.protocol, self.max_clicks
+        win, w = (imgs, gts, hws), imgs.shape[0]
+        sent = q["out_n"].shape[0] - 1  # the scratch row
+        q = dict(q, want_refill=torch.zeros_like(q["want_refill"]))
+        # the first hand-out serves the parked lanes: the chain's start and
+        # every window switch
+        want = q["job_id"] == sent
+        busy = ~st["done"] & (st["n"] < mc)
+        while True:
+            take, rel, q = self._hand_out(q, want, w, n_valid, win_base)
+            # a lane that takes a job starts it at click 0, not done
+            active = busy | take
+            go, took = p._read(torch.stack(
+                [active.any() & ~q["want_refill"], take.any()]))
+            if took:
+                st = self._fill(st, take, rel, win)
+                self.fills += 1
+            if not go:
+                return st, q
+            st = p._body(st, active)
+            p.steps += 1
+            fin = active & (st["done"] | (st["n"] >= mc))
+            # finished lanes write their job's row; the rest write the
+            # scratch row, where colliding writes do no harm
+            tgt = torch.where(fin, q["job_id"], sent)
+            q["out_ious"].index_put_((tgt,), st["ious"])
+            q["out_n"].index_put_((tgt,), st["n"])
+            if self.record_clicks:
+                q["out_clicks"].index_put_((tgt,), st["clicks"])
+            q = dict(q, job_id=torch.where(fin, sent, q["job_id"]))
+            want, busy = fin, active & ~fin
+
+
 def make_device_evaluator(model, target_size: Tuple[int, int] = (448, 448),
                           max_clicks: int = 20, net_clicks_limit: int = 20,
                           pred_thr: float = 0.49, target_iou: float = 0.90,
@@ -415,7 +582,7 @@ def make_device_evaluator(model, target_size: Tuple[int, int] = (448, 448),
                           batch_size: int = 1, mesh=None,
                           trunk_cache: str = "auto", group_api: bool = False,
                           record_clicks: bool = False,
-                          device=None) -> DeviceEvaluator:
+                          device=None):
     """Build the on-device NoC evaluator for ``model`` (an
     ``iSegProbeModel`` living on ``device``: CUDA unless ``device="cpu"``).
     Returns a :class:`DeviceEvaluator`, called as ``run(image, gt,
@@ -426,20 +593,19 @@ def make_device_evaluator(model, target_size: Tuple[int, int] = (448, 448),
     raises for other injection modes); ``'off'`` disables it.
     ``record_clicks`` keeps every click on the device for the caller
     (``DeviceEvaluator.clicks``; the JAX evaluator has no such record), at
-    a few small ops a step. ``mesh`` and
-    ``group_api`` are not ported yet and raise ``NotImplementedError``."""
+    a few small ops a step. ``group_api`` returns the
+    :class:`GroupEvaluator` over this protocol, for
+    :func:`evaluate_dataset_group` (continuous batching; ``batch_size`` >
+    1). ``mesh`` is not ported yet and raises ``NotImplementedError``."""
     if mesh is not None:
         raise NotImplementedError(
             "the mesh-sharded device evaluator is not ported to "
             "isegprobe_torch yet: ROADMAP Queue 1 item 9 (parallel/mesh.py "
             "on torch.distributed)")
-    if group_api:
-        raise NotImplementedError(
-            "the continuous-batching group API is not ported to "
-            "isegprobe_torch yet: ROADMAP Queue 1 item 5 (continuous "
-            "batching)")
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    if group_api and batch_size <= 1:
+        raise ValueError("group_api requires batch_size > 1")
     if trunk_cache not in ("auto", "on", "off"):
         raise ValueError(f"trunk_cache must be 'auto', 'on' or 'off', got "
                          f"{trunk_cache!r}")
@@ -457,7 +623,7 @@ def make_device_evaluator(model, target_size: Tuple[int, int] = (448, 448),
                          f"runs on {device}")
     use_cache = trunk_cache == "on" or (trunk_cache == "auto"
                                         and injection == "after_backbone")
-    return DeviceEvaluator(
+    run = DeviceEvaluator(
         model, target_size=target_size, max_clicks=max_clicks,
         net_clicks_limit=net_clicks_limit, pred_thr=pred_thr,
         target_iou=target_iou, min_clicks=min_clicks, with_flip=with_flip,
@@ -465,6 +631,7 @@ def make_device_evaluator(model, target_size: Tuple[int, int] = (448, 448),
         min_crop_size=min_crop_size,
         recompute_thresh_iou=recompute_thresh_iou, batch_size=batch_size,
         use_cache=use_cache, record_clicks=record_clicks, device=device)
+    return GroupEvaluator(run) if group_api else run
 
 
 # ---------------------------------------------------------------------------
@@ -584,4 +751,127 @@ def evaluate_dataset_device(run_fn: DeviceEvaluator, dataset,
                     sample_times.append(wall)
     if clicks is not None:
         clicks.extend(job_clicks)
+    return results
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _window_frames(batch: int, cap: int, n: int) -> int:
+    """The frames of each window of a group of ``n`` jobs under a cap of
+    ``cap`` frames (raised to the batch): the power of two that holds the
+    group, or the batch, where that fits; else the largest power of two
+    within the cap, or the batch if that is larger."""
+    cap = max(batch, cap)
+    w = _pow2_at_least(max(batch, min(cap, n)))
+    return w if w <= cap else max(batch, 1 << (cap.bit_length() - 1))
+
+
+def evaluate_dataset_group(ev: GroupEvaluator, dataset, bucket: int = 64,
+                           sample_times: Optional[list] = None,
+                           stats: Optional[dict] = None,
+                           max_jobs_per_dispatch: int = 0,
+                           devices: Optional[list] = None,
+                           clicks: Optional[list] = None
+                           ) -> List[np.ndarray]:
+    """Every object of ``dataset`` through a :class:`GroupEvaluator`
+    (continuous batching); per-click IoUs in dataset order, the same as
+    :func:`evaluate_dataset_device` gives (lanes do not interact).
+
+    Jobs are grouped by padded shape. Each group runs as a chain of
+    dispatches over windows of W staged frames, with the lane state carried
+    across windows; the only drain is the last one, when fewer jobs than
+    lanes remain. W is at most the cap ``max(batch, max_jobs_per_dispatch
+    or 32)``: the power of two that holds the group where it fits, else the
+    largest power of two within the cap, never below the batch (few
+    distinct shapes, for CUDA graphs of the step). Window i+1 is uploaded
+    (asynchronously from pinned memory on a GPU) before window i runs and
+    window i is released when it is done, so at most two windows' frames,
+    2·W, are resident at a time. The output rows are twice the batch,
+    doubled until they hold the group.
+
+    ``sample_times`` (a list) receives each sample's chain wall time;
+    ``clicks`` (a list) each sample's clicks ``[n, 3]`` (``ev`` must
+    record them); ``stats`` (a dict) is updated with ``dispatches``,
+    ``batch_size``, ``devices``, ``window`` (the cap) and ``windows`` (the
+    sizes run), ``useful_clicks``, ``steps``, ``lane_steps`` (steps times
+    lanes), ``fills`` (hand-outs that started a lane) and
+    ``resident_windows`` (the most windows of frames alive at
+    once). The JAX package pipelines chains ``depth`` deep; here the loop's
+    one read a step keeps host and device in step, so there is no such
+    parameter. ``devices`` with more than one device is not ported."""
+    import weakref
+
+    if devices is not None and len(devices) > 1:
+        raise NotImplementedError(
+            "one job queue per device over several GPUs is not ported to "
+            "isegprobe_torch yet: ROADMAP Queue 1 item 9 (multi-device "
+            "groups)")
+    if clicks is not None and not ev.record_clicks:
+        raise ValueError("clicks= needs an evaluator made with "
+                         "record_clicks=True")
+    jobs, by_shape = _build_jobs(dataset, bucket)
+    results: List[Optional[np.ndarray]] = [None] * len(jobs)
+    job_clicks: List[Optional[np.ndarray]] = [None] * len(jobs)
+    b = ev.batch_size
+    window = max(b, max_jobs_per_dispatch or 32)
+    dev = ev.device
+    n_dispatch, steps0, fills0, sizes = 0, ev.steps, ev.fills, []
+    alive: list = []
+    resident = 0
+
+    def put(group, lo, w):
+        nonlocal resident
+        win = group[lo:lo + w]
+        win = win + [win[-1]] * (w - len(win))
+        out = []
+        for k in (1, 2, 3):
+            t = torch.from_numpy(np.ascontiguousarray(
+                np.stack([job[k] for job in win])))
+            if dev.type == "cuda":
+                t = t.pin_memory()
+            out.append(t.to(dev, non_blocking=True))
+        alive.append(weakref.ref(out[0]))
+        resident = max(resident, sum(r() is not None for r in alive))
+        return out
+
+    for group in by_shape.values():
+        n = len(group)
+        w = _window_frames(b, window, n)
+        sizes.append(w)
+        rows = 2 * b
+        while rows < n:
+            rows *= 2
+        t0 = time()
+        cur = put(group, 0, w)
+        st, q = ev.init(*cur), ev.queue(rows)
+        n_valid = torch.tensor(n, device=dev)
+        for lo in range(0, n, w):
+            nxt = put(group, lo + w, w) if lo + w < n else None
+            st, q = ev.run(st, q, *cur, n_valid, torch.tensor(lo, device=dev))
+            n_dispatch += 1
+            cur = nxt
+        del st
+        ious = q["out_ious"].cpu().numpy()
+        counts = q["out_n"].cpu().numpy()
+        out_clicks = (q["out_clicks"].cpu().numpy() if clicks is not None
+                      else None)
+        wall = time() - t0
+        for row, (order_idx, *_rest) in enumerate(group):
+            results[order_idx] = ious[row][: int(counts[row])]
+            if out_clicks is not None:
+                job_clicks[order_idx] = out_clicks[row][: int(counts[row])]
+            if sample_times is not None:
+                sample_times.append(wall)
+    if clicks is not None:
+        clicks.extend(job_clicks)
+    if stats is not None:
+        steps = ev.steps - steps0
+        stats.update(dispatches=n_dispatch, batch_size=b, devices=1,
+                     window=window, windows=sizes,
+                     useful_clicks=sum(len(a) for a in results
+                                       if a is not None),
+                     steps=steps, lane_steps=steps * b,
+                     fills=ev.fills - fills0, resident_windows=resident)
     return results

@@ -13,11 +13,19 @@ Images are zero-padded to 64-pixel buckets and clicks to a fixed
 ``net_clicks_limit`` budget with (−1, −1, −1) rows, as in the JAX package.
 Click-model ensembles and the ``after_backbone`` trunk cache are not ported
 yet (an ``after_backbone`` model runs its full forward every click).
+
+:class:`TransformChainPredictor` is the generic host protocol over a chain
+of invertible transforms (``inference/transforms.py``), the counterpart of
+the JAX package's of that name: the path of the RITM adaptive ZoomIn,
+whose crops have data-dependent sizes. Eager PyTorch needs no static
+shapes, so its forward runs at each crop's true size. :func:`get_predictor`
+picks the predictor for a ZoomIn setting, as the JAX package's
+``inference/brs.py:get_predictor`` does for NoBRS.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -207,3 +215,111 @@ class Predictor:
         probs = probs_pad[0, :h, :w, 0].cpu().numpy()
         self.prev_prediction = probs
         return probs
+
+
+class TransformChainPredictor:
+    """Stateful per-image predictor over a chain of invertible transforms:
+    per click, the image (with the previous probabilities as a fourth
+    channel for a ``with_prev_mask`` model) and one click list per batch
+    row go through every ``transform``, the model runs once on the result
+    at its own size, and the logits come back through every
+    ``inv_transform`` in reverse order. ``model`` lives on ``device``
+    (CUDA unless ``device="cpu"``); images and predictions stay on it, and
+    ``get_prediction`` returns the probabilities ``[H, W]`` on the host for
+    the clicker."""
+
+    def __init__(self, model, transforms: Optional[List] = None,
+                 net_clicks_limit: int = 20, device=None) -> None:
+        self.device = resolve_device(device)
+        model_device = next(model.parameters()).device
+        if model_device != self.device:
+            raise ValueError(f"the model lives on {model_device}, the "
+                             f"predictor runs on {self.device}")
+        self.model = model
+        self.transforms = transforms or []
+        self.net_clicks_limit = net_clicks_limit
+        self.with_prev_mask = getattr(model, "with_prev_mask", False)
+        self.original_image: Optional[torch.Tensor] = None  # [1, H, W, 3]
+        self.prev_prediction: Optional[torch.Tensor] = None  # [1, H, W, 1]
+
+    def set_input_image(self, image: np.ndarray) -> None:
+        """image: ``[H, W, 3]`` uint8 or float in [0, 1]."""
+        if image.dtype == np.uint8:
+            image = image.astype(np.float32) / 255.0
+        self.original_image = torch.from_numpy(
+            np.ascontiguousarray(image, np.float32)[None]).to(self.device)
+        self.prev_prediction = torch.zeros(
+            (1, *image.shape[:2], 1), dtype=torch.float32, device=self.device)
+        for t in self.transforms:
+            t.reset()
+
+    def _points_nd(self, clicks_lists: List[List[Click]]) -> torch.Tensor:
+        n = self.net_clicks_limit
+        points = np.full((len(clicks_lists), 2 * n, 3), -1.0, np.float32)
+        for bi, clicks in enumerate(clicks_lists):
+            _pack_clicks_row(points, bi, clicks, n)
+        return torch.from_numpy(points).to(self.device)
+
+    @torch.inference_mode()
+    def get_prediction(self, clicker: Clicker, prev_mask=None) -> np.ndarray:
+        x = self.original_image
+        if self.with_prev_mask:
+            prev = self.prev_prediction if prev_mask is None else \
+                torch.as_tensor(prev_mask, dtype=torch.float32,
+                                device=self.device)
+            x = torch.cat([x, prev], dim=-1)
+        # one click list per batch row; the flip doubles both
+        clicks_lists = [clicker.get_clicks()]
+        for t in self.transforms:
+            x, clicks_lists = t.transform(x, clicks_lists)
+        prediction = self.model(x, self._points_nd(clicks_lists))[
+            "instances"].float()
+        for t in reversed(self.transforms):
+            prediction = t.inv_transform(prediction)
+        self.prev_prediction = prediction[:1]
+        return prediction[0, :, :, 0].cpu().numpy()
+
+
+def get_predictor(model, brs_mode: str = "NoBRS", with_flip: bool = True,
+                  zoom_in_params: Optional[Dict] = None,
+                  predictor_params: Optional[Dict] = None, device=None):
+    """The NoBRS predictor of the JAX package's ``get_predictor``: with a
+    scalar ``zoom_in_params["target_size"]`` (the RITM adaptive ZoomIn) a
+    :class:`TransformChainPredictor` over ``[ZoomIn, AddHorizontalFlip,
+    SigmoidForPred]`` (no flip without ``with_flip``), else the fixed-crop
+    :class:`Predictor` (no ZoomIn: the frame resized to 448², its ROI
+    machine off). The BRS modes, which alone read the JAX signature's
+    ``prob_thresh``, raise."""
+    if brs_mode != "NoBRS":
+        raise NotImplementedError(
+            f"brs_mode={brs_mode!r} is not ported to isegprobe_torch yet: "
+            "ROADMAP Queue 1 item 9 (BRS)")
+    predictor_params = dict(predictor_params or {})
+    predictor_params.pop("optimize_after_n_clicks", None)
+    if zoom_in_params:
+        from isegprobe_torch.inference.transforms import (
+            AddHorizontalFlip,
+            SigmoidForPred,
+            ZoomIn,
+        )
+
+        known = {"target_size", "skip_clicks", "expansion_ratio",
+                 "min_crop_size", "recompute_thresh_iou", "prob_thresh"}
+        unknown = set(zoom_in_params) - known
+        if unknown:
+            raise ValueError(f"Unknown zoom_in_params keys: {sorted(unknown)}")
+        zoom_kwargs = dict(zoom_in_params)
+        zoom_kwargs.setdefault("target_size", (448, 448))
+        if isinstance(zoom_kwargs["target_size"], int):
+            chain = [ZoomIn(**zoom_kwargs)]
+            if with_flip:
+                chain.append(AddHorizontalFlip())
+            chain.append(SigmoidForPred())
+            return TransformChainPredictor(
+                model, transforms=chain,
+                net_clicks_limit=predictor_params.get("net_clicks_limit", 20),
+                device=device)
+    else:
+        zoom_kwargs = {"skip_clicks": 10**9}
+    return Predictor(model, with_flip=with_flip, device=device,
+                     **zoom_kwargs, **predictor_params)

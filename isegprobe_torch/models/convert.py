@@ -6,7 +6,9 @@ A param tree is nested dicts of numpy arrays (``params["backbone"]["model"]
 
 * Dense ``kernel [in, out]`` becomes Linear ``weight [out, in]``;
 * conv ``kernel`` HWIO becomes ``weight`` OIHW;
-* LayerNorm and FrozenBatchNorm ``scale`` becomes ``weight``;
+* LayerNorm and FrozenBatchNorm ``scale`` becomes ``weight``, and so does
+  the RITM maps transform's ``ScaleLayer`` ``scale`` ``[1]``
+  (``maps_transform/scale/scale`` becomes ``maps_transform.scale.weight``);
 * ``blocks_i``, ``convs_i``, ``ca_i``, ``ff_i``, ``attn_i`` (SimpleViT)
   and ``resblocks_i`` (CLIP) become ``blocks.i``, ``convs.i``, ``ca.i``,
   ``ff.i``, ``attn.i`` and ``resblocks.i``;

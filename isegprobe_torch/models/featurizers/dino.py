@@ -7,7 +7,8 @@ Counterpart of ``isegprobe_tpu/models/featurizers/dino.py``. The trunk is
 always ViT-S/16 (no LayerScale, LayerNorm eps 1e-6, pretrained at 224² so
 its pos-embed grid is 14², '+0.1' interpolation); ``arch`` names the
 pretrained weights that would be converted into it and does not change the
-module. Output is an NHWC feature map ``[B, h, w, 384]``.
+module. Output is an NHWC feature map ``[B, h, w, 384]``; ``masked_forward``
+is the adaptive canvas's forward.
 """
 
 from __future__ import annotations
@@ -54,18 +55,34 @@ class DINOFeaturizer(nn.Module):
                 ) -> torch.Tensor:
         """x: ``[B, H, W, 3]``; additional_features: ``[B, N, D]`` click
         tokens."""
+        return self._features(x, additional_features, None)
+
+    def masked_forward(self, x: torch.Tensor,
+                       additional_features: torch.Tensor | None,
+                       valid_grid: torch.Tensor) -> torch.Tensor:
+        """The forward on a canvas whose top-left ``valid_grid`` ``[B, 2]``
+        rect of tokens is valid per lane. Both probing modes are exact on
+        the valid rect: the keys are pointwise projections of tokens that
+        the masked blocks make exact."""
+        return self._features(x, additional_features, valid_grid)
+
+    def _features(self, x, additional_features, valid_grid):
         b, h, w, _ = x.shape
         gh, gw = h // self.patch_size, w // self.patch_size
         mode = self.feats_injection_mode
         tokens = self.model.embed_patches(x)
         if additional_features is not None and mode == "before_backbone":
             tokens = tokens + additional_features.to(tokens.dtype)
-        if self.feat_type == "token":
-            feats = self.model.forward_tokens(tokens,
-                                              (gh, gw))["patch_tokens"]
-        else:  # the last block's keys, cls dropped, heads flattened
-            feats = self.model.forward_tokens(
-                tokens, (gh, gw), return_last_k=True)["last_k"][:, 1:]
+        key = self.feat_type == "key"
+        if valid_grid is None:
+            out = self.model.forward_tokens(tokens, (gh, gw),
+                                            return_last_k=key)
+        else:
+            out = self.model.forward_tokens_masked(tokens, (gh, gw),
+                                                   valid_grid,
+                                                   return_last_k=key)
+        # the key probe: the last block's keys, cls dropped, heads flattened
+        feats = out["last_k"][:, 1:] if key else out["patch_tokens"]
         if additional_features is not None and mode == "after_backbone":
             feats = feats + additional_features.to(feats.dtype)
         return feats.reshape(b, gh, gw, self.embed_dim)

@@ -2,7 +2,8 @@
 click-feature injection modes.
 
 Counterpart of ``isegprobe_tpu/models/featurizers/dinov2.py``. Output is an
-NHWC feature map ``[B, h, w, 384]``.
+NHWC feature map ``[B, h, w, 384]``; ``masked_forward`` is the adaptive
+canvas's forward.
 """
 
 from __future__ import annotations
@@ -63,3 +64,21 @@ class DINOv2Featurizer(nn.Module):
             if additional_features is not None and mode == "after_backbone":
                 feats = feats.float() + additional_features.float()
         return feats.reshape(b, gh, gw, self.embed_dim)
+
+    def masked_forward(self, x: torch.Tensor,
+                       additional_features: torch.Tensor | None,
+                       valid_grid: torch.Tensor) -> torch.Tensor:
+        """The forward on a canvas whose top-left ``valid_grid`` ``[B, 2]``
+        rect of tokens is valid per lane (``ViT.forward_tokens_masked``):
+        valid outputs equal :meth:`forward` on the true-size image."""
+        b, h, w, _ = x.shape
+        grid = (h // self.patch_size, w // self.patch_size)
+        mode = self.feats_injection_mode
+        tokens = self.model.embed_patches(x)
+        if additional_features is not None and mode == "before_backbone":
+            tokens = tokens + additional_features.to(tokens.dtype)
+        feats = self.model.forward_tokens_masked(tokens, grid,
+                                                 valid_grid)["patch_tokens"]
+        if additional_features is not None and mode == "after_backbone":
+            feats = feats.float() + additional_features.float()
+        return feats.reshape(b, *grid, self.embed_dim)

@@ -13,6 +13,9 @@ path only, ``out_proj(v_proj(ln_1(x)))``: no attention, no residual. That
 block therefore has no ``ln_2`` / ``c_fc`` / ``c_proj`` (flax never creates
 them, so the JAX param tree lacks them). One forward launches L-1 attention
 kernels and 2L+1 LayerNorms. Output is NHWC ``[B, h, w, output_dim]``, float32.
+``masked_forward`` is the adaptive canvas's forward: each lane's position
+table at its own grid and its invalid tokens out of every softmax (the
+plain masked attention); everything after the blocks is pointwise.
 """
 
 from __future__ import annotations
@@ -22,7 +25,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from isegprobe_torch.models.featurizers.dinov2 import INJECTION_MODES
-from isegprobe_torch.models.vit import LayerNorm
+from isegprobe_torch.models.vit import (
+    LayerNorm,
+    canvas_token_mask,
+    dynamic_table,
+)
 from isegprobe_torch.ops.attention import mha_qkv
 from isegprobe_torch.ops.resize import resize
 
@@ -47,10 +54,12 @@ class _CLIPAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
         self.out_proj = nn.Linear(width, width)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                key_mask: torch.Tensor | None = None) -> torch.Tensor:
         qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
         dh = x.shape[-1] // self.heads
-        return self.out_proj(mha_qkv(qkv, self.heads, scale=dh**-0.5))
+        out = mha_qkv(qkv, self.heads, scale=dh**-0.5, key_mask=key_mask)
+        return self.out_proj(out)
 
     def value_path(self, x: torch.Tensor) -> torch.Tensor:
         """``out_proj(v_proj(x))``, the MaskCLIP dense trick."""
@@ -74,8 +83,9 @@ class _CLIPBlock(nn.Module):
             self.c_fc = nn.Linear(width, 4 * width)
             self.c_proj = nn.Linear(4 * width, width)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x))
+    def forward(self, x: torch.Tensor,
+                key_mask: torch.Tensor | None = None) -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x), key_mask)
         h = self.c_fc(self.ln_2(x))
         return x + self.c_proj(h * torch.sigmoid(1.702 * h))  # QuickGELU
 
@@ -138,6 +148,26 @@ class CLIPVisionTransformer(nn.Module):
         x = self.ln_post(x[:, 1:])  # cls dropped
         return x @ self.proj.to(x.dtype)
 
+    def dense_features_masked(self, tokens: torch.Tensor,
+                              canvas_grid: tuple[int, int],
+                              valid_grid: torch.Tensor) -> torch.Tensor:
+        """:meth:`dense_features` on a canvas grid whose top-left
+        ``valid_grid`` ``[B, 2]`` rect of tokens is valid per lane."""
+        b = tokens.shape[0]
+        g0 = self.pretrain_grid
+        mask = canvas_token_mask(canvas_grid, valid_grid)
+        cls = self.class_embedding.to(tokens.dtype).expand(b, 1, -1)
+        x = torch.cat([cls, tokens], dim=1)
+        x = x + dynamic_table(self.positional_embedding.float(), (g0, g0),
+                              canvas_grid, valid_grid).to(x.dtype)
+        x = self.ln_pre(x)
+        x = x * mask[..., None].to(x.dtype)  # keeps invalid tokens bounded
+        for blk in self.resblocks[:-1]:
+            x = blk(x, mask)
+        x = self.resblocks[-1].forward_v(x)
+        x = self.ln_post(x[:, 1:])
+        return x @ self.proj.to(x.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         grid_hw = (x.shape[1] // self.patch_size,
                    x.shape[2] // self.patch_size)
@@ -172,6 +202,23 @@ class MaskCLIPFeaturizer(nn.Module):
         if additional_features is not None and mode == "before_backbone":
             tokens = tokens + additional_features.to(tokens.dtype)
         feats = self.model.dense_features(tokens, (gh, gw)).float()
+        if additional_features is not None and mode == "after_backbone":
+            feats = feats + additional_features.float()
+        return feats.reshape(b, gh, gw, -1)
+
+    def masked_forward(self, x: torch.Tensor,
+                       additional_features: torch.Tensor | None,
+                       valid_grid: torch.Tensor) -> torch.Tensor:
+        """The forward on a canvas whose top-left ``valid_grid`` ``[B, 2]``
+        rect of tokens is valid per lane."""
+        b, h, w, _ = x.shape
+        gh, gw = h // self.patch_size, w // self.patch_size
+        mode = self.feats_injection_mode
+        tokens = self.model.embed_patches(x)
+        if additional_features is not None and mode == "before_backbone":
+            tokens = tokens + additional_features.to(tokens.dtype)
+        feats = self.model.dense_features_masked(tokens, (gh, gw),
+                                                 valid_grid).float()
         if additional_features is not None and mode == "after_backbone":
             feats = feats + additional_features.float()
         return feats.reshape(b, gh, gw, -1)

@@ -5,7 +5,10 @@ classifier), ``simple_conv`` (N 1x1 conv+ReLU layers, then the classifier)
 and ``convhead`` (N 3x3 conv+ReLU layers, then the classifier), NHWC in and
 out. The JAX package builds heads at float32 compute whatever the model
 dtype, so these heads compute in float32 and widen parameters that were
-cast to bfloat16.
+cast to bfloat16. ``masked(x, valid_hw)`` is each head on the adaptive
+canvas, whose top-left ``valid_hw`` ``[B, 2]`` rect is valid per lane: the
+3x3 convhead zeroes what lies outside it before every conv, as a true-size
+input's zero padding would; the pointwise heads need nothing.
 """
 
 from __future__ import annotations
@@ -37,6 +40,9 @@ class SimpleClassifierHead(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _head((), self.classifier, x)
 
+    def masked(self, x: torch.Tensor, valid_hw: torch.Tensor) -> torch.Tensor:
+        return self(x)  # pointwise
+
 
 class SimpleConvSegHead(nn.Module):
     """'simple_conv': N 1x1 conv+ReLU layers, then the classifier."""
@@ -50,6 +56,9 @@ class SimpleConvSegHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _head(self.convs, self.classifier, x)
+
+    def masked(self, x: torch.Tensor, valid_hw: torch.Tensor) -> torch.Tensor:
+        return self(x)  # pointwise
 
 
 class ConvSegHead(nn.Module):
@@ -65,6 +74,19 @@ class ConvSegHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _head(self.convs, self.classifier, x)
+
+    def masked(self, x: torch.Tensor, valid_hw: torch.Tensor) -> torch.Tensor:
+        """``x`` ``[B, H, W, C]`` with each lane's valid rect ``valid_hw``
+        ``[B, 2]``: valid outputs equal the head on the true-size input."""
+        h, w = x.shape[1], x.shape[2]
+        rows = torch.arange(h, device=x.device)[None, :, None]
+        cols = torch.arange(w, device=x.device)[None, None, :]
+        m = ((rows < valid_hw[:, 0, None, None])
+             & (cols < valid_hw[:, 1, None, None]))[:, None].float()
+        x = x.float().permute(0, 3, 1, 2) * m
+        for conv in self.convs:
+            x = torch.relu(_conv_f32(conv, x)) * m
+        return _conv_f32(self.classifier, x).permute(0, 2, 3, 1)
 
 
 HEAD_REGISTRY = {"linear": SimpleClassifierHead,

@@ -19,8 +19,9 @@ within two ulp of JAX's (``jax_rng``); paths, shapes and keys are exact
 
 Covered: the configurations ``models.probe_model.iSegProbeModel`` builds —
 the DINOv2, DINO ``vit`` and MaskCLIP backbones, the ``patchEmbed`` and
-``simple_vit`` click encoders, the three heads and the identity, LiFT,
-LoftUp and JBU-FeatUp upsamplers. flax creates a param when its module is
+``simple_vit`` click encoders, the three heads, the identity, LiFT,
+LoftUp and JBU-FeatUp upsamplers and the RITM maps transform of
+``use_rgb_conv``. flax creates a param when its module is
 first called, so a module that is declared but never called has none:
 MaskCLIP's last block keeps only ``ln_1`` and ``attn`` (its dense features
 take the block's value path).
@@ -340,11 +341,21 @@ def init_tree(config: Dict, seed: int = 0,
             _conv(head, f"convs_{i}", k, c, c)
         _conv(head, "classifier", 1, c, int(hp.get("num_classes", 1)))
 
+    cin = 3 if config.get("with_prev_mask", False) else 2
+    if config.get("use_rgb_conv", False):
+        # RITMMapsTransform: 1x1 conv to 16, stride-2 3x3 conv to 64, and a
+        # ScaleLayer whose one param is the constant 0.05
+        if "maps_transform" not in skip:
+            mt = root.child("maps_transform")
+            _conv(mt, "conv1", 1, cin, 16)
+            _conv(mt, "conv2", 3, 16, 64)
+            mt.child("scale").param("scale", _constant(0.05), (1,))
+        cin = 64
+
     ec = config["embed_coords_cfg"]
     if ec["type"] not in ("patchEmbed", "simple_vit"):
         raise ValueError(f"Unknown embed_coords type: {ec['type']}")
     if "embed_coords" not in skip:
-        cin = 3 if config.get("with_prev_mask", False) else 2
         if ec["type"] == "simple_vit":
             _simple_vit(root.child("embed_coords"), ec["params"], cin)
         else:

@@ -8,8 +8,9 @@ resize. It takes the JAX package's constructor config (so a checkpoint's
 probing) and ``mask_clip`` backbones, the ``patchEmbed`` and ``simple_vit``
 click encoders, the heads of ``models.heads`` and the upsamplers of
 ``models.upsamplers`` (the non-learnable ones, LiFT, LoftUp and the
-JBU-FeatUp stack). Other options raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+JBU-FeatUp stack), and the RITM maps transform of ``use_rgb_conv``. Other
+options raise ``NotImplementedError`` naming the ROADMAP item that brings
+them. ``forward_masked`` is the forward on the adaptive ZoomIn's canvas.
 
 Call as ``model(image, points)`` with image ``[B, H, W, 3]`` in [0, 1] (plus a
 prev-mask channel when ``with_prev_mask``) and points ``[B, 2N, 3]`` rows of
@@ -23,6 +24,7 @@ import inspect
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from isegprobe_torch import resolve_device
@@ -34,6 +36,7 @@ from isegprobe_torch.models.heads import HEAD_REGISTRY
 from isegprobe_torch.models.upsamplers import UPSAMPLER_REGISTRY
 from isegprobe_torch.models.vit import PatchEmbed
 from isegprobe_torch.ops.dist_maps import encode_clicks
+from isegprobe_torch.ops.dynamic_resize import dyn_resize_2d_batched
 from isegprobe_torch.ops.resize import resize
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -81,6 +84,46 @@ def build_upsampler(utype: str, params: Optional[Dict],
     return cls(**kwargs)
 
 
+class ScaleLayer(nn.Module):
+    """A learned ``|scale|`` multiplier (the JAX package's ``ScaleLayer``,
+    ``lr_mult`` 1): one parameter, ``weight`` ``[1]`` (flax's ``scale``)."""
+
+    def __init__(self, init_value: float = 1.0) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((1,), init_value))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.weight.abs().to(x.dtype)
+
+
+class RITMMapsTransform(nn.Module):
+    """The RITM click-map transform of ``use_rgb_conv``: a 1x1 conv to 16
+    channels, ReLU (or LeakyReLU 0.2), a stride-2 3x3 conv to 64 channels,
+    a :class:`ScaleLayer` (init 0.05). NHWC in and out, in the dtype of its
+    parameters; the output has half the size (rounded up)."""
+
+    def __init__(self, in_chans: int, use_leaky_relu: bool = False) -> None:
+        super().__init__()
+        self.use_leaky_relu = use_leaky_relu
+        self.conv1 = nn.Conv2d(in_chans, 16, 1)
+        self.conv2 = nn.Conv2d(16, 64, 3, stride=2, padding=1)
+        self.scale = ScaleLayer(0.05)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv1(x.permute(0, 3, 1, 2).to(self.conv1.weight.dtype))
+        x = F.leaky_relu(x, 0.2) if self.use_leaky_relu else torch.relu(x)
+        return self.scale(self.conv2(x)).permute(0, 2, 3, 1)
+
+
+def _rect_mask(hw: Tuple[int, int], valid_hw: torch.Tensor) -> torch.Tensor:
+    """``[B, H, W, 1]`` bool: each lane's top-left ``valid_hw`` rect."""
+    dev = valid_hw.device
+    rows = torch.arange(hw[0], device=dev)[None, :, None]
+    cols = torch.arange(hw[1], device=dev)[None, None, :]
+    return ((rows < valid_hw[:, 0, None, None])
+            & (cols < valid_hw[:, 1, None, None]))[..., None]
+
+
 class iSegProbeModel(nn.Module):
     """backbone (+ injected click tokens) -> upsampler -> head.
 
@@ -114,10 +157,6 @@ class iSegProbeModel(nn.Module):
             raise NotImplementedError(
                 f"architecture {architecture!r}: necks are unimplemented in "
                 "the reference too")
-        if use_rgb_conv:
-            raise _unsupported("the RITM maps transform (use_rgb_conv)",
-                               "ROADMAP Queue 1 item 8 (adaptive RITM "
-                               "protocol)")
         if quant is not None:
             raise _unsupported(f"quant={quant!r} (int8 W8A8 serving)",
                                "ROADMAP Queue 1 item 9 (ops/quant.py)")
@@ -162,6 +201,10 @@ class iSegProbeModel(nn.Module):
 
         ec_type, ec = embed_coords_cfg["type"], embed_coords_cfg["params"]
         in_chans = 3 if with_prev_mask else 2
+        self.maps_transform = None
+        if use_rgb_conv:
+            self.maps_transform = RITMMapsTransform(in_chans, use_leaky_relu)
+            in_chans = 64
         if ec_type == "patchEmbed":
             p = ec["patch_size"]
             p = p[0] if isinstance(p, (tuple, list)) else p
@@ -213,8 +256,13 @@ class iSegProbeModel(nn.Module):
             feats = resize(feats, (h, w), "bilinear", align_corners=True)
         return self.head(feats)
 
+    def _embed_coords(self, coord_features: torch.Tensor) -> torch.Tensor:
+        if self.maps_transform is not None:
+            coord_features = self.maps_transform(coord_features)
+        return self.embed_coords(coord_features)
+
     def backbone_forward(self, image, coord_features) -> Dict:
-        coord_tokens = self.embed_coords(coord_features)
+        coord_tokens = self._embed_coords(coord_features)
         feats = self.backbone(image, coord_tokens)
         return {"instances": self._upsample_and_head(feats, image),
                 "instances_aux": None}
@@ -246,7 +294,7 @@ class iSegProbeModel(nn.Module):
         ``forward`` for an ``after_backbone`` model."""
         image, prev_mask = self.prepare_input(image)
         coord_features = self.get_coord_features(image, prev_mask, points)
-        coord_tokens = self.embed_coords(coord_features)
+        coord_tokens = self._embed_coords(coord_features)
         b, gh, gw, c = trunk_feats.shape
         # the add the featurizer performs for 'after_backbone'
         feats = trunk_feats.float() + coord_tokens.reshape(b, gh, gw,
@@ -254,6 +302,47 @@ class iSegProbeModel(nn.Module):
         out = self._upsample_and_head(feats, image)
         h, w = image.shape[1], image.shape[2]
         out = resize(out, (h, w), "bilinear", align_corners=True)
+        return {"instances": out, "instances_aux": None}
+
+    # -- the adaptive canvas's forward -------------------------------------
+
+    def forward_masked(self, image: torch.Tensor, points: torch.Tensor,
+                       valid_hw: torch.Tensor) -> Dict:
+        """The forward on a canvas ``image`` ``[B, Hc, Wc, C]`` whose
+        top-left ``valid_hw`` ``[B, 2]`` rect is valid per lane (the
+        adaptive ZoomIn's data-dependent crop sizes on one shape). Returns
+        canvas logits whose valid rect equals :meth:`forward` on the
+        true-size input: the click maps are zeroed outside the rect (and the
+        RITM transform's output outside its half-size rect) as a true-size
+        input's zero padding would be, the backbone runs
+        ``masked_forward`` on the valid token grid ``valid_hw // patch``,
+        and the head and the final resize follow each lane's rect. Takes
+        the identity and bilinear upsamplers."""
+        if self.upsampler_type not in ("identity", "bilinear"):
+            raise NotImplementedError(
+                f"adaptive-canvas eval supports identity/bilinear "
+                f"upsamplers; got {self.upsampler_type!r}")
+        hc, wc = image.shape[1], image.shape[2]
+        image, prev_mask = self.prepare_input(image)
+        coords = self.get_coord_features(image, prev_mask, points)
+        vhw = valid_hw.long()
+        coords = coords * _rect_mask((hc, wc), vhw).to(coords.dtype)
+        if self.maps_transform is not None:
+            coords = self.maps_transform(coords)
+            half = torch.div(vhw + 1, 2, rounding_mode="floor")
+            coords = coords * _rect_mask(coords.shape[1:3], half).to(
+                coords.dtype)
+        coord_tokens = self.embed_coords(coords)
+        vg = torch.div(vhw, self.backbone.patch_size, rounding_mode="floor")
+        feats = self.backbone.masked_forward(image, coord_tokens, vg)
+        if self.upsampler_type == "bilinear":
+            feats = dyn_resize_2d_batched(feats, vg, vhw, (hc, wc),
+                                          "bilinear", align_corners=True)
+            return {"instances": self.head.masked(feats, vhw),
+                    "instances_aux": None}
+        out = self.head.masked(feats, vg)
+        out = dyn_resize_2d_batched(out, vg, vhw, (hc, wc), "bilinear",
+                                    align_corners=True)
         return {"instances": out, "instances_aux": None}
 
 

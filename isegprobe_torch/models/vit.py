@@ -4,7 +4,8 @@ Counterpart of ``isegprobe_tpu/models/vit.py``: ``PatchEmbed``,
 ``Attention`` (the packed-qkv path), ``Mlp`` with exact GELU, ``LayerScale``,
 ``Block`` and ``ViT`` with the bicubic pos-embed interpolation and its
 exact-size short-circuit, the last block's keys for DINO's key probing, and
-the SimpleViT sin-cos embedding (``posemb_sincos_2d``). The two ported
+the SimpleViT sin-cos embedding (``posemb_sincos_2d``), and the adaptive
+canvas's forward (``ViT.forward_tokens_masked``). The two ported
 trunks differ only in LayerScale, ``ViTConfig``'s one family switch; what
 they share (qkv biases, a cls token, LayerNorm eps 1e-6, MLP ratio 4,
 exact GELU, the '+0.1' pos-embed scale trick) is fixed here. Module and
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from isegprobe_torch.ops.attention import mha_qkv
+from isegprobe_torch.ops.dynamic_resize import dyn_matrix
 from isegprobe_torch.ops.layernorm import layernorm
 from isegprobe_torch.ops.resize import resize
 
@@ -90,9 +92,13 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                key_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """``key_mask`` ``[B, N]``: keys to keep in every softmax (the
+        adaptive canvas's valid tokens), through the plain masked path."""
         dh = x.shape[-1] // self.num_heads
-        out = mha_qkv(self.qkv(x), self.num_heads, scale=dh**-0.5)
+        out = mha_qkv(self.qkv(x), self.num_heads, scale=dh**-0.5,
+                      key_mask=key_mask)
         return self.proj(out)
 
 
@@ -126,8 +132,9 @@ class Block(nn.Module):
         self.mlp = Mlp(d, MLP_RATIO * d)
         self.ls2 = LayerScale(d) if cfg.layerscale else nn.Identity()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.ls1(self.attn(self.norm1(x)))
+    def forward(self, x: torch.Tensor,
+                key_mask: torch.Tensor | None = None) -> torch.Tensor:
+        x = x + self.ls1(self.attn(self.norm1(x), key_mask))
         return x + self.ls2(self.mlp(self.norm2(x)))
 
     def keys(self, x: torch.Tensor) -> torch.Tensor:
@@ -196,10 +203,93 @@ class ViT(nn.Module):
         x = self.norm(x)
         return {"tokens": x, "patch_tokens": x[:, 1:]}
 
+    def dynamic_pos_embed(self, canvas_grid: tuple[int, int],
+                          valid_grid: torch.Tensor) -> torch.Tensor:
+        """The pos-embed interpolated to each lane's token grid
+        (``valid_grid`` ``[B, 2]``), laid out row-major on the canvas grid
+        and zero beyond each lane's rect: :meth:`interpolated_pos_embed` per
+        lane, its raw table where a lane's grid is the pretraining grid,
+        computed in float32 as the JAX package's ``dynamic_pos_embed``.
+        Returns ``[B, 1 + gh_cap·gw_cap, D]``."""
+        c = self.cfg
+        return dynamic_table(self.pos_embed.float()[0], c.pretrain_grid,
+                             canvas_grid, valid_grid)
+
+    def forward_tokens_masked(self, tokens: torch.Tensor,
+                              canvas_grid: tuple[int, int],
+                              valid_grid: torch.Tensor,
+                              return_last_k: bool = False) -> dict:
+        """:meth:`forward_tokens` on a canvas grid whose top-left
+        ``valid_grid`` ``[B, 2]`` rect of tokens is valid per lane: the
+        pos-embed follows each lane's grid and invalid tokens are left out
+        of every softmax, so valid tokens come out as the plain forward of
+        the true-size input gives them. Invalid tokens are zeroed after the
+        pos-embed and carry garbage after it."""
+        b = tokens.shape[0]
+        mask = canvas_token_mask(canvas_grid, valid_grid)
+        cls = self.cls_token.to(tokens.dtype).expand(b, -1, -1)
+        x = torch.cat([cls, tokens], dim=1)
+        x = x + self.dynamic_pos_embed(canvas_grid, valid_grid).to(x.dtype)
+        x = x * mask[..., None].to(x.dtype)
+        blocks = self.blocks[:-1] if return_last_k else self.blocks
+        for blk in blocks:
+            x = blk(x, mask)
+        if return_last_k:
+            return {"last_k": self.blocks[-1].keys(x)}
+        x = self.norm(x)
+        return {"tokens": x, "patch_tokens": x[:, 1:]}
+
     def forward(self, img: torch.Tensor) -> dict:
         p = self.cfg.patch_size
         grid_hw = (img.shape[1] // p, img.shape[2] // p)
         return self.forward_tokens(self.embed_patches(img), grid_hw)
+
+
+def canvas_token_mask(canvas_grid: tuple[int, int],
+                      valid_grid: torch.Tensor) -> torch.Tensor:
+    """``[B, 1 + gh_cap·gw_cap]`` bool: the cls token and each lane's valid
+    ``valid_grid`` ``[B, 2]`` rect of the row-major canvas grid."""
+    gh_cap, gw_cap = canvas_grid
+    dev = valid_grid.device
+    ii = torch.arange(gh_cap, device=dev)[None, :, None]
+    jj = torch.arange(gw_cap, device=dev)[None, None, :]
+    patch = ((ii < valid_grid[:, 0, None, None])
+             & (jj < valid_grid[:, 1, None, None]))
+    cls = torch.ones((valid_grid.shape[0], 1), dtype=torch.bool, device=dev)
+    return torch.cat([cls, patch.flatten(1)], dim=1)
+
+
+def dynamic_table(pe: torch.Tensor, pretrain_grid: tuple[int, int],
+                  canvas_grid: tuple[int, int],
+                  valid_grid: torch.Tensor) -> torch.Tensor:
+    """A position table ``pe`` ``[1 + gh0·gw0, D]`` (float32, cls row
+    first) bicubically interpolated, with the '+0.1' scale trick, to each
+    lane's ``valid_grid`` ``[B, 2]``, laid out on the canvas grid, zero
+    beyond each lane's rect; a lane at the pretraining grid gets the raw
+    table. Returns ``[B, 1 + gh_cap·gw_cap, D]``."""
+    gh0, gw0 = pretrain_grid
+    gh_cap, gw_cap = canvas_grid
+    d = pe.shape[-1]
+    b = valid_grid.shape[0]
+    patch_pe = pe[1:].reshape(gh0, gw0, d)
+    gh, gw = valid_grid[:, 0], valid_grid[:, 1]
+    mr = dyn_matrix(gh0, gh_cap, gh0, gh, "bicubic", False,
+                    (gh.float() + INTERPOLATE_OFFSET) / gh0)
+    mc = dyn_matrix(gw0, gw_cap, gw0, gw, "bicubic", False,
+                    (gw.float() + INTERPOLATE_OFFSET) / gw0)
+    interp = torch.einsum("boh,hwc->bowc", mr, patch_pe)
+    interp = torch.einsum("bpw,bowc->bopc", mc, interp)
+    if gh0 <= gh_cap and gw0 <= gw_cap:
+        # the exact-size short-circuit: the raw table, laid out
+        raw = torch.zeros((gh_cap, gw_cap, d), dtype=torch.float32,
+                          device=pe.device)
+        raw[:gh0, :gw0] = patch_pe
+        same = (gh == gh0) & (gw == gw0)
+        interp = torch.where(same[:, None, None, None], raw, interp)
+    valid = canvas_token_mask(canvas_grid, valid_grid)[:, 1:]
+    patch = torch.where(valid[..., None],
+                        interp.reshape(b, gh_cap * gw_cap, d), 0.0)
+    return torch.cat([pe[:1].expand(b, 1, d), patch], dim=1)
 
 
 @functools.lru_cache(maxsize=32)

@@ -25,6 +25,14 @@ package's ``_mha_qkv_pallas_ad``: kernel forward, backward through the
 plain version (the JAX ``custom_vjp`` recomputes ``_mha_qkv_jnp``). Kernel
 D has no backward yet and raises under autograd on CUDA (LoftUp training,
 ROADMAP Queue 2 A item 2).
+
+``mha_qkv(..., key_mask=...)`` is the adaptive canvas's self-attention:
+keys outside each lane's valid tokens are left out of every softmax. The
+JAX package always runs it as its jnp computation (``_mha_qkv_jnp``),
+never through a Pallas kernel, so it is plain PyTorch here on every device
+and launches nothing that is counted. Kernel A masks a suffix of keys
+(``n_valid``), while the canvas's valid tokens form a row-major rectangle;
+a key mask for A is ROADMAP Queue 2.
 """
 
 from __future__ import annotations
@@ -114,15 +122,18 @@ def _launch_plan(plan, b: int, n: int, heads: int, dh: int,
     return q_tile, aligned
 
 
-def _mha_qkv_plain(qkv: torch.Tensor, num_heads: int,
-                   scale: float) -> torch.Tensor:
+def _mha_qkv_plain(qkv: torch.Tensor, num_heads: int, scale: float,
+                   key_mask: torch.Tensor | None = None) -> torch.Tensor:
     """The same function in plain PyTorch, with the JAX reference's rounding
     (``_mha_jnp``): f32 scores and softmax, probabilities cast to the input
-    dtype before PV, f32 accumulation, output in the input dtype."""
+    dtype before PV, f32 accumulation, output in the input dtype. Keys with
+    ``key_mask`` ``[B, N]`` false get a -1e30 bias in the softmax."""
     b, n, three_c = qkv.shape
     c = three_c // 3
     q, k, v = qkv.reshape(b, n, 3, num_heads, c // num_heads).unbind(2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if key_mask is not None:
+        s = s + torch.where(key_mask.bool(), 0.0, -1e30)[:, None, None, :]
     p = torch.softmax(s, dim=-1).to(v.dtype).float()
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return out.to(qkv.dtype).reshape(b, n, c)
@@ -190,16 +201,18 @@ class AttentionKernel(torch.autograd.Function):
 
 
 def mha_qkv(qkv: torch.Tensor, num_heads: int, scale: float | None = None,
-            plan: tuple[int, bool] | None = None) -> torch.Tensor:
+            plan: tuple[int, bool] | None = None,
+            key_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Self-attention over a packed ``[B, N, 3·C]`` qkv tensor -> ``[B, N, C]``
     (q, k, v at column offsets 0, C, 2C; ``num_heads`` heads of C/num_heads).
     ``plan`` = ``(q_tile, aligned)`` overrides :func:`_plan` on the card
-    (both tiles and both load paths are checked that way)."""
+    (both tiles and both load paths are checked that way). ``key_mask``
+    ``[B, N]`` (keys to keep) takes the plain masked path on every device."""
     dh = qkv.shape[-1] // 3 // num_heads
     if scale is None:
         scale = dh**-0.5
-    if qkv.device.type == "cpu":
-        return _mha_qkv_plain(qkv, num_heads, scale)
+    if qkv.device.type == "cpu" or key_mask is not None:
+        return _mha_qkv_plain(qkv, num_heads, scale, key_mask)
     if qkv.device.type != "cuda":
         raise ValueError(f"mha_qkv runs on cpu or cuda, not {qkv.device}")
     if torch.is_grad_enabled() and qkv.requires_grad:

@@ -295,10 +295,11 @@ def test_evaluate_cli_arguments():
     assert cfg["target_iou"] == 0.9 and cfg["clicks_limit"] == 5
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         parse_args(["checkpoint=x", "iou_analysis=true"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        parse_args(["checkpoint=x", "device_refill=true"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        parse_args(["checkpoint=x", "eval_mode=cvpr"])
+    # continuous batching and the cvpr mode are ported
+    cfg = parse_args(["checkpoint=x", "device_refill=true", "device_batch=3"])
+    assert cfg["device_refill"] and cfg["group_max_jobs"] == 0
+    cfg = parse_args(["checkpoint=x", "eval_mode=cvpr"])
+    assert cfg["zoomin"] == {"skip_clicks": -1, "target_size": (448, 448)}
     with pytest.raises(NotImplementedError, match="quant"):
         parse_args(["checkpoint=x", "dtype=int8"])
     with pytest.raises(ValueError, match="unknown key"):

@@ -212,9 +212,10 @@ def test_unported_options_and_devices_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_device_evaluator(model, batch_size=8, mesh=object(),
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_device_evaluator(model, batch_size=8, group_api=True,
-                              device="cpu")
+    # continuous batching is ported: group_api gives the job queue
+    group = make_device_evaluator(model, batch_size=8, group_api=True,
+                                  device="cpu")
+    assert group.batch_size == 8 and group.protocol.batch_size == 8
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_device_evaluator(model)

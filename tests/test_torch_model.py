@@ -205,10 +205,13 @@ def test_unported_configs_raise():
             dict(upsampler_cfg=dict(type="loftup",
                                     params=dict(mxu_pad=True))),
             dict(fuse_hr_head=True),
-            dict(quant="int8"),
-            dict(use_rgb_conv=True)):
+            dict(quant="int8")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             iSegProbeModel(**{**cfg, **override}, device="cpu")
+    # the RITM maps transform is ported
+    model = iSegProbeModel(**cfg, use_rgb_conv=True, device="cpu")
+    assert model.maps_transform is not None
+    assert model.embed_coords.proj.in_channels == 64
 
 
 def test_entry_points_need_a_gpu_or_an_explicit_cpu():
