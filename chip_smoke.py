@@ -81,7 +81,7 @@ does not hold:
     checkpoint (its missing upsampler_path must warn) through the f32 loop
     on the fixture's 2 objects and 4 clicks against JAX's, with no object
     differing (every step 1 C, 12 A, 82 B and 14 D), and timed on the first
-    8 objects at the family loop's 4 lanes and 8 clicks (a report, every
+    4 objects at the family loop's 4 lanes and 8 clicks (a report, every
     step launching the same). Kernels A, B, C and D are also checked at these
     paths' shapes: A and B in bf16 at the B=16 loop's forward batch 32, B
     at LoftUp's widths (404 on the slab and key rows, 203 on the stem, 384
@@ -99,8 +99,9 @@ does not hold:
     of exact items printed); the full-width step from ``init_tree(config,
     0)`` on that batch at num_iters=0, twice: losses within 1e-5 of JAX's
     and every trainable leaf's sum, L2 norm and first 16 values within
-    tolerance of JAX's, with a profiler split of one step; one epoch of
-    320 items (40 steps at B=8, 0-3 simulated clicks) with validation
+    tolerance of JAX's, with a profiler split of one step; an epoch of
+    160 items (20 steps at B=8, 0-3 simulated clicks; the command line's
+    epoch is 320 items, cut to make room for phase 11f) with validation
     through the command line's trainer: every step launching exactly
     (1 + num_iters) × (12 A + 25 B) + num_iters C, median ms a step, data
     wait, the first and last 10 steps' mean loss, and the checkpoint read
@@ -155,6 +156,33 @@ does not hold:
     on 4 lanes, 7 jobs, clicking as its lockstep loop, with the refilled
     lanes' poisoned trunk recomputed (launches: the click encoder's 6 A +
     15 B a step, the trunk's 12 A + 25 B a recompute, 1 C a step);
+11f. family_training, training the other Synthetic probes (main paths
+    37-51, ``python -m isegprobe_torch.train model=synthetic_<script>``
+    for every script of ``models/synthetic/``): (a) kernels D and E under
+    autograd at the 224² train step's shapes (D: q [8, 50176, 4, 101]
+    against k, v [8, 256, 4, 101]; E: hr [8, 2^k·16, 2^k·16, 384] at the
+    four JBU stages): the forward with grad equal to the no-grad kernel
+    bitwise with one launch, every input's gradient within 1e-5 of its
+    scale of autograd through the plain version, forward + backward timed
+    beside the plain version's (and SDPA's for D) with the peak memory of
+    each; (b) the full-width LoftUp and JBU steps from ``init_tree(config,
+    0)`` on the first items of the train-step fixture at num_iters=0,
+    twice, against the JAX steps in ``isegprobe_torch/fixtures/
+    synthetic_train_step_families.npz`` (losses within 1e-5 relative,
+    leaves within 11c's tolerances, exactly 2 × (12 A + 34 B + 2 D) or
+    2 × (12 A + 25 B + 4 E) launches, the click encoder's gradient
+    non-zero), with ms a step, peak memory and a profiler split of a step
+    with 2 clicks; (c) four steps of each through the command line's
+    trainer with 0-3 clicks and two validation steps, every step
+    launching exactly (1 + num_iters) × its forward's kernels + num_iters
+    C, and the checkpoint read back by ``load_model_for_eval`` at 518²
+    within 1e-5 of the logit scale; (d) one LoftUp step at 448², batch 8,
+    its 7 slabs of 64 rows checkpointed: 12 A + 82 B + 14 D forward and
+    56 B + 14 D recomputed in the backward, peak memory printed; (e) two
+    command-line steps each of ``vit_noup``, ``maskclip_noup``,
+    ``dinov2_simplevit`` and ``dinov2_lift``, launches checked as in (c),
+    the checkpoints read back (DINOv2 at 518², the DINO probe and
+    MaskCLIP at 224²);
 12. the learned-upsampler families, LoftUp and JBU-FeatUp on DINOv2-S/14 at
     448² (drawn, calibrated): kernels D (cross-attention, f32 and bf16, at
     every tile and load path as A) and E (JBU filter; also at the edges of
@@ -181,8 +209,9 @@ does not hold:
     line), with every counter set to 0 just before and read just after, and
     each variant's kernel launched exactly as often as the sweep calls it;
 14. print the ``{"kernels": [...]}`` line (kernels A-G, launches by path,
-    the training and other-backbone paths among them, A and B with their
-    autograd times and their times at the other backbones' shapes,
+    the training and other-backbone paths among them, A, B, D and E with
+    their forward + backward times at the train steps' shapes (D also
+    SDPA's), A and B with their times at the other backbones' shapes,
     the flash core named beside A, D, F and G,
     the flagship's and LoftUp's bf16 forwards among the paths; A, F and G
     also in bf16 at the sweep's shape, D at the LoftUp loop's; A and D with
@@ -308,9 +337,9 @@ TRAINED_SCENE = 256
 TRAINED_HOST_OBJECTS = 8
 TRAINED_LOFTUP_OBJECTS = 2
 TRAINED_LOFTUP_CLICKS = 4
-# the timed LoftUp loop's objects: the first 8 of the 78 (all 78 took
-# 122 s of the run, the first 16 25 s)
-TRAINED_LOFTUP_TIMED_OBJECTS = 8
+# the timed LoftUp loop's objects: the first 4 of the 78 (all 78 took
+# 122 s of the run, the first 16 25 s, the first 8 12.7 s)
+TRAINED_LOFTUP_TIMED_OBJECTS = 4
 TRAINED_MAX_DIVERGED = 2
 TRAINED_NOC_TOL = 0.05
 # the trained bf16 loops' NoC@80/85/90 against the JAX f32 results: bf16
@@ -365,7 +394,7 @@ REFILL_FAMILY_JOBS = 7
 
 # training (isegprobe_torch/train.py, models/synthetic/dinov2_noup.py):
 # the JAX items and train step stored in the fixture, the step's shapes
-# (batch 8 at 224²: 257 tokens), one epoch of 320 items with 4 loader
+# (batch 8 at 224²: 257 tokens), an epoch of 160 items with 4 loader
 # threads, and the gates: gradients of A and B under autograd against
 # autograd through the plain version (the backward is that plain version
 # recomputed: equal but for the forward's rounding, 1e-5 of the gradient
@@ -379,7 +408,7 @@ TRAIN_FIXTURE = (Path(__file__).resolve().parent / "isegprobe_torch"
                  / "fixtures" / "synthetic_train_step.npz")
 TRAIN_BATCH = 8
 TRAIN_CROP = 224
-TRAIN_STEPS = 40
+TRAIN_STEPS = 20
 TRAIN_WORKERS = 4
 TRAIN_GRAD_TOL = 1e-5
 TRAIN_IMAGE_TOL = {"grey_levels": 1, "pixel_share": 1e-3}
@@ -390,6 +419,40 @@ TRAIN_DIGEST_ATOL = 2.5e-4
 TRAIN_FLIPS = 10
 TRAIN_READBACK = 518
 TRAIN_READBACK_TOL = 1e-5
+
+# training the other Synthetic probes (phase 11f: isegprobe_torch/train.py
+# with every script of models/synthetic/): the JAX train steps stored in
+# the families' fixture (on the first FIXTURE items of the train-step
+# fixture's batch), what one forward of each family's 224² probe launches
+# (LoftUp runs its 50,176 query pixels whole, under its 120,000 threshold:
+# its input ChannelNorm, the stem's norm, 2 layers of 3 norms and one D,
+# the transformer's final norm), the command-line runs' items, and
+# LoftUp's banded step at 448²: 7 slabs of 64 rows, each recomputed in the
+# backward (its 8 B and 2 D launched again). The gates are phase 11c's:
+# D and E under autograd as A and B (1e-5 of the gradient scale), the
+# steps' losses and leaves as tests/test_torch_training.py holds them, the
+# checkpoints read back within 1e-5 of the logit scale
+FAMILY_FIXTURE = (Path(__file__).resolve().parent / "isegprobe_torch"
+                  / "fixtures" / "synthetic_train_step_families.npz")
+FAMILY_TRAIN_LAUNCHES = {
+    "dinov2_loftup": {"mha_qkv": 12, "layernorm": 25 + 1 + 8, "mha": 2},
+    "dinov2_jbu": FORWARD_LAUNCHES["jbu_featup"],
+    **OTHER_FORWARD_LAUNCHES,
+}
+FAMILY_GRID = TRAIN_CROP // 14  # 16² DINOv2 tokens at 224²
+FAMILY_CLI_ITEMS = 32  # four steps at batch 8
+FAMILY_CLI_VAL_ITEMS = 16
+OTHER_CLI_ITEMS = 16  # two steps
+OTHER_CLI_VAL_ITEMS = 8
+BANDED_SIZE = 448
+BANDED_BATCH = 8
+BANDED_RECOMPUTE = {"layernorm": 7 * 8, "mha": 7 * 2}
+# read back where neither side resizes a pos-embed: DINOv2's pretraining
+# grid (37² at 518²), the DINO trunk's (14² at 224²); MaskCLIP resizes its
+# table on every forward
+FAMILY_READBACK = {"dinov2_loftup": 518, "dinov2_jbu": 518,
+                   "dinov2_lift": 518, "dinov2_simplevit": 518,
+                   "vit_noup": 224, "maskclip_noup": 224}
 
 
 def fail(msg: str):
@@ -2224,66 +2287,6 @@ def ritm_and_refill_phase(torch, cuda, shared: dict) -> dict:
     return res
 
 
-def autograd_case(torch, module, name: str, shape, seed: int) -> dict:
-    """Kernel A or B under autograd at a training shape (f32): the forward
-    with grad equals the no-grad kernel output bitwise and launches exactly
-    one kernel; the gradients equal autograd through the plain version
-    within TRAIN_GRAD_TOL; forward + backward timed beside the plain
-    version's."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    if name == "mha_qkv":
-        heads = shape[-1] // 3 // 64
-        inputs = [torch.randn(shape, generator=g, device="cuda")]
-
-        def kernel(*ts):
-            return module.mha_qkv(ts[0], heads)
-
-        def plain(*ts):
-            return module._mha_qkv_plain(ts[0], heads, 64**-0.5)
-    else:
-        d = shape[-1]
-        inputs = [torch.randn(shape, generator=g, device="cuda") * 3 + 1,
-                  torch.randn(d, generator=g, device="cuda") * 0.5 + 1,
-                  torch.randn(d, generator=g, device="cuda")]
-
-        def kernel(*ts):
-            return module.layernorm(*ts, 1e-6)
-
-        def plain(*ts):
-            return module._ln_plain(*ts, 1e-6)
-    wrapper = kernel_wrappers()[name]
-    with torch.no_grad():
-        ref = kernel(*inputs)
-    ts = [t.clone().requires_grad_(True) for t in inputs]
-    before = wrapper.launches
-    out = kernel(*ts)
-    launched = wrapper.launches - before
-    bitwise = bool(torch.equal(out.detach(), ref))
-    cot = torch.randn(out.shape, generator=g, device="cuda")
-    out.backward(cot)
-    refs = [t.clone().requires_grad_(True) for t in inputs]
-    plain(*refs).backward(cot)
-    errs = []
-    for t, r in zip(ts, refs):
-        scale = float(r.grad.abs().max())
-        errs.append(float((t.grad - r.grad).abs().max()) / max(scale, 1e-30))
-    ok = bitwise and launched == 1 and max(errs) <= TRAIN_GRAD_TOL
-
-    def fwd_bwd(fn):
-        xs = [t.detach().requires_grad_(True) for t in inputs]
-        fn(*xs).backward(cot)
-
-    rec = {"kernel": name, "shape": list(shape), "dtype": "float32",
-           "autograd": True, "forward_bitwise": bitwise,
-           "launches_per_forward": launched, "grad_rel_err": errs,
-           "grad_tol": TRAIN_GRAD_TOL, "ok": ok}
-    rec["fwd_bwd_ms"], _ = time_ms(torch, lambda: fwd_bwd(kernel),
-                                   reps=10, rounds=3, graph=False)
-    rec["plain_fwd_bwd_ms"], _ = time_ms(torch, lambda: fwd_bwd(plain),
-                                         reps=10, rounds=3, graph=False)
-    return rec
-
-
 def digest(tree, prefix="") -> dict:
     """Per leaf of a flax-named param tree: sum, L2 norm and the first 16
     values (NaN past a smaller leaf's end), float64 (the fixture's)."""
@@ -2300,21 +2303,181 @@ def digest(tree, prefix="") -> dict:
     return out
 
 
+def readback_error(torch, model, ckpt: Path, size: int) -> float:
+    """The checkpoint read back as evaluate.py reads it
+    (``load_model_for_eval`` at ``size``²): the largest difference of its
+    logits from ``model``'s on a seeded image with a positive and a
+    negative click, over their scale."""
+    import warnings
+
+    from isegprobe_torch.evaluate import load_model_for_eval
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # LoftUp's missing upsampler_path
+        loaded, _ = load_model_for_eval(str(ckpt), torch.float32,
+                                        (size, size))
+    g = torch.Generator(device="cuda").manual_seed(75)
+    image = torch.rand((1, size, size, 4), generator=g, device="cuda")
+    pts = torch.full((1, 48, 3), -1.0, device="cuda")
+    pts[0, 0] = torch.tensor([size * 200 // 518, size * 300 // 518, 0.0])
+    pts[0, 24] = torch.tensor([size * 50 // 518, size * 60 // 518, 1.0])
+    with torch.no_grad():
+        want = model(image, pts)["instances"]
+        got = loaded(image, pts)["instances"]
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def cli_epoch(torch, name: str, per_forward: dict, readback: int,
+              argv=()) -> tuple:
+    """One epoch with validation through the trainer of ``python -m
+    isegprobe_torch.train model=synthetic_<name>`` (``argv`` appended):
+    every step launches exactly (1 + num_iters) × ``per_forward`` +
+    num_iters C, the losses are finite, and the checkpoint read back at
+    ``readback``² gives the trainer's logits within TRAIN_READBACK_TOL of
+    their scale. Returns (trainer, record)."""
+    import tempfile
+
+    from isegprobe_torch import train as train_cli
+
+    per_step = {"train": [], "val": []}
+
+    def on_step(kind, index, num_iters):
+        got = counters()
+        want = expected(**{k: v * (1 + num_iters)
+                           for k, v in per_forward.items()},
+                        edt_row_envelope=num_iters)
+        if got != want:
+            fail(f"{name} {kind} step {index} (num_iters {num_iters}) "
+                 f"launched {got}, expected {want}")
+        per_step[kind].append(got)
+        zero_counters()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = train_cli.parse_args([
+            f"model=synthetic_{name}", "training_params.epochs=1",
+            f"dataloader.workers={TRAIN_WORKERS}", f"exp_path={tmp}",
+            *argv])
+        t0 = time.time()
+        trainer = train_cli.build_trainer(cfg, on_step=on_step)
+        build_s = time.time() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        t0 = time.time()
+        trainer.run(1, validation=True)
+        wall = time.time() - t0
+        trainer.shutdown()
+        peak = torch.cuda.max_memory_allocated()
+        st = trainer.stats
+        steps = cfg["epoch_len"] // cfg["dataloader.batch_size"]
+        if len(st["num_iters"]) != steps:
+            fail(f"{name}: the epoch ran {len(st['num_iters'])} steps, "
+                 f"expected {steps}")
+        losses = st["loss"]
+        if not np.isfinite(losses).all():
+            fail(f"{name}: non-finite training losses {losses}")
+        err = readback_error(torch, trainer.model, Path(tmp) / "checkpoints"
+                             / "last_checkpoint.ckpt", readback)
+        if not err <= TRAIN_READBACK_TOL:
+            fail(f"{name}: the checkpoint read back gives logits {err} of "
+                 f"the logit scale from the trainer's model")
+    wait = np.asarray(st["data_wait_s"]) * 1e3
+    return trainer, {
+        "model": name, "steps": steps, "workers": TRAIN_WORKERS,
+        "wall_s": wall, "build_s": build_s,
+        "ms_per_step_median": 1e3 * float(np.median(st["step_wall_s"])),
+        "device_ms_per_step_median": float(np.median(st["step_device_ms"])),
+        "data_wait_ms_median": float(np.median(wait)),
+        "data_wait_ms_mean": float(wait.mean()),
+        "peak_memory_mb": peak / 2**20, "num_iters": st["num_iters"],
+        "loss_first10": float(np.mean(losses[:10])),
+        "loss_last10": float(np.mean(losses[-10:])),
+        "val_loss": getattr(trainer, "val_loss", None),
+        "val_steps": len(per_step["val"]),
+        "launches": {kind: {k: sum(c[k] for c in per_step[kind])
+                            for k in KERNELS} for kind in per_step},
+        "readback_size": readback, "readback_rel_err": err}
+
+
+def step_vs_jax(torch, name: str, batch_np: dict, want_losses,
+                digest_names, digests, per_forward: dict) -> tuple:
+    """The full-width 224² step of ``models/synthetic/<name>.py`` through
+    the command line's trainer, from ``init_tree(config, 0)`` on the
+    fixture's items ``batch_np`` at num_iters=0, twice:
+    exactly 2 × ``per_forward`` launches, the losses within
+    TRAIN_LOSS_RTOL of JAX's and every trainable leaf's digest within
+    tests/test_torch_training.py's tolerances, the click encoder's gradient
+    non-zero. Returns (trainer, batch on the card, record)."""
+    import warnings
+
+    from isegprobe_torch import train as train_cli
+
+    t0 = time.time()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # LoftUp's missing upsampler_path
+        trainer = train_cli.build_trainer(train_cli.parse_args(
+            [f"model=synthetic_{name}", "dataloader.workers=0"]))
+    init_s = time.time() - t0
+    batch = trainer._upload({k: batch_np[k] for k in ("images", "points",
+                                                      "instances")})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    losses = [float(trainer._step(batch, 0)[0])]
+    ev[1].record()
+    losses.append(float(trainer._step(batch, 0)[0]))
+    ev[2].record()
+    torch.cuda.synchronize()
+    step_launches = counters()
+    if step_launches != expected(**{k: 2 * v for k, v in
+                                    per_forward.items()}):
+        fail(f"{name}: two train steps launched {step_launches}")
+    grad_norm = float(torch.stack([
+        p.grad.norm() for n, p in trainer.model.named_parameters()
+        if n.startswith("embed_coords.") and p.grad is not None]).norm())
+    if not grad_norm > 0:
+        fail(f"{name}: the click encoder's gradient is zero")
+    dig = digest(trainer.full_params(("embed_coords", "head")))
+    loss_err = float(np.max(np.abs(np.asarray(losses) / want_losses - 1)))
+    digest_err = {}
+    for key, want in zip(digest_names, digests):
+        got = dig[str(key)]
+        tol_sum = TRAIN_DIGEST_RTOL * want[1] + TRAIN_FLIPS * 4.4 * TRAIN_LR
+        e_sum = float(np.abs(got[:2] - want[:2]).max())
+        e_first = float(np.nanmax(np.abs(got[2:] - want[2:])))
+        digest_err[str(key)] = {"sum_l2": e_sum, "sum_l2_tol": tol_sum,
+                                "first16": e_first}
+        if e_sum > tol_sum or e_first > TRAIN_DIGEST_ATOL or not \
+                np.array_equal(np.isnan(got), np.isnan(want)):
+            fail(f"{name}: trainable leaf {key} after two steps differs "
+                 f"from JAX's: {digest_err[str(key)]}")
+    if loss_err > TRAIN_LOSS_RTOL:
+        fail(f"{name}: train step losses {losses} differ from JAX's "
+             f"{list(want_losses)} by {loss_err} > {TRAIN_LOSS_RTOL}")
+    return trainer, batch, {
+        "model": name, "batch": int(batch["images"].shape[0]),
+        "losses": losses, "jax_cpu_losses": [float(v) for v in want_losses],
+        "loss_rel_err": loss_err, "digests": digest_err,
+        "init_tree_s": init_s, "launches": step_launches,
+        "step_ms": [ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])],
+        "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
+        "click_encoder_grad_norm": grad_norm}
+
+
 def training_phase(torch) -> dict:
     """Main paths of training (``isegprobe_torch.train``): (a) kernels A
     and B under autograd at the train step's shapes; (b) the Synthetic
     training items built without OpenCV against the JAX items of
     ``isegprobe_torch/fixtures/synthetic_train_step.npz``; (c) the
     full-width step from ``init_tree(config, 0)`` on that batch against
-    JAX's loss and trainable leaves after two Adam steps; (d) one epoch of
-    320 items through the command line's trainer, with validation, every
+    JAX's loss and trainable leaves after two Adam steps; (d) an epoch of
+    160 items through the command line's trainer, with validation, every
     step's launches checked, and the checkpoint read back by
     ``isegprobe_torch.evaluate.load_model_for_eval``. Returns the records,
     the path launches and the kernel checks at the step's shapes."""
-    import tempfile
-
     from isegprobe_torch import train as train_cli
-    from isegprobe_torch.evaluate import load_model_for_eval
     from isegprobe_torch.ops import attention, edt, layernorm
     from isegprobe_torch.scripts import bench_edt
 
@@ -2331,10 +2494,10 @@ def training_phase(torch) -> dict:
     checks.append(edt_case(torch, edt, bench_edt.column_input(
         "clicker", (b, 2, TRAIN_CROP + 2, TRAIN_CROP + 2), torch.device(
             "cuda"), seed=72), "clicker"))
-    grads = [autograd_case(torch, attention, "mha_qkv", (b, n_tok, 1152),
-                           73),
-             autograd_case(torch, layernorm, "layernorm", (b, n_tok, 384),
-                           74)]
+    grads = [autograd_case(torch, F, "mha_qkv", (b, n_tok, 1152), 73,
+                           reps=10),
+             autograd_case(torch, F, "layernorm", (b, n_tok, 384), 74,
+                           reps=10)]
     for g in grads:
         print("train_autograd", json.dumps(g))
     if not all(g["ok"] for g in grads):
@@ -2370,43 +2533,14 @@ def training_phase(torch) -> dict:
     res["data"] = data
 
     # (c) the full-width step against JAX's, from init_tree(config, 0)
-    t0 = time.time()
-    trainer = train_cli.build_trainer(train_cli.parse_args(
-        ["model=synthetic_dinov2_noup", "dataloader.workers=0"]))
-    init_s = time.time() - t0
-    batch = trainer._upload({k: fx[k] for k in ("images", "points",
-                                                 "instances")})
-    torch.cuda.synchronize()
-    zero_counters()
-    losses = [float(trainer._step(batch, 0)[0]) for _ in range(2)]
-    step_launches = counters()
-    if step_launches != expected(**{k: 2 * v for k, v in
-                                    FORWARD_LAUNCHES["flagship"].items()}):
-        fail(f"two train steps launched {step_launches}")
-    dig = digest(trainer.full_params(("embed_coords", "head")))
-    loss_err = float(np.max(np.abs(np.asarray(losses) / fx["losses"] - 1)))
-    digest_err = {}
-    for name, want in zip(fx["digest_names"], fx["digests"]):
-        got = dig[str(name)]
-        tol_sum = TRAIN_DIGEST_RTOL * want[1] + TRAIN_FLIPS * 4.4 * TRAIN_LR
-        e_sum = float(np.abs(got[:2] - want[:2]).max())
-        e_first = float(np.nanmax(np.abs(got[2:] - want[2:])))
-        digest_err[str(name)] = {"sum_l2": e_sum, "sum_l2_tol": tol_sum,
-                                 "first16": e_first}
-        if e_sum > tol_sum or e_first > TRAIN_DIGEST_ATOL or not np.array_equal(
-                np.isnan(got), np.isnan(want)):
-            fail(f"trainable leaf {name} after two steps differs from "
-                 f"JAX's: {digest_err[str(name)]}")
-    if loss_err > TRAIN_LOSS_RTOL:
-        fail(f"train step losses {losses} differ from JAX's "
-             f"{list(fx['losses'])} by {loss_err} > {TRAIN_LOSS_RTOL}")
-    step = {"losses": losses, "jax_cpu_losses": [float(v) for v in
-                                                 fx["losses"]],
-            "loss_rel_err": loss_err, "digests": digest_err,
-            "init_tree_s": init_s, "launches": step_launches}
+    trainer, batch, step = step_vs_jax(
+        torch, "dinov2_noup", fx, fx["losses"], fx["digest_names"],
+        fx["digests"], FORWARD_LAUNCHES["flagship"])
+    step_launches = step["launches"]
     print("train_step_vs_jax", json.dumps(step))
-    print(f"full-width train step: losses {losses} (JAX on the CPU "
-          f"{[float(v) for v in fx['losses']]}), max rel err {loss_err:.2e}")
+    print(f"full-width train step: losses {step['losses']} (JAX on the CPU "
+          f"{step['jax_cpu_losses']}), max rel err "
+          f"{step['loss_rel_err']:.2e}")
     res["step_vs_jax"] = step
     # where a step's time goes: one step with two simulated clicks under
     # torch.profiler (device time by kernel group, device-busy share)
@@ -2419,88 +2553,306 @@ def training_phase(torch) -> dict:
     del trainer
 
     # (d) one epoch through the command line's trainer, with validation
-    per_step = {"train": [], "val": []}
-
-    def on_step(kind, index, num_iters):
-        got = counters()
-        want = expected(mha_qkv=12 * (1 + num_iters),
-                        layernorm=25 * (1 + num_iters),
-                        edt_row_envelope=num_iters)
-        if got != want:
-            fail(f"{kind} step {index} (num_iters {num_iters}) launched "
-                 f"{got}, expected {want}")
-        per_step[kind].append(got)
-        zero_counters()
-
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = train_cli.parse_args([
-            "model=synthetic_dinov2_noup", "training_params.epochs=1",
-            f"dataloader.workers={TRAIN_WORKERS}", f"exp_path={tmp}"])
-        t0 = time.time()
-        trainer = train_cli.build_trainer(cfg, on_step=on_step)
-        build_s = time.time() - t0
-        torch.cuda.synchronize()
-        zero_counters()
-        t0 = time.time()
-        trainer.run(1, validation=True)
-        wall = time.time() - t0
-        trainer.shutdown()
-        launches = {kind: {k: sum(c[k] for c in per_step[kind])
-                           for k in KERNELS} for kind in per_step}
-        st = trainer.stats
-        if len(st["num_iters"]) != TRAIN_STEPS:
-            fail(f"the epoch ran {len(st['num_iters'])} steps, expected "
-                 f"{TRAIN_STEPS}")
-        losses = st["loss"]
-        if not np.isfinite(losses).all():
-            fail(f"non-finite training losses {losses}")
-        # the checkpoint, read back as evaluate.py reads it: at 518² the
-        # pos-embed grid is the pretraining one, so neither side resizes it
-        ckpt = Path(tmp) / "checkpoints" / "last_checkpoint.ckpt"
-        model, _ = load_model_for_eval(str(ckpt), torch.float32,
-                                       (TRAIN_READBACK, TRAIN_READBACK))
-        g = torch.Generator(device="cuda").manual_seed(75)
-        image = torch.rand((1, TRAIN_READBACK, TRAIN_READBACK, 4),
-                           generator=g, device="cuda")
-        pts = torch.full((1, 48, 3), -1.0, device="cuda")
-        pts[0, 0] = torch.tensor([200.0, 300.0, 0.0])
-        pts[0, 24] = torch.tensor([50.0, 60.0, 1.0])
-        with torch.no_grad():
-            want = trainer.model(image, pts)["instances"]
-            got = model(image, pts)["instances"]
-        scale = float(want.abs().max())
-        readback_err = float((got - want).abs().max()) / scale
-        if not readback_err <= TRAIN_READBACK_TOL:
-            fail(f"the checkpoint read back gives logits {readback_err} of "
-                 f"the logit scale from the trainer's model")
-    wait = np.asarray(st["data_wait_s"]) * 1e3
-    epoch = {"steps": TRAIN_STEPS, "workers": TRAIN_WORKERS, "wall_s": wall,
-             "build_s": build_s,
-             "ms_per_step_median": 1e3 * float(np.median(st["step_wall_s"])),
-             "device_ms_per_step_median": float(np.median(
-                 st["step_device_ms"])),
-             "data_wait_ms_median": float(np.median(wait)),
-             "data_wait_ms_mean": float(wait.mean()),
-             "num_iters": st["num_iters"],
-             "loss_first10": float(np.mean(losses[:10])),
-             "loss_last10": float(np.mean(losses[-10:])),
-             "val_loss": getattr(trainer, "val_loss", None),
-             "val_steps": len(per_step["val"]),
-             "launches": launches, "readback_rel_err": readback_err}
+    _, epoch = cli_epoch(torch, "dinov2_noup",
+                         FORWARD_LAUNCHES["flagship"], TRAIN_READBACK,
+                         [f"epoch_len={TRAIN_STEPS * TRAIN_BATCH}"])
+    if epoch["steps"] != TRAIN_STEPS:
+        fail(f"the epoch ran {epoch['steps']} steps, expected {TRAIN_STEPS}")
+    launches = epoch["launches"]
     print("train_epoch", json.dumps(epoch))
-    print(f"training epoch: {TRAIN_STEPS} steps in {wall:.2f} s, median "
-          f"{epoch['ms_per_step_median']:.2f} ms a step (device "
+    print(f"training epoch: {TRAIN_STEPS} steps in {epoch['wall_s']:.2f} s, "
+          f"median {epoch['ms_per_step_median']:.2f} ms a step (device "
           f"{epoch['device_ms_per_step_median']:.2f} ms), data wait "
           f"median {epoch['data_wait_ms_median']:.2f} ms; loss first 10 "
           f"{epoch['loss_first10']:.4f}, last 10 "
           f"{epoch['loss_last10']:.4f}; checkpoint read back within "
-          f"{readback_err:.2e} of the logit scale")
+          f"{epoch['readback_rel_err']:.2e} of the logit scale")
     res["epoch"] = epoch
     res["path_launches"] = {
         "train_step_vs_jax": step_launches,
         "train_epoch": launches["train"],
         "train_validation": launches["val"]}
     res["checks"] = checks + grads
+    return res
+
+
+def peak_mb(torch, fn) -> float:
+    """Device memory ``fn`` allocates at its peak beyond what was
+    allocated before it, in MiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def autograd_case(torch, F, name: str, shape, seed: int,
+                  reps: int = 1) -> dict:
+    """Kernel A, B, D or E under autograd at a training shape (f32): the
+    forward with grad equals the no-grad kernel output bitwise with one
+    launch, and the plain version's within the f32 tolerance (E's scaled by
+    max |hr|, as in :func:`jbu_case`): the check that holds the kernel at
+    this shape; every input's gradient (qkv; x, weight, bias; q, k, v; hr,
+    proj, temp, sigma) equals autograd through the plain version within
+    TRAIN_GRAD_TOL of its scale. The backward is the plain version's VJP by
+    design, so that gate holds the Function's plumbing (which input gets
+    which gradient, in which dtype), not the kernel. Forward + backward
+    timed (eager, CUDA events, ``reps`` calls a round) beside the plain
+    version's and, for D, SDPA's (a yardstick), each with its peak memory;
+    the bound of the forward + backward's work."""
+    from isegprobe_torch.ops import attention, jbu, layernorm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    library, exps = None, 0.0
+    if name == "mha_qkv":
+        b, n, three_c = shape
+        heads, dh = three_c // 3 // 64, 64
+        inputs = [torch.randn(shape, generator=g, device="cuda")]
+
+        def kernel(*ts):
+            return attention.mha_qkv(ts[0], heads)
+
+        def plain(*ts):
+            return attention._mha_qkv_plain(ts[0], heads, dh**-0.5)
+
+        # forward 2 products, backward 5 (QK^T again, dV, dP, dQ, dK); the
+        # exps twice; qkv, dO read, O and d qkv written
+        ops = 14.0 * b * heads * n * n * dh
+        exps = 2.0 * b * heads * n * n
+        nbytes = 4.0 * 8 * (three_c // 3) * b * n
+    elif name == "layernorm":
+        d = shape[-1]
+        inputs = [torch.randn(shape, generator=g, device="cuda") * 3 + 1,
+                  torch.randn(d, generator=g, device="cuda") * 0.5 + 1,
+                  torch.randn(d, generator=g, device="cuda")]
+
+        def kernel(*ts):
+            return layernorm.layernorm(*ts, 1e-6)
+
+        def plain(*ts):
+            return layernorm._ln_plain(*ts, 1e-6)
+
+        # x, dy read, y and dx written
+        rows = int(np.prod(shape[:-1]))
+        ops, nbytes = 16.0 * rows * d, 4.0 * 4 * rows * d
+    elif name == "mha":
+        (b, nq, heads, dh), nk = shape[0], shape[1][1]
+        inputs = [torch.randn(s, generator=g, device="cuda") for s in (
+            (b, nq, heads, dh), (b, nk, heads, dh), (b, nk, heads, dh))]
+        scale = dh**-0.5
+
+        def kernel(*ts):
+            return attention.mha(*ts, scale)
+
+        def plain(*ts):
+            return attention._mha_plain(*ts, scale)
+
+        def library(q, k, v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                scale=scale).transpose(1, 2)
+
+        # as A's; q, k, v, dO read, O and the three gradients written
+        ops = 14.0 * b * heads * nq * nk * dh
+        exps = 2.0 * b * heads * nq * nk
+        nbytes = 4.0 * 4 * (nq + nk) * b * heads * dh
+    else:
+        b, h, w, c = shape
+        inputs = [torch.randn((b, h, w, c), generator=g, device="cuda"),
+                  torch.randn((b, h, w, 32), generator=g, device="cuda")
+                  * 0.3, torch.full((), 0.5, device="cuda"),
+                  torch.full((), 0.8, device="cuda")]
+
+        def kernel(*ts):
+            return jbu.jbu_filter(*ts)
+
+        plain = jbu._jbu_plain
+        px = b * h * w
+        # the forward's 49-tap dots and weighted sums, and about twice that
+        # backward (the weighted sum's two products, the dots' two); hr
+        # and proj read, out, d out, d hr and d proj once each
+        ops = 3 * 2.0 * jbu.NTAP * (32 + c) * px
+        nbytes = 4.0 * (4 * c + 2 * 32) * px
+    wrapper = kernel_wrappers()[name]
+    with torch.no_grad():
+        ref = kernel(*inputs)
+        want = plain(*inputs)
+    ts = [t.clone().requires_grad_(True) for t in inputs]
+    before = wrapper.launches
+    out = kernel(*ts)
+    launched = wrapper.launches - before
+    bitwise = bool(torch.equal(out.detach(), ref))
+    forward = compare(torch, out.detach(), want, "float32",
+                      float(inputs[0].abs().max()) if name == "jbu_filter"
+                      else 1.0)
+    del ref, want
+    cot = torch.randn(out.shape, generator=g, device="cuda")
+    out.backward(cot)
+    del out
+    refs = [t.clone().requires_grad_(True) for t in inputs]
+    plain(*refs).backward(cot)
+    errs = [float((t.grad - r.grad).abs().max())
+            / max(float(r.grad.abs().max()), 1e-30)
+            for t, r in zip(ts, refs)]
+    del ts, refs
+    ok = (bitwise and forward["ok"] and launched == 1
+          and max(errs) <= TRAIN_GRAD_TOL)
+
+    def fwd_bwd(fn):
+        xs = [t.detach().requires_grad_(True) for t in inputs]
+        fn(*xs).backward(cot)
+
+    rec = {"kernel": name, "shape": list(shape), "dtype": "float32",
+           "autograd": True, "forward_bitwise": bitwise,
+           "forward_vs_plain": {k: v for k, v in forward.items() if k != "ok"},
+           "max_abs_err": forward["max_abs_err"],
+           "launches_per_forward": launched, "grad_rel_err": errs,
+           "grad_tol": TRAIN_GRAD_TOL, "ok": ok,
+           **_bound(ops, nbytes, "float32", exps=exps)}
+    for key, fn in (("fwd_bwd", kernel), ("plain_fwd_bwd", plain),
+                    ("library_fwd_bwd", library)):
+        if fn is None:
+            rec[f"{key}_ms"] = None
+            continue
+        rec[f"{key}_peak_mb"] = peak_mb(torch, lambda: fwd_bwd(fn))
+        rec[f"{key}_ms"], _ = time_ms(torch, lambda: fwd_bwd(fn), reps=reps,
+                                      rounds=3, graph=False)
+    if library is not None:
+        rec["library_backends"] = sdpa_backends(
+            torch, F, *(t.transpose(1, 2) for t in inputs), scale)
+    return rec
+
+
+def family_training_phase(torch) -> dict:
+    """Main paths of training the other Synthetic probes (phase 11f of the
+    module docstring): (a) kernels D and E under autograd at the 224²
+    train step's shapes; (b) the full-width LoftUp and JBU steps against
+    the JAX steps of ``isegprobe_torch/fixtures/
+    synthetic_train_step_families.npz``; (c) a short command-line run of
+    each with clicks and validation; (d) one LoftUp step at 448² with its
+    slabs checkpointed; (e) two command-line steps of each other script.
+    Returns the records, the path launches and the autograd records."""
+    import warnings
+
+    from isegprobe_torch import train as train_cli
+
+    F = torch.nn.functional
+    res: dict = {}
+    n_key = FAMILY_GRID ** 2
+    # (a) D at the LoftUp step's cross-attention (50,176 queries against
+    # 256 keys), E at the four JBU stages (32² to 256²)
+    grads = [autograd_case(torch, F, "mha", [
+        [TRAIN_BATCH, TRAIN_CROP ** 2, 4, 101], [TRAIN_BATCH, n_key, 4, 101]],
+        seed=80)]
+    grads += [autograd_case(torch, F, "jbu_filter", [
+        TRAIN_BATCH, FAMILY_GRID << k, FAMILY_GRID << k, 384], seed=80 + k)
+        for k in range(1, 5)]
+    for g in grads:
+        print("family_autograd", json.dumps(g))
+    if not all(g["ok"] for g in grads):
+        fail(f"kernel D or E under autograd disagrees: {grads}")
+    res["autograd"] = grads
+
+    # (b) the full-width steps against JAX's, from init_tree(config, 0)
+    fx = dict(np.load(FAMILY_FIXTURE))
+    with np.load(TRAIN_FIXTURE) as step_fx:
+        items = {k: step_fx[k][:len(fx["seeds"])]
+                 for k in ("images", "points", "instances")}
+    paths = {}
+    for name in (str(f) for f in fx["families"]):
+        trainer, batch, step = step_vs_jax(
+            torch, name, items, fx[f"{name}/losses"],
+            fx[f"{name}/digest_names"], fx[f"{name}/digests"],
+            FAMILY_TRAIN_LAUNCHES[name])
+        trainer._step(batch, 2)  # warm-up of the clicker's constants
+        step["profile"] = profile_forward(
+            torch, lambda *_: trainer._step(batch, 2), None, None)
+        trainer.shutdown()
+        del trainer, batch
+        print("family_step_vs_jax", json.dumps(step))
+        print(f"{name} full-width train step: losses {step['losses']} (JAX "
+              f"on the CPU {step['jax_cpu_losses']}), max rel err "
+              f"{step['loss_rel_err']:.2e}; {step['step_ms'][1]:.1f} ms, "
+              f"peak {step['peak_memory_mb']:.0f} MiB; a step with 2 clicks "
+              f"busy {step['profile'].get('busy_share', 0):.0%}")
+        res[f"{name}_step_vs_jax"] = step
+        paths[f"{name}_train_step_vs_jax"] = step["launches"]
+        # (c) a short run through the command line, clicks and validation
+        _, cli = cli_epoch(torch, name, FAMILY_TRAIN_LAUNCHES[name],
+                           FAMILY_READBACK[name],
+                           [f"epoch_len={FAMILY_CLI_ITEMS}",
+                            f"val_epoch_len={FAMILY_CLI_VAL_ITEMS}"])
+        # the device-busy share of the profiled step (b), with 2 clicks
+        cli["busy_share"] = step["profile"].get("busy_share")
+        print("family_cli", json.dumps(cli))
+        print(f"{name} through the command line: {cli['steps']} steps, "
+              f"median {cli['ms_per_step_median']:.1f} ms a step (between "
+              f"its events {cli['device_ms_per_step_median']:.1f} ms), data "
+              f"wait {cli['data_wait_ms_median']:.1f} ms, device busy "
+              f"{cli['busy_share'] or 0:.0%} of a step, peak "
+              f"{cli['peak_memory_mb']:.0f} MiB; read back within "
+              f"{cli['readback_rel_err']:.1e}")
+        res[f"{name}_cli"] = cli
+        paths[f"{name}_train_cli"] = cli["launches"]["train"]
+        paths[f"{name}_train_validation"] = cli["launches"]["val"]
+
+    # (d) LoftUp at 448²: its queries in 7 slabs of 64 rows, each
+    # recomputed in the backward
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # LoftUp's missing upsampler_path
+        trainer = train_cli.build_trainer(train_cli.parse_args([
+            "model=synthetic_dinov2_loftup", "dataloader.workers=0",
+            f"training_params.crop_size=[{BANDED_SIZE},{BANDED_SIZE}]"]))
+    rng = np.random.default_rng(81)
+    inst = np.zeros((BANDED_BATCH, BANDED_SIZE, BANDED_SIZE, 1), np.int8)
+    points = np.full((BANDED_BATCH, 48, 3), -1.0, np.float32)
+    for i in range(BANDED_BATCH):
+        y0, x0 = rng.integers(40, 240, 2)
+        inst[i, y0:y0 + 160, x0:x0 + 120] = 1
+        points[i, 0] = (y0 + 80, x0 + 60, 0)
+    batch = trainer._upload({"images": rng.integers(
+        0, 256, (BANDED_BATCH, BANDED_SIZE, BANDED_SIZE, 3), np.uint8),
+        "points": points, "instances": inst})
+    trainer._step(batch, 0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    loss = float(trainer._step(batch, 0)[0])
+    ev[1].record()
+    torch.cuda.synchronize()
+    banded_launches = counters()
+    want = expected(**{k: v + BANDED_RECOMPUTE.get(k, 0) for k, v in
+                       FORWARD_LAUNCHES["loftup"].items()})
+    if banded_launches != want or not np.isfinite(loss):
+        fail(f"the 448² LoftUp step launched {banded_launches}, expected "
+             f"{want} (loss {loss})")
+    banded = {"size": BANDED_SIZE, "batch": BANDED_BATCH, "loss": loss,
+              "step_ms": ev[0].elapsed_time(ev[1]),
+              "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
+              "launches": banded_launches}
+    trainer.shutdown()
+    del trainer, batch
+    print("loftup_448_step", json.dumps(banded))
+    print(f"LoftUp at 448², batch {BANDED_BATCH}, slabs checkpointed: "
+          f"{banded['step_ms']:.1f} ms a step, peak "
+          f"{banded['peak_memory_mb']:.0f} MiB")
+    res["loftup_448_step"] = banded
+    paths["loftup_448_train_step"] = banded_launches
+
+    # (e) two command-line steps of every other script
+    for name in OTHER_FORWARD_LAUNCHES:
+        _, cli = cli_epoch(torch, name, FAMILY_TRAIN_LAUNCHES[name],
+                           FAMILY_READBACK[name],
+                           [f"epoch_len={OTHER_CLI_ITEMS}",
+                            f"val_epoch_len={OTHER_CLI_VAL_ITEMS}"])
+        print("other_cli", json.dumps(cli))
+        res[f"{name}_cli"] = cli
+        paths[f"{name}_train_cli"] = cli["launches"]["train"]
+        paths[f"{name}_train_validation"] = cli["launches"]["val"]
+    res["path_launches"] = paths
     return res
 
 
@@ -2588,6 +2940,10 @@ def main() -> int:
 
     t_start = time.time()
     results: dict = {}
+    phase_s: dict = {}  # seconds of each phase, from the end of the last
+
+    def done(phase: str) -> None:
+        phase_s[phase] = time.time() - t_start - sum(phase_s.values())
 
     # 1. the card
     card = nvidia_smi()
@@ -2960,6 +3316,7 @@ def main() -> int:
     print("step_split", json.dumps(split))
     results["step_split"] = split
 
+    done("1-11 build, kernels, flagship")
     # 11b. the trained probes against the JAX package's results
     trained = trained_phase(torch, cuda)
     shared = trained.pop("shared")
@@ -2971,6 +3328,7 @@ def main() -> int:
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
 
+    done("11b trained")
     # 11c. training: A and B under autograd, the data layer, the step
     # against JAX's, one epoch through the command line's trainer
     training = training_phase(torch)
@@ -2983,6 +3341,7 @@ def main() -> int:
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
 
+    done("11c training")
     # 11d. the other backbones: the trained MaskCLIP probe against JAX's
     # results, the drawn DINO key probe, SimpleViT and LiFT probes, the
     # linear and simple_conv heads
@@ -2996,6 +3355,7 @@ def main() -> int:
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
 
+    done("11d other_backbones")
     # 11e. the RITM adaptive protocol and continuous batching on the
     # trained flagship
     ritm = ritm_and_refill_phase(torch, cuda, shared)
@@ -3009,10 +3369,19 @@ def main() -> int:
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
 
+    done("11e ritm_and_refill")
+    # 11f. training the other Synthetic probes: D and E under autograd,
+    # the LoftUp and JBU steps against JAX's, every other script through
+    # the command line
+    family_training = family_training_phase(torch)
+    results["family_training"] = family_training
+
+    done("11f family_training")
     # 12. the learned-upsampler families (main paths 3-6)
     families = {name: learned_family(torch, name) for name in UPSAMPLERS}
     results["families"] = families
 
+    done("12 families")
     # 13. kernels F and G, and main path 7: the attention-variant sweep
     variant_checks, sweep, sweep_launches = variant_sweep(torch, F)
     checks += variant_checks
@@ -3054,6 +3423,7 @@ def main() -> int:
     paths.update(training["path_launches"])
     paths.update(others["path_launches"])
     paths.update(ritm["path_launches"])
+    paths.update(family_training["path_launches"])
     for fam in families.values():
         paths.update(fam["path_launches"])
     kernels = []
@@ -3086,12 +3456,16 @@ def main() -> int:
             if key in c:
                 entry[key] = c[key]
         # under autograd (training): forward + backward beside the plain
-        # version's
-        ag = next((g for g in training["autograd"] if g["kernel"] == name),
-                  None)
-        if ag is not None:
-            entry["autograd"] = {k: ag[k] for k in (
-                "shape", "fwd_bwd_ms", "plain_fwd_bwd_ms", "grad_rel_err")}
+        # version's (and SDPA's, for D), at each train step shape
+        autograd = [
+            {k: g[k] for k in ("shape", "fwd_bwd_ms", "plain_fwd_bwd_ms",
+                               "library_fwd_bwd_ms", "bound_ms", "bound_by",
+                               "fwd_bwd_peak_mb", "plain_fwd_bwd_peak_mb",
+                               "grad_rel_err") if k in g}
+            for g in training["autograd"] + family_training["autograd"]
+            if g["kernel"] == name]
+        if autograd:
+            entry["autograd"] = autograd
         # the other backbones' shapes (phase 11d)
         family_shapes = [
             {"shape": o["shape"], "dtype": o["dtype"],
@@ -3117,7 +3491,10 @@ def main() -> int:
                 and e["shape"] == shape})
         kernels.append(entry)
     results["kernels"] = kernels
+    done("13-14 sweep, kernels line")
     results["seconds"] = time.time() - t_start
+    results["phase_seconds"] = phase_s
+    print("phase_seconds", json.dumps(phase_s))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)

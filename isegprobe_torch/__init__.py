@@ -13,7 +13,8 @@ Layout mirrors the JAX package so each module's counterpart is easy to find:
                 A packed-qkv attention and D cross-attention (attention.py),
                 B LayerNorm (layernorm.py), C EDT row envelope (edt.py), E
                 JBU filter (jbu.py), F and G the sweep's attention variants
-                nodiv and merged (attn_variants.py)
+                nodiv and merged (attn_variants.py); A, B, D and E also
+                under autograd (kernel forward, plain-version backward)
     csrc/       CUDA C++ sources of kernels A-G, built with nvcc at first use
     models/     ViT core, featurizers (DINOv2, DINO key probing, MaskCLIP,
                 the SimpleViT click encoder), upsamplers (identity, LiFT,
@@ -32,8 +33,9 @@ Layout mirrors the JAX package so each module's counterpart is easy to find:
                 click simulation
     evaluate.py the trained checkpoints by NoC (python -m
                 isegprobe_torch.evaluate checkpoint=...)
-    train.py    training the flagship probe (python -m
-                isegprobe_torch.train model=synthetic_dinov2_noup)
+    train.py    training the Synthetic probes, one for each script of
+                models/synthetic/ (python -m isegprobe_torch.train
+                model=synthetic_dinov2_loftup, ...)
     scripts/    command-line entry points: the attention-variant sweep
                 (python -m isegprobe_torch.scripts.bench_attn_variants)
     utils/      bbox and label helpers, the checkpoint reader and writer

@@ -56,7 +56,7 @@ from isegprobe_torch.inference.metrics import (
 from isegprobe_torch.models.convert import (
     interpolate_pos_embed_params,
     load_jax_params,
-    load_upsampler_params,
+    overlay_upsampler_params,
 )
 from isegprobe_torch.models.featurizers.dino import DINO_TRUNK
 from isegprobe_torch.models.featurizers.dinov2 import DINOV2_ARCHS
@@ -108,10 +108,8 @@ def load_model_for_eval(checkpoint: str, dtype=torch.float32,
     frozen = init_tree(config["params"], skip=params)
     init_seconds = time() - t0
     params = merge_params(frozen, params)
-    up_loaded = load_upsampler_params(config["params"].get("upsampler_cfg"))
-    if up_loaded is not None:
-        params = dict(params, upsampler=merge_params(params["upsampler"],
-                                                     up_loaded))
+    params = overlay_upsampler_params(params,
+                                      config["params"].get("upsampler_cfg"))
     if not eval_ritm:
         config, params = _preinterpolate_pos_embed(config, params,
                                                    target_size)

@@ -45,7 +45,8 @@ from torch import nn
 
 __all__ = ["jax_params_to_state_dict", "state_dict_to_jax_params",
            "load_jax_params",
-           "load_upsampler_params", "interpolate_pos_embed_params"]
+           "load_upsampler_params", "overlay_upsampler_params",
+           "interpolate_pos_embed_params"]
 
 _INDEXED = re.compile(r"^(blocks|convs|ca|ff|attn|resblocks)_(\d+)$")
 _PASS_THROUGH = ("bias", "cls_token", "pos_embed", "gamma", "weight",
@@ -175,6 +176,20 @@ def load_upsampler_params(upsampler_cfg: Optional[Mapping]):
         f"{p}: converting a reference torch checkpoint of the {utype} "
         "upsampler is not ported to isegprobe_torch yet: ROADMAP Queue 1 "
         "item 7 (the converters for reference torch checkpoints)")
+
+
+def overlay_upsampler_params(params: Dict,
+                             upsampler_cfg: Optional[Mapping]) -> Dict:
+    """``params`` with the weights of :func:`load_upsampler_params`
+    overlaid on its ``upsampler`` subtree, or ``params`` itself when there
+    are none (the JAX trainer's ``_load_pretrained`` and evaluate.py do
+    this)."""
+    loaded = load_upsampler_params(upsampler_cfg)
+    if loaded is None:
+        return params
+    from isegprobe_torch.utils.serialization import merge_params
+
+    return dict(params, upsampler=merge_params(params["upsampler"], loaded))
 
 
 def interpolate_pos_embed_params(pos_embed, old_grid, new_grid,

@@ -408,7 +408,11 @@ def flagship_config(img_size=(448, 448)) -> Dict:
 def synthetic_config(name: str, img_size=(448, 448)) -> Dict:
     """Constructor config of the model of ``models/synthetic/<name>.py``
     (as the JAX package's ``init_model_from_modules_cfg`` builds it, with
-    ``img_size`` as the crop) for the other families the paper probes:
+    ``img_size`` as the crop): ``dinov2_noup`` (the flagship, with its
+    save config), ``dinov2_loftup`` and ``dinov2_jbu`` (the flagship
+    through LoftUp, with the configured ``upsampler_path`` of
+    ``configs/main_cfg.yaml``, or through the JBU-FeatUp stack), and the
+    other families the paper probes:
     ``maskclip_noup`` (MaskCLIP ViT-B/16, clicks patch-embedded at its
     width and added before the tower, convhead on its 512-wide features),
     ``vit_noup`` (the DINO ViT-S/16 key probe, clicks added before),
@@ -426,6 +430,15 @@ def synthetic_config(name: str, img_size=(448, 448)) -> Dict:
     early = dict(type="dinov2",
                  params=dict(feats_injection_mode="before_backbone"))
     modules = {
+        "dinov2_noup": (early, patch_embed, convhead, identity),
+        "dinov2_loftup": (
+            early, patch_embed, convhead,
+            dict(type="loftup", params=dict(
+                upsampler_path="/weights/loftup.pth", n_dim=384))),
+        "dinov2_jbu": (
+            early, patch_embed, convhead,
+            dict(type="jbu_featup", params=dict(backbone_type="dinov2",
+                                                use_norm=True))),
         "maskclip_noup": (
             dict(type="mask_clip",
                  params=dict(model_name="ViT-B/16",

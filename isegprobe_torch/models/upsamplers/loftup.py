@@ -13,8 +13,12 @@ The cross-attention has ~H·W queries against h·w keys and goes through
 ``ops.layernorm`` (kernel B). Above ``query_chunk_min_pixels`` output pixels
 the query side runs in horizontal slabs of ``query_chunk_rows`` rows with a
 2-row stem halo, exactly as the JAX package bands it (at 448² that is 7
-slabs of 64 rows, so 14 kernel-D launches per forward). Module and
-parameter names follow the JAX param tree (``ca.i`` for ``ca_i``).
+slabs of 64 rows, so 14 kernel-D launches per forward). Under autograd each
+slab is checkpointed, as the JAX package's ``nn.remat`` of the slab body
+does: the backward recomputes one slab at a time instead of keeping every
+slab's activations, so a slab's B and D launches run again in the
+backward. Module and parameter names follow the JAX param tree (``ca.i``
+for ``ca_i``).
 
 Not ported (raise ``NotImplementedError``): the MXU-aligned zero-padded
 layout ``mxu_pad=True`` and the fused head ``tail``, both exact re-layouts
@@ -23,9 +27,12 @@ of the same function (ROADMAP Queue 1 item 7).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from isegprobe_torch.models.upsamplers.lift import FrozenBatchNorm, conv1x1
 from isegprobe_torch.models.vit import LayerNorm
@@ -79,8 +86,9 @@ class ImplicitFeaturizer(nn.Module):
     learned biases (LoftUp builds both of its featurizers with them), and
     the reference's quirk: ``biases`` is stored ``[2, dim_mult, n_freqs]``
     but reinterpreted as ``[n_freqs, dim_mult]`` when added. Phases are
-    float32 whatever the dtype; only the bounded sin/cos outputs take the
-    parameters' dtype."""
+    float32 whatever the dtype, each rounded once from its exact
+    multiply-add (as XLA's fused multiply-add rounds it); only the bounded
+    sin/cos outputs take the parameters' dtype."""
 
     def __init__(self, color_feats: bool = True, n_freqs: int = 10) -> None:
         super().__init__()
@@ -103,10 +111,16 @@ class ImplicitFeaturizer(nn.Module):
         if self.color_feats:
             feats = torch.cat([feats, x.float()], dim=-1)
         freqs = torch.exp(linspace(-2.0, 10.0, nf, device=x.device))
-        f = feats[..., None, :] * freqs[:, None]  # [B, H, W, nf, dm]
-        biases = self.biases.float()
-        sin_f = (f + biases[0].reshape(nf, dm)).reshape(b, h, w, nf * dm)
-        cos_f = (f + biases[1].reshape(nf, dm)).reshape(b, h, w, nf * dm)
+        # f: [B, H, W, nf, dm]. XLA compiles each phase's multiply and add
+        # into one fused multiply-add, which rounds once: the float32
+        # product is exact in float64, and at phases up to ~2e4 a second
+        # rounding moves sin by up to 2e-3
+        f = feats.double()[..., None, :] * freqs.double()[:, None]
+        biases = self.biases.double()
+        sin_f = (f + biases[0].reshape(nf, dm)).float().reshape(
+            b, h, w, nf * dm)
+        cos_f = (f + biases[1].reshape(nf, dm)).float().reshape(
+            b, h, w, nf * dm)
         dtype = self.biases.dtype
         parts = [torch.sin(sin_f).to(dtype), torch.cos(cos_f).to(dtype)]
         if self.color_feats:
@@ -278,12 +292,16 @@ class LoftUpUpsampler(nn.Module):
             return self._head(x, kv)
 
         rows = linspace(-1.0, 1.0, h, device=guidance.device)
+        slab = self._slab
+        if torch.is_grad_enabled():
+            slab = functools.partial(checkpoint, self._slab,
+                                     use_reentrant=False,
+                                     preserve_rng_state=False)
         outs = []
         for r0 in range(0, h, chunk):
             band = torch.arange(r0 - 2, r0 + chunk + 2,
                                 device=guidance.device)
             idx = band.clamp(0, h - 1)
             in_frame = ((band >= 0) & (band < h)).to(x_scaled.dtype)
-            outs.append(self._slab(x_scaled[:, idx], kv, rows[idx],
-                                   in_frame))
+            outs.append(slab(x_scaled[:, idx], kv, rows[idx], in_frame))
         return torch.cat(outs, dim=1)

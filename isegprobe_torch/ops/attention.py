@@ -23,8 +23,9 @@ the plain version; on a CUDA tensor they launch the kernel or raise.
 kernel A runs inside :class:`AttentionKernel`, the counterpart of the JAX
 package's ``_mha_qkv_pallas_ad``: kernel forward, backward through the
 plain version (the JAX ``custom_vjp`` recomputes ``_mha_qkv_jnp``). Kernel
-D has no backward yet and raises under autograd on CUDA (LoftUp training,
-ROADMAP Queue 2 A item 2).
+D runs likewise inside :class:`MhaKernel`, the counterpart of
+``_mha_pallas_ad`` (LoftUp training: the gradient reaches the click
+encoder through the frozen upsampler's cross-attention).
 
 ``mha_qkv(..., key_mask=...)`` is the adaptive canvas's self-attention:
 keys outside each lane's valid tokens are left out of every softmax. The
@@ -43,8 +44,9 @@ import functools
 import torch
 
 from isegprobe_torch.ops import cuda_lib
+from isegprobe_torch.ops.plain_vjp import plain_vjp
 
-__all__ = ["AttentionKernel", "mha", "mha_qkv"]
+__all__ = ["AttentionKernel", "MhaKernel", "mha", "mha_qkv"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # streaming multiprocessors of the plan made without a card (an H100 SXM's)
@@ -192,12 +194,9 @@ class AttentionKernel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        (qkv,) = ctx.saved_tensors
-        qkv = qkv.detach().requires_grad_(True)
-        with torch.enable_grad():
-            out = _mha_qkv_plain(qkv, ctx.num_heads, ctx.scale)
-            (gqkv,) = torch.autograd.grad(out, qkv, grad)
-        return gqkv, None, None, None
+        return (*plain_vjp(_mha_qkv_plain, ctx.saved_tensors,
+                           ctx.needs_input_grad[:1], grad, ctx.num_heads,
+                           ctx.scale), None, None, None)
 
 
 def mha_qkv(qkv: torch.Tensor, num_heads: int, scale: float | None = None,
@@ -283,10 +282,6 @@ def _mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(v.shape)} do not match")
     if not 1 <= dh <= 128:
         raise ValueError(f"attention kernel D takes dh <= 128, got {dh}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "attention kernel D has no backward yet (ROADMAP Queue 2 A "
-            "item 2); run under torch.no_grad() or on the CPU")
     lib = _load_mha()
     out = torch.empty_like(q)
     q_tile, aligned = _launch_plan(plan, b, nq, heads, dh, q.dtype, q.device,
@@ -304,6 +299,26 @@ def _mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+class MhaKernel(torch.autograd.Function):
+    """Kernel D forward, backward through the plain version (the JAX
+    package's ``_mha_pallas_ad``): it saves q, k and v and returns the VJP
+    of :func:`_mha_plain` for each that needs a gradient, in the dtype the
+    caller passed (the plain version's casts of k and v to q's dtype
+    differentiate back)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, plan):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _mha_cuda(q, k, v, scale, plan)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (*plain_vjp(_mha_plain, ctx.saved_tensors,
+                           ctx.needs_input_grad[:3], grad, ctx.scale),
+                None, None)
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale: float | None = None,
         plan: tuple[int, bool] | None = None) -> torch.Tensor:
@@ -316,7 +331,10 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _mha_plain(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"mha runs on cpu or cuda, not {q.device}")
-    out = _mha_cuda(q, k, v, scale, plan)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = MhaKernel.apply(q, k, v, scale, plan)
+    else:
+        out = _mha_cuda(q, k, v, scale, plan)
     mha.launches += 1
     return out
 

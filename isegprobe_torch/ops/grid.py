@@ -5,10 +5,11 @@ JAX package's compiled ``jnp.linspace``.
 bit, and LoftUp's Fourier features multiply these coordinates by
 frequencies up to e^10, where one ulp of a coordinate moves a phase by
 ~1e-3 rad. The port therefore builds them as XLA compiles
-``jnp.linspace`` inside a jitted forward: ``start·(1 − s) + stop·s`` with
-``s = i·(1/div)`` in float32, and ``stop`` appended (bit-equal for the
-symmetric grids in [-1, 1]). Computed on ``device`` by kernels, with no
-host copy.
+``jnp.linspace`` inside a jitted forward: ``start·(1 − s) + i·c`` with
+``s = i·(1/div)`` and ``c = stop·(1/div)`` folded into one float32
+constant, and ``stop`` appended (bit-equal for the symmetric grids in
+[-1, 1] and for LoftUp's frequency exponents in [-2, 10]). Computed on
+``device`` by kernels, with no host copy.
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ def linspace(start: float, stop: float, num: int,
     if num == 1:
         return torch.full((1,), start, dtype=torch.float32, device=device)
     div = num - 1
-    recip = float(np.float32(1.0) / np.float32(div))  # an exact f32 value
-    step = torch.arange(div, dtype=torch.float32, device=device) * recip
-    out = start * (1.0 - step) + stop * step
+    recip = np.float32(1.0) / np.float32(div)
+    stop_step = float(np.float32(stop) * recip)  # exact f32 values
+    idx = torch.arange(div, dtype=torch.float32, device=device)
+    out = start * (1.0 - idx * float(recip)) + idx * stop_step
     return torch.cat([out, torch.full((1,), stop, dtype=torch.float32,
                                       device=device)])

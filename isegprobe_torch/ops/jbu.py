@@ -17,9 +17,15 @@ binds for σ above 0.25, and the two agree (σ = 0.8 and 1.0 in the tests).
 
 On a CPU tensor :func:`jbu_filter` computes the plain version; on a CUDA
 tensor it launches the kernel or raises. ``jbu_filter.launches`` counts the
-launches. The kernel stages hr and proj with 16-byte copies where the
-channel count is a multiple of 4 and the tensor's base is 16-byte aligned,
-and with 4-byte copies otherwise.
+launches. Under autograd the kernel runs inside :class:`JbuKernel`, the
+counterpart of the JAX package's ``_jbu_fused_core`` ``custom_vjp``:
+kernel forward, backward through the plain version (training
+differentiates through the frozen upsampler to the click encoder). The
+JAX ``jbu_filter_fused``'s ``custom_vmap``, which folds a vmapped axis into
+the kernel's batch grid, has no counterpart: the port's ``[B, H, W, C]``
+entry takes the batch as it is. The kernel stages hr and proj with 16-byte
+copies where the channel count is a multiple of 4 and the tensor's base is
+16-byte aligned, and with 4-byte copies otherwise.
 """
 
 from __future__ import annotations
@@ -31,8 +37,9 @@ import torch.nn.functional as F
 
 from isegprobe_torch.ops import cuda_lib
 from isegprobe_torch.ops.grid import linspace
+from isegprobe_torch.ops.plain_vjp import plain_vjp
 
-__all__ = ["jbu_filter"]
+__all__ = ["JbuKernel", "jbu_filter"]
 
 RADIUS = 3
 DIAM = 2 * RADIUS + 1
@@ -45,11 +52,10 @@ CONFIG_KEYS = ("tile_h", "tile_w", "chunk", "stages", "strip", "threads",
 _lib = None
 
 
-def _coefficients(temp, sigma, device) -> tuple[torch.Tensor, torch.Tensor]:
+def _coefficients(temp: torch.Tensor, sigma: torch.Tensor,
+                  device) -> tuple[torch.Tensor, torch.Tensor]:
     """(clipped temperature [], spatial Gaussian [49]) in float32, computed
-    on ``device`` from scalar tensors or numbers (no host read)."""
-    temp = torch.as_tensor(temp, dtype=torch.float32, device=device)
-    sigma = torch.as_tensor(sigma, dtype=torch.float32, device=device)
+    on ``device`` from float32 scalar tensors (no host read)."""
     temp_c = torch.clamp(torch.exp(temp), 1e-4, 1e4)
     g = linspace(-1.0, 1.0, DIAM, device=device)
     yy, xx = torch.meshgrid(g, g, indexing="ij")
@@ -67,6 +73,12 @@ def _jbu_plain(hr: torch.Tensor, proj: torch.Tensor, temp,
                sigma) -> torch.Tensor:
     """The same function in plain PyTorch, in the form of the JAX package's
     ``jbu_filter_xla``."""
+    return _jbu_plain_f32(hr, proj, temp, sigma).to(hr.dtype)
+
+
+def _jbu_plain_f32(hr: torch.Tensor, proj: torch.Tensor, temp,
+                   sigma) -> torch.Tensor:
+    """:func:`_jbu_plain` before its cast to hr's dtype: float32."""
     b, h, w, _ = hr.shape
     hr32, proj32 = hr.float(), proj.float()
     proj_pad = _reflect_pad(proj32)
@@ -82,7 +94,7 @@ def _jbu_plain(hr: torch.Tensor, proj: torch.Tensor, temp,
     for p in range(NTAP):
         out.addcmul_(kernel[..., p:p + 1],
                      hr_pad[:, p // DIAM:p // DIAM + h, p % DIAM:p % DIAM + w])
-    return out.to(hr.dtype)
+    return out
 
 
 def _load():
@@ -128,10 +140,6 @@ def _jbu_cuda(hr: torch.Tensor, proj: torch.Tensor, temp,
     if h < 4 or w < 4:
         raise ValueError(f"reflect padding by {RADIUS} needs H, W >= 4, got "
                          f"{h}x{w}")
-    if torch.is_grad_enabled() and (hr.requires_grad or proj.requires_grad):
-        raise NotImplementedError(
-            "JBU kernel E has no backward yet; run under torch.no_grad() or "
-            "on the CPU")
     hr32 = hr.float().contiguous()
     proj32 = proj.float().contiguous()
     temp_c, spatial = _coefficients(temp, sigma, hr.device)
@@ -146,17 +154,42 @@ def _jbu_cuda(hr: torch.Tensor, proj: torch.Tensor, temp,
     return out.to(hr.dtype)
 
 
+class JbuKernel(torch.autograd.Function):
+    """Kernel E forward, backward through the plain version (the JAX
+    package's ``_jbu_fused_core``): it saves hr, proj and the scalar
+    tensors temp and sigma, and returns the VJP of the plain version's
+    float32 result, taken with the incoming gradient cast to float32 (as
+    ``_jbu_fused_bwd`` does), for each input that needs one."""
+
+    @staticmethod
+    def forward(ctx, hr, proj, temp, sigma):
+        ctx.save_for_backward(hr, proj, temp, sigma)
+        return _jbu_cuda(hr, proj, temp, sigma)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return plain_vjp(_jbu_plain_f32, ctx.saved_tensors,
+                         ctx.needs_input_grad, grad.float())
+
+
 def jbu_filter(hr: torch.Tensor, proj: torch.Tensor, temp,
                sigma) -> torch.Tensor:
     """Fused JBU filtering of ``hr [B, H, W, C]`` (bicubically pre-upsampled
     source features) by range keys ``proj [B, H, W, K]``, with the learned
-    log-temperature ``temp`` and spatial ``sigma`` (scalars) ->
-    ``[B, H, W, C]`` in hr's dtype."""
+    log-temperature ``temp`` and spatial ``sigma`` (numbers or scalar
+    tensors; autograd reaches them as tensors) -> ``[B, H, W, C]`` in hr's
+    dtype."""
+    temp, sigma = (torch.as_tensor(t, dtype=torch.float32, device=hr.device)
+                   for t in (temp, sigma))
     if hr.device.type == "cpu":
         return _jbu_plain(hr, proj, temp, sigma)
     if hr.device.type != "cuda":
         raise ValueError(f"jbu_filter runs on cpu or cuda, not {hr.device}")
-    out = _jbu_cuda(hr, proj, temp, sigma)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (hr, proj, temp, sigma)):
+        out = JbuKernel.apply(hr, proj, temp, sigma)
+    else:
+        out = _jbu_cuda(hr, proj, temp, sigma)
     jbu_filter.launches += 1
     return out
 

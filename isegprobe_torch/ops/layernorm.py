@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from isegprobe_torch.ops import cuda_lib
+from isegprobe_torch.ops.plain_vjp import plain_vjp
 
 __all__ = ["LayerNormKernel", "layernorm"]
 
@@ -93,14 +94,8 @@ class LayerNormKernel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        inputs = [t.detach().requires_grad_(need) for t, need in
-                  zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
-        wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad():
-            y = _ln_plain(*inputs, ctx.eps)
-            grads = iter(torch.autograd.grad(y, wanted, grad))
-        return (*(next(grads) if t.requires_grad else None
-                  for t in inputs), None)
+        return (*plain_vjp(_ln_plain, ctx.saved_tensors,
+                           ctx.needs_input_grad[:3], grad, ctx.eps), None)
 
 
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -1,20 +1,38 @@
-"""Train the flagship probe with the port.
+"""Train a Synthetic probe with the port.
 
-Counterpart of the root ``train.py`` with ``models/synthetic/
-dinov2_noup.py`` and ``models/common.py:train``: DINOv2-S/14 with clicks
-patch-embedded before the backbone, identity upsampler, 2-layer 3×3
-convhead and the prev mask, trained on the procedural Synthetic scenes
-with the JAX package's defaults (``models/defaults.py``: the Synthetic
-augmentations and click sampler, NFL with alpha 0.5 and gamma 2, Adam at
-lr 5e-5 with betas (0.9, 0.999) and eps 1e-8, the multistep schedule at
-``lr_milestones`` with gamma 0.1, ``max_num_next_clicks=3``). The frozen
-backbone starts from ``init_tree(config, seed)``, the JAX trainer's
-``model.init(PRNGKey(seed))``. Checkpoints are the JAX package's, which
-both ``evaluate.py`` and ``python -m isegprobe_torch.evaluate`` read.
+Counterpart of the root ``train.py`` with the scripts of
+``models/synthetic/`` and ``models/common.py:train``, one model a script
+(``model=`` takes the key, the script's ``MODEL_NAME`` beside it):
+
+- ``synthetic_dinov2_noup``: the flagship, DINOv2-S/14 with clicks
+  patch-embedded before the backbone, identity upsampler;
+- ``synthetic_dinov2_loftup``: the flagship through the LoftUp upsampler
+  (kernel D under autograd; its configured ``upsampler_path`` warns when
+  missing and LoftUp keeps its ``init_tree`` weights, as in the JAX
+  package offline);
+- ``synthetic_dinov2_jbu``: the flagship through the JBU-FeatUp stack
+  (kernel E under autograd);
+- ``synthetic_dinov2_lift``: the flagship through LiFT;
+- ``synthetic_dinov2_simplevit``: DINOv2-S/14 with the SimpleViT click
+  encoder added after the trunk;
+- ``synthetic_vit_noup``: the DINO ViT-S/16 key probe;
+- ``synthetic_maskclip_noup``: MaskCLIP ViT-B/16;
+
+each with the 2-layer 3×3 convhead and the prev mask, trained on the
+procedural Synthetic scenes with the JAX package's defaults
+(``models/defaults.py``: the Synthetic augmentations and click sampler,
+NFL with alpha 0.5 and gamma 2, Adam at lr 5e-5 with betas (0.9, 0.999)
+and eps 1e-8, the multistep schedule at ``lr_milestones`` with gamma 0.1,
+``max_num_next_clicks=3``). The frozen backbone and upsampler start from
+``init_tree(config, seed)``, the JAX trainer's ``model.init(PRNGKey(seed))``;
+the saved modules (click encoder and head) take the Adam steps, and their
+gradient passes through the frozen upsampler and backbone. Checkpoints are
+the JAX package's, which both ``evaluate.py`` and ``python -m
+isegprobe_torch.evaluate`` read.
 
 Usage (on a CUDA GPU; ``device=cpu`` runs the plain PyTorch path):
 
-    python -m isegprobe_torch.train model=synthetic_dinov2_noup \\
+    python -m isegprobe_torch.train model=synthetic_dinov2_loftup \\
         [training_params.epochs=20] [dataloader.batch_size=8] \\
         [epoch_len=320] [exp_path=./experiments/torch] [device=cpu] ...
 
@@ -22,10 +40,11 @@ Keys: those of ``configs/train_cfg.yaml`` that apply (``dataloader.*``,
 ``training_params.*``, ``training.seed``, ``training.start_epoch``), plus
 the port's ``model``, ``device``, ``exp_path`` (checkpoints go to
 ``<exp_path>/checkpoints``), and ``epoch_len`` / ``val_epoch_len`` (items
-an epoch; the JAX package's 320 and 48 by default). Another model script,
+an epoch; the JAX package's 320 and 48 by default).
 ``training_params.dtype=bfloat16``, ``training.model_parallel > 1``,
-``dataloader.mp=true``, resuming and wandb raise ``NotImplementedError`` naming their ROADMAP
-items; a key that is not known raises ``ValueError``.
+``dataloader.mp=true``, resuming and wandb raise ``NotImplementedError``
+naming their ROADMAP items; a key or a model that is not known raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -39,11 +58,27 @@ from typing import Dict, Optional, Tuple
 
 from isegprobe_torch import resolve_device
 
-__all__ = ["DEFAULTS", "parse_args", "flagship_train_config",
-           "synthetic_datasets", "loss_cfg", "build_trainer", "main"]
+__all__ = ["DEFAULTS", "MODELS", "parse_args", "synthetic_datasets",
+           "loss_cfg", "build_trainer", "main"]
 
-MODELS = {"synthetic_dinov2_noup":
-          "synthetic_dinov2_noup_convhead_patchembed_earlyinject_224"}
+# model= key -> the script's MODEL_NAME; the key without "synthetic_" is
+# its models.probe_model.synthetic_config name
+MODELS = {
+    "synthetic_dinov2_noup":
+        "synthetic_dinov2_noup_convhead_patchembed_earlyinject_224",
+    "synthetic_dinov2_loftup":
+        "synthetic_dinov2_loftup_convhead_patchembed_earlyinject_224",
+    "synthetic_dinov2_jbu":
+        "synthetic_dinov2_jbu_convhead_patchembed_earlyinject_224",
+    "synthetic_dinov2_lift":
+        "synthetic_dinov2_lift_convhead_patchembed_earlyinject_224",
+    "synthetic_dinov2_simplevit":
+        "synthetic_dinov2_noup_convhead_simplevit_lateinject_224",
+    "synthetic_vit_noup":
+        "synthetic_vit_noup_convhead_patchembed_earlyinject_224",
+    "synthetic_maskclip_noup":
+        "synthetic_maskclip_noup_convhead_patchembed_earlyinject_224",
+}
 _LATER = "ROADMAP Queue 1 item 6"
 _NOT_PORTED = {
     "training.resume_exp": f"{_LATER} (training: resume)",
@@ -108,10 +143,8 @@ def parse_args(argv) -> Dict:
             raise ValueError(f"unknown key {key!r}; takes {sorted(cfg)}")
         cfg[key] = _value(text)
     if cfg["model"] not in MODELS:
-        raise NotImplementedError(
-            f"model={cfg['model']}: only synthetic_dinov2_noup is ported to "
-            f"isegprobe_torch.train; the other model scripts are {_LATER} "
-            "(train the vit, mask_clip, simple_vit and lift configs)")
+        raise ValueError(f"model={cfg['model']}: takes one of "
+                         f"{sorted(MODELS)} (models/synthetic/)")
     if str(cfg["training_params.dtype"]) not in ("float32", "f32"):
         raise NotImplementedError(
             f"training_params.dtype={cfg['training_params.dtype']}: "
@@ -126,27 +159,6 @@ def parse_args(argv) -> Dict:
             raise NotImplementedError(f"{key}={value} is not ported to "
                                       f"isegprobe_torch.train yet: {item}")
     return cfg
-
-
-def flagship_train_config(crop_size=(224, 224)) -> Dict:
-    """``models/synthetic/dinov2_noup.py``'s model, as the JAX package's
-    ``init_model_from_modules_cfg`` builds it: the constructor config."""
-    return dict(
-        backbone_cfg=dict(type="dinov2",
-                          params=dict(feats_injection_mode="before_backbone")),
-        head_cfg=dict(type="convhead",
-                      params=dict(in_channels=384, num_layers=2,
-                                  num_classes=1)),
-        embed_coords_cfg=dict(type="patchEmbed",
-                              params=dict(img_size=list(crop_size),
-                                          patch_size=(14, 14),
-                                          embed_dim=384)),
-        neck_cfg=None,
-        upsampler_cfg=dict(type="identity", params=dict()),
-        save_cfg=dict(embed_coords=True, backbone=False, upsampler=False,
-                      head=True),
-        architecture="backbone_upsampler_head",
-        use_disks=True, norm_radius=5, with_prev_mask=True)
 
 
 def synthetic_datasets(crop_size=(224, 224), num_max_points: int = 24,
@@ -202,13 +214,17 @@ def build_trainer(cfg: Dict, on_step=None, params: Optional[Dict] = None):
     """The model, datasets and trainer of a parsed command line."""
     from types import SimpleNamespace
 
-    from isegprobe_torch.models.probe_model import iSegProbeModel
+    from isegprobe_torch.models.probe_model import (
+        iSegProbeModel,
+        synthetic_config,
+    )
     from isegprobe_torch.training.metrics import AdaptiveIoU
     from isegprobe_torch.training.trainer import iSegTrainer
 
     device = resolve_device(cfg["device"])
     crop = tuple(cfg["training_params.crop_size"])
-    model = iSegProbeModel(**flagship_train_config(crop), device=device)
+    name = cfg["model"].removeprefix("synthetic_")
+    model = iSegProbeModel(**synthetic_config(name, crop), device=device)
     trainset, valset = synthetic_datasets(
         crop, cfg["training_params.num_max_points"], cfg["epoch_len"],
         cfg["val_epoch_len"], cfg["training_params.render_size"],

@@ -10,9 +10,11 @@ feeds the last probability map back as the prev mask, then runs the
 forward with autograd, the loss and its backward into the trainable
 parameters only, and the optimizer update. The frozen backbone and
 upsampler carry ``requires_grad=False``; the gradient of the click encoder
-still flows back through every frozen block (kernels A and B under
-autograd, ``ops/attention.py:AttentionKernel``, ``ops/layernorm.py:
-LayerNormKernel``). Nothing in a step reads the device: each step's
+still flows back through the frozen upsampler and every frozen block
+(kernels A, B, D and E under autograd: ``ops/attention.py:
+AttentionKernel`` and ``MhaKernel``, ``ops/layernorm.py:LayerNormKernel``,
+``ops/jbu.py:JbuKernel``; LoftUp's slabs checkpointed where it bands its
+queries). Nothing in a step reads the device: each step's
 scalars are read once, one step later (the JAX trainer's deferred read),
 so the host builds and uploads the next batch while the card computes.
 
@@ -40,6 +42,7 @@ from isegprobe_torch import resolve_device
 from isegprobe_torch.data.loader import DataLoader
 from isegprobe_torch.models.convert import (
     load_jax_params,
+    overlay_upsampler_params,
     state_dict_to_jax_params,
 )
 from isegprobe_torch.models.init_tree import init_tree
@@ -148,7 +151,10 @@ class iSegTrainer:
     dropout ones are not ported). ``params`` is the param
     tree (flax names, numpy) the model starts from; by default
     ``init_tree(config, seed)``, the JAX trainer's ``model.init(
-    PRNGKey(seed))``. ``on_step(kind, step, num_iters)`` (optional) is
+    PRNGKey(seed))``, with the upsampler weights that the config's
+    ``upsampler_path`` names overlaid when the file exists (it warns when
+    it does not), as the JAX trainer's ``_load_pretrained`` does.
+    ``on_step(kind, step, num_iters)`` (optional) is
     called right after each step is dispatched (``kind`` ``"train"`` or
     ``"val"``). ``stats`` holds each training step's ``num_iters``, host
     wall seconds (from one step's start to the next's), seconds waiting for
@@ -215,7 +221,9 @@ class iSegTrainer:
             steps_per_epoch)
 
         if params is None:
-            params = init_tree(model_config(model)["params"], self.seed)
+            config = model_config(model)["params"]
+            params = overlay_upsampler_params(init_tree(config, self.seed),
+                                              config.get("upsampler_cfg"))
         load_jax_params(model, params)
         self._template = _shapes(params)
         split_params(model)

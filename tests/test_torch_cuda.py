@@ -382,8 +382,8 @@ def test_kernels_d_and_e_raise_on_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):  # dh 101: no 16-byte path for q
         r = _randn((1, 9, 1, 101), 0, cuda_device, torch.bfloat16)
         attention.mha(r, r, r, plan=(128, True))
-    with pytest.raises(NotImplementedError):
-        attention.mha(q.requires_grad_(), q, q)
+    # kernel D has a backward (through the plain version) since it trains
+    attention.mha(q.clone().requires_grad_(), q, q).sum().backward()
     hr = _randn((1, 8, 8, 4), 0, cuda_device)
     with pytest.raises(TypeError):
         jbu.jbu_filter(hr.double(), hr, 0.5, 0.8)
@@ -391,6 +391,106 @@ def test_kernels_d_and_e_raise_on_what_they_do_not_take(cuda_device):
         jbu.jbu_filter(hr, hr[:, :4], 0.5, 0.8)  # proj of another size
     with pytest.raises(ValueError):
         jbu.jbu_filter(hr[:, :3], hr[:, :3], 0.5, 0.8)  # H < 4
+    # and kernel E too
+    hr_g = hr.clone().requires_grad_()
+    jbu.jbu_filter(hr_g, hr, 0.5, 0.8).sum().backward()
+    assert torch.isfinite(hr_g.grad).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nq,nk,heads,dh", [(2, 1000, 256, 4, 101),
+                                               (1, 300, 77, 2, 64)])
+def test_cross_attention_kernel_under_autograd_matches_plain(
+        cuda_device, b, nq, nk, heads, dh):
+    """Kernel D under autograd (LoftUp training): the forward is the
+    kernel's, bitwise, with one launch, and the gradients of q, k and v are
+    autograd's through the plain version."""
+    q, k, v = (_randn((b, n, heads, dh), i, cuda_device)
+               for i, n in enumerate((nq, nk, nk)))
+    with torch.no_grad():
+        ref = attention.mha(q, k, v)
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = attention.mha.launches
+    out = attention.mha(*ts)
+    assert attention.mha.launches - before == 1
+    assert torch.equal(out.detach(), ref)
+    g = _randn(out.shape, 3, cuda_device)
+    out.backward(g)
+    refs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    attention._mha_plain(*refs, dh**-0.5).backward(g)
+    for t, r in zip(ts, refs):
+        scale = float(r.grad.abs().max())
+        torch.testing.assert_close(t.grad, r.grad, rtol=0,
+                                   atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c", [(2, 32, 32, 384), (1, 20, 24, 70)])
+def test_jbu_kernel_under_autograd_matches_plain(cuda_device, b, h, w, c):
+    """Kernel E under autograd (JBU training): the forward is the kernel's,
+    bitwise, with one launch, and the gradients of hr, proj, temp and sigma
+    are autograd's through the plain version."""
+    hr = _randn((b, h, w, c), 0, cuda_device)
+    proj = _randn((b, h, w, 32), 1, cuda_device) * 0.3
+    temp = torch.tensor(0.5, device=cuda_device)
+    sigma = torch.tensor(0.8, device=cuda_device)
+    inputs = (hr, proj, temp, sigma)
+    with torch.no_grad():
+        ref = jbu.jbu_filter(*inputs)
+    ts = [t.clone().requires_grad_(True) for t in inputs]
+    before = jbu.jbu_filter.launches
+    out = jbu.jbu_filter(*ts)
+    assert jbu.jbu_filter.launches - before == 1
+    assert torch.equal(out.detach(), ref)
+    g = _randn(out.shape, 2, cuda_device)
+    out.backward(g)
+    refs = [t.clone().requires_grad_(True) for t in inputs]
+    jbu._jbu_plain(*refs).backward(g)
+    for t, r in zip(ts, refs):
+        scale = float(r.grad.abs().max())
+        torch.testing.assert_close(t.grad, r.grad, rtol=0,
+                                   atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_loftup_train_step_checkpoints_its_slabs(cuda_device):
+    """A 112² LoftUp probe (banded in 7 slabs of 16 rows) under autograd on
+    the card: the backward recomputes every slab, so a forward and backward
+    launch D and the slabs' LayerNorms twice, and the click encoder's
+    gradient equals the CPU's."""
+    from isegprobe_torch.models.probe_model import (
+        flagship_config,
+        iSegProbeModel,
+    )
+    from isegprobe_torch.models.vit import init_params
+    from isegprobe_torch.training.trainer import split_params
+
+    up = dict(type="loftup", params=dict(
+        n_dim=384, query_chunk_rows=16, query_chunk_min_pixels=0))
+    cfg = dict(flagship_config((112, 112)), upsampler_cfg=up)
+    model = init_params(iSegProbeModel(**cfg, device=cuda_device), seed=0)
+    cpu = iSegProbeModel(**cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(0)
+    image = torch.from_numpy(rng.random((2, 112, 112, 4), dtype=np.float32))
+    points = torch.full((2, 8, 3), -1.0)
+    points[:, 0] = torch.tensor([50.0, 60.0, 0.0])
+    grads, counts = [], []
+    for m, dev in ((model, cuda_device), (cpu, "cpu")):
+        split_params(m)
+        attention.mha_qkv.launches = layernorm.layernorm.launches = 0
+        attention.mha.launches = 0
+        m(image.to(dev), points.to(dev))["instances"].square().mean(
+        ).backward()
+        counts.append((attention.mha_qkv.launches,
+                       layernorm.layernorm.launches, attention.mha.launches))
+        grads.append(m.embed_coords.proj.weight.grad.cpu())
+    # the forward's 12 A + 82 B + 14 D, then each slab's 8 B + 2 D again;
+    # the CPU's plain versions count nothing
+    assert counts == [(12, 82 + 7 * 8, 14 + 7 * 2), (0, 0, 0)]
+    torch.testing.assert_close(grads[0], grads[1], rtol=0,
+                               atol=1e-4 * float(grads[1].abs().max()))
+    assert float(grads[0].norm()) > 0
 
 
 @pytest.mark.cuda

@@ -739,7 +739,7 @@ def test_train_cli_arguments():
                       "dataloader.mp=false", "epoch_len=16"])
     assert cfg["training_params.crop_size"] == [112, 112]
     assert cfg["dataloader.mp"] is False and cfg["epoch_len"] == 16
-    for bad, err in ((["model=synthetic_dinov2_loftup"], NotImplementedError),
+    for bad, err in ((["model=synthetic_dinov2_nonexistent"], ValueError),
                      (["model=synthetic_dinov2_noup",
                        "training_params.dtype=bfloat16"],
                       NotImplementedError),
