@@ -81,7 +81,7 @@ does not hold:
     checkpoint (its missing upsampler_path must warn) through the f32 loop
     on the fixture's 2 objects and 4 clicks against JAX's, with no object
     differing (every step 1 C, 12 A, 82 B and 14 D), and timed on the first
-    4 objects at the family loop's 4 lanes and 8 clicks (a report, every
+    4 objects at the family loop's 4 lanes and 6 clicks (a report, every
     step launching the same). Kernels A, B, C and D are also checked at these
     paths' shapes: A and B in bf16 at the B=16 loop's forward batch 32, B
     at LoftUp's widths (404 on the slab and key rows, 203 on the stem, 384
@@ -100,8 +100,9 @@ does not hold:
     0)`` on that batch at num_iters=0, twice: losses within 1e-5 of JAX's
     and every trainable leaf's sum, L2 norm and first 16 values within
     tolerance of JAX's, with a profiler split of one step; an epoch of
-    160 items (20 steps at B=8, 0-3 simulated clicks; the command line's
-    epoch is 320 items, cut to make room for phase 11f) with validation
+    96 items (12 steps at B=8, 0-3 simulated clicks; the command line's
+    epoch is 320 items, cut to make room for phases 11f and 11g) with
+    validation
     through the command line's trainer: every step launching exactly
     (1 + num_iters) × (12 A + 25 B) + num_iters C, median ms a step, data
     wait, the first and last 10 steps' mean loss, and the checkpoint read
@@ -172,7 +173,7 @@ does not hold:
     leaves within 11c's tolerances, exactly 2 × (12 A + 34 B + 2 D) or
     2 × (12 A + 25 B + 4 E) launches, the click encoder's gradient
     non-zero), with ms a step, peak memory and a profiler split of a step
-    with 2 clicks; (c) four steps of each through the command line's
+    with 2 clicks; (c) two steps of each through the command line's
     trainer with 0-3 clicks and two validation steps, every step
     launching exactly (1 + num_iters) × its forward's kernels + num_iters
     C, and the checkpoint read back by ``load_model_for_eval`` at 518²
@@ -183,6 +184,35 @@ does not hold:
     ``dinov2_simplevit`` and ``dinov2_lift``, launches checked as in (c),
     the checkpoints read back (DINOv2 at 518², the DINO probe and
     MaskCLIP at 224²);
+11g. bf16_training, mixed-precision training (main paths 52-66,
+    ``python -m isegprobe_torch.train training_params.dtype=bfloat16``):
+    (a) kernels A, B, D and E under autograd in bf16 at the 224² train
+    steps' shapes (A [8, 257, 1152], B [8, 257, 384] with float32 weight
+    and bias, D q [8, 50176, 4, 101] against [8, 256, 4, 101], E hr
+    [8, 2^k·16, 2^k·16, 384]): the forward bitwise to the no-grad kernel
+    with one launch and within the bf16 tolerance of the plain version,
+    every gradient in its input's dtype and within 2^-8 of the scale of
+    autograd through the plain version, forward + backward timed beside
+    the plain version's and the library's (SDPA, ``F.layer_norm``), with
+    peak memory; (b) the full-width bf16 flagship and LoftUp steps from
+    ``init_tree(config, 0)`` on the train-step fixture's 8 items at
+    num_iters=0, twice, against the JAX bf16 steps in ``isegprobe_torch/
+    fixtures/synthetic_train_step_bf16.npz`` (losses within 2^-10
+    relative, leaves within 11c's tolerances with 64 sign flips), and the
+    JBU bf16 step alone (the JAX package cannot train JBU in bf16), each
+    with ms a step, peak memory and the device-busy share of a profiled
+    step at 0 and 2 clicks; (c) two bf16 command-line steps of LoftUp and
+    JBU with clicks and validation, launches checked as in 11f, the
+    checkpoint float32 with no dtype in its config;
+    (d) the bf16 flagship and LoftUp steps at 448², batch 8, with and
+    without ``training_params.remat_backbone`` (remat launches each
+    block's A and 2 B again in the backward: 12 A + 24 B), ms and peak
+    memory; (e) four bf16 command-line steps of the flagship (the float32
+    checkpoint read back at 518² within 1e-5 of the logit scale), then the
+    same run resumed (``training.resume_exp=0``): its leaves loaded
+    bitwise, then moved; (f) a bf16 step with two simulated clicks whose
+    first runs a ``click_models`` tree (another head; the frozen tensors
+    shared): 3 × (12 A + 25 B) + 2 C;
 12. the learned-upsampler families, LoftUp and JBU-FeatUp on DINOv2-S/14 at
     448² (drawn, calibrated): kernels D (cross-attention, f32 and bf16, at
     every tile and load path as A) and E (JBU filter; also at the edges of
@@ -213,7 +243,9 @@ does not hold:
     their forward + backward times at the train steps' shapes (D also
     SDPA's), A and B with their times at the other backbones' shapes,
     the flash core named beside A, D, F and G,
-    the flagship's and LoftUp's bf16 forwards among the paths; A, F and G
+    the flagship's and LoftUp's bf16 forwards among the paths, phase
+    11g's bf16 training paths and A, B, D and E's bf16 forward + backward
+    under autograd; A, F and G
     also in bf16 at the sweep's shape, D at the LoftUp loop's; A and D with
     the plan their wrapper picked, E with the tiling and resources its
     library reports and its ptxas entry, C with its layout, its ptxas
@@ -297,7 +329,8 @@ PER_STEP = {"edt_row_envelope": 1, **FORWARD_LAUNCHES["flagship"]}
 # scenes
 FAMILY_SIZE = 448
 FAMILY_BATCH = 4
-FAMILY_CLICKS = 8
+# 6 clicks keep the run within its time (a LoftUp loop step is ~0.8 s)
+FAMILY_CLICKS = 6
 FAMILY_JOBS = 4
 # a larger positive share than the flagship's: at 3% the drawn JBU probe's
 # masks missed every object on every click (IoU 0 throughout), so no target
@@ -394,7 +427,7 @@ REFILL_FAMILY_JOBS = 7
 
 # training (isegprobe_torch/train.py, models/synthetic/dinov2_noup.py):
 # the JAX items and train step stored in the fixture, the step's shapes
-# (batch 8 at 224²: 257 tokens), an epoch of 160 items with 4 loader
+# (batch 8 at 224²: 257 tokens), an epoch of 96 items with 4 loader
 # threads, and the gates: gradients of A and B under autograd against
 # autograd through the plain version (the backward is that plain version
 # recomputed: equal but for the forward's rounding, 1e-5 of the gradient
@@ -408,9 +441,13 @@ TRAIN_FIXTURE = (Path(__file__).resolve().parent / "isegprobe_torch"
                  / "fixtures" / "synthetic_train_step.npz")
 TRAIN_BATCH = 8
 TRAIN_CROP = 224
-TRAIN_STEPS = 20
+TRAIN_STEPS = 12
 TRAIN_WORKERS = 4
 TRAIN_GRAD_TOL = 1e-5
+# under autograd the backward is the plain version's VJP recomputed, so a
+# kernel's gradient equals autograd through the plain version but for the
+# forward's rounding: 1e-5 of the scale in f32, one bf16 step (2^-8) in bf16
+GRAD_TOL = {"float32": TRAIN_GRAD_TOL, "bfloat16": 2.0**-8}
 TRAIN_IMAGE_TOL = {"grey_levels": 1, "pixel_share": 1e-3}
 TRAIN_LR = 5e-5
 TRAIN_LOSS_RTOL = 1e-5
@@ -450,6 +487,15 @@ BANDED_RECOMPUTE = {"layernorm": 7 * 8, "mha": 7 * 2}
 # read back where neither side resizes a pos-embed: DINOv2's pretraining
 # grid (37² at 518²), the DINO trunk's (14² at 224²); MaskCLIP resizes its
 # table on every forward
+# mixed-precision training (phase 11g): the JAX bf16 train steps stored in
+# their fixture (flagship and LoftUp at 224², batch 8; the JAX package
+# cannot train JBU in bf16, see tests/test_torch_bf16_training.py) and
+# their gates: the losses within 2^-10 relative of JAX's, the leaves as
+# 11c's with 64 sign flips (bf16 gradients' rounding noise; 23 on the CPU)
+BF16_FIXTURE = (Path(__file__).resolve().parent / "isegprobe_torch"
+                / "fixtures" / "synthetic_train_step_bf16.npz")
+BF16_LOSS_RTOL = 2.0**-10
+BF16_FLIPS = 64
 FAMILY_READBACK = {"dinov2_loftup": 518, "dinov2_jbu": 518,
                    "dinov2_lift": 518, "dinov2_simplevit": 518,
                    "vit_noup": 224, "maskclip_noup": 224}
@@ -457,6 +503,50 @@ FAMILY_READBACK = {"dinov2_loftup": 518, "dinov2_jbu": 518,
 
 def fail(msg: str):
     raise RuntimeError(msg)
+
+
+_SCRATCH: list = []
+
+
+def scratch() -> str:
+    """A temporary directory for the trainers' run directories, made at
+    first use and removed when the script exits."""
+    if not _SCRATCH:
+        import atexit
+        import shutil
+        import tempfile
+
+        _SCRATCH.append(tempfile.mkdtemp(prefix="chip_smoke_"))
+        atexit.register(shutil.rmtree, _SCRATCH[0], True)
+    return _SCRATCH[0]
+
+
+_INIT: dict = {}
+
+
+def build(argv, **kw):
+    """``isegprobe_torch.train.build_trainer`` of the command line ``argv``
+    from the script's ``init_tree(config, 0)``, drawn once per script and
+    reused by its later builds (the numpy draw of a full-width backbone
+    takes ~3 s; the trainer would draw the same tree)."""
+    import warnings
+
+    from isegprobe_torch import train as train_cli
+    from isegprobe_torch.models.init_tree import init_tree
+
+    cfg = train_cli.parse_args(argv)
+    if cfg["model"] not in _INIT:
+        _INIT[cfg["model"]] = init_tree(train_cli.model_kwargs(cfg), 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # LoftUp's missing upsampler_path
+        return train_cli.build_trainer(cfg, params=_INIT[cfg["model"]],
+                                       **kw)
+
+
+def _leaves(tree) -> list:
+    """The leaves of a nested dict, in order."""
+    return [x for v in tree.values()
+            for x in (_leaves(v) if isinstance(v, dict) else [v])]
 
 
 def nvidia_smi() -> str:
@@ -470,14 +560,15 @@ def nvidia_smi() -> str:
 
 
 def time_ms(torch, fn, reps: int = 20, rounds: int = 5,
-            graph: bool = True) -> tuple[float, str]:
+            graph: bool = True, warmup: int = 3) -> tuple[float, str]:
     """Median device ms per call of ``fn`` over ``rounds`` rounds of
-    ``reps`` calls between CUDA events. With ``graph`` the calls are
+    ``reps`` calls between CUDA events, after ``warmup`` calls. With
+    ``graph`` the calls are
     captured in one CUDA graph and replayed, so host launch cost does not
     count (a kernel of a few microseconds is otherwise timed at the host's
     launch rate); if capture fails the eager loop is timed instead. Returns
     the time and the method used."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
 
@@ -2327,38 +2418,56 @@ def readback_error(torch, model, ckpt: Path, size: int) -> float:
     return float((got - want).abs().max()) / float(want.abs().max())
 
 
-def cli_epoch(torch, name: str, per_forward: dict, readback: int,
-              argv=()) -> tuple:
-    """One epoch with validation through the trainer of ``python -m
-    isegprobe_torch.train model=synthetic_<name>`` (``argv`` appended):
-    every step launches exactly (1 + num_iters) × ``per_forward`` +
-    num_iters C, the losses are finite, and the checkpoint read back at
-    ``readback``² gives the trainer's logits within TRAIN_READBACK_TOL of
-    their scale. Returns (trainer, record)."""
-    import tempfile
-
-    from isegprobe_torch import train as train_cli
-
-    per_step = {"train": [], "val": []}
-
+def step_checker(name: str, per_forward: dict, per_step: dict,
+                 recompute: dict | None = None):
+    """A trainer's ``on_step``: every step launches exactly (1 + num_iters)
+    × ``per_forward`` + num_iters C (+ ``recompute``, the backward's, on a
+    training step), recorded by kind in ``per_step``."""
     def on_step(kind, index, num_iters):
         got = counters()
-        want = expected(**{k: v * (1 + num_iters)
+        extra = (recompute or {}) if kind == "train" else {}
+        want = expected(**{k: v * (1 + num_iters) + extra.get(k, 0)
                            for k, v in per_forward.items()},
                         edt_row_envelope=num_iters)
         if got != want:
             fail(f"{name} {kind} step {index} (num_iters {num_iters}) "
                  f"launched {got}, expected {want}")
-        per_step[kind].append(got)
+        per_step.setdefault(kind, []).append(got)
         zero_counters()
 
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = train_cli.parse_args([
-            f"model=synthetic_{name}", "training_params.epochs=1",
-            f"dataloader.workers={TRAIN_WORKERS}", f"exp_path={tmp}",
-            *argv])
+    return on_step
+
+
+def cli_epoch(torch, name: str, per_forward: dict, readback: int | None,
+              argv=(), recompute: dict | None = None,
+              exp_path: str | None = None) -> tuple:
+    """One epoch with validation through the trainer of ``python -m
+    isegprobe_torch.train model=synthetic_<name>`` (``argv`` appended):
+    every step launches exactly (1 + num_iters) × ``per_forward`` +
+    num_iters C (+ ``recompute`` a training step), the losses are finite,
+    the checkpoint is float32 and, read back at ``readback``² (and the
+    trainer's model put back to float32 compute), gives the trainer's
+    logits within TRAIN_READBACK_TOL of their scale (None: not read
+    back). The run directory
+    goes under ``exp_path`` (default: a temporary directory removed after
+    the read-back). Returns (trainer, record)."""
+    import contextlib
+    import tempfile
+
+    from isegprobe_torch import train as train_cli
+    from isegprobe_torch.utils.serialization import load_checkpoint
+
+    per_step = {"train": [], "val": []}
+    on_step = step_checker(name, per_forward, per_step, recompute)
+
+    with (contextlib.nullcontext(exp_path) if exp_path
+          else tempfile.TemporaryDirectory()) as tmp:
+        cli = [f"model=synthetic_{name}", "training_params.epochs=1",
+               f"dataloader.workers={TRAIN_WORKERS}", f"exp_path={tmp}",
+               *argv]
+        cfg = train_cli.parse_args(cli)
         t0 = time.time()
-        trainer = train_cli.build_trainer(cfg, on_step=on_step)
+        trainer = build(cli, on_step=on_step)
         build_s = time.time() - t0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2376,8 +2485,15 @@ def cli_epoch(torch, name: str, per_forward: dict, readback: int,
         losses = st["loss"]
         if not np.isfinite(losses).all():
             fail(f"{name}: non-finite training losses {losses}")
-        err = readback_error(torch, trainer.model, Path(tmp) / "checkpoints"
-                             / "last_checkpoint.ckpt", readback)
+        ckpt = Path(trainer.cfg.CHECKPOINTS_PATH) / "last_checkpoint.ckpt"
+        saved, config, _ = load_checkpoint(ckpt)
+        if any(np.asarray(v).dtype != np.float32 for v in
+               _leaves(saved)) or "dtype" in config["params"]:
+            fail(f"{name}: the checkpoint is not float32 or records a "
+                 "dtype")
+        trainer.model.set_compute_dtype(None)
+        err = (0.0 if readback is None else
+               readback_error(torch, trainer.model, ckpt, readback))
         if not err <= TRAIN_READBACK_TOL:
             fail(f"{name}: the checkpoint read back gives logits {err} of "
                  f"the logit scale from the trainer's model")
@@ -2400,28 +2516,26 @@ def cli_epoch(torch, name: str, per_forward: dict, readback: int,
 
 
 def step_vs_jax(torch, name: str, batch_np: dict, want_losses,
-                digest_names, digests, per_forward: dict) -> tuple:
+                digest_names, digests, per_forward: dict, argv=(),
+                loss_rtol: float = TRAIN_LOSS_RTOL,
+                flips: int = TRAIN_FLIPS) -> tuple:
     """The full-width 224² step of ``models/synthetic/<name>.py`` through
-    the command line's trainer, from ``init_tree(config, 0)`` on the
-    fixture's items ``batch_np`` at num_iters=0, twice:
-    exactly 2 × ``per_forward`` launches, the losses within
-    TRAIN_LOSS_RTOL of JAX's and every trainable leaf's digest within
-    tests/test_torch_training.py's tolerances, the click encoder's gradient
-    non-zero. Returns (trainer, batch on the card, record)."""
-    import warnings
-
-    from isegprobe_torch import train as train_cli
-
+    the command line's trainer (``argv`` appended), from ``init_tree(
+    config, 0)`` on the fixture's items ``batch_np`` at num_iters=0, twice:
+    exactly 2 × ``per_forward`` launches, the losses within ``loss_rtol``
+    of JAX's and every trainable leaf's digest within
+    tests/test_torch_training.py's tolerances (with ``flips`` sign flips),
+    the click encoder's gradient non-zero. Returns (trainer, batch on the
+    card, record)."""
     t0 = time.time()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # LoftUp's missing upsampler_path
-        trainer = train_cli.build_trainer(train_cli.parse_args(
-            [f"model=synthetic_{name}", "dataloader.workers=0"]))
+    trainer = build([f"model=synthetic_{name}", "dataloader.workers=0",
+                     f"exp_path={scratch()}", *argv])
     init_s = time.time() - t0
     batch = trainer._upload({k: batch_np[k] for k in ("images", "points",
                                                       "instances")})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     zero_counters()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     ev[0].record()
@@ -2444,7 +2558,7 @@ def step_vs_jax(torch, name: str, batch_np: dict, want_losses,
     digest_err = {}
     for key, want in zip(digest_names, digests):
         got = dig[str(key)]
-        tol_sum = TRAIN_DIGEST_RTOL * want[1] + TRAIN_FLIPS * 4.4 * TRAIN_LR
+        tol_sum = TRAIN_DIGEST_RTOL * want[1] + flips * 4.4 * TRAIN_LR
         e_sum = float(np.abs(got[:2] - want[:2]).max())
         e_first = float(np.nanmax(np.abs(got[2:] - want[2:])))
         digest_err[str(key)] = {"sum_l2": e_sum, "sum_l2_tol": tol_sum,
@@ -2453,9 +2567,9 @@ def step_vs_jax(torch, name: str, batch_np: dict, want_losses,
                 np.array_equal(np.isnan(got), np.isnan(want)):
             fail(f"{name}: trainable leaf {key} after two steps differs "
                  f"from JAX's: {digest_err[str(key)]}")
-    if loss_err > TRAIN_LOSS_RTOL:
+    if loss_err > loss_rtol:
         fail(f"{name}: train step losses {losses} differ from JAX's "
-             f"{list(want_losses)} by {loss_err} > {TRAIN_LOSS_RTOL}")
+             f"{list(want_losses)} by {loss_err} > {loss_rtol}")
     return trainer, batch, {
         "model": name, "batch": int(batch["images"].shape[0]),
         "losses": losses, "jax_cpu_losses": [float(v) for v in want_losses],
@@ -2463,6 +2577,7 @@ def step_vs_jax(torch, name: str, batch_np: dict, want_losses,
         "init_tree_s": init_s, "launches": step_launches,
         "step_ms": [ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])],
         "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
+        "step_peak_mb": (torch.cuda.max_memory_allocated() - base) / 2**20,
         "click_encoder_grad_norm": grad_norm}
 
 
@@ -2473,7 +2588,7 @@ def training_phase(torch) -> dict:
     ``isegprobe_torch/fixtures/synthetic_train_step.npz``; (c) the
     full-width step from ``init_tree(config, 0)`` on that batch against
     JAX's loss and trainable leaves after two Adam steps; (d) an epoch of
-    160 items through the command line's trainer, with validation, every
+    96 items through the command line's trainer, with validation, every
     step's launches checked, and the checkpoint read back by
     ``isegprobe_torch.evaluate.load_model_for_eval``. Returns the records,
     the path launches and the kernel checks at the step's shapes."""
@@ -2588,27 +2703,32 @@ def peak_mb(torch, fn) -> float:
 
 
 def autograd_case(torch, F, name: str, shape, seed: int,
-                  reps: int = 1) -> dict:
-    """Kernel A, B, D or E under autograd at a training shape (f32): the
-    forward with grad equals the no-grad kernel output bitwise with one
-    launch, and the plain version's within the f32 tolerance (E's scaled by
-    max |hr|, as in :func:`jbu_case`): the check that holds the kernel at
-    this shape; every input's gradient (qkv; x, weight, bias; q, k, v; hr,
-    proj, temp, sigma) equals autograd through the plain version within
-    TRAIN_GRAD_TOL of its scale. The backward is the plain version's VJP by
+                  reps: int = 1, dtype: str = "float32") -> dict:
+    """Kernel A, B, D or E under autograd at a training shape, in ``dtype``
+    (bf16: the inputs that mixed-precision training gives the kernel in
+    bf16, B's weight and bias and E's scalars float32): the forward with
+    grad equals the no-grad kernel output bitwise with one launch, and the
+    plain version's within the dtype's tolerance (E's scaled by max |hr|,
+    as in :func:`jbu_case`): the check that holds the kernel at this shape;
+    every input's gradient (qkv; x, weight, bias; q, k, v; hr, proj, temp,
+    sigma) equals autograd through the plain version within the dtype's
+    GRAD_TOL of its scale. The backward is the plain version's VJP by
     design, so that gate holds the Function's plumbing (which input gets
     which gradient, in which dtype), not the kernel. Forward + backward
     timed (eager, CUDA events, ``reps`` calls a round) beside the plain
-    version's and, for D, SDPA's (a yardstick), each with its peak memory;
-    the bound of the forward + backward's work."""
+    version's and the library's (a yardstick: SDPA for A and D,
+    ``F.layer_norm`` for B), each with its peak memory; the bound of the
+    forward + backward's work at the inputs' widths."""
     from isegprobe_torch.ops import attention, jbu, layernorm
 
+    tdt = getattr(torch, dtype)
+    size = tdt.itemsize
     g = torch.Generator(device="cuda").manual_seed(seed)
-    library, exps = None, 0.0
+    library, exps, op_dtype = None, 0.0, dtype
     if name == "mha_qkv":
         b, n, three_c = shape
         heads, dh = three_c // 3 // 64, 64
-        inputs = [torch.randn(shape, generator=g, device="cuda")]
+        inputs = [torch.randn(shape, generator=g, device="cuda").to(tdt)]
 
         def kernel(*ts):
             return attention.mha_qkv(ts[0], heads)
@@ -2616,14 +2736,21 @@ def autograd_case(torch, F, name: str, shape, seed: int,
         def plain(*ts):
             return attention._mha_qkv_plain(ts[0], heads, dh**-0.5)
 
+        def library(qkv):
+            q, k, v = qkv.reshape(b, n, 3, heads, dh).permute(
+                2, 0, 3, 1, 4).unbind(0)
+            return F.scaled_dot_product_attention(
+                q, k, v, scale=dh**-0.5).transpose(1, 2).reshape(b, n, -1)
+
         # forward 2 products, backward 5 (QK^T again, dV, dP, dQ, dK); the
         # exps twice; qkv, dO read, O and d qkv written
         ops = 14.0 * b * heads * n * n * dh
         exps = 2.0 * b * heads * n * n
-        nbytes = 4.0 * 8 * (three_c // 3) * b * n
+        nbytes = size * 8 * (three_c // 3) * b * n
     elif name == "layernorm":
         d = shape[-1]
-        inputs = [torch.randn(shape, generator=g, device="cuda") * 3 + 1,
+        inputs = [(torch.randn(shape, generator=g, device="cuda") * 3
+                   + 1).to(tdt),
                   torch.randn(d, generator=g, device="cuda") * 0.5 + 1,
                   torch.randn(d, generator=g, device="cuda")]
 
@@ -2633,13 +2760,19 @@ def autograd_case(torch, F, name: str, shape, seed: int,
         def plain(*ts):
             return layernorm._ln_plain(*ts, 1e-6)
 
-        # x, dy read, y and dx written
+        def library(x, w, bias):
+            return F.layer_norm(x, (d,), w.to(x.dtype), bias.to(x.dtype),
+                                1e-6)
+
+        # x, dy read, y and dx written; computed in f32
         rows = int(np.prod(shape[:-1]))
-        ops, nbytes = 16.0 * rows * d, 4.0 * 4 * rows * d
+        ops, nbytes, op_dtype = 16.0 * rows * d, size * 4 * rows * d, \
+            "float32"
     elif name == "mha":
         (b, nq, heads, dh), nk = shape[0], shape[1][1]
-        inputs = [torch.randn(s, generator=g, device="cuda") for s in (
-            (b, nq, heads, dh), (b, nk, heads, dh), (b, nk, heads, dh))]
+        inputs = [torch.randn(s, generator=g, device="cuda").to(tdt)
+                  for s in ((b, nq, heads, dh), (b, nk, heads, dh),
+                            (b, nk, heads, dh))]
         scale = dh**-0.5
 
         def kernel(*ts):
@@ -2656,12 +2789,13 @@ def autograd_case(torch, F, name: str, shape, seed: int,
         # as A's; q, k, v, dO read, O and the three gradients written
         ops = 14.0 * b * heads * nq * nk * dh
         exps = 2.0 * b * heads * nq * nk
-        nbytes = 4.0 * 4 * (nq + nk) * b * heads * dh
+        nbytes = size * 4 * (nq + nk) * b * heads * dh
     else:
         b, h, w, c = shape
-        inputs = [torch.randn((b, h, w, c), generator=g, device="cuda"),
-                  torch.randn((b, h, w, 32), generator=g, device="cuda")
-                  * 0.3, torch.full((), 0.5, device="cuda"),
+        inputs = [torch.randn((b, h, w, c), generator=g,
+                              device="cuda").to(tdt),
+                  (torch.randn((b, h, w, 32), generator=g, device="cuda")
+                   * 0.3).to(tdt), torch.full((), 0.5, device="cuda"),
                   torch.full((), 0.8, device="cuda")]
 
         def kernel(*ts):
@@ -2670,10 +2804,10 @@ def autograd_case(torch, F, name: str, shape, seed: int,
         plain = jbu._jbu_plain
         px = b * h * w
         # the forward's 49-tap dots and weighted sums, and about twice that
-        # backward (the weighted sum's two products, the dots' two); hr
-        # and proj read, out, d out, d hr and d proj once each
-        ops = 3 * 2.0 * jbu.NTAP * (32 + c) * px
-        nbytes = 4.0 * (4 * c + 2 * 32) * px
+        # backward (the weighted sum's two products, the dots' two), in
+        # f32; hr and proj read, out, d out, d hr and d proj once each
+        ops, op_dtype = 3 * 2.0 * jbu.NTAP * (32 + c) * px, "float32"
+        nbytes = size * (4 * c + 2 * 32) * px
     wrapper = kernel_wrappers()[name]
     with torch.no_grad():
         ref = kernel(*inputs)
@@ -2683,42 +2817,44 @@ def autograd_case(torch, F, name: str, shape, seed: int,
     out = kernel(*ts)
     launched = wrapper.launches - before
     bitwise = bool(torch.equal(out.detach(), ref))
-    forward = compare(torch, out.detach(), want, "float32",
-                      float(inputs[0].abs().max()) if name == "jbu_filter"
-                      else 1.0)
+    forward = compare(torch, out.detach(), want, dtype,
+                      float(inputs[0].float().abs().max())
+                      if name == "jbu_filter" else 1.0)
     del ref, want
-    cot = torch.randn(out.shape, generator=g, device="cuda")
+    cot = torch.randn(out.shape, generator=g, device="cuda").to(out.dtype)
     out.backward(cot)
     del out
     refs = [t.clone().requires_grad_(True) for t in inputs]
     plain(*refs).backward(cot)
-    errs = [float((t.grad - r.grad).abs().max())
-            / max(float(r.grad.abs().max()), 1e-30)
+    dtypes_ok = all(t.grad.dtype == t.dtype for t in ts)
+    errs = [float((t.grad.float() - r.grad.float()).abs().max())
+            / max(float(r.grad.float().abs().max()), 1e-30)
             for t, r in zip(ts, refs)]
     del ts, refs
-    ok = (bitwise and forward["ok"] and launched == 1
-          and max(errs) <= TRAIN_GRAD_TOL)
+    ok = (bitwise and forward["ok"] and launched == 1 and dtypes_ok
+          and max(errs) <= GRAD_TOL[dtype])
 
     def fwd_bwd(fn):
         xs = [t.detach().requires_grad_(True) for t in inputs]
         fn(*xs).backward(cot)
 
-    rec = {"kernel": name, "shape": list(shape), "dtype": "float32",
+    rec = {"kernel": name, "shape": list(shape), "dtype": dtype,
            "autograd": True, "forward_bitwise": bitwise,
            "forward_vs_plain": {k: v for k, v in forward.items() if k != "ok"},
            "max_abs_err": forward["max_abs_err"],
            "launches_per_forward": launched, "grad_rel_err": errs,
-           "grad_tol": TRAIN_GRAD_TOL, "ok": ok,
-           **_bound(ops, nbytes, "float32", exps=exps)}
+           "grad_dtypes_ok": dtypes_ok, "grad_tol": GRAD_TOL[dtype],
+           "ok": ok, **_bound(ops, nbytes, op_dtype, exps=exps)}
     for key, fn in (("fwd_bwd", kernel), ("plain_fwd_bwd", plain),
                     ("library_fwd_bwd", library)):
         if fn is None:
             rec[f"{key}_ms"] = None
             continue
+        # the peak-memory call warms the timed ones up
         rec[f"{key}_peak_mb"] = peak_mb(torch, lambda: fwd_bwd(fn))
         rec[f"{key}_ms"], _ = time_ms(torch, lambda: fwd_bwd(fn), reps=reps,
-                                      rounds=3, graph=False)
-    if library is not None:
+                                      rounds=3, graph=False, warmup=1)
+    if name == "mha":
         rec["library_backends"] = sdpa_backends(
             torch, F, *(t.transpose(1, 2) for t in inputs), scale)
     return rec
@@ -2733,10 +2869,6 @@ def family_training_phase(torch) -> dict:
     each with clicks and validation; (d) one LoftUp step at 448² with its
     slabs checkpointed; (e) two command-line steps of each other script.
     Returns the records, the path launches and the autograd records."""
-    import warnings
-
-    from isegprobe_torch import train as train_cli
-
     F = torch.nn.functional
     res: dict = {}
     n_key = FAMILY_GRID ** 2
@@ -2781,8 +2913,8 @@ def family_training_phase(torch) -> dict:
         # (c) a short run through the command line, clicks and validation
         _, cli = cli_epoch(torch, name, FAMILY_TRAIN_LAUNCHES[name],
                            FAMILY_READBACK[name],
-                           [f"epoch_len={FAMILY_CLI_ITEMS}",
-                            f"val_epoch_len={FAMILY_CLI_VAL_ITEMS}"])
+                           [f"epoch_len={OTHER_CLI_ITEMS}",
+                            f"val_epoch_len={OTHER_CLI_VAL_ITEMS}"])
         # the device-busy share of the profiled step (b), with 2 clicks
         cli["busy_share"] = step["profile"].get("busy_share")
         print("family_cli", json.dumps(cli))
@@ -2799,11 +2931,10 @@ def family_training_phase(torch) -> dict:
 
     # (d) LoftUp at 448²: its queries in 7 slabs of 64 rows, each
     # recomputed in the backward
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # LoftUp's missing upsampler_path
-        trainer = train_cli.build_trainer(train_cli.parse_args([
-            "model=synthetic_dinov2_loftup", "dataloader.workers=0",
-            f"training_params.crop_size=[{BANDED_SIZE},{BANDED_SIZE}]"]))
+    trainer = build([
+        "model=synthetic_dinov2_loftup", "dataloader.workers=0",
+        f"exp_path={scratch()}",
+        f"training_params.crop_size=[{BANDED_SIZE},{BANDED_SIZE}]"])
     rng = np.random.default_rng(81)
     inst = np.zeros((BANDED_BATCH, BANDED_SIZE, BANDED_SIZE, 1), np.int8)
     points = np.full((BANDED_BATCH, 48, 3), -1.0, np.float32)
@@ -2852,6 +2983,260 @@ def family_training_phase(torch) -> dict:
         res[f"{name}_cli"] = cli
         paths[f"{name}_train_cli"] = cli["launches"]["train"]
         paths[f"{name}_train_validation"] = cli["launches"]["val"]
+    res["path_launches"] = paths
+    return res
+
+
+def step_at(torch, trainer, batch, num_iters: int, want: dict,
+            what: str) -> dict:
+    """One timed train step of ``trainer`` on ``batch`` after a warm-up:
+    device ms between CUDA events, the peak allocated memory (and its part
+    beyond what was allocated before the step: activations, gradients,
+    the optimizer's update), and exactly the launches ``want``."""
+    trainer._step(batch, num_iters)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_counters()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    loss = float(trainer._step(batch, num_iters)[0])
+    ev[1].record()
+    torch.cuda.synchronize()
+    got = counters()
+    if got != want or not np.isfinite(loss):
+        fail(f"{what}: a step launched {got}, expected {want} (loss {loss})")
+    peak = torch.cuda.max_memory_allocated()
+    return {"loss": loss, "step_ms": ev[0].elapsed_time(ev[1]),
+            "peak_memory_mb": peak / 2**20,
+            "step_peak_mb": (peak - base) / 2**20, "launches": got}
+
+
+def drawn_batch(size: int, batch: int, seed: int) -> dict:
+    """A seeded uint8 batch at ``size``² with one rectangle and a positive
+    click on it per item."""
+    rng = np.random.default_rng(seed)
+    inst = np.zeros((batch, size, size, 1), np.int8)
+    points = np.full((batch, 48, 3), -1.0, np.float32)
+    for i in range(batch):
+        y0, x0 = rng.integers(size // 11, size // 2, 2)
+        inst[i, y0:y0 + size // 3, x0:x0 + size // 4] = 1
+        points[i, 0] = (y0 + size // 6, x0 + size // 8, 0)
+    return {"images": rng.integers(0, 256, (batch, size, size, 3), np.uint8),
+            "points": points, "instances": inst}
+
+
+def bf16_training_phase(torch) -> dict:
+    """Main paths of mixed-precision training (phase 11g of the module
+    docstring): (a) kernels A, B, D and E under autograd in bf16 at the
+    224² train steps' shapes; (b) the full-width bf16 flagship and LoftUp
+    steps against the JAX bf16 steps of ``isegprobe_torch/fixtures/
+    synthetic_train_step_bf16.npz``; (c) short bf16 command-line runs of
+    the flagship, LoftUp and JBU; (d) the flagship and LoftUp at 448²,
+    batch 8, with and without ``remat_backbone``; (e) a resumed command-line
+    run; (f) a step with one ``click_models`` tree. Returns the records,
+    the path launches and the autograd records."""
+    import tempfile
+
+    from isegprobe_torch import train as train_cli
+    from isegprobe_torch.models.init_tree import init_tree
+    from isegprobe_torch.utils.serialization import load_checkpoint
+
+    F = torch.nn.functional
+    res: dict = {}
+    paths: dict = {}
+    b, n_tok, n_key = TRAIN_BATCH, FAMILY_GRID ** 2 + 1, FAMILY_GRID ** 2
+    bf16 = "training_params.dtype=bfloat16"
+
+    # (a) the four kernels under autograd in bf16, at the train steps'
+    # shapes (B with float32 weight and bias, E's scalars float32)
+    grads = [autograd_case(torch, F, "mha_qkv", (b, n_tok, 1152), 90,
+                           reps=10, dtype="bfloat16"),
+             autograd_case(torch, F, "layernorm", (b, n_tok, 384), 91,
+                           reps=10, dtype="bfloat16"),
+             autograd_case(torch, F, "mha", [
+                 [b, TRAIN_CROP ** 2, 4, 101], [b, n_key, 4, 101]], seed=92,
+                 dtype="bfloat16")]
+    grads += [autograd_case(torch, F, "jbu_filter", [
+        b, FAMILY_GRID << k, FAMILY_GRID << k, 384], seed=92 + k,
+        dtype="bfloat16") for k in range(1, 5)]
+    for g in grads:
+        print("bf16_autograd", json.dumps(g))
+    if not all(g["ok"] for g in grads):
+        fail(f"a kernel under autograd in bf16 disagrees: {grads}")
+    res["autograd"] = grads
+
+    # (b) the full-width bf16 steps against JAX's, from init_tree(config, 0)
+    fx = dict(np.load(BF16_FIXTURE))
+    with np.load(TRAIN_FIXTURE) as step_fx:
+        items = {k: step_fx[k] for k in ("images", "points", "instances")}
+    launches = {"dinov2_noup": FORWARD_LAUNCHES["flagship"],
+                "dinov2_loftup": FAMILY_TRAIN_LAUNCHES["dinov2_loftup"],
+                "dinov2_jbu": FAMILY_TRAIN_LAUNCHES["dinov2_jbu"]}
+    for name in (str(f) for f in fx["families"]):
+        batch_np = {k: v[:int(fx[f"{name}/batch"])] for k, v in items.items()}
+        trainer, batch, step = step_vs_jax(
+            torch, name, batch_np, fx[f"{name}/losses"],
+            fx[f"{name}/digest_names"], fx[f"{name}/digests"],
+            launches[name], argv=[bf16], loss_rtol=BF16_LOSS_RTOL,
+            flips=BF16_FLIPS)
+        trainer._step(batch, 2)  # warm-up of the clicker's constants
+        step["profile"] = profile_forward(
+            torch, lambda *_: trainer._step(batch, 2), None, None)
+        step["profile_num_iters_0"] = profile_forward(
+            torch, lambda *_: trainer._step(batch, 0), None, None)
+        trainer.shutdown()
+        del trainer, batch
+        print("bf16_step_vs_jax", json.dumps(step))
+        print(f"{name} bf16 train step: losses {step['losses']} (JAX bf16 "
+              f"on the CPU {step['jax_cpu_losses']}), max rel err "
+              f"{step['loss_rel_err']:.2e}; {step['step_ms'][1]:.1f} ms, "
+              f"peak {step['peak_memory_mb']:.0f} MiB; busy "
+              f"{step['profile'].get('busy_share', 0):.0%} with 2 clicks")
+        res[f"{name}_step_vs_jax"] = step
+        paths[f"{name}_bf16_train_step_vs_jax"] = step["launches"]
+    # JBU, which the JAX package cannot train in bf16: the step alone
+    trainer = build(["model=synthetic_dinov2_jbu", "dataloader.workers=0",
+                     f"exp_path={scratch()}", bf16])
+    batch = trainer._upload({k: v[:TRAIN_BATCH] for k, v in items.items()})
+    step = step_at(torch, trainer, batch, 0, expected(
+        **launches["dinov2_jbu"]), "dinov2_jbu bf16 step")
+    step["profile"] = profile_forward(
+        torch, lambda *_: trainer._step(batch, 2), None, None)
+    step["profile_num_iters_0"] = profile_forward(
+        torch, lambda *_: trainer._step(batch, 0), None, None)
+    trainer.shutdown()
+    del trainer, batch
+    print("bf16_jbu_step", json.dumps(step))
+    print(f"dinov2_jbu bf16 train step: {step['step_ms']:.1f} ms, peak "
+          f"{step['peak_memory_mb']:.0f} MiB; busy "
+          f"{step['profile'].get('busy_share', 0):.0%} with 2 clicks")
+    res["dinov2_jbu_step"] = step
+    paths["dinov2_jbu_bf16_train_step"] = step["launches"]
+
+    # (c) short bf16 runs through the command line, clicks and validation
+    # (the flagship's is (e)'s first run; 11f (c) reads LoftUp's and JBU's
+    # checkpoints back, the same writer from float32 master weights)
+    for name in ("dinov2_loftup", "dinov2_jbu"):
+        _, cli = cli_epoch(torch, name, launches[name], None,
+                           [bf16, f"epoch_len={OTHER_CLI_ITEMS}",
+                            f"val_epoch_len={OTHER_CLI_VAL_ITEMS}"])
+        print("bf16_cli", json.dumps(cli))
+        print(f"{name} bf16 through the command line: {cli['steps']} steps, "
+              f"median {cli['ms_per_step_median']:.1f} ms a step (between "
+              f"its events {cli['device_ms_per_step_median']:.1f} ms), peak "
+              f"{cli['peak_memory_mb']:.0f} MiB")
+        res[f"{name}_cli"] = cli
+        paths[f"{name}_bf16_train_cli"] = cli["launches"]["train"]
+        paths[f"{name}_bf16_train_validation"] = cli["launches"]["val"]
+
+    # (d) 448², batch 8, with and without remat: the flagship and LoftUp
+    recompute = {"mha_qkv": 12, "layernorm": 24}  # each block once more
+    big = drawn_batch(BANDED_SIZE, BANDED_BATCH, 95)
+    for name in ("dinov2_noup", "dinov2_loftup"):
+        per_forward = (FORWARD_LAUNCHES["flagship"] if name == "dinov2_noup"
+                       else FORWARD_LAUNCHES["loftup"])
+        for remat in (False, True):
+            trainer = build([
+                f"model=synthetic_{name}", "dataloader.workers=0",
+                f"exp_path={scratch()}", bf16,
+                f"training_params.crop_size=[{BANDED_SIZE},{BANDED_SIZE}]",
+                f"training_params.remat_backbone={str(remat).lower()}"])
+            extra = dict(recompute) if remat else {}
+            if name == "dinov2_loftup":
+                for k, v in BANDED_RECOMPUTE.items():
+                    extra[k] = extra.get(k, 0) + v
+            want = expected(**{k: v + extra.get(k, 0)
+                               for k, v in per_forward.items()})
+            what = f"{name} bf16 448² remat={remat}"
+            batch = trainer._upload(big)
+            rec = step_at(torch, trainer, batch, 0, want, what)
+            rec["profile"] = profile_forward(
+                torch, lambda *_: trainer._step(batch, 0), None, None)
+            rec.update(model=name, size=BANDED_SIZE, batch=BANDED_BATCH,
+                       remat=remat)
+            trainer.shutdown()
+            del trainer, batch
+            print("bf16_448_step", json.dumps(rec))
+            print(f"{what}: {rec['step_ms']:.1f} ms a step, peak "
+                  f"{rec['peak_memory_mb']:.0f} MiB ({rec['step_peak_mb']:.0f}"
+                  f" MiB beyond what was allocated before it), busy "
+                  f"{rec['profile'].get('busy_share', 0):.0%}")
+            res[f"{name}_448_remat_{remat}"] = rec
+            paths[f"{name}_bf16_448_remat_{remat}"] = rec["launches"]
+
+    # (e) resuming: the flagship's bf16 command-line run, then the same
+    # run resumed
+    per_step: dict = {}
+    checker = step_checker("resume", FORWARD_LAUNCHES["flagship"], per_step)
+    argv = [bf16, f"epoch_len={FAMILY_CLI_ITEMS}",
+            f"val_epoch_len={FAMILY_CLI_VAL_ITEMS}"]
+    with tempfile.TemporaryDirectory() as tmp:
+        first, cli = cli_epoch(torch, "dinov2_noup", launches["dinov2_noup"],
+                               TRAIN_READBACK, argv, exp_path=tmp)
+        print("bf16_cli", json.dumps(cli))
+        print(f"dinov2_noup bf16 through the command line: {cli['steps']} "
+              f"steps, median {cli['ms_per_step_median']:.1f} ms a step "
+              f"(between its events {cli['device_ms_per_step_median']:.1f} "
+              f"ms), peak {cli['peak_memory_mb']:.0f} MiB; read back within "
+              f"{cli['readback_rel_err']:.1e}")
+        res["dinov2_noup_cli"] = cli
+        paths["dinov2_noup_bf16_train_cli"] = cli["launches"]["train"]
+        paths["dinov2_noup_bf16_train_validation"] = cli["launches"]["val"]
+        ckpt = Path(first.cfg.CHECKPOINTS_PATH) / "last_checkpoint.ckpt"
+        saved, _, _ = load_checkpoint(ckpt)
+        again = build(["model=synthetic_dinov2_noup",
+                       f"dataloader.workers={TRAIN_WORKERS}", *argv,
+                       f"exp_path={tmp}", "training.resume_exp=0",
+                       "training.start_epoch=1"], on_step=checker)
+        loaded = again.full_params(tuple(saved))
+        if again.cfg.CHECKPOINTS_PATH != first.cfg.CHECKPOINTS_PATH or any(
+                not np.array_equal(x, y)
+                for x, y in zip(_leaves(loaded), _leaves(saved))):
+            fail("the resumed run did not load the saved leaves bitwise "
+                 "into its own run directory")
+        zero_counters()
+        again.run(2, start_epoch=1, validation=False)
+        again.shutdown()
+        moved, _, extra = load_checkpoint(ckpt)
+        changed = sum(not np.array_equal(x, y)
+                      for x, y in zip(_leaves(moved), _leaves(saved)))
+        if extra != {"epoch": 1} or not changed:
+            fail(f"the resumed run did not move the saved leaves "
+                 f"({changed} changed, extra {extra})")
+    resume = {"leaves": len(_leaves(saved)), "loaded_bitwise": True,
+              "moved_leaves": changed,
+              "launches": {c: sum(x[c] for x in per_step["train"])
+                           for c in KERNELS}}
+    print("bf16_resume", json.dumps(resume))
+    res["resume"] = resume
+    paths["resume_train"] = resume["launches"]
+
+    # (f) click_models: the first simulated click through another head
+    # (the head of init_tree's seed 1), the frozen tensors shared
+    argv = ["model=synthetic_dinov2_noup", "dataloader.workers=0",
+            f"exp_path={scratch()}", bf16]
+    other = {"head": init_tree(train_cli.model_kwargs(train_cli.parse_args(
+        argv)), 1, skip=("backbone", "upsampler", "embed_coords"))["head"]}
+    ens = build(argv, click_models=[other])
+    (state,) = ens._click_states
+    model_bytes = sum(p.numel() * p.element_size()
+                      for p in ens.model.parameters())
+    state_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    batch = ens._upload({k: v[:TRAIN_BATCH] for k, v in items.items()})
+    rec = step_at(torch, ens, batch, 2, expected(
+        **{k: 3 * v for k, v in FORWARD_LAUNCHES["flagship"].items()},
+        edt_row_envelope=2), "click_models step")
+    rec.update(click_model_tensors=len(state), click_model_bytes=state_bytes,
+               model_bytes=model_bytes)
+    if sorted({k.split(".")[0] for k in state}) != ["head"]:
+        fail(f"the click model holds other tensors than the head's: "
+             f"{sorted(state)}")
+    ens.shutdown()
+    del ens, batch
+    print("bf16_click_models", json.dumps(rec))
+    res["click_models"] = rec
+    paths["click_models_step"] = rec["launches"]
     res["path_launches"] = paths
     return res
 
@@ -3377,6 +3762,13 @@ def main() -> int:
     results["family_training"] = family_training
 
     done("11f family_training")
+    # 11g. mixed-precision training: A, B, D and E under autograd in bf16,
+    # the bf16 steps against JAX's, bf16 command-line runs, 448² with and
+    # without remat, resuming, click_models
+    bf16_training = bf16_training_phase(torch)
+    results["bf16_training"] = bf16_training
+
+    done("11g bf16_training")
     # 12. the learned-upsampler families (main paths 3-6)
     families = {name: learned_family(torch, name) for name in UPSAMPLERS}
     results["families"] = families
@@ -3424,6 +3816,7 @@ def main() -> int:
     paths.update(others["path_launches"])
     paths.update(ritm["path_launches"])
     paths.update(family_training["path_launches"])
+    paths.update(bf16_training["path_launches"])
     for fam in families.values():
         paths.update(fam["path_launches"])
     kernels = []
@@ -3458,11 +3851,14 @@ def main() -> int:
         # under autograd (training): forward + backward beside the plain
         # version's (and SDPA's, for D), at each train step shape
         autograd = [
-            {k: g[k] for k in ("shape", "fwd_bwd_ms", "plain_fwd_bwd_ms",
-                               "library_fwd_bwd_ms", "bound_ms", "bound_by",
-                               "fwd_bwd_peak_mb", "plain_fwd_bwd_peak_mb",
+            {k: g[k] for k in ("shape", "dtype", "fwd_bwd_ms",
+                               "plain_fwd_bwd_ms", "library_fwd_bwd_ms",
+                               "bound_ms", "bound_by", "fwd_bwd_peak_mb",
+                               "plain_fwd_bwd_peak_mb",
+                               "library_fwd_bwd_peak_mb", "max_abs_err",
                                "grad_rel_err") if k in g}
-            for g in training["autograd"] + family_training["autograd"]
+            for g in (training["autograd"] + family_training["autograd"]
+                      + bf16_training["autograd"])
             if g["kernel"] == name]
         if autograd:
             entry["autograd"] = autograd

@@ -18,9 +18,10 @@ Layout mirrors the JAX package so each module's counterpart is easy to find:
     csrc/       CUDA C++ sources of kernels A-G, built with nvcc at first use
     models/     ViT core, featurizers (DINOv2, DINO key probing, MaskCLIP,
                 the SimpleViT click encoder), upsamplers (identity, LiFT,
-                LoftUp, JBU-FeatUp), heads, probe model, the weight bridge
-                from the JAX package's param trees, and their PRNGKey(0)
-                init rebuilt in numpy (init_tree)
+                LoftUp, JBU-FeatUp), heads, probe model, the compute dtype
+                by flax's rules (dtype.py), the weight bridge from the JAX
+                package's param trees, and their PRNGKey(0) init rebuilt in
+                numpy (init_tree)
     inference/  clicker, predictors (fixed ZoomIn; the transform chain of
                 transforms.py), NoC evaluation and metrics, the batched
                 on-device NoC loop and its job queue (device_eval) and the
@@ -29,8 +30,9 @@ Layout mirrors the JAX package so each module's counterpart is easy to find:
                 the training data without OpenCV: OpenCV's fills and
                 resizes in numpy (raster), augmentations, click sampler,
                 samples, the Synthetic dataset and the threaded loader
-    training/   losses, metrics, optimizers and the trainer with on-card
-                click simulation
+    training/   losses, metrics, optimizers (layer-wise decay) and the
+                trainer with on-card click simulation (bf16 mixed
+                precision, click_models, resuming)
     evaluate.py the trained checkpoints by NoC (python -m
                 isegprobe_torch.evaluate checkpoint=...)
     train.py    training the Synthetic probes, one for each script of
@@ -39,7 +41,8 @@ Layout mirrors the JAX package so each module's counterpart is easy to find:
     scripts/    command-line entry points: the attention-variant sweep
                 (python -m isegprobe_torch.scripts.bench_attn_variants)
     utils/      bbox and label helpers, the checkpoint reader and writer
-                (serialization) and JAX's threefry PRNG in numpy (jax_rng)
+                (serialization), run directories (exp) and JAX's threefry
+                PRNG in numpy (jax_rng)
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without a
 GPU and without that request they raise (see :func:`resolve_device`).

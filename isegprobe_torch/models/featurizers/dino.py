@@ -31,7 +31,7 @@ class DINOFeaturizer(nn.Module):
                  feat_type: str = "key",
                  feats_injection_mode: str = "no_injection",
                  pretrain_grid=None, remat_blocks: bool = False) -> None:
-        """``remat_blocks`` is accepted for config compatibility (it does
+        """``remat_blocks``: recompute each block in the backward (it does
         not change the forward)."""
         super().__init__()
         if feats_injection_mode not in INJECTION_MODES:
@@ -39,7 +39,7 @@ class DINOFeaturizer(nn.Module):
                 f"Unknown injection mode: {feats_injection_mode}")
         if feat_type not in FEAT_TYPES:
             raise ValueError(f"Unknown feat_type: {feat_type}")
-        overrides = dict(patch_size=patch_size)
+        overrides = dict(patch_size=patch_size, remat_blocks=remat_blocks)
         if pretrain_grid is not None:
             # eval-time pre-interpolated pos embeddings
             overrides["pretrain_grid"] = tuple(pretrain_grid)

@@ -29,16 +29,17 @@ class DINOv2Featurizer(nn.Module):
     def __init__(self, arch: str = "dinov2_vits14",
                  feats_injection_mode: str = "no_injection",
                  pretrain_grid=None, remat_blocks: bool = False) -> None:
-        """``remat_blocks`` (recompute blocks in the backward of high-res
-        training) is accepted for config compatibility: trained checkpoints
-        carry it, and it does not change the forward."""
+        """``remat_blocks``: recompute each block in the backward
+        (``training_params.remat_backbone``, the memory lever of high-res
+        training); it does not change the forward."""
         super().__init__()
         if arch not in DINOV2_ARCHS:
             raise NotImplementedError(f"Unknown DINOv2 arch: {arch}")
         if feats_injection_mode not in INJECTION_MODES:
             raise ValueError(
                 f"Unknown injection mode: {feats_injection_mode}")
-        cfg = DINOV2_ARCHS[arch]
+        cfg = dataclasses.replace(DINOV2_ARCHS[arch],
+                                  remat_blocks=remat_blocks)
         if pretrain_grid is not None:
             # eval-time pre-interpolated pos embeddings
             cfg = dataclasses.replace(cfg, pretrain_grid=tuple(pretrain_grid))

@@ -12,7 +12,8 @@ features run blocks 0..L-2 normally and replace the last block by its value
 path only, ``out_proj(v_proj(ln_1(x)))``: no attention, no residual. That
 block therefore has no ``ln_2`` / ``c_fc`` / ``c_proj`` (flax never creates
 them, so the JAX param tree lacks them). One forward launches L-1 attention
-kernels and 2L+1 LayerNorms. Output is NHWC ``[B, h, w, output_dim]``, float32.
+kernels and 2L+1 LayerNorms. Output is NHWC ``[B, h, w, output_dim]``, float32;
+inside, every layer computes in the compute dtype (``models/dtype.py``).
 ``masked_forward`` is the adaptive canvas's forward: each lane's position
 table at its own grid and its invalid tokens out of every softmax (the
 plain masked attention); everything after the blocks is pointwise.
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from isegprobe_torch.models.dtype import Conv2d, Linear, compute_dtype
 from isegprobe_torch.models.featurizers.dinov2 import INJECTION_MODES
 from isegprobe_torch.models.vit import (
     LayerNorm,
@@ -52,21 +54,25 @@ class _CLIPAttention(nn.Module):
         self.heads = heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
-        self.out_proj = nn.Linear(width, width)
+        self.out_proj = Linear(width, width)
+
+    def _in_proj(self, x: torch.Tensor, rows: slice) -> torch.Tensor:
+        """``x @ in_proj_weight[rows].T + in_proj_bias[rows]`` in the
+        compute dtype."""
+        dt = compute_dtype(self, self.in_proj_weight)
+        return F.linear(x.to(dt), self.in_proj_weight[rows].to(dt),
+                        self.in_proj_bias[rows].to(dt))
 
     def forward(self, x: torch.Tensor,
                 key_mask: torch.Tensor | None = None) -> torch.Tensor:
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        qkv = self._in_proj(x, slice(None))
         dh = x.shape[-1] // self.heads
         out = mha_qkv(qkv, self.heads, scale=dh**-0.5, key_mask=key_mask)
         return self.out_proj(out)
 
     def value_path(self, x: torch.Tensor) -> torch.Tensor:
         """``out_proj(v_proj(x))``, the MaskCLIP dense trick."""
-        d = x.shape[-1]
-        v = F.linear(x, self.in_proj_weight[2 * d:],
-                     self.in_proj_bias[2 * d:])
-        return self.out_proj(v)
+        return self.out_proj(self._in_proj(x, slice(2 * x.shape[-1], None)))
 
 
 class _CLIPBlock(nn.Module):
@@ -80,8 +86,8 @@ class _CLIPBlock(nn.Module):
         self.attn = _CLIPAttention(width, heads)
         if not value_only:
             self.ln_2 = LayerNorm(width, LN_EPS)
-            self.c_fc = nn.Linear(width, 4 * width)
-            self.c_proj = nn.Linear(4 * width, width)
+            self.c_fc = Linear(width, 4 * width)
+            self.c_proj = Linear(4 * width, width)
 
     def forward(self, x: torch.Tensor,
                 key_mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -101,8 +107,8 @@ class CLIPVisionTransformer(nn.Module):
         self.patch_size = patch_size
         self.width = width
         self.pretrain_grid = pretrain_grid
-        self.conv1 = nn.Conv2d(3, width, patch_size, stride=patch_size,
-                               bias=False)
+        self.conv1 = Conv2d(3, width, patch_size, stride=patch_size,
+                            bias=False)
         self.class_embedding = nn.Parameter(torch.zeros(width))
         self.positional_embedding = nn.Parameter(
             torch.zeros(pretrain_grid**2 + 1, width))
@@ -115,8 +121,7 @@ class CLIPVisionTransformer(nn.Module):
 
     def embed_patches(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC image -> patch tokens ``[B, N, width]``."""
-        x = x.permute(0, 3, 1, 2).to(self.conv1.weight.dtype)
-        return self.conv1(x).flatten(2).transpose(1, 2)
+        return self.conv1(x.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
 
     def _interp_pos(self, grid_hw: tuple[int, int]) -> torch.Tensor:
         """The position table at ``grid_hw`` (float32): bicubic with the

@@ -10,7 +10,9 @@ of the input's grid (no cls token, no learned table, so the configured
 flax's default eps 1e-6, the MLP exact GELU. flax makes ``patch_norm1`` as
 wide as its input, so the port takes the input's channel count at
 construction (``channels``: the probe model passes its click maps', 3 with
-the previous mask). Output is tokens ``[B, N, dim]``.
+the previous mask). Output is tokens ``[B, N, dim]`` in the compute dtype
+(``models/dtype.py``); ``patch_norm1`` takes the click maps as they come,
+as flax's LayerNorm does.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from isegprobe_torch.models.dtype import Linear
 from isegprobe_torch.models.vit import LayerNorm, posemb_sincos_2d
 from isegprobe_torch.ops.attention import mha_qkv
 
@@ -33,8 +36,8 @@ class _SimpleAttention(nn.Module):
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
         self.norm = LayerNorm(dim)
-        self.to_qkv = nn.Linear(dim, 3 * inner, bias=False)
-        self.to_out = nn.Linear(inner, dim, bias=False)
+        self.to_qkv = Linear(dim, 3 * inner, bias=False)
+        self.to_out = Linear(inner, dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         qkv = self.to_qkv(self.norm(x))
@@ -46,8 +49,8 @@ class _SimpleFeedForward(nn.Module):
     def __init__(self, dim: int, hidden_dim: int) -> None:
         super().__init__()
         self.norm = LayerNorm(dim)
-        self.fc1 = nn.Linear(dim, hidden_dim)
-        self.fc2 = nn.Linear(hidden_dim, dim)
+        self.fc1 = Linear(dim, hidden_dim)
+        self.fc2 = Linear(hidden_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(self.norm(x)), approximate="none"))
@@ -62,7 +65,7 @@ class SimpleViTFeaturizer(nn.Module):
         self.dim = dim
         patch_dim = self.patch_hw[0] * self.patch_hw[1] * channels
         self.patch_norm1 = LayerNorm(patch_dim)
-        self.patch_proj = nn.Linear(patch_dim, dim)
+        self.patch_proj = Linear(patch_dim, dim)
         self.patch_norm2 = LayerNorm(dim)
         self.attn = nn.ModuleList(_SimpleAttention(dim, heads, dim_head)
                                   for _ in range(depth))
@@ -75,7 +78,7 @@ class SimpleViTFeaturizer(nn.Module):
         ph, pw = self.patch_hw
         b, h, w, c = img.shape
         gh, gw = h // ph, w // pw
-        x = img.to(self.patch_proj.weight.dtype).reshape(b, gh, ph, gw, pw, c)
+        x = img.reshape(b, gh, ph, gw, pw, c)
         x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, gh * gw, ph * pw * c)
         x = self.patch_norm2(self.patch_proj(self.patch_norm1(x)))
         x = x + posemb_sincos_2d(gh, gw, self.dim, x.device).to(x.dtype)

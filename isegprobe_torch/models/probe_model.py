@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from isegprobe_torch import resolve_device
+from isegprobe_torch.models.dtype import Conv2d, set_compute_dtype
 from isegprobe_torch.models.featurizers.dino import DINOFeaturizer
 from isegprobe_torch.models.featurizers.dinov2 import DINOv2Featurizer
 from isegprobe_torch.models.featurizers.maskclip import MaskCLIPFeaturizer
@@ -86,31 +87,32 @@ def build_upsampler(utype: str, params: Optional[Dict],
 
 class ScaleLayer(nn.Module):
     """A learned ``|scale|`` multiplier (the JAX package's ``ScaleLayer``,
-    ``lr_mult`` 1): one parameter, ``weight`` ``[1]`` (flax's ``scale``)."""
+    ``lr_mult`` 1): one parameter, ``weight`` ``[1]`` (flax's ``scale``),
+    raw as flax's (a float32 scale promotes a bfloat16 input)."""
 
     def __init__(self, init_value: float = 1.0) -> None:
         super().__init__()
         self.weight = nn.Parameter(torch.full((1,), init_value))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.weight.abs().to(x.dtype)
+        return x * self.weight.abs()
 
 
 class RITMMapsTransform(nn.Module):
     """The RITM click-map transform of ``use_rgb_conv``: a 1x1 conv to 16
     channels, ReLU (or LeakyReLU 0.2), a stride-2 3x3 conv to 64 channels,
-    a :class:`ScaleLayer` (init 0.05). NHWC in and out, in the dtype of its
-    parameters; the output has half the size (rounded up)."""
+    a :class:`ScaleLayer` (init 0.05). NHWC in and out, the convolutions in
+    the compute dtype; the output has half the size (rounded up)."""
 
     def __init__(self, in_chans: int, use_leaky_relu: bool = False) -> None:
         super().__init__()
         self.use_leaky_relu = use_leaky_relu
-        self.conv1 = nn.Conv2d(in_chans, 16, 1)
-        self.conv2 = nn.Conv2d(16, 64, 3, stride=2, padding=1)
+        self.conv1 = Conv2d(in_chans, 16, 1)
+        self.conv2 = Conv2d(16, 64, 3, stride=2, padding=1)
         self.scale = ScaleLayer(0.05)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv1(x.permute(0, 3, 1, 2).to(self.conv1.weight.dtype))
+        x = self.conv1(x.permute(0, 3, 1, 2))
         x = F.leaky_relu(x, 0.2) if self.use_leaky_relu else torch.relu(x)
         return self.scale(self.conv2(x)).permute(0, 2, 3, 1)
 
@@ -127,11 +129,16 @@ def _rect_mask(hw: Tuple[int, int], valid_hw: torch.Tensor) -> torch.Tensor:
 class iSegProbeModel(nn.Module):
     """backbone (+ injected click tokens) -> upsampler -> head.
 
-    Modules compute in the dtype of their parameters. ``model.to(
+    ``dtype`` is the JAX model's compute dtype: with ``torch.bfloat16``
+    over float32 parameters (mixed-precision training, f32 master weights)
+    the backbone, upsampler, click encoder and RITM transform compute by
+    flax's dtype rules (``models/dtype.py``), the head in f32. By default
+    modules compute in the dtype of their parameters, and ``model.to(
     torch.bfloat16)`` is the bf16 serving path, the counterpart of
     evaluate.py's cast of every f32 param to bf16: the backbone and the
     click encoder then compute in bf16, the head in f32 from the
-    bf16-rounded weights, as in the JAX package. ``attn_impl`` and
+    bf16-rounded weights, as in the JAX package. ``dtype`` is not part of
+    the saved config (the JAX package does not record it either). ``attn_impl`` and
     ``cpu_dist_maps`` are accepted for config compatibility: the port always
     uses its own kernels on a GPU. ``quant`` must be None and
     ``fuse_hr_head`` False (not ported yet). The model is built on ``device`` (CUDA
@@ -151,7 +158,8 @@ class iSegProbeModel(nn.Module):
                  with_prev_mask: bool = False,
                  norm_mean_std: Tuple = (IMAGENET_MEAN, IMAGENET_STD),
                  attn_impl: str = "auto", quant=None,
-                 fuse_hr_head: bool = False, device=None) -> None:
+                 fuse_hr_head: bool = False, device=None,
+                 dtype=None) -> None:
         super().__init__()
         if architecture != "backbone_upsampler_head":
             raise NotImplementedError(
@@ -215,6 +223,18 @@ class iSegProbeModel(nn.Module):
             raise ValueError(f"Unknown embed_coords type: {ec_type}")
 
         self.to(resolve_device(device))
+        if dtype is not None:
+            self.set_compute_dtype(dtype)
+
+    def set_compute_dtype(self, dtype) -> "iSegProbeModel":
+        """The compute dtype of every module but the head, which computes
+        in f32 as the JAX package builds it (None: each module's parameter
+        dtype)."""
+        for part in (self.backbone, self.upsampler, self.embed_coords,
+                     self.maps_transform):
+            if part is not None:
+                set_compute_dtype(part, dtype)
+        return self
 
     # -- input preparation ------------------------------------------------
 

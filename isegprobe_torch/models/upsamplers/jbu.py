@@ -6,7 +6,10 @@ projects its (avg-pooled) guidance through a 1x1 conv -> exact GELU -> 1x1
 conv range encoder (key_dim 32), upsamples the source bicubically to the
 guidance size and filters it with ``ops.jbu.jbu_filter`` (kernel E on a
 GPU). Parameter names follow the JAX param tree (``up1`` .. ``up4``,
-``fixup_proj``).
+``fixup_proj``). Everything computes in the compute dtype
+(``models/dtype.py``) but the filter, which computes in float32 and
+returns the source's dtype, and its two 0-dim parameters, which only ever
+meet float32.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from isegprobe_torch.models.dtype import Conv2d, compute_dtype
 from isegprobe_torch.models.upsamplers.lift import conv1x1
 from isegprobe_torch.ops.jbu import RADIUS, jbu_filter
 from isegprobe_torch.ops.pool import adaptive_pool
@@ -31,13 +35,13 @@ class JBULearnedRange(nn.Module):
             raise ValueError(f"JBU filtering is built for radius {RADIUS}")
         self.range_temp = nn.Parameter(torch.zeros(()))
         self.sigma_spatial = nn.Parameter(torch.ones(()))
-        self.range_proj1 = nn.Conv2d(3, key_dim, 1)  # the guidance image
-        self.range_proj2 = nn.Conv2d(key_dim, key_dim, 1)
+        self.range_proj1 = Conv2d(3, key_dim, 1)  # the guidance image
+        self.range_proj2 = Conv2d(key_dim, key_dim, 1)
 
     def forward(self, source: torch.Tensor,
                 guidance: torch.Tensor) -> torch.Tensor:
         gh, gw = guidance.shape[1], guidance.shape[2]
-        source = source.to(self.range_proj1.weight.dtype)
+        source = source.to(compute_dtype(self, self.range_proj1.weight))
         proj = F.gelu(conv1x1(self.range_proj1, guidance),
                       approximate="none")
         proj = conv1x1(self.range_proj2, proj)
@@ -64,11 +68,11 @@ class JBUFeatUpUpsampler(nn.Module):
         self.up2 = JBULearnedRange(key_dim, radius)
         self.up3 = JBULearnedRange(key_dim, radius)
         self.up4 = JBULearnedRange(key_dim, radius)
-        self.fixup_proj = nn.Conv2d(feat_dim, feat_dim, 1)
+        self.fixup_proj = Conv2d(feat_dim, feat_dim, 1)
 
     def forward(self, source: torch.Tensor,
                 guidance: torch.Tensor) -> torch.Tensor:
-        dtype = self.fixup_proj.weight.dtype
+        dtype = compute_dtype(self, self.fixup_proj.weight)
         source, guidance = source.to(dtype), guidance.to(dtype)
         for stage in (self.up1, self.up2, self.up3, self.up4):
             h, w = source.shape[1], source.shape[2]

@@ -6,8 +6,10 @@ stacks over the image. Its BatchNorms are ``FrozenBatchNorm`` (inference
 mode, statistics as parameters, identity at init); LoftUp's conv stem uses
 the same layer. The reference loads LiFT frozen from ``lift_path``, which
 the repo does not hold, so the upsampler keeps its drawn or PRNGKey(0)
-weights. Convolutions compute in the dtype of their parameters, the
-transposed one in float32 (as the JAX package's).
+weights. Convolutions compute in the compute dtype (``models/dtype.py``),
+the transposed one in float32 (as the JAX package's); the FrozenBatchNorm
+parameters are raw, as flax's, so over float32 parameters they promote a
+bfloat16 input.
 """
 
 from __future__ import annotations
@@ -16,14 +18,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from isegprobe_torch.models.dtype import Conv2d, compute_dtype
 from isegprobe_torch.ops.pool import adaptive_pool
 
 
 def conv1x1(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """A 1x1 ``Conv2d`` applied to an NHWC tensor as a matmul over the
-    channels, in the conv's dtype."""
-    return F.linear(x.to(conv.weight.dtype), conv.weight[:, :, 0, 0],
-                    conv.bias)
+    channels, in the conv's compute dtype."""
+    dt = compute_dtype(conv, conv.weight)
+    bias = None if conv.bias is None else conv.bias.to(dt)
+    return F.linear(x.to(dt), conv.weight[:, :, 0, 0].to(dt), bias)
 
 
 class FrozenBatchNorm(nn.Module):
@@ -47,8 +51,7 @@ class FrozenBatchNorm(nn.Module):
 
 
 def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    x = x.to(conv.weight.dtype).permute(0, 3, 1, 2)
-    return conv(x).permute(0, 2, 3, 1)
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 class ConvTranspose2x2(nn.Module):
@@ -65,15 +68,15 @@ class ConvTranspose2x2(nn.Module):
         y = F.conv_transpose2d(x.float().permute(0, 3, 1, 2),
                                self.weight.float().transpose(0, 1),
                                self.bias.float(), stride=2)
-        return y.permute(0, 2, 3, 1).to(self.weight.dtype)
+        return y.permute(0, 2, 3, 1).to(compute_dtype(self, self.weight))
 
 
 class _ConvBNRelu(nn.Module):
     def __init__(self, in_features: int, features: int, stride: int = 1,
                  use_bias: bool = True) -> None:
         super().__init__()
-        self.conv = nn.Conv2d(in_features, features, 3, stride=stride,
-                              padding=1, bias=use_bias)
+        self.conv = Conv2d(in_features, features, 3, stride=stride,
+                           padding=1, bias=use_bias)
         self.bn = FrozenBatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -105,7 +108,7 @@ class LiFTUpsampler(nn.Module):
         self.image_convs_2 = _ConvBNRelu(32, 32, stride=2)
         self.up_transpose = ConvTranspose2x2(c + 32, (c + 32) // 2)
         self.up_conv = _DoubleConv((c + 32) // 2 + 32, c // 2)
-        self.outc = nn.Conv2d(c // 2, c, 1)
+        self.outc = Conv2d(c // 2, c, 1)
 
     def forward(self, source: torch.Tensor,
                 guidance: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,11 @@ slab is checkpointed, as the JAX package's ``nn.remat`` of the slab body
 does: the backward recomputes one slab at a time instead of keeping every
 slab's activations, so a slab's B and D launches run again in the
 backward. Module and parameter names follow the JAX param tree (``ca.i``
-for ``ca_i``).
+for ``ca_i``). Every layer computes in the compute dtype
+(``models/dtype.py``) as the JAX module's ``dtype``: its LayerNorms take
+their input as it comes and cast their output (flax's ``nn.LayerNorm``),
+the ConvNeXt LayerNorm casts its parameters, the Fourier phases stay
+float32, and the FrozenBatchNorm parameters are raw.
 
 Not ported (raise ``NotImplementedError``): the MXU-aligned zero-padded
 layout ``mxu_pad=True`` and the fused head ``tail``, both exact re-layouts
@@ -34,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from isegprobe_torch.models.dtype import Conv2d, Linear, compute_dtype
 from isegprobe_torch.models.upsamplers.lift import FrozenBatchNorm, conv1x1
 from isegprobe_torch.models.vit import LayerNorm
 from isegprobe_torch.ops.attention import mha
@@ -56,7 +61,7 @@ class ChannelNorm(nn.Module):
 
 class ConvNeXtLayerNorm(nn.Module):
     """Channel LayerNorm with two-pass variance and eps inside the sqrt,
-    statistics in float32, output in the parameters' dtype."""
+    statistics in float32, output in the compute dtype."""
 
     def __init__(self, dim: int, eps: float = 1e-6) -> None:
         super().__init__()
@@ -68,8 +73,9 @@ class ConvNeXtLayerNorm(nn.Module):
         xf = x.float()
         u = xf.mean(dim=-1, keepdim=True)
         s = (xf - u).square().mean(dim=-1, keepdim=True)
-        x = ((xf - u) / torch.sqrt(s + self.eps)).to(self.weight.dtype)
-        return self.weight * x + self.bias
+        dt = compute_dtype(self, self.weight)
+        x = ((xf - u) / torch.sqrt(s + self.eps)).to(dt)
+        return self.weight.to(dt) * x + self.bias.to(dt)
 
 
 def min_max_scale(x: torch.Tensor) -> torch.Tensor:
@@ -88,7 +94,7 @@ class ImplicitFeaturizer(nn.Module):
     but reinterpreted as ``[n_freqs, dim_mult]`` when added. Phases are
     float32 whatever the dtype, each rounded once from its exact
     multiply-add (as XLA's fused multiply-add rounds it); only the bounded
-    sin/cos outputs take the parameters' dtype."""
+    sin/cos outputs take the compute dtype."""
 
     def __init__(self, color_feats: bool = True, n_freqs: int = 10) -> None:
         super().__init__()
@@ -121,7 +127,7 @@ class ImplicitFeaturizer(nn.Module):
             b, h, w, nf * dm)
         cos_f = (f + biases[1].reshape(nf, dm)).float().reshape(
             b, h, w, nf * dm)
-        dtype = self.biases.dtype
+        dtype = compute_dtype(self, self.biases)
         parts = [torch.sin(sin_f).to(dtype), torch.cos(cos_f).to(dtype)]
         if self.color_feats:
             parts.append(x.to(dtype))
@@ -138,14 +144,15 @@ class TorchMHA(nn.Module):
         self.dim, self.heads = dim, heads
         self.in_proj_weight = nn.Parameter(torch.zeros(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
-        self.out_proj = nn.Linear(dim, dim)
+        self.out_proj = Linear(dim, dim)
 
     def forward(self, q_in: torch.Tensor,
                 kv_in: torch.Tensor) -> torch.Tensor:
         d, heads = self.dim, self.heads
         dh = d // heads
-        w, bias = self.in_proj_weight, self.in_proj_bias
-        q_in, kv_in = q_in.to(w.dtype), kv_in.to(w.dtype)
+        dt = compute_dtype(self, self.in_proj_weight)
+        w, bias = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
+        q_in, kv_in = q_in.to(dt), kv_in.to(dt)
         q = F.linear(q_in, w[:d], bias[:d])
         k = F.linear(kv_in, w[d:2 * d], bias[d:2 * d])
         v = F.linear(kv_in, w[2 * d:], bias[2 * d:])
@@ -171,8 +178,8 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, hidden_dim: int) -> None:
         super().__init__()
         self.norm = LayerNorm(dim, LN_EPS)
-        self.fc1 = nn.Linear(dim, hidden_dim)
-        self.fc2 = nn.Linear(hidden_dim, dim)
+        self.fc1 = Linear(dim, hidden_dim)
+        self.fc2 = Linear(hidden_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(self.norm(x)), approximate="none"))
@@ -190,7 +197,7 @@ class CATransformer(nn.Module):
 
     def forward(self, query: torch.Tensor,
                 key_value: torch.Tensor) -> torch.Tensor:
-        dtype = self.norm.weight.dtype
+        dtype = compute_dtype(self, self.norm.weight)
         query, key_value = query.to(dtype), key_value.to(dtype)
         for ca, ff in zip(self.ca, self.ff):
             query = ca(query, key_value) + query
@@ -203,13 +210,13 @@ class ConvBNRelu(nn.Module):
 
     def __init__(self, in_features: int, features: int) -> None:
         super().__init__()
-        self.conv = nn.Conv2d(in_features, features, 3, padding=1)
+        self.conv = Conv2d(in_features, features, 3, padding=1)
         self.bn = FrozenBatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.conv.weight.dtype).permute(0, 3, 1, 2)
-        x = self.conv(x).permute(0, 2, 3, 1)
-        return torch.relu(self.bn(x)).to(self.conv.weight.dtype)
+        x = self.conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return torch.relu(self.bn(x)).to(compute_dtype(self,
+                                                        self.conv.weight))
 
 
 class LoftUpUpsampler(nn.Module):
@@ -220,7 +227,7 @@ class LoftUpUpsampler(nn.Module):
     accepted for config compatibility and not read: weights come through
     the bridge (``models.convert.load_jax_params``, which raises if the
     upsampler's subtree is missing), and the port picks its attention path
-    by device. Modules compute in the dtype of their parameters.
+    by device.
     """
 
     def __init__(self, n_dim: int = 384, n_freqs: int = 20,
@@ -247,7 +254,7 @@ class LoftUpUpsampler(nn.Module):
         self.first_conv2 = ConvBNRelu(self.cdim, self.cdim)
         self.ca_transformer = CATransformer(self.cdim, num_layers, num_heads,
                                             n_dim)
-        self.final_conv = nn.Conv2d(self.cdim, n_dim, 1)
+        self.final_conv = Conv2d(self.cdim, n_dim, 1)
         self.final_ln = ConvNeXtLayerNorm(n_dim)
 
     def _head(self, x: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:

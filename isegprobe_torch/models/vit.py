@@ -13,9 +13,14 @@ parameter names follow the JAX param tree (``blocks.i`` for ``blocks_i``)
 so the weight bridge (``models/convert.py``) is a rename and a transpose.
 
 Images are NHWC at the public seams; convolutions run NCHW inside. Each
-module computes in the dtype of its parameters (float32, or bfloat16 after
-``.to(torch.bfloat16)``); attention and LayerNorm go through the port's CUDA
-kernels on a GPU and their plain versions on the CPU.
+module computes in its compute dtype (``models/dtype.py``): bfloat16 over
+float32 parameters in mixed-precision training, where LayerScale's raw
+``gamma`` promotes the residual stream to float32 after the first block
+as jnp does, else the dtype of its parameters (float32, or bfloat16 after
+``.to(torch.bfloat16)``). With ``remat_blocks`` each block is recomputed
+in the backward (``torch.utils.checkpoint``, the JAX ``nn.remat``).
+Attention and LayerNorm go through the port's CUDA kernels on a GPU and
+their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from isegprobe_torch.models.dtype import Conv2d, Linear, compute_dtype
 from isegprobe_torch.ops.attention import mha_qkv
 from isegprobe_torch.ops.dynamic_resize import dyn_matrix
 from isegprobe_torch.ops.layernorm import layernorm
@@ -54,6 +61,8 @@ class ViTConfig:
     # on in the DINOv2 trunk (the port's first, so the default here), off in
     # DINO's and in the JAX dataclass
     layerscale: bool = True
+    # recompute each block in the backward (high-res training)
+    remat_blocks: bool = False
 
 
 class PatchEmbed(nn.Module):
@@ -63,34 +72,42 @@ class PatchEmbed(nn.Module):
     def __init__(self, in_chans: int, patch_size: int,
                  embed_dim: int) -> None:
         super().__init__()
-        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size,
-                              stride=patch_size)
+        self.proj = Conv2d(in_chans, embed_dim, patch_size,
+                           stride=patch_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2).to(self.proj.weight.dtype)
-        return self.proj(x).flatten(2).transpose(1, 2)
+        return self.proj(x.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
 
 
 class LayerNorm(nn.Module):
     """LayerNorm with flax's f32 fast-variance statistics (``ops.layernorm``:
-    the CUDA kernel on a GPU)."""
+    the CUDA kernel on a GPU), output in the compute dtype. As flax's
+    ``nn.LayerNorm`` it takes the input as it comes; with ``cast_input``,
+    as the JAX ViT's ``FusedLayerNorm``, it casts the input to the compute
+    dtype first."""
 
-    def __init__(self, dim: int, eps: float = NORM_EPS) -> None:
+    def __init__(self, dim: int, eps: float = NORM_EPS,
+                 cast_input: bool = False) -> None:
         super().__init__()
         self.eps = eps
+        self.cast_input = cast_input
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layernorm(x.contiguous(), self.weight, self.bias, self.eps)
+        dt = compute_dtype(self, self.weight)
+        if self.cast_input:
+            x = x.to(dt)
+        return layernorm(x.contiguous(), self.weight, self.bias,
+                         self.eps).to(dt)
 
 
 class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int) -> None:
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor,
                 key_mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -105,8 +122,8 @@ class Attention(nn.Module):
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden_dim: int) -> None:
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden_dim)
-        self.fc2 = nn.Linear(hidden_dim, dim)
+        self.fc1 = Linear(dim, hidden_dim)
+        self.fc2 = Linear(hidden_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
@@ -125,10 +142,10 @@ class Block(nn.Module):
     def __init__(self, cfg: ViTConfig) -> None:
         super().__init__()
         d = cfg.embed_dim
-        self.norm1 = LayerNorm(d)
+        self.norm1 = LayerNorm(d, cast_input=True)
         self.attn = Attention(d, cfg.num_heads)
         self.ls1 = LayerScale(d) if cfg.layerscale else nn.Identity()
-        self.norm2 = LayerNorm(d)
+        self.norm2 = LayerNorm(d, cast_input=True)
         self.mlp = Mlp(d, MLP_RATIO * d)
         self.ls2 = LayerScale(d) if cfg.layerscale else nn.Identity()
 
@@ -161,7 +178,7 @@ class ViT(nn.Module):
         gh, gw = cfg.pretrain_grid
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + gh * gw, d))
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
-        self.norm = LayerNorm(d)
+        self.norm = LayerNorm(d, cast_input=True)
 
     def interpolated_pos_embed(self, grid_hw: tuple[int, int]) -> torch.Tensor:
         """Bicubic pos-embed interpolation to a new token grid (float32),
@@ -196,8 +213,10 @@ class ViT(nn.Module):
         tokens = torch.cat([cls, tokens], dim=1)
         x = tokens + self.interpolated_pos_embed(grid_hw).to(tokens.dtype)
         blocks = self.blocks[:-1] if return_last_k else self.blocks
+        remat = self.cfg.remat_blocks and torch.is_grad_enabled()
         for blk in blocks:
-            x = blk(x)
+            x = (checkpoint(blk, x, use_reentrant=False,
+                            preserve_rng_state=False) if remat else blk(x))
         if return_last_k:
             return {"last_k": self.blocks[-1].keys(x)}
         x = self.norm(x)

@@ -27,8 +27,8 @@ and eps 1e-8, the multistep schedule at ``lr_milestones`` with gamma 0.1,
 ``init_tree(config, seed)``, the JAX trainer's ``model.init(PRNGKey(seed))``;
 the saved modules (click encoder and head) take the Adam steps, and their
 gradient passes through the frozen upsampler and backbone. Checkpoints are
-the JAX package's, which both ``evaluate.py`` and ``python -m
-isegprobe_torch.evaluate`` read.
+the JAX package's (float32, whatever the compute dtype), which both
+``evaluate.py`` and ``python -m isegprobe_torch.evaluate`` read.
 
 Usage (on a CUDA GPU; ``device=cpu`` runs the plain PyTorch path):
 
@@ -36,15 +36,31 @@ Usage (on a CUDA GPU; ``device=cpu`` runs the plain PyTorch path):
         [training_params.epochs=20] [dataloader.batch_size=8] \\
         [epoch_len=320] [exp_path=./experiments/torch] [device=cpu] ...
 
-Keys: those of ``configs/train_cfg.yaml`` that apply (``dataloader.*``,
-``training_params.*``, ``training.seed``, ``training.start_epoch``), plus
-the port's ``model``, ``device``, ``exp_path`` (checkpoints go to
-``<exp_path>/checkpoints``), and ``epoch_len`` / ``val_epoch_len`` (items
-an epoch; the JAX package's 320 and 48 by default).
-``training_params.dtype=bfloat16``, ``training.model_parallel > 1``,
-``dataloader.mp=true``, resuming and wandb raise ``NotImplementedError``
-naming their ROADMAP items; a key or a model that is not known raises
-``ValueError``.
+Keys: those of ``configs/train_cfg.yaml`` that apply (``exp.name``,
+``dataloader.*``, ``training_params.*``, ``training.seed``,
+``training.start_epoch``, ``training.resume_exp``,
+``training.resume_prefix``, ``training.weights``), plus the port's
+``model``, ``device``, ``exp_path`` and ``epoch_len`` / ``val_epoch_len``
+(items an epoch; the JAX package's 320 and 48 by default). A run goes to
+``<exp_path>/<MODEL_NAME>/<NNN>_<exp.name>/checkpoints``, numbered as the
+JAX package numbers its runs (``utils/exp.py``).
+
+- ``training_params.dtype=bfloat16`` (or ``bf16``): mixed precision, the
+  model computing in bf16 by flax's rules over float32 master weights;
+  ``float32`` / ``f32`` by default; anything else raises ``ValueError``.
+- ``training_params.remat_backbone=true``: the ``dinov2`` and ``vit``
+  backbones recompute each block in the backward (the memory lever at
+  448²); the other backbones ignore it, as in the JAX package.
+- ``training.resume_exp=<run prefix>`` (``000``, or ``false`` for a fresh
+  run) continues that run, loading the checkpoint that
+  ``training.resume_prefix`` picks (``latest``, or an epoch such as
+  ``008``); ``training.weights=<checkpoint>`` merges a checkpoint over the
+  initial weights. Both restore weights, not the optimizer state;
+  ``training.start_epoch`` re-seeds the data order of the epoch it names.
+
+``training.model_parallel > 1``, ``training.n_devices``, ``dataloader.mp=
+true`` and wandb raise ``NotImplementedError`` naming their ROADMAP items;
+a key or a model that is not known raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -53,13 +69,13 @@ import ast
 import logging
 import sys
 import time
-from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 from isegprobe_torch import resolve_device
 
-__all__ = ["DEFAULTS", "MODELS", "parse_args", "synthetic_datasets",
-           "loss_cfg", "build_trainer", "main"]
+__all__ = ["DEFAULTS", "MODELS", "parse_args", "train_dtype",
+           "model_kwargs", "synthetic_datasets", "loss_cfg", "build_trainer",
+           "main"]
 
 # model= key -> the script's MODEL_NAME; the key without "synthetic_" is
 # its models.probe_model.synthetic_config name
@@ -81,8 +97,6 @@ MODELS = {
 }
 _LATER = "ROADMAP Queue 1 item 6"
 _NOT_PORTED = {
-    "training.resume_exp": f"{_LATER} (training: resume)",
-    "training.weights": f"{_LATER} (training: resume)",
     "training.n_devices": "ROADMAP Queue 1 item 9 (parallel/mesh.py)",
     "training.model_parallel": "ROADMAP Queue 1 item 9 (parallel/tp.py)",
     "wandb.log_wandb": f"{_LATER} (training: TensorBoard and wandb)",
@@ -91,12 +105,14 @@ _NOT_PORTED = {
 # configs/train_cfg.yaml's keys that apply, with its defaults
 DEFAULTS: Dict[str, object] = {
     "model": None,
+    "exp.name": "exp_name_test",
     "dataloader.workers": 4,
     "dataloader.batch_size": 8,
     "dataloader.val_batch_size": 8,
     "dataloader.mp": False,
     "training_params.epochs": 20,
     "training_params.crop_size": [224, 224],
+    "training_params.remat_backbone": False,
     "training_params.dtype": "float32",
     "training_params.checkpoint_interval": [[0, 3], [15, 1]],
     "training_params.lr_milestones": [17, 20],
@@ -109,6 +125,7 @@ DEFAULTS: Dict[str, object] = {
     "training.n_devices": None,
     "training.model_parallel": 1,
     "training.resume_exp": None,
+    "training.resume_prefix": "latest",
     "training.start_epoch": 0,
     "training.weights": None,
     "wandb.log_wandb": False,
@@ -145,11 +162,7 @@ def parse_args(argv) -> Dict:
     if cfg["model"] not in MODELS:
         raise ValueError(f"model={cfg['model']}: takes one of "
                          f"{sorted(MODELS)} (models/synthetic/)")
-    if str(cfg["training_params.dtype"]) not in ("float32", "f32"):
-        raise NotImplementedError(
-            f"training_params.dtype={cfg['training_params.dtype']}: "
-            f"mixed-precision training is not ported yet: {_LATER} "
-            "(training: bf16)")
+    train_dtype(cfg)
     for key, item in _NOT_PORTED.items():
         value = cfg[key]
         off = value is None or value is False or value == ""
@@ -159,6 +172,39 @@ def parse_args(argv) -> Dict:
             raise NotImplementedError(f"{key}={value} is not ported to "
                                       f"isegprobe_torch.train yet: {item}")
     return cfg
+
+
+def train_dtype(cfg: Dict):
+    """The model's compute dtype of ``training_params.dtype``: None
+    (float32) or ``torch.bfloat16``; any other raises ``ValueError``, as
+    ``models/common.py:init_model_from_modules_cfg`` does."""
+    text = str(cfg["training_params.dtype"])
+    if text in ("bfloat16", "bf16"):
+        import torch
+
+        return torch.bfloat16
+    if text not in ("float32", "f32"):
+        raise ValueError(f"training_params.dtype={text!r}: expected float32 "
+                         "or bfloat16")
+    return None
+
+
+def model_kwargs(cfg: Dict) -> Dict:
+    """The probe model's constructor config for a parsed command line: the
+    script's (``probe_model.synthetic_config``) at the crop, with
+    ``remat_blocks`` on the ``dinov2`` and ``vit`` backbones when
+    ``training_params.remat_backbone`` (``models/common.py`` does the same,
+    so the saved config carries it)."""
+    from isegprobe_torch.models.probe_model import synthetic_config
+
+    crop = tuple(cfg["training_params.crop_size"])
+    config = synthetic_config(cfg["model"].removeprefix("synthetic_"), crop)
+    backbone = config["backbone_cfg"]
+    if cfg["training_params.remat_backbone"] and backbone["type"] in (
+            "dinov2", "vit"):
+        config["backbone_cfg"] = dict(backbone, params=dict(
+            backbone.get("params") or {}, remat_blocks=True))
+    return config
 
 
 def synthetic_datasets(crop_size=(224, 224), num_max_points: int = 24,
@@ -210,34 +256,40 @@ def loss_cfg() -> Dict:
             "instance_loss_weight": 1.0}
 
 
-def build_trainer(cfg: Dict, on_step=None, params: Optional[Dict] = None):
-    """The model, datasets and trainer of a parsed command line."""
+def build_trainer(cfg: Dict, on_step=None, params: Optional[Dict] = None,
+                  click_models=None):
+    """The model, datasets, run directory and trainer of a parsed command
+    line (the run's directories are the trainer's ``cfg.EXP_PATH`` and
+    ``cfg.CHECKPOINTS_PATH``). ``click_models`` goes to the trainer; as in
+    the JAX package, no command-line key sets it."""
     from types import SimpleNamespace
 
-    from isegprobe_torch.models.probe_model import (
-        iSegProbeModel,
-        synthetic_config,
-    )
+    from isegprobe_torch.models.probe_model import iSegProbeModel
     from isegprobe_torch.training.metrics import AdaptiveIoU
     from isegprobe_torch.training.trainer import iSegTrainer
+    from isegprobe_torch.utils.exp import init_experiment
 
     device = resolve_device(cfg["device"])
     crop = tuple(cfg["training_params.crop_size"])
-    name = cfg["model"].removeprefix("synthetic_")
-    model = iSegProbeModel(**synthetic_config(name, crop), device=device)
+    model = iSegProbeModel(**model_kwargs(cfg), device=device,
+                           dtype=train_dtype(cfg))
     trainset, valset = synthetic_datasets(
         crop, cfg["training_params.num_max_points"], cfg["epoch_len"],
         cfg["val_epoch_len"], cfg["training_params.render_size"],
         cfg["training_params.aug_scale_range"])
-    exp_path = Path(cfg["exp_path"])
+    run = init_experiment(cfg["exp_path"], MODELS[cfg["model"]],
+                          cfg["exp.name"], cfg["training.resume_exp"],
+                          cfg["training.resume_prefix"])
     tcfg = SimpleNamespace(
         dataloader=SimpleNamespace(
             batch_size=cfg["dataloader.batch_size"],
             val_batch_size=cfg["dataloader.val_batch_size"],
             workers=cfg["dataloader.workers"]),
-        training=SimpleNamespace(start_epoch=cfg["training.start_epoch"],
-                                 weights=None),
-        CHECKPOINTS_PATH=str(exp_path / "checkpoints"))
+        training=SimpleNamespace(
+            start_epoch=cfg["training.start_epoch"],
+            weights=run["weights"] or cfg["training.weights"]),
+        EXP_PATH=str(run["exp_path"]),
+        CHECKPOINTS_PATH=str(run["checkpoints_path"]))
     lr = float(cfg["training_params.lr"])
     return iSegTrainer(
         model, tcfg, loss_cfg(), trainset, valset, optimizer="adam",
@@ -246,7 +298,8 @@ def build_trainer(cfg: Dict, on_step=None, params: Optional[Dict] = None):
                       "gamma": 0.1},
         checkpoint_interval=[tuple(x) for x in
                              cfg["training_params.checkpoint_interval"]],
-        metrics=[AdaptiveIoU()], max_num_next_clicks=3, seed=cfg["training.seed"], params=params,
+        metrics=[AdaptiveIoU()], max_num_next_clicks=3,
+        click_models=click_models, seed=cfg["training.seed"], params=params,
         device=device, on_step=on_step)
 
 
@@ -262,7 +315,7 @@ def main(argv=None) -> int:
         trainer.shutdown()
     print(f"trained {cfg['training_params.epochs']} epochs in "
           f"{time.time() - t0:.1f} s; checkpoints in "
-          f"{Path(cfg['exp_path']) / 'checkpoints'}")
+          f"{trainer.cfg.CHECKPOINTS_PATH}")
     return 0
 
 

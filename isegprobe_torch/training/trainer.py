@@ -18,6 +18,18 @@ queries). Nothing in a step reads the device: each step's
 scalars are read once, one step later (the JAX trainer's deferred read),
 so the host builds and uploads the next batch while the card computes.
 
+Mixed precision: a model built with ``dtype=torch.bfloat16`` computes by
+flax's dtype rules over float32 parameters (``models/dtype.py``), which
+are the master weights: Adam's moments are float32, and checkpoints are
+float32 and record no dtype, as the JAX package's. The losses reduce in
+float32, the click picker takes a float32 sigmoid, and
+``device_iou_stats`` reads the logits as they come (the head's, float32).
+``click_models`` (param trees merged over the model's) run iteration k of
+the click simulation through ``torch.func.functional_call``: the merged
+leaves are the only new tensors, every other one is the model's own.
+``cfg.training.weights`` merges a checkpoint over the initial params
+(weights only, not the optimizer state, as the JAX trainer resumes).
+
 Randomness: ``num_iters`` comes from ``random.Random(seed + epoch)`` (the
 JAX trainer seeds the global ``random`` so); the clicks' uniform draw from
 a ``torch.Generator`` on the card seeded with ``seed + 1`` (JAX draws from
@@ -37,10 +49,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from isegprobe_torch import resolve_device
 from isegprobe_torch.data.loader import DataLoader
 from isegprobe_torch.models.convert import (
+    jax_params_to_state_dict,
     load_jax_params,
     overlay_upsampler_params,
     state_dict_to_jax_params,
@@ -50,11 +64,17 @@ from isegprobe_torch.models.probe_model import filter_state_dict
 from isegprobe_torch.ops.edt import edt_l2sq_device
 from isegprobe_torch.training.metrics import device_iou_stats
 from isegprobe_torch.training.optim import (
+    make_layerwise_decay_optimizer,
     make_optimizer,
     multistep_lr,
     trainable_parameters,
 )
-from isegprobe_torch.utils.serialization import model_config, save_checkpoint
+from isegprobe_torch.utils.serialization import (
+    load_checkpoint,
+    merge_params,
+    model_config,
+    save_checkpoint,
+)
 
 __all__ = ["FROZEN_PREFIXES", "split_params", "get_next_points_device",
            "iSegTrainer"]
@@ -153,15 +173,23 @@ class iSegTrainer:
     ``init_tree(config, seed)``, the JAX trainer's ``model.init(
     PRNGKey(seed))``, with the upsampler weights that the config's
     ``upsampler_path`` names overlaid when the file exists (it warns when
-    it does not), as the JAX trainer's ``_load_pretrained`` does.
+    it does not), as the JAX trainer's ``_load_pretrained`` does, and the
+    checkpoint of ``cfg.training.weights`` merged over them.
+    ``click_models`` is a list of param trees (flax names, numpy, any
+    subset of the model's leaves), each merged over those params: iteration
+    k of the click simulation runs ``click_models[k]``, later iterations
+    the live weights. ``layerwise_decay`` builds the layer-wise decay
+    optimizer over every top-level module that is not frozen; with the
+    backbone frozen it warns and every scale is 1, as in the JAX trainer.
     ``on_step(kind, step, num_iters)`` (optional) is
     called right after each step is dispatched (``kind`` ``"train"`` or
     ``"val"``). ``stats`` holds each training step's ``num_iters``, host
     wall seconds (from one step's start to the next's), seconds waiting for
     its batch and, on CUDA, device milliseconds (events around the step).
-    Layer-wise decay, ``click_models``, ``training.weights``, process
-    workers (``dataloader.mp``) and a bf16 model raise
-    ``NotImplementedError`` naming their ROADMAP items."""
+    Process workers (``dataloader.mp``) raise ``NotImplementedError``
+    naming their ROADMAP item; a model with parameters that are not
+    float32 raises ``ValueError`` (the master weights are float32: build
+    it with ``dtype=torch.bfloat16`` for mixed precision)."""
 
     def __init__(self, model, cfg, loss_cfg: Dict, trainset, valset,
                  optimizer: str = "adam",
@@ -174,18 +202,11 @@ class iSegTrainer:
                  seed: int = -1,
                  params: Optional[Dict] = None, device=None,
                  on_step: Optional[Callable] = None) -> None:
-        if click_models:
-            raise NotImplementedError(
-                f"click_models ensembles are not ported to isegprobe_torch "
-                f"yet: {_LATER} (training: click_models)")
-        if _get(cfg, "training.weights"):
-            raise NotImplementedError(
-                f"training.weights (resuming from a checkpoint) is not "
-                f"ported to isegprobe_torch yet: {_LATER} (training: resume)")
         if any(p.dtype != torch.float32 for p in model.parameters()):
-            raise NotImplementedError(
-                f"mixed-precision training is not ported to isegprobe_torch "
-                f"yet: {_LATER} (training: bf16)")
+            raise ValueError(
+                "the trainer keeps float32 master weights: build the model "
+                "with float32 parameters (dtype=torch.bfloat16 computes in "
+                "bf16 over them)")
         self.device = resolve_device(device)
         self.model = model
         self.cfg = cfg
@@ -224,14 +245,34 @@ class iSegTrainer:
             config = model_config(model)["params"]
             params = overlay_upsampler_params(init_tree(config, self.seed),
                                               config.get("upsampler_cfg"))
+        weights = _get(cfg, "training.weights")
+        if weights:
+            loaded, _, _ = load_checkpoint(weights)
+            params = merge_params(params, loaded)
+            logger.info("Loaded weights from %s", weights)
         load_jax_params(model, params)
         self._template = _shapes(params)
+        self._click_states = tuple(
+            self._click_state(cm) for cm in (click_models or ()))
         split_params(model)
         opt_kwargs = {k: v for k, v in optimizer_params.items()
                       if k in ("betas", "eps", "momentum", "weight_decay")}
-        self.optimizer = make_optimizer(
-            optimizer, trainable_parameters(model, TRAINABLE_PREFIXES),
-            self.base_lr, layerwise_decay=layerwise_decay, **opt_kwargs)
+        if layerwise_decay:
+            # the backbone is frozen, so no trainable parameter has a layer
+            # to decay by: the JAX trainer warns and builds the optimizer
+            # over every module that is not frozen all the same
+            logger.warning("layerwise_decay=True but the backbone is frozen "
+                           "(not trainable): layer-wise decay changes "
+                           "nothing")
+            tops = tuple(n for n, _ in model.named_children()
+                         if n not in FROZEN_PREFIXES)
+            self.optimizer = make_layerwise_decay_optimizer(
+                optimizer, model.named_parameters(), self.base_lr,
+                num_layers=1, trainable_prefixes=tops, **opt_kwargs)
+        else:
+            self.optimizer = make_optimizer(
+                optimizer, trainable_parameters(model, TRAINABLE_PREFIXES),
+                self.base_lr, **opt_kwargs)
         self.num_updates = 0
         self.generator = torch.Generator(self.device).manual_seed(
             self.seed + 1)
@@ -240,6 +281,17 @@ class iSegTrainer:
                                        "data_wait_s": [], "step_device_ms": [],
                                        "loss": []}
         self.epoch_losses: List[float] = []
+
+    def _click_state(self, tree: Dict) -> Dict[str, torch.Tensor]:
+        """A click model's leaves as tensors on the model's device, under
+        the model's parameter names (raises on a leaf the model lacks)."""
+        own = dict(self.model.named_parameters())
+        state = jax_params_to_state_dict(tree)
+        unknown = sorted(set(state) - set(own))
+        if unknown:
+            raise KeyError(f"click model leaves the model lacks: {unknown}")
+        return {k: v.to(own[k].device, own[k].dtype)
+                for k, v in state.items()}
 
     # -- the step ---------------------------------------------------------
 
@@ -252,11 +304,13 @@ class iSegTrainer:
             out[k] = t
         return out
 
-    def _forward(self, images, prev, points) -> Dict:
-        net_input = images
+    def _net_input(self, images, prev):
         if getattr(self.model, "with_prev_mask", False):
-            net_input = torch.cat([images, prev], dim=-1)
-        return self.model(net_input, points)
+            return torch.cat([images, prev], dim=-1)
+        return images
+
+    def _forward(self, images, prev, points) -> Dict:
+        return self.model(self._net_input(images, prev), points)
 
     def _loss(self, outputs: Dict, gt: torch.Tensor):
         loss_fn = self.loss_cfg["instance_loss"]
@@ -274,11 +328,16 @@ class iSegTrainer:
         return total, logging_out
 
     def _simulate_clicks(self, images, gt, points, num_iters: int):
-        """``num_iters`` no-grad forwards, each followed by a click;
+        """``num_iters`` no-grad forwards (iteration k through
+        ``click_models[k]`` where there is one), each followed by a click;
         returns (prev mask, points)."""
         prev = torch.zeros_like(images[..., :1])
         for i in range(num_iters):
-            out = self._forward(images, prev, points)
+            if i < len(self._click_states):
+                out = functional_call(self.model, self._click_states[i],
+                                      (self._net_input(images, prev), points))
+            else:
+                out = self._forward(images, prev, points)
             prev = torch.sigmoid(out["instances"].float())
             points = get_next_points_device(prev, gt, points, i + 1,
                                             self.generator)
@@ -301,8 +360,9 @@ class iSegTrainer:
             outputs = self._forward(images, prev, points)
             loss, logging_out = self._loss(outputs, gt)
             loss.backward()
+            lr = self.lr_schedule(self.num_updates)
             for group in self.optimizer.param_groups:
-                group["lr"] = self.lr_schedule(self.num_updates)
+                group["lr"] = lr * group.get("lr_scale", 1.0)
             self.optimizer.step()
             self.num_updates += 1
         else:

@@ -624,7 +624,7 @@ def test_train_cli_trains_each_script_and_both_readers_read_it(
             "dataloader.batch_size=2", "dataloader.val_batch_size=2",
             "epoch_len=4", "val_epoch_len=2", "training_params.epochs=1",
             "dataloader.workers=0", f"exp_path={out}"]) == 0
-    ckpt = out / "checkpoints" / "last_checkpoint.ckpt"
+    (ckpt,) = out.glob("*/000_*/checkpoints/last_checkpoint.ckpt")
     params, config, extra = load_checkpoint(ckpt)
     jparams, jconfig, jextra = jax_load_checkpoint(ckpt)
     assert sorted(params) == sorted(jparams) == ["embed_coords", "head"]
@@ -702,17 +702,19 @@ def step_against_family_fixture(name, device="cpu", batch_size=FIXTURE_BATCH):
     from ``init_tree(config, 0)`` on the fixture's batch at num_iters=0,
     twice: (losses, digests by name). ``chip_smoke.py`` runs the same on
     the card."""
+    import tempfile
     import warnings
 
     from isegprobe_torch.train import build_trainer, parse_args
 
     from tests.test_torch_training import digest
 
-    with warnings.catch_warnings():
+    with warnings.catch_warnings(), tempfile.TemporaryDirectory() as tmp:
         warnings.simplefilter("ignore")  # LoftUp's missing upsampler_path
         trainer = build_trainer(parse_args([f"model=synthetic_{name}",
                                             f"device={device}",
-                                            "dataloader.workers=0"]))
+                                            "dataloader.workers=0",
+                                            f"exp_path={tmp}"]))
     with np.load(STEP_FIXTURE) as step:
         batch = trainer._upload({k: step[k][:batch_size] for k in (
             "images", "points", "instances")})

@@ -400,7 +400,11 @@ def test_adam_matches_optax_and_schedule():
     import optax
     import torch
 
-    from isegprobe_torch.training.optim import make_optimizer, multistep_lr
+    from isegprobe_torch.training.optim import (
+        make_layerwise_decay_optimizer,
+        make_optimizer,
+        multistep_lr,
+    )
     from isegprobe_tpu.training.optim import multistep_lr as jmultistep
 
     rng = np.random.default_rng(0)
@@ -421,8 +425,11 @@ def test_adam_matches_optax_and_schedule():
             upd, state = tx.update(jnp.asarray(g), state, jp)
             jp = optax.apply_updates(jp, upd)
         np.testing.assert_allclose(p.detach().numpy(), jp, rtol=0, atol=3e-7)
-    with pytest.raises(NotImplementedError, match="layer-wise"):
-        make_optimizer("adam", [p], 1e-2, layerwise_decay=True)
+    # layer-wise decay leaves a parameter outside the backbone unscaled
+    lw = make_layerwise_decay_optimizer("adam", [("head.w", p)], 1e-2,
+                                        num_layers=12)
+    assert [(g["lr_scale"], g["lr"]) for g in lw.param_groups] == [
+        (1.0, 1e-2)]
     with pytest.raises(ValueError):
         make_optimizer("lamb", [p], 1e-2)
     lr, jlr = multistep_lr(5e-5, [17, 20], 0.1, 40), jmultistep(
@@ -674,13 +681,18 @@ def test_split_params_and_unported_options(tiny_arch, tmp_path):
                                           model.parameters())
     items = ListDataset(_items(tiny_batch()))
     cfg = _ns_cfg(tmp_path)
-    with pytest.raises(NotImplementedError, match="click_models"):
-        iSegTrainer(model, cfg, {}, items, items, click_models=[{}],
-                    device="cpu")
-    cfg.training.weights = "x.ckpt"
-    with pytest.raises(NotImplementedError, match="resume"):
+    with pytest.raises(KeyError, match="click model"):
+        iSegTrainer(model, cfg, {}, items, items, device="cpu",
+                    click_models=[{"head": {"nonexistent": {
+                        "kernel": np.zeros((1, 1))}}}])
+    cfg.training.weights = str(tmp_path / "x.ckpt")
+    with pytest.raises(FileNotFoundError):
         iSegTrainer(model, cfg, {}, items, items, device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16"):
+    cfg = _ns_cfg(tmp_path)
+    cfg.dataloader.mp = True
+    with pytest.raises(NotImplementedError, match="item 6"):
+        iSegTrainer(model, cfg, {}, items, items, device="cpu")
+    with pytest.raises(ValueError, match="float32 master weights"):
         iSegTrainer(model.to(torch.bfloat16), _ns_cfg(tmp_path), {}, items,
                     items, device="cpu")
 
@@ -739,14 +751,16 @@ def test_train_cli_arguments():
                       "dataloader.mp=false", "epoch_len=16"])
     assert cfg["training_params.crop_size"] == [112, 112]
     assert cfg["dataloader.mp"] is False and cfg["epoch_len"] == 16
+    for ok in (["training_params.dtype=bfloat16"],
+               ["training.resume_exp=000"], ["training.weights=x.ckpt"]):
+        parse_args(["model=synthetic_dinov2_noup", *ok])
     for bad, err in ((["model=synthetic_dinov2_nonexistent"], ValueError),
                      (["model=synthetic_dinov2_noup",
-                       "training_params.dtype=bfloat16"],
-                      NotImplementedError),
+                       "training_params.dtype=float16"], ValueError),
                      (["model=synthetic_dinov2_noup",
                        "training.model_parallel=2"], NotImplementedError),
                      (["model=synthetic_dinov2_noup",
-                       "training.resume_exp=000"], NotImplementedError),
+                       "training.n_devices=4"], NotImplementedError),
                      (["model=synthetic_dinov2_noup", "dataloader.mp=true"],
                       NotImplementedError),
                      (["model=synthetic_dinov2_noup", "colour=red"],
@@ -758,8 +772,8 @@ def test_train_cli_arguments():
 def test_train_cli_runs_two_steps_and_evaluate_reads_it(tmp_path):
     """``python -m isegprobe_torch.train`` on the CPU (``device=cpu``): two
     full-width steps at a 112² crop and a reduced epoch length write a
-    checkpoint that
-    ``python -m isegprobe_torch.evaluate`` reads, and the JAX package's
+    checkpoint (in the run directory ``<exp_path>/<MODEL_NAME>/
+    000_<exp.name>``) that ``python -m isegprobe_torch.evaluate`` reads, and the JAX package's
     model config for the same script."""
     from isegprobe_torch import evaluate, train
     from isegprobe_torch.utils.serialization import load_checkpoint
@@ -770,7 +784,8 @@ def test_train_cli_runs_two_steps_and_evaluate_reads_it(tmp_path):
                        "epoch_len=16", "val_epoch_len=8",
                        "training_params.epochs=1", "dataloader.workers=2",
                        f"exp_path={out}"]) == 0
-    ckpt = out / "checkpoints" / "last_checkpoint.ckpt"
+    ckpt = (out / "synthetic_dinov2_noup_convhead_patchembed_earlyinject_224"
+            / "000_exp_name_test" / "checkpoints" / "last_checkpoint.ckpt")
     params, config, extra = load_checkpoint(ckpt)
     assert sorted(params) == ["embed_coords", "head"] and extra == {
         "epoch": 0}
@@ -826,11 +841,15 @@ def step_against_fixture(fx, device="cpu"):
     """The port's full-width step from ``init_tree(config, 0)`` on the
     fixture's batch at num_iters=0, twice: (losses, digests by name).
     ``chip_smoke.py`` runs the same on the card."""
+    import tempfile
+
     from isegprobe_torch.train import build_trainer, parse_args
 
-    trainer = build_trainer(parse_args(["model=synthetic_dinov2_noup",
-                                        f"device={device}",
-                                        "dataloader.workers=0"]))
+    with tempfile.TemporaryDirectory() as tmp:  # the run directory
+        trainer = build_trainer(parse_args(["model=synthetic_dinov2_noup",
+                                            f"device={device}",
+                                            "dataloader.workers=0",
+                                            f"exp_path={tmp}"]))
     batch = trainer._upload({k: fx[k] for k in ("images", "points",
                                                  "instances")})
     losses = [float(trainer._step(batch, 0)[0]) for _ in range(2)]
