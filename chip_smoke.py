@@ -68,7 +68,9 @@ does not hold:
 11b. the trained probes (main paths 8-13): the 160-epoch flagship
     checkpoint loaded through ``isegprobe_torch.evaluate.
     load_model_for_eval`` (frozen backbone rebuilt from PRNGKey(0) in numpy:
-    its seconds and 22,056,192 parameters printed) and held against the
+    its seconds and 22,056,192 parameters printed; a later load or trainer
+    of the same backbone and upsampler config reuses the frozen parts
+    through ``load_model_for_eval(frozen=...)``) and held against the
     JAX package's results stored in ``isegprobe_torch/fixtures/
     synthetic2026_50.npz`` (the Synthetic scenes, 78 objects): the f32
     device loop at B=8 on every object (IoUs within 1e-3 of JAX's up to an
@@ -213,6 +215,28 @@ does not hold:
     bitwise, then moved; (f) a bf16 step with two simulated clicks whose
     first runs a ``click_models`` tree (another head; the frozen tensors
     shared): 3 × (12 A + 25 B) + 2 C;
+11h. data, the paper's data (main paths 67-76: ``data/image_io.py``,
+    ``data/datasets/standard.py``, ``python -m isegprobe_torch.train
+    model=sbd_*``, ``python -m isegprobe_torch.evaluate datasets=...``) on
+    the trees of ``isegprobe_torch/fixtures/datasets/``, against
+    ``isegprobe_torch/fixtures/datasets.npz``: (a) every file decoded
+    without OpenCV to ``cv2.imread``'s pixels (sha256), ms per SBD-size
+    JPEG; (b) the SBD train and val items from 4 loader threads and the
+    train items from 4 spawned processes (``dataloader.mp``) equal to the
+    JAX package's (sha256), ms an item for each; (c) the full-width 224²
+    steps of ``sbd_dinov2_noup`` and ``sbd_dinov2_bilinear`` at batch 8 on
+    those items at num_iters=0, twice: 2 × (12 A + 25 B), losses within
+    1e-5 of JAX's, leaves as 11c's; then two command-line steps of each
+    (threads for the first, processes for the second) with clicks and
+    validation, launches as 11c's, data wait a step, the checkpoint read
+    back at 518²; (d) the trained flagship through the evaluate CLI's
+    ``evaluate`` on GrabCut, Berkeley, DAVIS, SBD and PascalVOC (fixed
+    448², at most 20 clicks, target IoU 0.9), f32: the device loop through the
+    job queue at B=8 on every object (every step 1 C + 12 A + 25 B) and
+    the host protocol on each dataset's first object, held to the JAX
+    trajectories as 11b's loops are (IoUs within 1e-3 up to the first
+    differing click, at most 2 objects of a dataset differing, NoC within
+    0.05), ms a loop step and a host click;
 12. the learned-upsampler families, LoftUp and JBU-FeatUp on DINOv2-S/14 at
     448² (drawn, calibrated): kernels D (cross-attention, f32 and bf16, at
     every tile and load path as A) and E (JBU filter; also at the edges of
@@ -496,6 +520,21 @@ BF16_FIXTURE = (Path(__file__).resolve().parent / "isegprobe_torch"
                 / "fixtures" / "synthetic_train_step_bf16.npz")
 BF16_LOSS_RTOL = 2.0**-10
 BF16_FLIPS = 64
+# the paper's data (phase 11h): the dataset trees and their fixture (cv2's
+# pixel digests, the JAX package's SBD items and steps, the JAX device
+# evaluator's trajectories of the trained flagship), the loader's workers,
+# the command-line runs' items (two steps at batch 8) and the evaluation
+DATA_TREES = (Path(__file__).resolve().parent / "isegprobe_torch"
+              / "fixtures" / "datasets")
+DATA_FIXTURE = (Path(__file__).resolve().parent / "isegprobe_torch"
+                / "fixtures" / "datasets.npz")
+DATA_WORKERS = 4
+DATA_SEEDS = (0, 1)
+DATA_CLI_ITEMS = 16
+DATA_CLI_VAL_ITEMS = 8
+DATA_EVAL = ("GrabCut", "Berkeley", "DAVIS", "SBD", "PascalVOC")
+DATA_PATH_KEYS = {"SBD": "sbd", "GRABCUT": "grabcut", "BERKELEY": "berkeley",
+                  "DAVIS": "davis", "PASCALVOC": "pascalvoc"}
 FAMILY_READBACK = {"dinov2_loftup": 518, "dinov2_jbu": 518,
                    "dinov2_lift": 518, "dinov2_simplevit": 518,
                    "vit_noup": 224, "maskclip_noup": 224}
@@ -522,25 +561,81 @@ def scratch() -> str:
 
 
 _INIT: dict = {}
+# frozen parts (backbone, upsampler) by the config that draws them, shared
+# by the trainers' initial trees and the evaluation loads: a checkpoint's
+# frozen parts are init_tree(config, 0)'s for its backbone and upsampler
+# config (isegprobe_torch.evaluate.load_model_for_eval's ``frozen``)
+_FROZEN: dict = {}
+_TRAINED_KEYS = ("embed_coords", "head")
+
+
+def frozen_key(config: dict) -> str:
+    """The part of a model config that the frozen parts depend on: the
+    backbone without remat (which draws nothing) and the upsampler, an
+    upsampler without parameters (identity, bilinear) as identity."""
+    backbone = dict(config["backbone_cfg"])
+    backbone["params"] = {k: v for k, v in (backbone.get("params")
+                                            or {}).items()
+                          if k != "remat_blocks"}
+    upsampler = config.get("upsampler_cfg") or {"type": "bilinear"}
+    if upsampler["type"] in ("identity", "bilinear"):
+        upsampler = {"type": "identity"}
+    return json.dumps([backbone, upsampler], sort_keys=True)
+
+
+def remember_frozen(config: dict, tree: dict) -> None:
+    _FROZEN.setdefault(frozen_key(config), {
+        k: v for k, v in tree.items() if k not in _TRAINED_KEYS})
+
+
+def eval_load(torch, ckpt, dtype, size=(448, 448), **kw):
+    """``load_model_for_eval``, with the frozen parts of an earlier load or
+    trainer of the same backbone and upsampler config when there is one
+    (``info["init_seconds"]`` is then ~0)."""
+    from isegprobe_torch.evaluate import load_model_for_eval
+    from isegprobe_torch.utils.serialization import load_checkpoint
+
+    config = load_checkpoint(str(ckpt))[1]["params"]
+    model, info = load_model_for_eval(
+        str(ckpt), dtype, size, frozen=_FROZEN.get(frozen_key(config)),
+        **kw)
+    remember_frozen(config, info["frozen"])
+    return model, info
 
 
 def build(argv, **kw):
     """``isegprobe_torch.train.build_trainer`` of the command line ``argv``
-    from the script's ``init_tree(config, 0)``, drawn once per script and
-    reused by its later builds (the numpy draw of a full-width backbone
-    takes ~3 s; the trainer would draw the same tree)."""
+    from the script's ``init_tree(config, 0)``, drawn once per model
+    config and reused by later builds (the numpy draw of a full-width
+    backbone takes 3-11 s; the trainer would draw the same tree)."""
     import warnings
 
     from isegprobe_torch import train as train_cli
     from isegprobe_torch.models.init_tree import init_tree
 
+    from isegprobe_torch.utils.serialization import merge_params
+
     cfg = train_cli.parse_args(argv)
-    if cfg["model"] not in _INIT:
-        _INIT[cfg["model"]] = init_tree(train_cli.model_kwargs(cfg), 0)
+    config = train_cli.model_kwargs(cfg)
+    # scripts that build the same parameters share a tree: remat draws
+    # nothing, and neither does an upsampler without parameters (identity,
+    # bilinear), whose probe's tree is the identity probe's
+    # (tests/test_torch_sbd_training.py); the frozen parts may come from
+    # an evaluation load of the same config
+    key = json.dumps([frozen_key(config), {
+        k: v for k, v in config.items()
+        if k not in ("backbone_cfg", "upsampler_cfg")}], sort_keys=True)
+    if key not in _INIT:
+        frozen = _FROZEN.get(frozen_key(config))
+        if frozen is None:
+            _INIT[key] = init_tree(config, 0)
+            remember_frozen(config, _INIT[key])
+        else:
+            _INIT[key] = merge_params(frozen, init_tree(config, 0,
+                                                        skip=frozen))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # LoftUp's missing upsampler_path
-        return train_cli.build_trainer(cfg, params=_INIT[cfg["model"]],
-                                       **kw)
+        return train_cli.build_trainer(cfg, params=_INIT[key], **kw)
 
 
 def _leaves(tree) -> list:
@@ -1514,7 +1609,6 @@ def trained_phase(torch, cuda) -> dict:
     import warnings
 
     from isegprobe_torch.data.scenes import SYNTHETIC_FIXTURE, SceneDataset
-    from isegprobe_torch.evaluate import load_model_for_eval
     from isegprobe_torch.inference import device_eval
     from isegprobe_torch.inference.metrics import compute_noc_metric
     from isegprobe_torch.models.upsamplers.loftup import LN_EPS
@@ -1569,8 +1663,8 @@ def trained_phase(torch, cuda) -> dict:
     models = {}
     for dtype in ("float32", "bfloat16"):
         t0 = time.time()
-        models[dtype], info = load_model_for_eval(
-            TRAINED_CKPTS["flagship"], getattr(torch, dtype), (448, 448))
+        models[dtype], info = eval_load(
+            torch, TRAINED_CKPTS["flagship"], getattr(torch, dtype))
         res[f"load_{dtype}"] = {"load_s": time.time() - t0,
                                 "init_tree_s": info["init_seconds"],
                                 "frozen_params": info["frozen_params"]}
@@ -1659,8 +1753,8 @@ def trained_phase(torch, cuda) -> dict:
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         t0 = time.time()
-        model, info = load_model_for_eval(TRAINED_CKPTS["loftup"],
-                                          torch.float32, (448, 448))
+        model, info = eval_load(torch, TRAINED_CKPTS["loftup"],
+                                torch.float32)
         load_s = time.time() - t0
     warned = [str(w.message) for w in caught
               if "upsampler_path" in str(w.message)]
@@ -1837,7 +1931,6 @@ def other_backbones_phase(torch) -> dict:
     probe. Kernels A and B are checked and timed at these paths' shapes.
     Returns the records, the path launches and the kernel checks."""
     from isegprobe_torch.data.scenes import SYNTHETIC_FIXTURE, SceneDataset
-    from isegprobe_torch.evaluate import load_model_for_eval
     from isegprobe_torch.inference import device_eval
     from isegprobe_torch.inference.metrics import compute_noc_metric
     from isegprobe_torch.models.featurizers.maskclip import LN_EPS
@@ -1898,8 +1991,8 @@ def other_backbones_phase(torch) -> dict:
     models = {}
     for dtype in ("float32", "bfloat16"):
         t0 = time.time()
-        models[dtype], info = load_model_for_eval(
-            TRAINED_CKPTS["maskclip"], getattr(torch, dtype), (448, 448))
+        models[dtype], info = eval_load(
+            torch, TRAINED_CKPTS["maskclip"], getattr(torch, dtype))
         res[f"load_{dtype}"] = {"load_s": time.time() - t0,
                                 "init_tree_s": info["init_seconds"],
                                 "frozen_params": info["frozen_params"]}
@@ -2067,7 +2160,6 @@ def ritm_and_refill_phase(torch, cuda, shared: dict) -> dict:
     queue beside phase 11b's lockstep loops and models (``shared``).
     Returns the records, the path launches and the kernel checks."""
     from isegprobe_torch.data.scenes import SYNTHETIC_FIXTURE, SceneDataset
-    from isegprobe_torch.evaluate import load_model_for_eval
     from isegprobe_torch.inference import adaptive_eval, device_eval
     from isegprobe_torch.inference.evaluation import (
         evaluate_sample,
@@ -2132,8 +2224,9 @@ def ritm_and_refill_phase(torch, cuda, shared: dict) -> dict:
     # pretraining grid) and phase 11b's fixed-crop ones (resized to 448²)
     models = {("fixed", dtype): m for dtype, m in shared["models"].items()}
     for dtype in (f32, bf16):
-        models["ritm", dtype], info = load_model_for_eval(
-            TRAINED_CKPTS["flagship"], getattr(torch, dtype), eval_ritm=True)
+        models["ritm", dtype], info = eval_load(
+            torch, TRAINED_CKPTS["flagship"], getattr(torch, dtype),
+            eval_ritm=True)
         if info["frozen_params"] != TRAINED_FROZEN["flagship"]:
             fail(f"trained flagship (eval_ritm): {info['frozen_params']} "
                  "frozen parameters")
@@ -2401,12 +2494,9 @@ def readback_error(torch, model, ckpt: Path, size: int) -> float:
     negative click, over their scale."""
     import warnings
 
-    from isegprobe_torch.evaluate import load_model_for_eval
-
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # LoftUp's missing upsampler_path
-        loaded, _ = load_model_for_eval(str(ckpt), torch.float32,
-                                        (size, size))
+        loaded, _ = eval_load(torch, ckpt, torch.float32, (size, size))
     g = torch.Generator(device="cuda").manual_seed(75)
     image = torch.rand((1, size, size, 4), generator=g, device="cuda")
     pts = torch.full((1, 48, 3), -1.0, device="cuda")
@@ -2442,7 +2532,8 @@ def cli_epoch(torch, name: str, per_forward: dict, readback: int | None,
               argv=(), recompute: dict | None = None,
               exp_path: str | None = None) -> tuple:
     """One epoch with validation through the trainer of ``python -m
-    isegprobe_torch.train model=synthetic_<name>`` (``argv`` appended):
+    isegprobe_torch.train model=synthetic_<name>`` (or ``model=<name>``
+    for an ``sbd_*`` script; ``argv`` appended):
     every step launches exactly (1 + num_iters) × ``per_forward`` +
     num_iters C (+ ``recompute`` a training step), the losses are finite,
     the checkpoint is float32 and, read back at ``readback``² (and the
@@ -2462,7 +2553,8 @@ def cli_epoch(torch, name: str, per_forward: dict, readback: int | None,
 
     with (contextlib.nullcontext(exp_path) if exp_path
           else tempfile.TemporaryDirectory()) as tmp:
-        cli = [f"model=synthetic_{name}", "training_params.epochs=1",
+        model = name if name.startswith("sbd_") else f"synthetic_{name}"
+        cli = [f"model={model}", "training_params.epochs=1",
                f"dataloader.workers={TRAIN_WORKERS}", f"exp_path={tmp}",
                *argv]
         cfg = train_cli.parse_args(cli)
@@ -2519,8 +2611,9 @@ def step_vs_jax(torch, name: str, batch_np: dict, want_losses,
                 digest_names, digests, per_forward: dict, argv=(),
                 loss_rtol: float = TRAIN_LOSS_RTOL,
                 flips: int = TRAIN_FLIPS) -> tuple:
-    """The full-width 224² step of ``models/synthetic/<name>.py`` through
-    the command line's trainer (``argv`` appended), from ``init_tree(
+    """The full-width 224² step of ``models/synthetic/<name>.py`` (or of
+    an ``sbd_*`` script) through the command line's trainer (``argv``
+    appended), from ``init_tree(
     config, 0)`` on the fixture's items ``batch_np`` at num_iters=0, twice:
     exactly 2 × ``per_forward`` launches, the losses within ``loss_rtol``
     of JAX's and every trainable leaf's digest within
@@ -2528,7 +2621,8 @@ def step_vs_jax(torch, name: str, batch_np: dict, want_losses,
     the click encoder's gradient non-zero. Returns (trainer, batch on the
     card, record)."""
     t0 = time.time()
-    trainer = build([f"model=synthetic_{name}", "dataloader.workers=0",
+    model = name if name.startswith("sbd_") else f"synthetic_{name}"
+    trainer = build([f"model={model}", "dataloader.workers=0",
                      f"exp_path={scratch()}", *argv])
     init_s = time.time() - t0
     batch = trainer._upload({k: batch_np[k] for k in ("images", "points",
@@ -3241,6 +3335,244 @@ def bf16_training_phase(torch) -> dict:
     return res
 
 
+def pixel_digest(array: np.ndarray) -> str:
+    """sha256 of an array's dtype, shape and bytes (the data fixture's)."""
+    import hashlib
+
+    a = np.ascontiguousarray(array)
+    return hashlib.sha256(f"{a.dtype}{a.shape}".encode()
+                          + a.tobytes()).hexdigest()
+
+
+def item_digest(item: dict) -> str:
+    """sha256 of a training item's images, points and instances."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for key in ("images", "points", "instances"):
+        a = np.ascontiguousarray(item[key])
+        h.update(f"{key}{a.dtype}{a.shape}".encode() + a.tobytes())
+    return h.hexdigest()
+
+
+def loader_epochs(dataset, seed: int, salt: str, processes: bool,
+                  epochs: int) -> tuple:
+    """``epochs`` passes of a ``DataLoader`` over ``dataset`` (batches of
+    8, not shuffled) with ``DATA_WORKERS`` threads or spawned processes,
+    one pool for all: the first pass's items (positions 0-7, index =
+    position, epoch 0), the seconds of the first pass (a process pool's
+    start-up included) and ms an item over the passes after the second
+    (the second warms up the workers the first pass left idle; None for
+    fewer than three passes)."""
+    from isegprobe_torch.data.loader import DataLoader
+
+    loader = DataLoader(dataset, 8, shuffle=False, num_workers=DATA_WORKERS,
+                        seed=seed, salt=salt, use_processes=processes)
+    later_ms = None
+    try:
+        t0 = time.time()
+        batch = next(iter(loader))
+        first_s = time.time() - t0
+        if epochs >= 3:
+            for _ in loader:
+                pass
+            t0 = time.time()
+            n = sum(len(b["images"]) for _ in range(epochs - 2)
+                    for b in loader)
+            later_ms = 1e3 * (time.time() - t0) / n
+    finally:
+        loader.shutdown()
+    items = [{k: v[i] for k, v in batch.items()} for i in range(8)]
+    return items, first_s, later_ms
+
+
+def data_phase(torch) -> dict:
+    """Main paths of the paper's data (phase 11h of the module docstring):
+    (a) decoding every file of the trees; (b) the SBD items from loader
+    threads and processes; (c) the SBD steps against JAX's and two
+    command-line steps of each SBD script; (d) the evaluate CLI on the five
+    evaluation trees, device loop and host protocol, against JAX's
+    trajectories. Returns the records and the path launches."""
+    from isegprobe_torch import evaluate as evaluate_cli
+    from isegprobe_torch.data import image_io
+    from isegprobe_torch.inference.metrics import compute_noc_metric
+    from isegprobe_torch.train import sbd_datasets
+
+    res: dict = {}
+    fx = dict(np.load(DATA_FIXTURE))
+
+    # (a) decoding: every file to cv2.imread's pixels
+    t0 = time.time()
+    for name, want in zip(fx["file_names"], fx["file_digests"]):
+        if pixel_digest(image_io.read_bgr(DATA_TREES / name)) != want:
+            fail(f"{name} decodes to other pixels than cv2.imread's")
+    decode_all_s = time.time() - t0
+    sbd_jpegs = sorted((DATA_TREES / "sbd" / "img").glob("*.jpg"))
+    per_file = []
+    for path in sbd_jpegs:
+        t0 = time.time()
+        for _ in range(5):
+            image_io.read_rgb(path)
+        per_file.append((time.time() - t0) / 5)
+    res["decode"] = {"files": len(fx["file_names"]),
+                     "all_s": decode_all_s,
+                     "ms_per_sbd_jpeg_median": 1e3 * float(np.median(
+                         per_file)),
+                     "sbd_jpeg_shape": list(image_io.read_rgb(
+                         sbd_jpegs[0]).shape)}
+    print("data_decode", json.dumps(res["decode"]))
+
+    # (b) the SBD items, threads and processes, against JAX's digests; ms
+    # an item over four more passes of the same pool
+    trainset, valset = sbd_datasets(DATA_TREES / "sbd")
+    items, rec = {}, {}
+    for split, ds in (("train", trainset), ("val", valset)):
+        for row, seed in enumerate(DATA_SEEDS):
+            modes = (False, True) if (split, seed) == ("train", 0) \
+                else (False,)
+            for processes in modes:
+                mode = "processes" if processes else "threads"
+                timed = (split, seed) == ("train", 0)
+                got, first_s, later_ms = loader_epochs(
+                    ds, seed, split, processes, 5 if timed else 1)
+                for pos, item in enumerate(got):
+                    if item_digest(item) != fx[f"items_{split}"][row][pos]:
+                        fail(f"SBD {split} item {pos} of seed {seed} "
+                             f"({mode}) differs from the JAX item")
+                rec[f"{split}_seed{seed}_{mode}_first_batch_s"] = first_s
+                if timed:
+                    rec[f"ms_per_item_{mode}"] = later_ms
+                items[(split, seed)] = got
+    res["items"] = rec
+    print("data_items", json.dumps(rec))
+
+    # (c) the SBD steps against JAX's, and two command-line steps of each
+    from isegprobe_torch.data.loader import _stack
+
+    batch_np = _stack(items[("train", 0)])
+    steps, cli, launches = {}, {}, {}
+    for key in ("sbd_dinov2_noup", "sbd_dinov2_bilinear"):
+        trainer, _, step = step_vs_jax(
+            torch, key, batch_np, fx[f"step_{key}_losses"],
+            fx["step_digest_names"], fx[f"step_{key}_digests"],
+            FORWARD_LAUNCHES["flagship"],
+            [f"DATASETS.SBD_PATH={DATA_TREES / 'sbd'}"])
+        trainer.shutdown()
+        del trainer
+        print("data_step_vs_jax", json.dumps(step))
+        steps[key] = step
+        launches[f"{key}_step_vs_jax"] = step["launches"]
+        mp = key == "sbd_dinov2_bilinear"
+        _, run = cli_epoch(
+            torch, key, FORWARD_LAUNCHES["flagship"], TRAIN_READBACK,
+            [f"DATASETS.SBD_PATH={DATA_TREES / 'sbd'}",
+             f"epoch_len={DATA_CLI_ITEMS}",
+             f"val_epoch_len={DATA_CLI_VAL_ITEMS}",
+             f"dataloader.mp={str(mp).lower()}"])
+        run["loader"] = "processes" if mp else "threads"
+        print("data_cli", json.dumps(run))
+        cli[key] = run
+        launches[f"{key}_cli_train"] = run["launches"]["train"]
+        launches[f"{key}_cli_val"] = run["launches"]["val"]
+    res["steps"], res["cli"] = steps, cli
+
+    # (d) the evaluate CLI on the five trees, against JAX's trajectories
+    args = [f"checkpoint={TRAINED_CKPTS['flagship']}", "eval_mode=fixed448",
+            f"n_clicks={TRAINED_CLICKS}", "print_ious=false",
+            f"datasets={','.join(DATA_EVAL)}",
+            *(f"DATASETS.{k}_PATH={DATA_TREES / v}"
+              for k, v in DATA_PATH_KEYS.items())]
+    cfg = evaluate_cli.parse_args(args + [
+        "device_loop=true", f"device_batch={TRAINED_BATCH}",
+        "device_refill=true"])
+    model, _ = eval_load(torch, cfg["checkpoint"], torch.float32,
+                         cfg["target_size"])
+    evals, total_steps = {}, 0
+    loop_launches = expected()
+    for name in DATA_EVAL:
+        want_ious = fx[f"eval_{name}_ious"]
+        want_n, want_clicks = fx[f"eval_{name}_n"], fx[f"eval_{name}_clicks"]
+        n_obj = len(want_n)
+        clicks: list = []
+        torch.cuda.synchronize()
+        zero_counters()
+        out = evaluate_cli.evaluate(cfg, model, name, clicks=clicks)
+        torch.cuda.synchronize()
+        got_launches = counters()
+        steps_run = out["group_stats"]["steps"]
+        if got_launches != expected(**{k: v * steps_run
+                                       for k, v in PER_STEP.items()}):
+            fail(f"{name} device loop launched {got_launches} in "
+                 f"{steps_run} steps")
+        loop_launches = {k: loop_launches[k] + got_launches[k]
+                         for k in KERNELS}
+        total_steps += steps_run
+        loop = against_fixture(out["all_ious"], clicks, want_ious, want_n,
+                               want_clicks, f"{name} f32 device loop",
+                               TRAINED_MAX_DIVERGED)
+        want_noc = compute_noc_metric(
+            [want_ious[i, :want_n[i]] for i in range(n_obj)],
+            [0.8, 0.85, 0.9], TRAINED_CLICKS)[0]
+        noc_err = float(np.abs(np.asarray(out["noc"])
+                               - np.asarray(want_noc)).max())
+        if noc_err > TRAINED_NOC_TOL:
+            fail(f"{name}: device-loop NoC {out['noc']} against JAX's "
+                 f"{want_noc}")
+        # the host protocol on the dataset's first object
+        host_cfg = dict(cfg, device_loop=False, device_refill=False)
+        dataset = evaluate_cli.get_dataset(name, cfg)
+        host_clicks: list = []
+        zero_counters()
+        t0 = time.time()
+        host = evaluate_cli.evaluate(host_cfg, model, name,
+                                     clicks=host_clicks,
+                                     dataset=_One(dataset))
+        host_s = time.time() - t0
+        n_host = sum(len(a) for a in host["all_ious"])
+        if counters() != expected(**{k: v * n_host for k, v in
+                                     FORWARD_LAUNCHES["flagship"].items()}):
+            fail(f"{name} host protocol launched {counters()} for "
+                 f"{n_host} clicks")
+        host_rec = against_fixture(host["all_ious"], host_clicks,
+                                   want_ious[:1], want_n[:1],
+                                   want_clicks[:1],
+                                   f"{name} f32 host protocol", 0)
+        evals[name] = {
+            "objects": n_obj, "noc": list(out["noc"]),
+            "jax_noc": list(want_noc), "noc_err": noc_err,
+            "loop_steps": steps_run,
+            "loop_ms_per_step": 1e3 * out["elapsed"] / steps_run,
+            "loop": loop, "group_stats": out["group_stats"],
+            "host_clicks": n_host,
+            "host_ms_per_click": 1e3 * host_s / n_host, "host": host_rec}
+        print("data_eval", name, json.dumps(evals[name]))
+    res["evaluate"] = evals
+    launches["eval_device_loop"] = loop_launches
+    res["path_launches"] = launches
+    print(f"paper's data: {len(fx['file_names'])} files decoded as cv2 "
+          f"does ({res['decode']['ms_per_sbd_jpeg_median']:.2f} ms an SBD "
+          f"JPEG), SBD items equal to JAX's ({rec['ms_per_item_threads']:.1f}"
+          f" ms an item with threads, {rec['ms_per_item_processes']:.1f} "
+          f"with processes); SBD steps within "
+          f"{max(v['loss_rel_err'] for v in steps.values()):.2e} of JAX's "
+          f"losses; NoC@90 " + ", ".join(
+              f"{k} {v['noc'][2]:.2f}" for k, v in evals.items()))
+    return res
+
+
+class _One:
+    """A dataset's first sample alone (the host protocol's subset)."""
+
+    def __init__(self, dataset) -> None:
+        self.dataset = dataset
+
+    def __len__(self) -> int:
+        return 1
+
+    def get_sample(self, index: int):
+        return self.dataset.get_sample(0)
+
+
 def variant_sweep(torch, F) -> tuple:
     """Kernels F (nodiv) and G (merged) against their plain versions and
     bit for bit against each other and kernel A, at B=2, at the sweep's
@@ -3769,6 +4101,12 @@ def main() -> int:
     results["bf16_training"] = bf16_training
 
     done("11g bf16_training")
+    # 11h. the paper's data: decoding, the SBD items and steps, the
+    # evaluate CLI on the five evaluation trees
+    data = data_phase(torch)
+    results["data"] = data
+
+    done("11h data")
     # 12. the learned-upsampler families (main paths 3-6)
     families = {name: learned_family(torch, name) for name in UPSAMPLERS}
     results["families"] = families
@@ -3817,6 +4155,7 @@ def main() -> int:
     paths.update(ritm["path_launches"])
     paths.update(family_training["path_launches"])
     paths.update(bf16_training["path_launches"])
+    paths.update(data["path_launches"])
     for fam in families.values():
         paths.update(fam["path_launches"])
     kernels = []

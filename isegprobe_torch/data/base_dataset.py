@@ -90,7 +90,8 @@ class iSegBaseDataset:
         """Item ``index`` built from ``seed`` (see the module's note)."""
         rng = random.Random(int(seed))
         np_rng = np.random.RandomState(int(seed))
-        sample = self.get_sample(self._resolve_index(index, rng, np_rng))
+        sample = self.draw_sample(self._resolve_index(index, rng, np_rng),
+                                  np_rng)
         sample = self.augment_sample(sample, rng)
         sample.remove_small_objects(self.min_object_area)
 
@@ -131,6 +132,11 @@ class iSegBaseDataset:
                 return sample
             if rng.random() < self.keep_background_prob:
                 return sample
+
+    def draw_sample(self, index: int, np_rng) -> DSample:
+        """The sample an item starts from; a dataset whose choice is random
+        (a mixture) draws it from ``np_rng``."""
+        return self.get_sample(index)
 
     def get_sample(self, index: int) -> DSample:
         raise NotImplementedError

@@ -1,0 +1,208 @@
+"""Image files read without OpenCV or PIL, as ``cv2.imread`` reads them.
+
+The JAX package reads every image with ``cv2.imread`` (``IMREAD_COLOR``:
+8-bit BGR, EXIF orientation applied). The port's data layer reads the same
+pixels:
+
+* JPEG (baseline and extended sequential, Huffman-coded; 1 or 3
+  components; any integral sampling; restart markers; the EXIF orientation
+  tag) through ``csrc/host/jpeg.cpp``, libjpeg-turbo's decompression with
+  OpenCV's settings (``utils/host_lib.py`` builds it with g++ at first
+  use). A progressive or arithmetic-coded file raises ``ValueError``
+  naming it.
+* PNG with ``zlib`` and numpy (the row unfilter in the same library): the
+  five filters, gray, gray + alpha, RGB, RGBA and palette images at every
+  bit depth, brought to 8-bit BGR as libpng's transforms under
+  ``IMREAD_COLOR`` bring them (16-bit samples keep their high byte, 1/2/4-bit
+  gray is scaled to 0-255, alpha and ``tRNS`` are dropped). An interlaced
+  file raises ``ValueError``.
+* BMP (``BI_RGB``): 8-bit palette and 24-bit images, bottom-up or
+  top-down; other BMPs raise ``ValueError``.
+
+:func:`read_bgr` is ``cv2.imread(p)``, :func:`read_rgb` is
+``cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB)`` and :func:`read_gray` is
+``cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2GRAY)`` (the 15-bit
+fixed-point weights that this OpenCV build's conversion uses, bitwise on
+all 2^24 colours).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import struct
+import zlib
+from pathlib import Path
+
+import numpy as np
+
+from isegprobe_torch.utils import host_lib
+
+__all__ = ["read_bgr", "read_rgb", "read_gray", "decode_bgr",
+           "bgr_to_gray"]
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def read_bgr(path) -> np.ndarray:
+    """``cv2.imread(path)``: uint8 ``[H, W, 3]`` BGR."""
+    return decode_bgr(Path(path).read_bytes(), str(path))
+
+
+def read_rgb(path) -> np.ndarray:
+    """``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)``."""
+    return np.ascontiguousarray(read_bgr(path)[:, :, ::-1])
+
+
+def read_gray(path) -> np.ndarray:
+    """``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2GRAY)``: uint8
+    ``[H, W]``."""
+    return bgr_to_gray(read_bgr(path))
+
+
+def bgr_to_gray(bgr: np.ndarray) -> np.ndarray:
+    """``cv2.COLOR_BGR2GRAY`` on uint8: ``(3735 B + 19235 G + 9798 R +
+    2^14) >> 15``."""
+    b, g, r = (bgr[:, :, i].astype(np.int32) for i in range(3))
+    return ((b * 3735 + g * 19235 + r * 9798 + (1 << 14)) >> 15).astype(
+        np.uint8)
+
+
+def decode_bgr(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """Decode a JPEG, PNG or BMP file's bytes to uint8 BGR, by signature."""
+    if data[:3] == b"\xff\xd8\xff":
+        rgb = _decode_jpeg(data, name)
+        return np.ascontiguousarray(rgb[:, :, ::-1])
+    if data[:8] == _PNG_SIGNATURE:
+        return _decode_png(data, name)
+    if data[:2] == b"BM":
+        return _decode_bmp(data, name)
+    raise ValueError(f"{name}: not a JPEG, PNG or BMP file")
+
+
+# -- JPEG -----------------------------------------------------------------
+
+
+def _as_u8p(buf):
+    return ctypes.cast(buf, ctypes.POINTER(ctypes.c_uint8))
+
+
+def _decode_jpeg(data: bytes, name: str) -> np.ndarray:
+    lib = host_lib.load()
+    src = ctypes.create_string_buffer(data, len(data))
+    h, w, c, orient = (ctypes.c_int() for _ in range(4))
+    host_lib.check(lib.iseg_jpeg_info(_as_u8p(src), len(data),
+                                      ctypes.byref(h), ctypes.byref(w),
+                                      ctypes.byref(c), ctypes.byref(orient)),
+                   name)
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    host_lib.check(lib.iseg_jpeg_decode_rgb(
+        _as_u8p(src), len(data),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))), name)
+    return _orient(out, orient.value)
+
+
+def _orient(img: np.ndarray, code: int) -> np.ndarray:
+    """OpenCV's ``ApplyExifOrientation`` for EXIF orientations 1-8."""
+    if code in (5, 6, 7, 8):
+        img = img.transpose(1, 0, 2)
+    flip = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}
+    axes = flip.get(code, ())
+    if axes:
+        img = np.flip(img, axis=axes)
+    return np.ascontiguousarray(img)
+
+
+# -- PNG ------------------------------------------------------------------
+
+
+def _decode_png(data: bytes, name: str) -> np.ndarray:
+    pos = 8
+    ihdr = None
+    palette = None
+    idat = []
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if ihdr is None:
+        raise ValueError(f"{name}: PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = ihdr
+    if interlace:
+        raise ValueError(f"{name}: interlaced PNG is not supported")
+    if ctype not in _PNG_CHANNELS or depth not in (1, 2, 4, 8, 16):
+        raise ValueError(f"{name}: PNG color type {ctype} at bit depth "
+                         f"{depth} is not valid")
+    if ctype == 3 and palette is None:
+        raise ValueError(f"{name}: palette PNG without PLTE")
+    ch = _PNG_CHANNELS[ctype]
+    bits = ch * depth
+    rowbytes = (w * bits + 7) // 8
+    raw = zlib.decompress(b"".join(idat))
+    if len(raw) < h * (rowbytes + 1):
+        raise ValueError(f"{name}: truncated PNG image data")
+    lib = host_lib.load()
+    src = ctypes.create_string_buffer(raw, len(raw))
+    rows = np.empty((h, rowbytes), np.uint8)
+    host_lib.check(lib.iseg_png_unfilter(
+        _as_u8p(src), rows.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        h, rowbytes, max(1, bits // 8)), name)
+    if depth == 16:
+        samples = rows[:, 0::2][:, :w * ch].reshape(h, w, ch)  # high byte
+    elif depth == 8:
+        samples = rows[:, :w * ch].reshape(h, w, ch)
+    else:
+        per = 8 // depth
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+        samples = vals.reshape(h, rowbytes * per)[:, :w, None]
+        if ctype == 0:  # scaled to 8 bits; palette indices stay indices
+            samples = samples * {1: 255, 2: 85, 4: 17}[depth]
+        samples = samples.astype(np.uint8)
+    if ctype == 3:
+        idx = samples[:, :, 0]
+        if idx.size and int(idx.max()) >= len(palette):
+            raise ValueError(f"{name}: palette index out of range")
+        rgb = palette[idx]
+    elif ctype in (0, 4):
+        rgb = np.repeat(samples[:, :, :1], 3, axis=2)
+    else:
+        rgb = samples[:, :, :3]
+    return np.ascontiguousarray(rgb[:, :, ::-1])
+
+
+# -- BMP ------------------------------------------------------------------
+
+
+def _decode_bmp(data: bytes, name: str) -> np.ndarray:
+    offset = struct.unpack_from("<I", data, 10)[0]
+    hsize = struct.unpack_from("<I", data, 14)[0]
+    if hsize < 40:
+        raise ValueError(f"{name}: BMP core headers are not supported")
+    w, h, _, bpp, comp = struct.unpack_from("<iiHHI", data, 18)
+    n_colors = struct.unpack_from("<I", data, 46)[0]
+    if comp != 0 or bpp not in (8, 24):
+        raise ValueError(f"{name}: only uncompressed 8-bit palette and "
+                         f"24-bit BMPs are supported (got {bpp}-bit, "
+                         f"compression {comp})")
+    top_down = h < 0
+    h = abs(h)
+    stride = ((w * bpp + 31) // 32) * 4
+    rows = np.frombuffer(data, np.uint8, count=stride * h,
+                         offset=offset).reshape(h, stride)
+    if not top_down:
+        rows = rows[::-1]
+    if bpp == 24:
+        return np.ascontiguousarray(rows[:, :w * 3].reshape(h, w, 3))
+    n_pal = n_colors or 256
+    pal = np.frombuffer(data, np.uint8, count=4 * n_pal,
+                        offset=14 + hsize).reshape(n_pal, 4)[:, :3]
+    return np.ascontiguousarray(pal[np.minimum(rows[:, :w], n_pal - 1)])

@@ -6,10 +6,15 @@ is built from the seed ``SeedSequence([seed, crc32(salt), e, k])
 loader's process workers give the global ``random`` and ``np.random``
 before they build that item. So the items do not depend on the worker
 count or on which worker builds them, and they are the JAX package's
-process-mode items. Workers are threads (item assembly is Python-heavy
-and holds the GIL; the JAX loader's process workers, ``dataloader.mp``, are
-not ported); ``num_workers=0`` builds in the caller's thread. Batches are
-stacked numpy arrays (uint8 images, int8 masks) that the trainer uploads.
+process-mode items. Workers are threads by default (decoding, warping and
+the numpy kernels release the GIL; the rest of item assembly holds it) or,
+with ``use_processes=True`` (``dataloader.mp``), a ``spawn`` process pool
+whose initializer snapshots the dataset once, as the JAX loader's process
+workers do (spawn, not fork: the parent holds a CUDA context; as with any
+spawned pool, the main script must guard its entry with ``if __name__ ==
+"__main__"``). Either way the items are the same. ``num_workers=0`` builds in the caller's thread.
+Batches are stacked numpy arrays (uint8 images, int8 masks) that the
+trainer uploads.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from __future__ import annotations
 import random
 import zlib
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Dict, Iterator, List
 
 import numpy as np
@@ -30,6 +35,19 @@ def item_seed(seed: int, salt: int, epoch: int, position: int) -> int:
     ``_process_worker_get``)."""
     return int(np.random.SeedSequence(
         [seed, salt, epoch, position]).generate_state(1)[0])
+
+
+# the dataset and seeds of a process worker, set by its initializer
+_WORKER: Dict = {}
+
+
+def _process_worker_init(dataset, seed: int, salt: int) -> None:
+    _WORKER.update(dataset=dataset, seed=int(seed), salt=int(salt))
+
+
+def _process_worker_get(epoch: int, position: int, index: int) -> Dict:
+    return _WORKER["dataset"].get_item(
+        index, item_seed(_WORKER["seed"], _WORKER["salt"], epoch, position))
 
 
 def _stack(items: List[Dict]) -> Dict[str, np.ndarray]:
@@ -48,7 +66,8 @@ def _stack(items: List[Dict]) -> Dict[str, np.ndarray]:
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 4, seed: int = 0,
-                 prefetch: int = 2, salt: str = "") -> None:
+                 prefetch: int = 2, salt: str = "",
+                 use_processes: bool = False) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -56,6 +75,7 @@ class DataLoader:
         self.seed = seed
         self.prefetch = prefetch
         self.salt = zlib.crc32(salt.encode())
+        self.use_processes = use_processes
         self._epoch = 0
         self._pool = None
 
@@ -78,7 +98,20 @@ class DataLoader:
 
     def _submit(self, epoch: int, position: int, index: int):
         if self._pool is None:
-            self._pool = ThreadPoolExecutor(self.num_workers)
+            if self.use_processes:
+                import multiprocessing as mp
+
+                # the dataset is pickled into each worker once, here: a
+                # later change to it in this process is not seen there
+                self._pool = ProcessPoolExecutor(
+                    self.num_workers, mp_context=mp.get_context("spawn"),
+                    initializer=_process_worker_init,
+                    initargs=(self.dataset, self.seed, self.salt))
+            else:
+                self._pool = ThreadPoolExecutor(self.num_workers)
+        if self.use_processes:
+            return self._pool.submit(_process_worker_get, epoch, position,
+                                     index)
         return self._pool.submit(self.item, epoch, position, index)
 
     def shutdown(self) -> None:

@@ -22,6 +22,17 @@ the same operations, computed as OpenCV 5's ``imgproc`` computes them:
   ``FillConvexPoly`` fills them (its fixed-point outline and scan lines).
 * :func:`convex_hull` and :func:`box_points`: ``cv2.convexHull`` of
   integer points (collinear points dropped) and ``cv2.boxPoints``.
+* :func:`rotation_matrix_2d`: ``cv2.getRotationMatrix2D`` (the centre
+  rounded to float32, the angle's cosine and sine in double).
+* :func:`warp_affine`: ``cv2.warpAffine(..., borderMode=BORDER_CONSTANT,
+  borderValue=0)`` with the matrix inverted in double as OpenCV inverts it.
+  ``INTER_NEAREST`` on int32 masks is OpenCV's classic fixed-point path
+  (10-bit offsets), in numpy; ``INTER_LINEAR`` on uint8 images is its
+  float32 path (source coordinates ``fma(M0, x, f32(f32(M1·y) + M2))``
+  over the columns its 16-wide vector loop covers and ``f32(fma(x, M0,
+  f32(M1·y)) + M2)`` over the scalar tail after it, then float32 lerps
+  ``fma(a, p1 − p0, p0)`` and round-half-even), in
+  ``csrc/host/jpeg.cpp``; both exact.
 
 ``tests/test_torch_data.py`` holds each against OpenCV.
 """
@@ -34,7 +45,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 
 __all__ = ["resize_linear", "resize_nearest", "flip", "fill_poly",
-           "fill_ellipse", "convex_hull", "box_points"]
+           "fill_ellipse", "convex_hull", "box_points", "rotation_matrix_2d",
+           "warp_affine"]
 
 _COEF_BITS = 11
 _COEF_SCALE = 1 << _COEF_BITS
@@ -486,3 +498,91 @@ def box_points(center, size, angle: float) -> np.ndarray:
     p2 = (f(2) * cx - p0[0], f(2) * cy - p0[1])
     p3 = (f(2) * cx - p1[0], f(2) * cy - p1[1])
     return np.asarray([p0, p1, p2, p3], np.float32)
+
+
+# -- affine warp --------------------------------------------------------------
+
+def rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
+    """``cv2.getRotationMatrix2D(center, angle, scale)``: float64 [2, 3]."""
+    cx, cy = (float(np.float32(v)) for v in center)
+    a = angle * (math.pi / 180)
+    alpha = math.cos(a) * scale
+    beta = math.sin(a) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def _invert_affine(m: np.ndarray) -> List[float]:
+    """The destination-to-source matrix, as ``warpAffine`` inverts it."""
+    m = [float(v) for v in np.asarray(m, np.float64).reshape(-1)]
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[4] * d, m[0] * d
+    m[0] = a11
+    m[1] *= -d
+    m[3] *= -d
+    m[4] = a22
+    b1 = -m[0] * m[2] - m[1] * m[5]
+    b2 = -m[3] * m[2] - m[4] * m[5]
+    m[2], m[5] = b1, b2
+    return m
+
+
+def warp_affine(img: np.ndarray, m: np.ndarray, size: Tuple[int, int],
+                nearest: bool = False) -> np.ndarray:
+    """``cv2.warpAffine(img, m, size, flags=INTER_NEAREST if nearest else
+    INTER_LINEAR, borderMode=BORDER_CONSTANT, borderValue=0)``; ``size`` is
+    (width, height). Linear takes uint8 images ``[H, W]`` or ``[H, W, C]``,
+    nearest int32 masks; a trailing axis of one is dropped, as OpenCV
+    drops it."""
+    w, h = int(size[0]), int(size[1])
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[:, :, 0]
+    inv = _invert_affine(m)
+    if nearest:
+        if img.dtype != np.int32:
+            raise TypeError(f"warp_affine(nearest=True) takes int32 masks, "
+                            f"got {img.dtype}")
+        return _warp_nearest(img, inv, w, h)
+    if img.dtype != np.uint8:
+        raise TypeError(f"warp_affine takes uint8 images, got {img.dtype}")
+    return _warp_linear(img, inv, w, h)
+
+
+def _warp_nearest(img: np.ndarray, inv: List[float], w: int,
+                  h: int) -> np.ndarray:
+    bits = 10
+    xs = np.arange(w, dtype=np.float64)
+    ys = np.arange(h, dtype=np.float64)
+    adelta = np.rint(inv[0] * xs * (1 << bits)).astype(np.int64)
+    bdelta = np.rint(inv[3] * xs * (1 << bits)).astype(np.int64)
+    x0 = np.rint((inv[1] * ys + inv[2]) * (1 << bits)).astype(np.int64)
+    y0 = np.rint((inv[4] * ys + inv[5]) * (1 << bits)).astype(np.int64)
+    half = 1 << (bits - 1)
+    sx = np.clip((x0[:, None] + half + adelta[None]) >> bits, -32768, 32767)
+    sy = np.clip((y0[:, None] + half + bdelta[None]) >> bits, -32768, 32767)
+    src_h, src_w = img.shape[:2]
+    inside = (sx >= 0) & (sx < src_w) & (sy >= 0) & (sy < src_h)
+    out = np.zeros((h, w) + img.shape[2:], img.dtype)
+    out[inside] = img[sy[inside], sx[inside]]
+    return out
+
+
+def _warp_linear(img: np.ndarray, inv: List[float], w: int,
+                 h: int) -> np.ndarray:
+    """The float32 bilinear warp, in ``csrc/host/jpeg.cpp`` (numpy has no
+    float32 fused multiply-add)."""
+    import ctypes
+
+    from isegprobe_torch.utils import host_lib
+
+    src = np.ascontiguousarray(img)
+    channels = src.shape[2] if src.ndim == 3 else 1
+    out = np.empty((h, w) + src.shape[2:], np.uint8)
+    m = np.asarray(inv, np.float32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    host_lib.check(host_lib.load().iseg_warp_affine_linear(
+        src.ctypes.data_as(u8p), src.shape[0], src.shape[1], channels,
+        out.ctypes.data_as(u8p), h, w,
+        m.ctypes.data_as(ctypes.POINTER(ctypes.c_float))), "warp_affine")
+    return out

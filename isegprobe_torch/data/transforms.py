@@ -5,9 +5,9 @@ Counterpart of ``isegprobe_tpu/data/transforms.py``: each transform edits
 constant-zero borders, drawing its random numbers from the item's explicit
 ``random.Random`` (the JAX package draws the same numbers, in the same
 order, from the global ``random``). The OpenCV calls are replaced by
-``data/raster.py``: the flips, the nearest-neighbour mask resize and the
-uint8 bilinear image resize are exact. ``ShiftScaleRotate`` and
-``RGBShift``, which only the SBD pipeline uses, are not ported yet.
+``data/raster.py``: the flips, the nearest-neighbour mask resize, the
+uint8 bilinear image resize and the affine warps of ``ShiftScaleRotate``
+are exact.
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ __all__ = ["Transform", "Compose", "UniformRandomResize", "Flip",
            "RGBShift"]
 
 Pair = Tuple[np.ndarray, np.ndarray]
-_SBD_ONLY = "ROADMAP Queue 1 item 6 (the SBD pipeline's transforms)"
 
 
 class Transform:
@@ -109,12 +108,30 @@ class RandomRotate90(Transform):
 
 
 class ShiftScaleRotate(Transform):
-    """Not ported: the affine warp is OpenCV's ``warpAffine``."""
+    """Constant-zero border affine jitter: the image warped bilinearly, the
+    mask by nearest neighbour, about the image centre."""
 
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            f"ShiftScaleRotate is not ported to isegprobe_torch yet: "
-            f"{_SBD_ONLY}")
+    def __init__(self, shift_limit=0.0625, scale_limit=0.1, rotate_limit=45,
+                 p: float = 0.5) -> None:
+        super().__init__(p)
+        self.shift_limit = _pair(shift_limit)
+        self.scale_limit = _pair(scale_limit)
+        self.rotate_limit = _pair(rotate_limit)
+
+    def apply(self, image, mask, rng) -> Pair:
+        h, w = image.shape[:2]
+        angle = rng.uniform(*self.rotate_limit)
+        scale = 1.0 + rng.uniform(*self.scale_limit)
+        dx = rng.uniform(*self.shift_limit) * w
+        dy = rng.uniform(*self.shift_limit) * h
+        m = raster.rotation_matrix_2d((w / 2, h / 2), angle, scale)
+        m[0, 2] += dx
+        m[1, 2] += dy
+        image = raster.warp_affine(image, m, (w, h))
+        mask = raster.warp_affine(mask, m, (w, h), nearest=True)
+        if mask.ndim == 2:
+            mask = mask[:, :, None]
+        return image, mask
 
 
 class PadIfNeeded(Transform):
@@ -168,11 +185,19 @@ class RandomBrightnessContrast(Transform):
 
 
 class RGBShift(Transform):
-    """Not ported: used by the SBD pipeline only."""
+    """A per-channel shift, added in float32 and clipped to the dtype."""
 
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            f"RGBShift is not ported to isegprobe_torch yet: {_SBD_ONLY}")
+    def __init__(self, r_shift_limit=20, g_shift_limit=20, b_shift_limit=20,
+                 p: float = 0.5) -> None:
+        super().__init__(p)
+        self.limits = [_pair(v) for v in
+                       (r_shift_limit, g_shift_limit, b_shift_limit)]
+
+    def apply(self, image, mask, rng) -> Pair:
+        shift = np.array([rng.uniform(*lim) for lim in self.limits],
+                         dtype=np.float32)
+        out = image.astype(np.float32) + shift
+        return np.clip(out, 0, 255).astype(image.dtype), mask
 
 
 def _pair(v):

@@ -1,25 +1,33 @@
 """Evaluate a trained checkpoint of the JAX package with the port, by NoC.
 
-Counterpart of the root ``evaluate.py`` (``load_model_for_eval`` and, in
-``main``, the ``Synthetic`` dataset with the fixed-crop ZoomIn, the RITM
-adaptive ZoomIn and continuous batching). No JAX is
+Counterpart of the root ``evaluate.py`` (``load_model_for_eval``,
+``get_dataset`` and ``main``: the fixed-crop ZoomIn, the RITM adaptive
+ZoomIn and continuous batching, datasets × checkpoint). No JAX is
 involved: the checkpoint is read by ``utils/serialization.py``, the frozen
 parts it leaves out are rebuilt from ``PRNGKey(0)`` by
-``models/init_tree.py``, and the scenes come from a stored file
-(``data/scenes.py``), since the JAX package draws them with OpenCV.
+``models/init_tree.py``, the datasets are read without OpenCV
+(``data/datasets/standard.py``), and the Synthetic scenes come from a
+stored file (``data/scenes.py``), since the JAX package draws them with
+OpenCV.
 
 Usage (on a CUDA GPU; ``device=cpu`` runs the plain PyTorch path):
 
     python -m isegprobe_torch.evaluate \\
         checkpoint=assets/trained/synthetic_dinov2_noup_160ep.ckpt \\
-        [datasets=Synthetic] \\
+        [datasets=GrabCut,Berkeley,DAVIS,SBD,PascalVOC] \\
+        [DATASETS.GRABCUT_PATH=/data/grabcut ...] \\
         [scenes=isegprobe_torch/fixtures/synthetic2026_50.npz] \\
         device_loop=true device_batch=8 [dtype=bfloat16] [eval_mode=fixed448]
         [eval_ritm=false] [device_refill=false] [group_max_jobs=0]
         [n_clicks=20] [target_iou=0.9] [print_ious=true] [min_n_clicks=1]
         [thresh=0.5] [clicks_limit=null]
 
-``eval_mode`` and ``eval_ritm`` pick the ZoomIn as the root's
+``datasets`` is a comma-separated list of the root's ``get_dataset`` keys:
+``GrabCut``, ``Berkeley``, ``DAVIS``, ``SBD``, ``SBD_Train``,
+``PascalVOC``, ``COCO_MVal`` (each read from its ``DATASETS.*_PATH`` key,
+``configs/main_cfg.yaml``'s defaults; the port reads no YAML) and
+``Synthetic`` (the stored scenes of ``scenes=``). ``eval_mode`` and
+``eval_ritm`` pick each dataset's ZoomIn as the root's
 ``get_zoomin_params`` does: ``fixed<n>`` (or ``fixed<h>,<w>``) crops to
 that size, ``cvpr`` to 448² (672² on DAVIS), and ``eval_ritm=true
 eval_mode=cvpr`` runs the RITM adaptive protocol (scalar target 400, 600 on
@@ -29,11 +37,12 @@ DAVIS, ``skip_clicks=1``): the host transform chain, or with
 batching, windows of ``group_max_jobs`` frames, 0 for 32); with
 ``device_batch <= 1`` it warns and runs lockstep, as the root does.
 
-It prints the results table and, with ``print_ious``, mIoU@k as the root
-``evaluate.py`` does, with its rule for the target IoU: 1.01 (every object
-runs all ``n_clicks``) when ``print_ious`` is on and ``min_n_clicks <= 1``,
-as with ``configs/eval_cfg.yaml``'s defaults, else ``target_iou`` floored
-at 0.8 (``print_ious=false`` gives the early-stop protocol).
+It prints a results table for each dataset and, with ``print_ious``,
+mIoU@k as the root ``evaluate.py`` does, with its rule for the target IoU:
+1.01 (every object runs all ``n_clicks``) when ``print_ious`` is on and
+``min_n_clicks <= 1``, as with ``configs/eval_cfg.yaml``'s defaults, else
+``target_iou`` floored at 0.8 (``print_ious=false`` gives the early-stop
+protocol).
 """
 
 from __future__ import annotations
@@ -67,21 +76,27 @@ from isegprobe_torch.utils.serialization import (
     merge_params,
 )
 
-__all__ = ["load_model_for_eval", "main"]
+__all__ = ["load_model_for_eval", "get_dataset", "parse_args", "evaluate",
+           "evaluate_all", "main"]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def load_model_for_eval(checkpoint: str, dtype=torch.float32,
                         target_size: Tuple[int, int] = (448, 448),
-                        device=None, eval_ritm: bool = False
+                        device=None, eval_ritm: bool = False,
+                        frozen: Optional[Dict] = None
                         ) -> Tuple[torch.nn.Module, Dict]:
     """The checkpoint's probe as the root ``evaluate.py:load_model_for_eval``
     builds it, as a model of the port on ``device`` (CUDA unless ``device=
     "cpu"``) in ``dtype``. Returns (model, info): ``info`` holds the
-    config the model was built from (``config``), the seconds the frozen
-    parts took to rebuild (``init_seconds``) and their count of scalars
-    (``frozen_params``).
+    config the model was built from (``config``), the frozen parts
+    (``frozen``), the seconds they took to rebuild (``init_seconds``) and
+    their count of scalars (``frozen_params``). ``frozen`` reuses the
+    frozen parts of an earlier load (its ``info["frozen"]``) or any tree
+    drawn by ``init_tree(config, 0)`` for the same backbone and upsampler
+    config, instead of drawing them again: they are a function of that
+    config alone.
 
     The frozen parts (every top-level subtree the checkpoint leaves out) are
     ``model.init(PRNGKey(0))``'s; the checkpoint's subtrees replace theirs
@@ -105,7 +120,10 @@ def load_model_for_eval(checkpoint: str, dtype=torch.float32,
     device = resolve_device(device)
     params, config, _ = load_checkpoint(checkpoint)
     t0 = time()
-    frozen = init_tree(config["params"], skip=params)
+    if frozen is None:
+        frozen = init_tree(config["params"], skip=params)
+    else:
+        frozen = {k: v for k, v in frozen.items() if k not in params}
     init_seconds = time() - t0
     params = merge_params(frozen, params)
     params = overlay_upsampler_params(params,
@@ -114,7 +132,8 @@ def load_model_for_eval(checkpoint: str, dtype=torch.float32,
         config, params = _preinterpolate_pos_embed(config, params,
                                                    target_size)
     model = load_jax_params(build_model(config, device, dtype), params)
-    return model, dict(config=config, init_seconds=init_seconds,
+    return model, dict(config=config, frozen=frozen,
+                       init_seconds=init_seconds,
                        frozen_params=count_params(frozen))
 
 
@@ -168,7 +187,27 @@ _NOT_PORTED = {
     "wandb": "ROADMAP Queue 1 item 9 (eval_utils)",
     "profile_dir": "ROADMAP Queue 1 item 2 (the port's bench leg)",
 }
-_DEFAULTS = dict(checkpoint=None, datasets="Synthetic",
+# the root get_dataset's keys and the path key each reads
+DATASET_PATHS = {
+    "GrabCut": "DATASETS.GRABCUT_PATH",
+    "Berkeley": "DATASETS.BERKELEY_PATH",
+    "DAVIS": "DATASETS.DAVIS_PATH",
+    "SBD": "DATASETS.SBD_PATH",
+    "SBD_Train": "DATASETS.SBD_PATH",
+    "PascalVOC": "DATASETS.PASCALVOC_PATH",
+    "COCO_MVal": "DATASETS.COCO_MVAL_PATH",
+    "Synthetic": "scenes",
+}
+# configs/main_cfg.yaml's paths
+_PATH_DEFAULTS = {
+    "DATASETS.SBD_PATH": "/data/sbd",
+    "DATASETS.GRABCUT_PATH": "/data/grabcut",
+    "DATASETS.BERKELEY_PATH": "/data/berkeley",
+    "DATASETS.DAVIS_PATH": "/data/davis",
+    "DATASETS.COCO_MVAL_PATH": "/data/coco_mval",
+    "DATASETS.PASCALVOC_PATH": "/data/pascalvoc",
+}
+_DEFAULTS = dict(checkpoint=None, datasets="Synthetic", **_PATH_DEFAULTS,
                  scenes=str(SYNTHETIC_FIXTURE),
                  eval_mode="fixed448", eval_ritm="false",
                  device_loop="false", device_batch="1",
@@ -197,17 +236,19 @@ def parse_args(argv) -> Dict:
         cfg[key] = value
     if not cfg["checkpoint"]:
         raise ValueError("checkpoint=<path to a .ckpt> is required")
-    if cfg["datasets"] != "Synthetic":
-        raise NotImplementedError(
-            f"datasets={cfg['datasets']}: the port evaluates the stored "
-            "Synthetic scenes only; the other datasets' loaders are ROADMAP "
-            "Queue 1 item 6 (the data layer)")
+    cfg["dataset_names"] = [n for n in cfg["datasets"].split(",") if n]
+    for name in cfg["dataset_names"]:
+        if name not in DATASET_PATHS:
+            raise NotImplementedError(
+                f"Dataset key: {name} is not found; takes "
+                f"{sorted(DATASET_PATHS)}")
+    if not cfg["dataset_names"]:
+        raise ValueError("datasets= names no dataset")
     cfg["eval_ritm"] = _flag(cfg["eval_ritm"])
+    # the first dataset's ZoomIn; evaluate() computes each dataset's
     cfg["zoomin"] = get_zoomin_params(cfg["eval_ritm"], cfg["eval_mode"],
-                                      cfg["datasets"])
-    size = cfg["zoomin"]["target_size"]
-    # the size the pos-embed is resized to (the root's _ts)
-    cfg["target_size"] = (size, size) if isinstance(size, int) else size
+                                      cfg["dataset_names"][0])
+    cfg["target_size"] = _pos_embed_size(cfg["zoomin"])
     if cfg["dtype"] not in DTYPES:
         raise NotImplementedError(
             f"dtype={cfg['dtype']}: the port evaluates in float32 or "
@@ -246,6 +287,41 @@ def parse_args(argv) -> Dict:
     return cfg
 
 
+def _pos_embed_size(zoomin: Dict) -> Tuple[int, int]:
+    """The size the pos-embed is resized to (the root's ``_ts``)."""
+    size = zoomin["target_size"]
+    return (size, size) if isinstance(size, int) else tuple(size)
+
+
+def get_dataset(name: str, cfg: Dict):
+    """The root ``evaluate.py:get_dataset``: ``name``'s dataset, read from
+    its path key of ``cfg``."""
+    from isegprobe_torch.data.datasets import (
+        BerkeleyDataset,
+        DavisDataset,
+        GrabCutDataset,
+        PascalVocDataset,
+        SBDEvaluationDataset,
+    )
+
+    path = cfg[DATASET_PATHS[name]]
+    if name == "GrabCut":
+        return GrabCutDataset(path)
+    if name == "Berkeley":
+        return BerkeleyDataset(path)
+    if name in ("DAVIS", "COCO_MVal"):
+        return DavisDataset(path)
+    if name == "SBD":
+        return SBDEvaluationDataset(path)
+    if name == "SBD_Train":
+        return SBDEvaluationDataset(path, split="train")
+    if name == "PascalVOC":
+        return PascalVocDataset(path, split="test")
+    if name == "Synthetic":
+        return SceneDataset(path)
+    raise NotImplementedError(f"Dataset key: {name} is not found.")
+
+
 def _flag(value: str) -> bool:
     return value.lower() in ("true", "1")
 
@@ -278,10 +354,19 @@ def get_zoomin_params(eval_ritm: bool, eval_mode: str,
     raise NotImplementedError(f"Unknown eval_mode: {eval_mode}")
 
 
-def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None) -> Dict:
-    """Run one checkpoint over the scenes with the settings of
-    :func:`parse_args`. Returns the per-object IoUs, the NoC, mIoU@k, the
-    wall seconds, the results table and, for a job queue, its stats."""
+def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,
+             dataset_name: Optional[str] = None,
+             clicks: Optional[list] = None, dataset=None) -> Dict:
+    """Run one checkpoint over one dataset (by default the first of
+    ``datasets=``) with the settings of :func:`parse_args` and that
+    dataset's ZoomIn. ``model`` must have been loaded for that ZoomIn's
+    size (:func:`evaluate_all` does so); by default it is loaded here.
+    Returns the dataset's name, the per-object IoUs, the NoC, mIoU@k, the
+    wall seconds, the results table and, for a job queue, its stats.
+    ``clicks=[]`` collects each object's clicks, (y, x, is_positive)
+    rows (the fixed-crop protocols; the adaptive loop records none).
+    ``dataset`` runs those samples (a subset) in place of the named
+    dataset's."""
     from isegprobe_torch.inference.adaptive_eval import make_adaptive_evaluator
     from isegprobe_torch.inference.device_eval import (
         evaluate_dataset_device,
@@ -295,13 +380,15 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None) -> Dict:
     from isegprobe_torch.inference.predictor import get_predictor
 
     device = resolve_device(cfg["device"])
+    name = dataset_name or cfg["dataset_names"][0]
+    zoom = get_zoomin_params(cfg["eval_ritm"], cfg["eval_mode"], name)
     if model is None:
         model, _ = load_model_for_eval(cfg["checkpoint"],
                                        DTYPES[cfg["dtype"]],
-                                       cfg["target_size"], device,
+                                       _pos_embed_size(zoom), device,
                                        eval_ritm=cfg["eval_ritm"])
-    dataset = SceneDataset(cfg["scenes"])
-    zoom = cfg["zoomin"]
+    if dataset is None:
+        dataset = get_dataset(name, cfg)
     protocol = dict(pred_thr=cfg["thresh"], min_clicks=cfg["min_n_clicks"],
                     max_clicks=cfg["n_clicks"])
     net_clicks_limit = cfg["clicks_limit"] or cfg["n_clicks"]
@@ -316,54 +403,81 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None) -> Dict:
         refill = cfg["device_refill"]
         if zoom["skip_clicks"] >= 0 and isinstance(zoom["target_size"], int):
             # the RITM adaptive ZoomIn, scalar target
+            if clicks is not None:
+                raise ValueError("the adaptive device loop records no clicks")
             run = make_adaptive_evaluator(model, zoom["target_size"],
                                           skip_clicks=zoom["skip_clicks"],
                                           group_api=refill, **kw)
         else:
             run = make_device_evaluator(model,
                                         target_size=zoom["target_size"],
-                                        group_api=refill, **kw)
+                                        group_api=refill,
+                                        record_clicks=clicks is not None,
+                                        **kw)
         if refill:
             stats = {}
             all_ious = evaluate_dataset_group(
                 run, dataset, stats=stats,
-                max_jobs_per_dispatch=cfg["group_max_jobs"])
+                max_jobs_per_dispatch=cfg["group_max_jobs"], clicks=clicks)
         else:
-            all_ious = evaluate_dataset_device(run, dataset)
+            all_ious = evaluate_dataset_device(run, dataset, clicks=clicks)
     else:
         predictor = get_predictor(
             model, with_flip=True, zoom_in_params=zoom,
             predictor_params={"net_clicks_limit": net_clicks_limit},
             device=device)
         all_ious, _ = evaluate_dataset(dataset, predictor,
-                                       latencies=latencies,
+                                       latencies=latencies, clicks=clicks,
                                        max_iou_thr=cfg["target_iou"],
                                        **protocol)
     elapsed = time() - t0
     noc, _, over_max = compute_noc_metric(all_ious, [0.8, 0.85, 0.9],
                                           cfg["n_clicks"])
     spc, _ = get_time_metrics(all_ious, elapsed)
-    name = str(cfg["checkpoint"]).rsplit("/", 1)[-1].removesuffix(".ckpt")
-    table = get_results_table(noc, over_max, "NoBRS", "Synthetic", spc,
+    model_name = str(cfg["checkpoint"]).rsplit("/", 1)[-1].removesuffix(
+        ".ckpt")
+    table = get_results_table(noc, over_max, "NoBRS", name, spc,
                               elapsed, n_clicks=cfg["n_clicks"],
-                              model_name=name)
-    return dict(all_ious=all_ious, noc=noc, over_max=over_max,
+                              model_name=model_name)
+    return dict(dataset=name, all_ious=all_ious, noc=noc, over_max=over_max,
                 miou=miou_at_k(all_ious, cfg["n_clicks"]), elapsed=elapsed,
                 table=table, latency=(latency_percentiles(latencies)
                                       if latencies else None),
                 group_stats=stats)
 
 
+def evaluate_all(cfg: Dict) -> list:
+    """Every dataset of ``datasets=`` in turn, as the root's loop over
+    datasets × checkpoint: the checkpoint is loaded for each dataset's
+    ZoomIn size (once a size, the frozen parts drawn once). Returns
+    :func:`evaluate`'s results in order."""
+    device = resolve_device(cfg["device"])
+    models: Dict = {}
+    frozen = None
+    results = []
+    for name in cfg["dataset_names"]:
+        zoom = get_zoomin_params(cfg["eval_ritm"], cfg["eval_mode"], name)
+        size = _pos_embed_size(zoom)
+        if size not in models:
+            models.clear()  # one model resident at a time
+            models[size], info = load_model_for_eval(
+                cfg["checkpoint"], DTYPES[cfg["dtype"]], size, device,
+                eval_ritm=cfg["eval_ritm"], frozen=frozen)
+            frozen = info["frozen"]
+        results.append(evaluate(cfg, models[size], name))
+    return results
+
+
 def main(argv=None) -> int:
     cfg = parse_args(sys.argv[1:] if argv is None else argv)
-    out = evaluate(cfg)
-    print(out["table"])
-    if cfg["print_ious"]:
-        print("mIoU@k:", " ".join(f"{v:.3f}" for v in out["miou"]))
-    if out["latency"]:
-        print("per-click latency:", out["latency"])
-    if out["group_stats"]:
-        print("group-eval stats:", out["group_stats"])
+    for out in evaluate_all(cfg):
+        print(out["table"])
+        if cfg["print_ious"]:
+            print("mIoU@k:", " ".join(f"{v:.3f}" for v in out["miou"]))
+        if out["latency"]:
+            print("per-click latency:", out["latency"])
+        if out["group_stats"]:
+            print("group-eval stats:", out["group_stats"])
     return 0
 
 

@@ -45,20 +45,26 @@ def evaluate_sample(image: np.ndarray, gt_mask: np.ndarray, predictor,
 
 
 def evaluate_dataset(dataset, predictor, latencies: Optional[list] = None,
+                     clicks: Optional[list] = None,
                      **kwargs) -> Tuple[List[np.ndarray], float]:
     """Run :func:`evaluate_sample` over every object of a dataset (objects
     with ``get_sample(i)`` returning ``.image``, ``.objects_ids`` and
     ``.gt_mask(id)``). Pass ``latencies=[]`` to collect per-click wall
-    times."""
+    times, ``clicks=[]`` to collect each object's clicks as (y, x,
+    is_positive) rows."""
     all_ious = []
     start_time = time()
     for index in range(len(dataset)):
         sample = dataset.get_sample(index)
         for object_id in sample.objects_ids:
             t0 = time()
-            _, sample_ious, _ = evaluate_sample(
+            object_clicks, sample_ious, _ = evaluate_sample(
                 sample.image, sample.gt_mask(object_id), predictor,
                 sample_id=index, **kwargs)
+            if clicks is not None:
+                clicks.append(np.asarray(
+                    [(*c.coords, int(c.is_positive)) for c in object_clicks],
+                    np.int64).reshape(-1, 3))
             if latencies is not None:
                 latencies.append((time() - t0) / max(1, len(sample_ious)))
             all_ious.append(sample_ious)

@@ -439,7 +439,10 @@ def synthetic_config(name: str, img_size=(448, 448)) -> Dict:
     ``dinov2_simplevit`` (DINOv2-S/14 with the SimpleViT click encoder
     added after the trunk) and ``dinov2_lift`` (the flagship through the
     LiFT upsampler, with the configured ``lift_path`` of
-    ``configs/main_cfg.yaml``)."""
+    ``configs/main_cfg.yaml``), and ``dinov2_bilinear`` (the flagship
+    through the bilinear upsampler, a script of ``models/sbd/`` only). The
+    ``models/sbd/`` scripts define the same modules as their Synthetic
+    namesakes."""
     size = list(img_size)
     patch_embed = dict(type="patchEmbed",
                        params=dict(img_size=size, patch_size=(14, 14),
@@ -455,6 +458,9 @@ def synthetic_config(name: str, img_size=(448, 448)) -> Dict:
             early, patch_embed, convhead,
             dict(type="loftup", params=dict(
                 upsampler_path="/weights/loftup.pth", n_dim=384))),
+        "dinov2_bilinear": (
+            early, patch_embed, convhead,
+            dict(type="bilinear", params=dict())),
         "dinov2_jbu": (
             early, patch_embed, convhead,
             dict(type="jbu_featup", params=dict(backbone_type="dinov2",

@@ -1,8 +1,9 @@
-"""Train a Synthetic probe with the port.
+"""Train a probe with the port.
 
 Counterpart of the root ``train.py`` with the scripts of
-``models/synthetic/`` and ``models/common.py:train``, one model a script
-(``model=`` takes the key, the script's ``MODEL_NAME`` beside it):
+``models/synthetic/`` and ``models/sbd/`` and ``models/common.py:train``,
+one model a script (``model=`` takes the key, the script's ``MODEL_NAME``
+beside it). The Synthetic scripts train on the procedural scenes:
 
 - ``synthetic_dinov2_noup``: the flagship, DINOv2-S/14 with clicks
   patch-embedded before the backbone, identity upsampler;
@@ -18,30 +19,41 @@ Counterpart of the root ``train.py`` with the scripts of
 - ``synthetic_vit_noup``: the DINO ViT-S/16 key probe;
 - ``synthetic_maskclip_noup``: MaskCLIP ViT-B/16;
 
-each with the 2-layer 3×3 convhead and the prev mask, trained on the
-procedural Synthetic scenes with the JAX package's defaults
-(``models/defaults.py``: the Synthetic augmentations and click sampler,
-NFL with alpha 0.5 and gamma 2, Adam at lr 5e-5 with betas (0.9, 0.999)
-and eps 1e-8, the multistep schedule at ``lr_milestones`` with gamma 0.1,
-``max_num_next_clicks=3``). The frozen backbone and upsampler start from
-``init_tree(config, seed)``, the JAX trainer's ``model.init(PRNGKey(seed))``;
-the saved modules (click encoder and head) take the Adam steps, and their
-gradient passes through the frozen upsampler and backbone. Checkpoints are
-the JAX package's (float32, whatever the compute dtype), which both
-``evaluate.py`` and ``python -m isegprobe_torch.evaluate`` read.
+and the paper's scripts train the same modules on SBD
+(``models/defaults.py:get_sbd_train_val_datasets``, read from
+``DATASETS.SBD_PATH``): ``sbd_dinov2_noup``, ``sbd_dinov2_bilinear`` (the
+flagship through the bilinear upsampler), ``sbd_dinov2_jbu``,
+``sbd_dinov2_lift``, ``sbd_dinov2_loftup``, ``sbd_dinov2_simplevit``,
+``sbd_maskclip_noup`` and ``sbd_vit_noup``.
+
+Each has the 2-layer 3×3 convhead and the prev mask, with the JAX
+package's defaults (``models/defaults.py``: the dataset's augmentations and
+click sampler, NFL with alpha 0.5 and gamma 2, Adam at lr 5e-5 with betas
+(0.9, 0.999) and eps 1e-8, the multistep schedule at ``lr_milestones``
+with gamma 0.1, ``max_num_next_clicks=3``). The frozen backbone and
+upsampler start from ``init_tree(config, seed)``, the JAX trainer's
+``model.init(PRNGKey(seed))``; the saved modules (click encoder and head)
+take the Adam steps, and their gradient passes through the frozen
+upsampler and backbone. Checkpoints are the JAX package's (float32,
+whatever the compute dtype), which both ``evaluate.py`` and ``python -m
+isegprobe_torch.evaluate`` read.
 
 Usage (on a CUDA GPU; ``device=cpu`` runs the plain PyTorch path):
 
     python -m isegprobe_torch.train model=synthetic_dinov2_loftup \\
         [training_params.epochs=20] [dataloader.batch_size=8] \\
         [epoch_len=320] [exp_path=./experiments/torch] [device=cpu] ...
+    python -m isegprobe_torch.train model=sbd_dinov2_noup \\
+        DATASETS.SBD_PATH=/data/sbd [dataloader.mp=true] ...
 
 Keys: those of ``configs/train_cfg.yaml`` that apply (``exp.name``,
 ``dataloader.*``, ``training_params.*``, ``training.seed``,
 ``training.start_epoch``, ``training.resume_exp``,
-``training.resume_prefix``, ``training.weights``), plus the port's
-``model``, ``device``, ``exp_path`` and ``epoch_len`` / ``val_epoch_len``
-(items an epoch; the JAX package's 320 and 48 by default). A run goes to
+``training.resume_prefix``, ``training.weights``), ``DATASETS.SBD_PATH``
+(``configs/main_cfg.yaml``'s default; the port reads no YAML), plus the
+port's ``model``, ``device``, ``exp_path`` and ``epoch_len`` /
+``val_epoch_len`` (items an epoch; by default the script's: 320 and 48 for
+the Synthetic scenes, the whole split and 500 for SBD). A run goes to
 ``<exp_path>/<MODEL_NAME>/<NNN>_<exp.name>/checkpoints``, numbered as the
 JAX package numbers its runs (``utils/exp.py``).
 
@@ -57,10 +69,13 @@ JAX package numbers its runs (``utils/exp.py``).
   ``008``); ``training.weights=<checkpoint>`` merges a checkpoint over the
   initial weights. Both restore weights, not the optimizer state;
   ``training.start_epoch`` re-seeds the data order of the epoch it names.
+- ``dataloader.mp=true`` builds the items in spawned worker processes
+  (``dataloader.workers`` of them) instead of threads; the items are the
+  same.
 
-``training.model_parallel > 1``, ``training.n_devices``, ``dataloader.mp=
-true`` and wandb raise ``NotImplementedError`` naming their ROADMAP items;
-a key or a model that is not known raises ``ValueError``.
+``training.model_parallel > 1``, ``training.n_devices`` and wandb raise
+``NotImplementedError`` naming their ROADMAP items; a key or a model that
+is not known raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -74,11 +89,11 @@ from typing import Dict, Optional, Tuple
 from isegprobe_torch import resolve_device
 
 __all__ = ["DEFAULTS", "MODELS", "parse_args", "train_dtype",
-           "model_kwargs", "synthetic_datasets", "loss_cfg", "build_trainer",
-           "main"]
+           "model_kwargs", "synthetic_datasets", "sbd_datasets", "loss_cfg",
+           "build_trainer", "main"]
 
-# model= key -> the script's MODEL_NAME; the key without "synthetic_" is
-# its models.probe_model.synthetic_config name
+# model= key -> the script's MODEL_NAME; the key without its "synthetic_" or
+# "sbd_" prefix is its models.probe_model.synthetic_config name
 MODELS = {
     "synthetic_dinov2_noup":
         "synthetic_dinov2_noup_convhead_patchembed_earlyinject_224",
@@ -94,14 +109,30 @@ MODELS = {
         "synthetic_vit_noup_convhead_patchembed_earlyinject_224",
     "synthetic_maskclip_noup":
         "synthetic_maskclip_noup_convhead_patchembed_earlyinject_224",
+    "sbd_dinov2_noup": "sbd_dinov2_noup_convhead_patchembed_earlyinject_224",
+    "sbd_dinov2_bilinear":
+        "sbd_dinov2_bilinear_convhead_patchembed_earlyinject_224",
+    "sbd_dinov2_jbu": "sbd_dinov2_jbu_convhead_patchembed_earlyinject_224",
+    "sbd_dinov2_lift": "sbd_dinov2_lift_convhead_patchembed_earlyinject_224",
+    "sbd_dinov2_loftup":
+        "sbd_dinov2_loftup_convhead_patchembed_earlyinject_224",
+    "sbd_dinov2_simplevit":
+        "sbd_dinov2_noup_convhead_simplevit_lateinject_224",
+    "sbd_maskclip_noup":
+        "sbd_maskclip_noup_convhead_patchembed_earlyinject_224",
+    "sbd_vit_noup": "sbd_vit_noup_convhead_patchembed_earlyinject_224",
 }
-_LATER = "ROADMAP Queue 1 item 6"
 _NOT_PORTED = {
     "training.n_devices": "ROADMAP Queue 1 item 9 (parallel/mesh.py)",
     "training.model_parallel": "ROADMAP Queue 1 item 9 (parallel/tp.py)",
-    "wandb.log_wandb": f"{_LATER} (training: TensorBoard and wandb)",
-    "dataloader.mp": f"{_LATER} (data: process workers)",
+    "wandb.log_wandb": "ROADMAP Queue 1 item 6 (training: TensorBoard and "
+                       "wandb)",
 }
+# items an epoch when epoch_len / val_epoch_len are not given: the
+# Synthetic scripts' 320 and 48, SBD's whole split (-1) and 500
+_EPOCH_LENS = {"synthetic": (320, 48), "sbd": (-1, 500)}
+# models/defaults.py's difficulty weights, used when the file exists
+SBD_SAMPLES_WEIGHTS = "./assets/sbd_samples_weights.pkl"
 # configs/train_cfg.yaml's keys that apply, with its defaults
 DEFAULTS: Dict[str, object] = {
     "model": None,
@@ -129,8 +160,9 @@ DEFAULTS: Dict[str, object] = {
     "training.start_epoch": 0,
     "training.weights": None,
     "wandb.log_wandb": False,
-    "epoch_len": 320,
-    "val_epoch_len": 48,
+    "DATASETS.SBD_PATH": "/data/sbd",
+    "epoch_len": None,
+    "val_epoch_len": None,
     "exp_path": "./experiments/torch",
     "device": None,
 }
@@ -161,7 +193,12 @@ def parse_args(argv) -> Dict:
         cfg[key] = _value(text)
     if cfg["model"] not in MODELS:
         raise ValueError(f"model={cfg['model']}: takes one of "
-                         f"{sorted(MODELS)} (models/synthetic/)")
+                         f"{sorted(MODELS)} (models/synthetic/, "
+                         "models/sbd/)")
+    lens = _EPOCH_LENS[dataset_family(cfg)]
+    for key, default in zip(("epoch_len", "val_epoch_len"), lens):
+        if cfg[key] is None:
+            cfg[key] = default
     train_dtype(cfg)
     for key, item in _NOT_PORTED.items():
         value = cfg[key]
@@ -172,6 +209,11 @@ def parse_args(argv) -> Dict:
             raise NotImplementedError(f"{key}={value} is not ported to "
                                       f"isegprobe_torch.train yet: {item}")
     return cfg
+
+
+def dataset_family(cfg: Dict) -> str:
+    """``"synthetic"`` or ``"sbd"``: the data a script trains on."""
+    return cfg["model"].split("_", 1)[0]
 
 
 def train_dtype(cfg: Dict):
@@ -198,7 +240,7 @@ def model_kwargs(cfg: Dict) -> Dict:
     from isegprobe_torch.models.probe_model import synthetic_config
 
     crop = tuple(cfg["training_params.crop_size"])
-    config = synthetic_config(cfg["model"].removeprefix("synthetic_"), crop)
+    config = synthetic_config(cfg["model"].split("_", 1)[1], crop)
     backbone = config["backbone_cfg"]
     if cfg["training_params.remat_backbone"] and backbone["type"] in (
             "dinov2", "vit"):
@@ -248,6 +290,54 @@ def synthetic_datasets(crop_size=(224, 224), num_max_points: int = 24,
     return trainset, valset
 
 
+def sbd_datasets(path, crop_size=(224, 224), num_max_points: int = 24,
+                 epoch_len: int = -1, val_epoch_len: int = 500) -> Tuple:
+    """``models/defaults.py:get_sbd_train_val_datasets``: SBD's train split
+    (the train augmentator with ``ShiftScaleRotate`` and ``RGBShift``,
+    ``min_object_area=80``, ``keep_background_prob=0.01``, the difficulty
+    weights of :data:`SBD_SAMPLES_WEIGHTS` with gamma 1.25 when that file
+    exists) and its val split (``epoch_len=500``), with one shared click
+    sampler."""
+    from pathlib import Path
+
+    from isegprobe_torch.data import transforms as T
+    from isegprobe_torch.data.datasets import SBDDataset
+    from isegprobe_torch.data.points_sampler import MultiPointSampler
+
+    crop = tuple(crop_size)
+    train_aug = T.Compose([
+        T.UniformRandomResize(scale_range=(0.75, 1.25)),
+        T.Flip(),
+        T.RandomRotate90(),
+        T.ShiftScaleRotate(shift_limit=0.03, scale_limit=0,
+                           rotate_limit=(-3, 3), p=0.75),
+        T.PadIfNeeded(min_height=crop[0], min_width=crop[1]),
+        T.RandomCrop(*crop),
+        T.RandomBrightnessContrast(brightness_limit=(-0.25, 0.25),
+                                   contrast_limit=(-0.15, 0.4), p=0.75),
+        T.RGBShift(r_shift_limit=10, g_shift_limit=10, b_shift_limit=10,
+                   p=0.75),
+    ], p=1.0)
+    val_aug = T.Compose([
+        T.UniformRandomResize(scale_range=(0.75, 1.25)),
+        T.PadIfNeeded(min_height=crop[0], min_width=crop[1]),
+        T.RandomCrop(*crop),
+    ], p=1.0)
+    sampler = MultiPointSampler(num_max_points, prob_gamma=0.80,
+                                merge_objects_prob=0.15,
+                                max_num_merged_objects=2)
+    weights = SBD_SAMPLES_WEIGHTS if Path(SBD_SAMPLES_WEIGHTS).exists() \
+        else None
+    trainset = SBDDataset(path, split="train", augmentator=train_aug,
+                          min_object_area=80, keep_background_prob=0.01,
+                          points_sampler=sampler, samples_scores_path=weights,
+                          samples_scores_gamma=1.25, epoch_len=epoch_len)
+    valset = SBDDataset(path, split="val", augmentator=val_aug,
+                        min_object_area=80, points_sampler=sampler,
+                        epoch_len=val_epoch_len)
+    return trainset, valset
+
+
 def loss_cfg() -> Dict:
     """``models/defaults.py:get_loss_cfg``."""
     from isegprobe_torch.training.losses import NormalizedFocalLossSigmoid
@@ -273,18 +363,29 @@ def build_trainer(cfg: Dict, on_step=None, params: Optional[Dict] = None,
     crop = tuple(cfg["training_params.crop_size"])
     model = iSegProbeModel(**model_kwargs(cfg), device=device,
                            dtype=train_dtype(cfg))
-    trainset, valset = synthetic_datasets(
-        crop, cfg["training_params.num_max_points"], cfg["epoch_len"],
-        cfg["val_epoch_len"], cfg["training_params.render_size"],
-        cfg["training_params.aug_scale_range"])
+    batch_size = cfg["dataloader.batch_size"]
+    val_batch_size = cfg["dataloader.val_batch_size"]
+    if dataset_family(cfg) == "sbd":
+        trainset, valset = sbd_datasets(
+            cfg["DATASETS.SBD_PATH"], crop,
+            cfg["training_params.num_max_points"], cfg["epoch_len"],
+            cfg["val_epoch_len"])
+        # get_sbd_train_val_datasets' batch rule
+        batch_size = 32 if batch_size < 1 else batch_size
+        val_batch_size = batch_size
+    else:
+        trainset, valset = synthetic_datasets(
+            crop, cfg["training_params.num_max_points"], cfg["epoch_len"],
+            cfg["val_epoch_len"], cfg["training_params.render_size"],
+            cfg["training_params.aug_scale_range"])
     run = init_experiment(cfg["exp_path"], MODELS[cfg["model"]],
                           cfg["exp.name"], cfg["training.resume_exp"],
                           cfg["training.resume_prefix"])
     tcfg = SimpleNamespace(
         dataloader=SimpleNamespace(
-            batch_size=cfg["dataloader.batch_size"],
-            val_batch_size=cfg["dataloader.val_batch_size"],
-            workers=cfg["dataloader.workers"]),
+            batch_size=batch_size, val_batch_size=val_batch_size,
+            workers=cfg["dataloader.workers"],
+            mp=bool(cfg["dataloader.mp"])),
         training=SimpleNamespace(
             start_epoch=cfg["training.start_epoch"],
             weights=run["weights"] or cfg["training.weights"]),

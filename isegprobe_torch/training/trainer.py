@@ -83,7 +83,6 @@ logger = logging.getLogger("isegprobe_torch")
 
 FROZEN_PREFIXES = ("backbone", "upsampler")
 TRAINABLE_PREFIXES = ("embed_coords", "head", "neck")
-_LATER = "ROADMAP Queue 1 item 6"
 
 
 def split_params(model: torch.nn.Module,
@@ -186,8 +185,8 @@ class iSegTrainer:
     ``"val"``). ``stats`` holds each training step's ``num_iters``, host
     wall seconds (from one step's start to the next's), seconds waiting for
     its batch and, on CUDA, device milliseconds (events around the step).
-    Process workers (``dataloader.mp``) raise ``NotImplementedError``
-    naming their ROADMAP item; a model with parameters that are not
+    ``dataloader.mp`` builds the items in spawned processes (the same
+    items as threads); a model with parameters that are not
     float32 raises ``ValueError`` (the master weights are float32: build
     it with ``dtype=torch.bfloat16`` for mixed precision)."""
 
@@ -219,16 +218,13 @@ class iSegTrainer:
         batch_size = _get(cfg, "dataloader.batch_size")
         val_batch_size = _get(cfg, "dataloader.val_batch_size", batch_size)
         workers = int(_get(cfg, "dataloader.workers", 4))
-        if _get(cfg, "dataloader.mp", False):
-            raise NotImplementedError(
-                f"process workers (dataloader.mp) are not ported to "
-                f"isegprobe_torch yet: {_LATER} (data: process workers)")
+        mp = bool(_get(cfg, "dataloader.mp", False))
         self.train_data = DataLoader(trainset, batch_size, shuffle=True,
                                      num_workers=workers, seed=self.seed,
-                                     salt="train")
+                                     salt="train", use_processes=mp)
         self.val_data = DataLoader(valset, val_batch_size, shuffle=False,
                                    num_workers=workers, seed=self.seed,
-                                   salt="val")
+                                   salt="val", use_processes=mp)
 
         self.train_metrics = list(metrics or [])
         self.val_metrics = copy.deepcopy(self.train_metrics)

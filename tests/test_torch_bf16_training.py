@@ -27,7 +27,7 @@ counterpart in ``isegprobe_torch``. The JAX side is the model built with
 
 The fixture ``isegprobe_torch/fixtures/synthetic_train_step_bf16.npz``
 carries to the GPU machine (no JAX there) the JAX package's full-width
-224² bf16 train step of the flagship (batch 8) and LoftUp (batch 2) from
+224² bf16 train step of the flagship and LoftUp (batch 8 each) from
 ``PRNGKey(0)`` at num_iters=0 on the items of ``synthetic_train_step.npz``:
 two steps' losses and the trainable leaves' digests. JBU is not in it:
 the JAX package's bf16 JBU filter (``jbu_filter_xla``, also the backward
@@ -66,7 +66,7 @@ BF16_FIXTURE = (REPO / "isegprobe_torch" / "fixtures"
 STEP_FIXTURE = (REPO / "isegprobe_torch" / "fixtures"
                 / "synthetic_train_step.npz")
 # the scripts the fixture holds, by probe_model.synthetic_config name, with
-# the batch each step takes (LoftUp's bf16 JAX step is slow on the CPU)
+# the batch each step takes
 FIXTURE_BATCHES = {"dinov2_noup": 8, "dinov2_loftup": 8}
 VJP_TOL = 2.0**-6
 STEP_LOSS_RTOL = 2.0**-12

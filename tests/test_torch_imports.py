@@ -1,6 +1,6 @@
 """The port stands alone: no module of isegprobe_torch, and not
-chip_smoke.py, imports JAX, flax, msgpack, OpenCV or the JAX package (the GPU
-machine has none of them). Checked on the source text (AST), so lazy
+chip_smoke.py, imports JAX, flax, msgpack, OpenCV, PIL or the JAX package
+(the GPU machine has none of them; tests may use PIL to write files). Checked on the source text (AST), so lazy
 imports inside functions count too."""
 
 import ast
@@ -9,7 +9,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cv2", "msgpack",
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cv2", "msgpack", "PIL",
              "isegprobe_tpu"}
 SOURCES = sorted((REPO / "isegprobe_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]

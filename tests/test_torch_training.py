@@ -690,8 +690,9 @@ def test_split_params_and_unported_options(tiny_arch, tmp_path):
         iSegTrainer(model, cfg, {}, items, items, device="cpu")
     cfg = _ns_cfg(tmp_path)
     cfg.dataloader.mp = True
-    with pytest.raises(NotImplementedError, match="item 6"):
-        iSegTrainer(model, cfg, {}, items, items, device="cpu")
+    trainer = iSegTrainer(model, cfg, {}, items, items, device="cpu")
+    assert trainer.train_data.use_processes and trainer.val_data.use_processes
+    trainer.shutdown()
     with pytest.raises(ValueError, match="float32 master weights"):
         iSegTrainer(model.to(torch.bfloat16), _ns_cfg(tmp_path), {}, items,
                     items, device="cpu")
@@ -752,7 +753,8 @@ def test_train_cli_arguments():
     assert cfg["training_params.crop_size"] == [112, 112]
     assert cfg["dataloader.mp"] is False and cfg["epoch_len"] == 16
     for ok in (["training_params.dtype=bfloat16"],
-               ["training.resume_exp=000"], ["training.weights=x.ckpt"]):
+               ["training.resume_exp=000"], ["training.weights=x.ckpt"],
+               ["dataloader.mp=true"]):
         parse_args(["model=synthetic_dinov2_noup", *ok])
     for bad, err in ((["model=synthetic_dinov2_nonexistent"], ValueError),
                      (["model=synthetic_dinov2_noup",
@@ -761,8 +763,6 @@ def test_train_cli_arguments():
                        "training.model_parallel=2"], NotImplementedError),
                      (["model=synthetic_dinov2_noup",
                        "training.n_devices=4"], NotImplementedError),
-                     (["model=synthetic_dinov2_noup", "dataloader.mp=true"],
-                      NotImplementedError),
                      (["model=synthetic_dinov2_noup", "colour=red"],
                       ValueError)):
         with pytest.raises(err):
