@@ -237,6 +237,43 @@ does not hold:
     trajectories as 11b's loops are (IoUs within 1e-3 up to the first
     differing click, at most 2 objects of a dataset differing, NoC within
     0.05), ms a loop step and a host click;
+11i. brs, the rest of the host protocol (main paths 77-83:
+    ``ops/edt.py`` on ``csrc/host/edt.cpp``, ``inference/brs.py``,
+    ``python -m isegprobe_torch.evaluate mode=...``, ``CropsPredictor``,
+    ``click_models``), against ``isegprobe_torch/fixtures/
+    synthetic_brs.npz`` (the JAX package's BRS results for the trained
+    flagship at 448², f32): (a) the native host EDT bitwise against its
+    scipy plain version on the clicker's inputs of the five trees, ms an
+    EDT for both at 480x640 and 854x480, the host click p50 on the first
+    DAVIS and GrabCut objects and ms an SBD item from 4 threads; (b) the
+    f-BRS-B, RGB-BRS and DistMap-BRS objectives at x = 0 and a seeded x
+    on the first object after two clicks (the fixture's predictor states):
+    value within 1e-5 relative and gradient within 1e-4 of its largest
+    magnitude of JAX's, ms an evaluation and its ``torch.profiler``
+    split; (c, d) ``evaluate(...)`` with
+    ``mode=f-BRS-B`` on the first 8 objects (20 clicks, target 0.9),
+    DistMap-BRS on 2 × 5 and RGB-BRS on 1 × 3 (with ``device_loop=true``,
+    which runs the host protocol and says so): IoUs within 1e-3 up to an
+    object's first click where the L-BFGS evaluation counts, early stops
+    or clicks part from JAX's, at most 2 of 8 parting, each printed with
+    its cause; NoC against JAX's, evaluations a click, ms a click and an
+    optimized click; every click's launches exact (f-BRS: 12 A + 25 B, the
+    trunk; Input-BRS: an evaluation's 12 A + 25 B each, one forward on a
+    click without L-BFGS); (e) one f-BRS-B click (``maxfun`` 3) on drawn
+    LoftUp and JBU probes at 448²: D or E under autograd, the objective
+    within 1e-4 of the same objective with the plain version swapped in;
+    (f) ``CropsPredictor`` (320x480 tiles) on DAVIS' 854x480 frames
+    against ``TransformChainPredictor([Crops, SigmoidForPred,
+    AddHorizontalFlip])``, which averages the flip's logits as it does
+    (clicks equal, IoUs within 1e-3), beside ``[Crops, AddHorizontalFlip,
+    SigmoidForPred]``, which averages probabilities (reported), and the
+    ensemble
+    ``click_models=[80ep, 160ep]`` on the first 8 objects against JAX's
+    trajectories as 11b's host protocol; (g) A, B, D and E under autograd
+    at the batch-1 shapes of these paths (A [1, 1025, 1152], B [1, 1025,
+    384], D q [1, 28672, 4, 101] against [1, 1024, 4, 101], E [1, 512,
+    512, 384]) as 11c's, with SDPA's and ``F.layer_norm``'s forward +
+    backward;
 12. the learned-upsampler families, LoftUp and JBU-FeatUp on DINOv2-S/14 at
     448² (drawn, calibrated): kernels D (cross-attention, f32 and bf16, at
     every tile and load path as A) and E (JBU filter; also at the edges of
@@ -2166,7 +2203,7 @@ def ritm_and_refill_phase(torch, cuda, shared: dict) -> dict:
         latency_percentiles,
     )
     from isegprobe_torch.inference.metrics import compute_noc_metric
-    from isegprobe_torch.inference.predictor import get_predictor
+    from isegprobe_torch.inference.brs import get_predictor
     from isegprobe_torch.models.probe_model import (
         iSegProbeModel,
         synthetic_config,
@@ -3573,6 +3610,603 @@ class _One:
         return self.dataset.get_sample(0)
 
 
+# the rest of the host protocol (phase 11i): the JAX package's BRS results
+# for the trained flagship at 448² (tests/test_torch_brs.py --export), the
+# objective's seeded point (x ~ N(0, scale) from BRS_X_SEED, the scale by
+# mode) and the gates: the strict gate (b), the objective's value within
+# 1e-5 relative and its gradient within 1e-4 of its largest magnitude of
+# JAX's (f32 on both sides, summed in other orders); (c) IoUs within
+# LOOP_IOU_TOL up to an object's first click where the L-BFGS evaluation
+# counts, the early stops or the clicks part from JAX's, at most
+# TRAINED_MAX_DIVERGED of the 8 objects parting; (e) an upsampler's
+# objective with its kernel against the same objective with the plain
+# version swapped in, 1e-4 of the value and of the gradient's largest
+# magnitude (the kernel's forward rounding through the upsampler and the
+# head: LoftUp's 7 slabs, JBU's 4 stages). The trees' clicker inputs are
+# each object's error masks against its ground truth shifted by
+# BRS_EDT_SHIFT pixels; EDT and click times are host wall times, medians
+# over BRS_EDT_REPS calls
+BRS_FIXTURE = (Path(__file__).resolve().parent / "isegprobe_torch"
+               / "fixtures" / "synthetic_brs.npz")
+BRS_X_SEED = 17
+BRS_X_SCALE = {"f-BRS": 0.1, "input": 0.003}
+BRS_VALUE_TOL = 1e-5
+BRS_GRAD_TOL = 1e-4
+BRS_RUNS = {"f-BRS-B": (8, 20), "DistMap-BRS": (2, 5), "RGB-BRS": (1, 3)}
+BRS_OBJECTIVE_MODES = ("f-BRS-B", "RGB-BRS", "DistMap-BRS")
+BRS_UPSAMPLER_TOL = 1e-4
+BRS_UPSAMPLER_MAXFUN = 3
+BRS_EDT_SHIFT = 7
+BRS_EDT_REPS = 7
+BRS_CROP_TILE = (320, 480)
+BRS_ENSEMBLE = ("synthetic_dinov2_noup_80ep.ckpt",
+                "synthetic_dinov2_noup_160ep.ckpt")
+
+
+def brs_seeded_x(mode: str, size: int) -> np.ndarray:
+    scale = BRS_X_SCALE["f-BRS" if mode.startswith("f-BRS") else "input"]
+    return np.random.default_rng(BRS_X_SEED).normal(0.0, scale, size)
+
+
+class _Capture:
+    """Within the block, ``brs.fmin_l_bfgs_b`` records the objective it is
+    handed and returns ``x0``, or, with ``run``, runs scipy's as well."""
+
+    def __init__(self, brs, run: bool = False) -> None:
+        self.brs, self.run, self.func = brs, run, None
+
+    def __enter__(self):
+        self.real = self.brs.fmin_l_bfgs_b
+
+        def capture(func, x0, **kw):
+            self.func = func
+            if self.run:
+                return self.real(func=func, x0=x0, **kw)
+            return x0, 0.0, {}
+
+        self.brs.fmin_l_bfgs_b = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.brs.fmin_l_bfgs_b = self.real
+
+
+class _ClickRecords:
+    """Within the block, every BRS click appends its L-BFGS evaluations,
+    early stop, ``opt_data`` norm, host ms and kernel launches to
+    ``records``."""
+
+    def __init__(self, torch, brs) -> None:
+        self.torch, self.brs, self.records = torch, brs, []
+
+    def __enter__(self):
+        cls = self.brs._BRSPredictorBase
+        self.real = real = cls.get_prediction
+        torch, records = self.torch, self.records
+
+        def get_prediction(predictor, clicker, prev_mask=None):
+            torch.cuda.synchronize()
+            before = counters()
+            t0 = time.perf_counter()
+            out = real(predictor, clicker, prev_mask)
+            ms = 1e3 * (time.perf_counter() - t0)
+            after = counters()
+            functor = predictor.opt_functor
+            records.append({
+                "evals": functor.n_evals, "stop": functor.stop,
+                "opt_norm": float(np.linalg.norm(predictor.opt_data)),
+                "ms": ms, "launches": {k: after[k] - before[k]
+                                       for k in KERNELS}})
+            return out
+
+        cls.get_prediction = get_prediction
+        return self
+
+    def __exit__(self, *exc):
+        self.brs._BRSPredictorBase.get_prediction = self.real
+
+
+def brs_objective_error(value, grad, fx, mode: str, k: int) -> dict:
+    """The port's value and gradient at the fixture's ``k``-th point (0:
+    x = 0, 1: the seeded x) against JAX's: the value's relative error, the
+    gradient's error on the stored entries over its largest magnitude, and
+    the relative errors of that magnitude and of the L2 norm."""
+    want_v = float(fx[f"b_{mode}_value"][k])
+    maxabs = float(fx[f"b_{mode}_grad_maxabs"][k])
+    l2 = float(fx[f"b_{mode}_grad_l2"][k])
+    idx = fx[f"b_{mode}_grad_idx"]
+    return {"value": value, "jax_value": want_v,
+            "value_rel_err": abs(value - want_v) / abs(want_v),
+            "grad_err": float(np.abs(grad[idx] - fx[f"b_{mode}_grad_sample"][k])
+                              .max()) / maxabs,
+            "grad_maxabs_rel_err": abs(float(np.abs(grad).max()) - maxabs)
+            / maxabs,
+            "grad_l2_rel_err": abs(float(np.linalg.norm(grad)) - l2) / l2,
+            "entries_compared": int(idx.size), "entries": int(grad.size)}
+
+
+def brs_against_fixture(ious, clicks, records, fx, mode: str) -> dict:
+    """Hold a BRS run's per-object trajectories against the JAX package's
+    (the fixture's ``c_{mode}_*``): IoUs within LOOP_IOU_TOL up to each
+    object's first click where the L-BFGS evaluation counts, the early
+    stops (whether the click's last evaluation handed scipy a zero
+    gradient) or the clicks part, or where one run stops and the other
+    clicks on; at most TRAINED_MAX_DIVERGED objects may part, each printed
+    with its click and cause."""
+    n_obj = len(ious)
+    partings, err, offset = [], 0.0, 0
+    for i in range(n_obj):
+        n = int(fx[f"c_{mode}_n"][i])
+        want_c = [tuple(int(v) for v in c)
+                  for c in fx[f"c_{mode}_clicks"][i, :n]]
+        want_e = [int(v) for v in fx[f"c_{mode}_evals"][i, :n]]
+        want_s = [bool(v) for v in fx[f"c_{mode}_stopped"][i, :n]]
+        recs = records[offset:offset + len(ious[i])]
+        offset += len(ious[i])
+        got_c = [tuple(int(v) for v in c) for c in clicks[i]]
+        got_e = [r["evals"] for r in recs]
+        got_s = [r["stop"] is not None for r in recs]
+        k, cause = None, None
+        for j in range(min(len(got_c), n)):
+            for what, got, want in (("click", got_c, want_c),
+                                    ("evaluations", got_e, want_e),
+                                    ("early stop", got_s, want_s)):
+                if got[j] != want[j]:
+                    k, cause = j, f"{what}: {got[j]} here, {want[j]} in JAX"
+                    break
+            if k is not None:
+                break
+        if k is None and len(got_c) != n:
+            k = min(len(got_c), n)
+            cause = f"{len(got_c)} clicks here, {n} in JAX"
+        upto = len(got_c) if k is None else k
+        if upto:
+            err = max(err, float(np.abs(np.asarray(ious[i][:upto])
+                                        - fx[f"c_{mode}_ious"][i, :upto])
+                                 .max()))
+        if k is not None:
+            partings.append({"object": i, "click": k + 1, "cause": cause})
+    if offset != len(records):
+        fail(f"{mode}: {len(records)} BRS clicks recorded for {offset}")
+    for d in partings:
+        print(f"{mode}: object {d['object']} parts from JAX at click "
+              f"{d['click']}: {d['cause']}")
+    if err > LOOP_IOU_TOL:
+        fail(f"{mode}: IoUs differ from JAX's by {err} > {LOOP_IOU_TOL} "
+             "before the runs part")
+    if len(partings) > TRAINED_MAX_DIVERGED:
+        fail(f"{mode}: {len(partings)} objects part from JAX (at most "
+             f"{TRAINED_MAX_DIVERGED} allowed)")
+    return {"max_iou_diff_before_parting": err, "partings": partings}
+
+
+def _tree_error_masks(gt: np.ndarray) -> list:
+    """The clicker's two EDT inputs for ``gt`` against a prediction that
+    is ``gt`` shifted by BRS_EDT_SHIFT pixels: each error region padded by
+    one pixel, as ``inference/clicker.py`` pads it."""
+    obj = gt == 1
+    pred = np.roll(obj, (BRS_EDT_SHIFT, -BRS_EDT_SHIFT), axis=(0, 1))
+    valid = gt != -1
+    return [np.pad(m & valid, 1).astype(np.uint8)
+            for m in (obj & ~pred, ~obj & pred)]
+
+
+def _one_evaluation(functor, x) -> None:
+    """One L-BFGS evaluation as scipy makes it, its host reads included;
+    the IoU plateau's reference mask is cleared, so that a repeat at the
+    same ``x`` reads the gradient back as the first call does."""
+    functor._last_mask = None
+    functor(x)
+
+
+def _host_ms(fn, reps: int = BRS_EDT_REPS) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(times))
+
+
+def host_edt_part(torch, evaluate_cli, model, cfg) -> dict:
+    """(a) the native host EDT: bitwise against its plain version on the
+    clicker's inputs of the five trees, its time and the plain version's
+    at 480x640 and 854x480, the host click (the NoBRS Predictor with the
+    native clicker) on the first DAVIS and GrabCut objects, and an SBD
+    training item from DATA_WORKERS loader threads (the click sampler's
+    EDT is the same library)."""
+    from isegprobe_torch.inference.evaluation import (
+        evaluate_sample,
+        latency_percentiles,
+    )
+    from isegprobe_torch.inference.brs import get_predictor
+    from isegprobe_torch.ops import edt
+    from isegprobe_torch.train import sbd_datasets
+
+    res: dict = {}
+    masks, shapes = 0, {}
+    for name in DATA_EVAL:
+        dataset = evaluate_cli.get_dataset(name, cfg)
+        for index in range(len(dataset)):
+            sample = dataset.get_sample(index)
+            for obj in sample.objects_ids:
+                for m in _tree_error_masks(sample.gt_mask(obj)):
+                    if not np.array_equal(edt.edt_l2sq(m),
+                                          edt.edt_l2sq_plain(m)):
+                        fail(f"native EDT differs from scipy on {name} "
+                             f"sample {index}")
+                    masks += 1
+                    shapes[tuple(m.shape)] = m
+    res["bitwise_masks"] = masks
+    timing = {}
+    for hw in ((480, 640), (854, 480)):
+        padded = (hw[0] + 2, hw[1] + 2)
+        m = shapes.get(padded)
+        if m is None:
+            m = np.pad(scene(5, hw)[1].astype(bool), 1).astype(np.uint8)
+        timing[f"{hw[0]}x{hw[1]}"] = {
+            "native_ms": _host_ms(lambda: edt.edt_l2sq(m)),
+            "plain_ms": _host_ms(lambda: edt.edt_l2sq_plain(m))}
+    res["edt_ms"] = timing
+    clicks = {}
+    for name in ("DAVIS", "GrabCut"):
+        dataset = evaluate_cli.get_dataset(name, cfg)
+        zoom = evaluate_cli.get_zoomin_params(False, "fixed448", name)
+        predictor = get_predictor(
+            model, zoom_in_params=zoom,
+            predictor_params={"net_clicks_limit": TRAINED_CLICKS})
+        sample = dataset.get_sample(0)
+        gt = sample.gt_mask(sample.objects_ids[0])
+        evaluate_sample(sample.image, gt, predictor, max_iou_thr=2.0,
+                        max_clicks=1)  # warm-up
+        stamps = []
+        t0 = time.perf_counter()
+        _, ious, _ = evaluate_sample(
+            sample.image, gt, predictor, max_iou_thr=2.0,
+            pred_thr=TRAINED_THRESH, max_clicks=TRAINED_CLICKS,
+            callback=lambda *a: stamps.append(time.perf_counter()))
+        per_click = np.diff([t0] + stamps)
+        clicks[name] = {"hw": list(gt.shape), "clicks": len(ious),
+                        **latency_percentiles(list(per_click))}
+    res["host_click"] = clicks
+    trainset, _ = sbd_datasets(DATA_TREES / "sbd")
+    _, _, res["sbd_ms_per_item_threads"] = loader_epochs(
+        trainset, 0, "train", False, 5)
+    print("brs_host_edt", json.dumps(res))
+    return res
+
+
+def brs_phase(torch, F) -> dict:
+    """Main paths of the rest of the host protocol (phase 11i of the module
+    docstring): (a) the native host EDT; (b) the BRS objective of the
+    trained flagship at fixed points against JAX's; (c) f-BRS-B,
+    DistMap-BRS and RGB-BRS trajectories through the evaluate CLI against
+    JAX's, with (d) their exact launches a click; (e) f-BRS on drawn LoftUp
+    and JBU probes, kernels D and E under autograd against their plain
+    versions; (f) CropsPredictor against the transform chain and a
+    two-member ensemble against JAX's; (g) A, B, D and E under autograd at
+    batch 1. Returns the records, the autograd cases and the path
+    launches."""
+    from isegprobe_torch import evaluate as evaluate_cli
+    from isegprobe_torch.data.scenes import SYNTHETIC_FIXTURE, SceneDataset
+    from isegprobe_torch.inference import brs
+    from isegprobe_torch.inference.clicker import Click, Clicker
+    from isegprobe_torch.inference.evaluation import evaluate_dataset
+    from isegprobe_torch.inference.metrics import compute_noc_metric
+    from isegprobe_torch.inference.predictor import (
+        CropsPredictor,
+        TransformChainPredictor,
+    )
+    from isegprobe_torch.inference.transforms import (
+        AddHorizontalFlip,
+        Crops,
+        SigmoidForPred,
+    )
+    from isegprobe_torch.models.probe_model import (
+        flagship_config,
+        iSegProbeModel,
+    )
+    from isegprobe_torch.models.vit import init_params
+    from isegprobe_torch.ops import attention, jbu
+
+    res: dict = {}
+    launches: dict = {}
+    fx = dict(np.load(BRS_FIXTURE))
+    size = (448, 448)
+    per_forward = FORWARD_LAUNCHES["flagship"]
+    tree_args = [*(f"DATASETS.{k}_PATH={DATA_TREES / v}"
+                   for k, v in DATA_PATH_KEYS.items())]
+    base = [f"checkpoint={TRAINED_CKPTS['flagship']}", "eval_mode=fixed448",
+            f"thresh={TRAINED_THRESH}", "print_ious=false",
+            f"target_iou={TRAINED_TARGET}", *tree_args]
+    cfg = evaluate_cli.parse_args(base)
+    model, _ = eval_load(torch, cfg["checkpoint"], torch.float32, size)
+
+    # (a) the native host EDT
+    res["host_edt"] = host_edt_part(torch, evaluate_cli, model, cfg)
+
+    # (b) the objective at the fixture's two points and states
+    data = SceneDataset(SYNTHETIC_FIXTURE, objects=slice(0, 8))
+    sample = data.get_sample(0)
+    states = {"object_roi": tuple(int(v) for v in fx["b_roi"]),
+              "prev_prediction": fx["b_prev"].astype(np.float32)}
+    zoom = {"skip_clicks": -1, "target_size": size}
+    objective = {}
+    for mode in BRS_OBJECTIVE_MODES:
+        p = brs.get_predictor(model, mode, prob_thresh=TRAINED_THRESH,
+                              zoom_in_params=zoom,
+                              predictor_params={"net_clicks_limit":
+                                                TRAINED_CLICKS})
+        p.set_input_image(sample.image)
+        p.set_states(states)
+        clicker = Clicker()
+        for y, x, pos in fx["b_clicks"]:
+            clicker.add_click(Click(bool(pos), (int(y), int(x))))
+        with _Capture(brs) as cap:
+            p.get_prediction(clicker)
+        n = 2 * 384 if mode.startswith("f-BRS") else int(np.prod(size)) * 3
+        rec = {"entries": n, "points": []}
+        for k, x in enumerate((np.zeros(n), brs_seeded_x(mode, n))):
+            zero_counters()
+            value, grad, *_ = cap.func.value_and_grad(x)
+            got_launches = counters()
+            err = brs_objective_error(float(value),
+                                      grad.double().cpu().numpy(), fx, mode,
+                                      k)
+            rec["points"].append(err)
+            if (err["value_rel_err"] > BRS_VALUE_TOL
+                    or err["grad_err"] > BRS_GRAD_TOL):
+                fail(f"{mode} objective at point {k} differs from JAX's: "
+                     f"{err}")
+        # an evaluation's launches and ms (the host reads of __call__ in)
+        rec["launches_per_evaluation"] = {
+            k: v for k, v in got_launches.items() if v}
+        rec["ms_per_evaluation"] = _host_ms(
+            lambda: _one_evaluation(cap.func, x), reps=5)
+        rec["profile"] = profile_forward(
+            torch, lambda *_: _one_evaluation(cap.func, x), None, None)
+        objective[mode] = rec
+        print("brs_objective", mode, json.dumps(rec))
+    res["objective"] = objective
+    with torch.inference_mode():
+        crop = torch.rand((1, *size, 4), device="cuda")
+        pts = torch.full((1, 2 * TRAINED_CLICKS, 3), -1.0, device="cuda")
+        pts[0, 0] = torch.tensor([200.0, 200.0, 0.0])
+        res["forward_b1_ms"], _ = time_ms(torch, lambda: model(crop, pts),
+                                          reps=5, rounds=3, graph=False)
+
+    # (c, d) trajectories through the CLI, launches a click
+    runs = {}
+    for mode, (n_obj, n_clicks) in BRS_RUNS.items():
+        device_loop = mode == "RGB-BRS"  # a BRS mode asks for the loop
+        run_cfg = evaluate_cli.parse_args(
+            base + [f"mode={mode}", f"n_clicks={n_clicks}",
+                    f"device_loop={str(device_loop).lower()}"])
+        clicks: list = []
+        with _ClickRecords(torch, brs) as rec:
+            torch.cuda.synchronize()
+            zero_counters()
+            out = evaluate_cli.evaluate(
+                run_cfg, model, "Synthetic", clicks=clicks,
+                dataset=SceneDataset(SYNTHETIC_FIXTURE,
+                                     objects=slice(0, n_obj)))
+            torch.cuda.synchronize()
+            total = counters()
+        if out["protocol"] != "host" or (device_loop and not out["note"]):
+            fail(f"mode={mode} device_loop={device_loop} ran "
+                 f"{out['protocol']} ({out['note']})")
+        records = rec.records
+        for r in records:
+            # f-BRS: the trunk once a click; Input-BRS: a forward an
+            # evaluation, one forward on a click without any
+            times = 1 if mode.startswith("f-BRS") else max(r["evals"], 1)
+            if r["launches"] != expected(**{k: v * times for k, v in
+                                            per_forward.items()}):
+                fail(f"{mode} click launched {r['launches']} for "
+                     f"{r['evals']} evaluations")
+        summed = {k: sum(r["launches"][k] for r in records) for k in KERNELS}
+        if total != summed:
+            fail(f"{mode}: {total} launched in all, {summed} by the clicks")
+        launches[f"brs_{mode}"] = total
+        gate = brs_against_fixture(out["all_ious"], clicks, records, fx,
+                                   mode)
+        want_noc = compute_noc_metric(
+            [fx[f"c_{mode}_ious"][i, :fx[f"c_{mode}_n"][i]]
+             for i in range(n_obj)], [0.8, 0.85, 0.9], n_clicks)[0]
+        evals = sum(r["evals"] for r in records)
+        optimized = [r for r in records if r["evals"]]
+        runs[mode] = {
+            "objects": n_obj, "clicks": len(records), "noc": list(out["noc"]),
+            "jax_noc": list(want_noc), "evaluations": evals,
+            "jax_evaluations": int(fx[f"c_{mode}_evals"].sum()),
+            "evaluations_per_optimized_click": evals / max(len(optimized), 1),
+            "ms_per_click": float(np.mean([r["ms"] for r in records])),
+            "ms_per_click_p50": float(np.median([r["ms"] for r in records])),
+            "ms_per_optimized_click": (sum(r["ms"] for r in optimized)
+                                       / max(len(optimized), 1)),
+            "early_stops": {s: sum(r["stop"] == s for r in records)
+                            for s in ("clicks", "iou")},
+            "protocol": out["protocol"], "note": out["note"],
+            "launches": total, **gate}
+        print("brs_run", mode, json.dumps(runs[mode]))
+    res["runs"] = runs
+
+    # (e) f-BRS on drawn LoftUp and JBU probes: D and E under autograd,
+    # against the same objective with the plain version swapped in
+    swaps = {"loftup": (attention, "_mha_cuda",
+                        lambda q, k, v, scale, plan: attention._mha_plain(
+                            q, k, v, scale), "mha"),
+             "jbu_featup": (jbu, "_jbu_cuda", jbu._jbu_plain, "jbu_filter")}
+    upsamplers = {}
+    for name, (module, attr, plain, kernel) in swaps.items():
+        cfg_u = dict(flagship_config(size), upsampler_cfg=UPSAMPLERS[name])
+        drawn = init_params(iSegProbeModel(**cfg_u), seed=0).eval()
+        calibrate_classifier(torch, drawn, size[0], FAMILY_POSITIVE_SHARE)
+        img, gt = scene(3, size)
+        p = brs.get_predictor(drawn, "f-BRS-B", zoom_in_params=zoom,
+                              lbfgs_params={"maxfun": BRS_UPSAMPLER_MAXFUN})
+        p.set_input_image(img)
+        clicker = Clicker(gt_mask=gt)
+        clicker.make_next_click(np.zeros(gt.shape, bool))
+        probs = p.get_prediction(clicker)
+        clicker.make_next_click(probs > TRAINED_THRESH)
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.perf_counter()
+        with _Capture(brs, run=True) as cap:
+            probs = p.get_prediction(clicker)
+        click_ms = 1e3 * (time.perf_counter() - t0)
+        click_launches = {k: v for k, v in counters().items() if v}
+        if not click_launches.get(kernel):
+            fail(f"f-BRS on {name} launched no {kernel}: {click_launches}")
+        x = brs_seeded_x("f-BRS-B", p.opt_data.size)
+        zero_counters()
+        value, grad, *_ = cap.func.value_and_grad(x)
+        eval_launches = {k: v for k, v in counters().items() if v}
+        saved = getattr(module, attr)
+        setattr(module, attr, plain)
+        try:
+            zero_counters()
+            p_value, p_grad, *_ = cap.func.value_and_grad(x)
+            plain_launches = counters()[kernel]
+        finally:
+            setattr(module, attr, saved)
+        value, p_value = float(value), float(p_value)
+        scale = float(p_grad.abs().max())
+        rec = {"kernel": kernel, "evaluations": cap.func.n_evals,
+               "click_ms": click_ms, "click_launches": click_launches,
+               "evaluation_launches": eval_launches,
+               "plain_evaluation_kernel_launches": plain_launches,
+               "value": value, "plain_value": p_value,
+               "value_rel_err": abs(value - p_value) / abs(p_value),
+               "grad_err": float((grad - p_grad).abs().max()) / scale,
+               "ms_per_evaluation": _host_ms(
+                   lambda: _one_evaluation(cap.func, x), reps=3)}
+        print("brs_upsampler", name, json.dumps(rec))
+        if (rec["value_rel_err"] > BRS_UPSAMPLER_TOL
+                or rec["grad_err"] > BRS_UPSAMPLER_TOL):
+            fail(f"f-BRS on {name}: kernel {kernel} under autograd differs "
+                 f"from its plain version: {rec}")
+        if not np.isfinite(probs).all():
+            fail(f"f-BRS on {name} gave non-finite probabilities")
+        upsamplers[name] = rec
+        launches[f"brs_fBRS_{name}"] = expected(**click_launches)
+        del drawn, p, cap
+        torch.cuda.empty_cache()
+    res["upsamplers"] = upsamplers
+
+    # (f) CropsPredictor against the transform chains on DAVIS' 854x480
+    # frames: [Crops, SigmoidForPred, AddHorizontalFlip] averages the
+    # flip's logits, as the predictor does (the gate: clicks equal, IoUs
+    # within LOOP_IOU_TOL); [Crops, AddHorizontalFlip, SigmoidForPred]
+    # averages its probabilities, which in the tiles' overlap can put a
+    # pixel on the other side of the threshold (reported: each object's
+    # first differing click, the IoUs' largest difference before it). Then
+    # the click-model ensemble against JAX's
+    davis = evaluate_cli.get_dataset("DAVIS", cfg)
+    chains = {"predictor": None,
+              "chain": [Crops(BRS_CROP_TILE), SigmoidForPred(),
+                        AddHorizontalFlip()],
+              "chain_prob_average": [Crops(BRS_CROP_TILE),
+                                     AddHorizontalFlip(), SigmoidForPred()]}
+    crops = {}
+    for kind, transforms in chains.items():
+        if transforms is None:
+            predictor = CropsPredictor(model, crop_size=BRS_CROP_TILE,
+                                       net_clicks_limit=TRAINED_CLICKS)
+        else:
+            predictor = TransformChainPredictor(
+                model, transforms=transforms,
+                net_clicks_limit=TRAINED_CLICKS)
+        clicks: list = []
+        zero_counters()
+        t0 = time.time()
+        ious, _ = evaluate_dataset(davis, predictor, clicks=clicks,
+                                   max_iou_thr=TRAINED_TARGET,
+                                   pred_thr=TRAINED_THRESH,
+                                   max_clicks=TRAINED_CLICKS)
+        wall = time.time() - t0
+        n_clicks = sum(len(a) for a in ious)
+        crops[kind] = {"ious": ious, "clicks": clicks,
+                       "launches": counters(), "n_clicks": n_clicks,
+                       "ms_per_click": 1e3 * wall / n_clicks}
+        if kind == "predictor":
+            tiles = len(predictor._offsets)
+        if crops[kind]["launches"] != expected(**{
+                k: v * n_clicks for k, v in per_forward.items()}):
+            fail(f"Crops {kind} launched {crops[kind]['launches']}")
+        launches[f"crops_{kind}"] = crops[kind]["launches"]
+    pc = crops["predictor"]
+    compared = {}
+    for kind in ("chain", "chain_prob_average"):
+        first, err = [], 0.0
+        for a_c, b_c, a_i, b_i in zip(pc["clicks"], crops[kind]["clicks"],
+                                      pc["ious"], crops[kind]["ious"]):
+            k = next((j for j, (a, b) in enumerate(zip(a_c, b_c))
+                      if tuple(a) != tuple(b)), None)
+            if k is None and len(a_c) != len(b_c):
+                k = min(len(a_c), len(b_c))
+            upto = min(len(a_i), len(b_i)) if k is None else k
+            if upto:
+                err = max(err, float(np.abs(a_i[:upto] - b_i[:upto]).max()))
+            first.append(None if k is None else k + 1)
+        compared[kind] = {"first_differing_click": first,
+                          "max_iou_diff_before": err,
+                          "ms_per_click": crops[kind]["ms_per_click"]}
+    gate = compared["chain"]
+    if any(gate["first_differing_click"]) or \
+            gate["max_iou_diff_before"] > LOOP_IOU_TOL:
+        fail(f"CropsPredictor parts from the logit-averaging chain: {gate}")
+    res["crops"] = {"frames": len(davis), "tiles": tiles,
+                    "tile": list(BRS_CROP_TILE), "clicks": pc["n_clicks"],
+                    "predictor_ms_per_click": pc["ms_per_click"],
+                    **compared}
+    print("brs_crops", json.dumps(res["crops"]))
+    members = [eval_load(torch, Path(TRAINED_CKPTS["flagship"]).parent / c,
+                         torch.float32, size)[0] for c in BRS_ENSEMBLE]
+    ensemble = brs.get_predictor(
+        (members[-1], members), zoom_in_params=zoom,
+        predictor_params={"net_clicks_limit": TRAINED_CLICKS})
+    clicks = []
+    zero_counters()
+    ious, wall = evaluate_dataset(data, ensemble, clicks=clicks,
+                                  max_iou_thr=TRAINED_TARGET,
+                                  pred_thr=TRAINED_THRESH,
+                                  max_clicks=TRAINED_CLICKS)
+    n_clicks = sum(len(a) for a in ious)
+    if counters() != expected(**{k: v * n_clicks
+                                 for k, v in per_forward.items()}):
+        fail(f"the ensemble launched {counters()} for {n_clicks} clicks")
+    launches["ensemble"] = counters()
+    res["ensemble"] = {
+        "members": list(BRS_ENSEMBLE), "clicks": n_clicks,
+        "ms_per_click": 1e3 * wall / n_clicks,
+        **against_fixture(ious, clicks, fx["f_ens_ious"], fx["f_ens_n"],
+                          fx["f_ens_clicks"], "click-model ensemble",
+                          TRAINED_MAX_DIVERGED)}
+    print("brs_ensemble", json.dumps(res["ensemble"]))
+    del members, ensemble
+
+    # (g) A, B, D and E under autograd at the BRS paths' batch-1 shapes
+    res["autograd"] = [
+        autograd_case(torch, F, "mha_qkv", (1, 1025, 1152), 31, reps=5),
+        autograd_case(torch, F, "layernorm", (1, 1025, 384), 32, reps=5),
+        autograd_case(torch, F, "mha", ((1, 64 * 448, 4, 101),
+                                        (1, 1024, 4, 101)), 33, reps=2),
+        autograd_case(torch, F, "jbu_filter", (1, 512, 512, 384), 34,
+                      reps=2)]
+    for c in res["autograd"]:
+        print("brs_autograd", json.dumps(c))
+    if not all(c["ok"] for c in res["autograd"]):
+        fail(f"a kernel under autograd at batch 1 fails: "
+             f"{[c for c in res['autograd'] if not c['ok']]}")
+    res["path_launches"] = launches
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
 def variant_sweep(torch, F) -> tuple:
     """Kernels F (nodiv) and G (merged) against their plain versions and
     bit for bit against each other and kernel A, at B=2, at the sweep's
@@ -4107,6 +4741,13 @@ def main() -> int:
     results["data"] = data
 
     done("11h data")
+    # 11i. the rest of the host protocol: the native host EDT, BRS
+    # through the evaluate CLI, CropsPredictor, click-model ensembles, A,
+    # B, D and E under autograd at batch 1
+    brs_res = brs_phase(torch, F)
+    results["brs"] = brs_res
+
+    done("11i brs")
     # 12. the learned-upsampler families (main paths 3-6)
     families = {name: learned_family(torch, name) for name in UPSAMPLERS}
     results["families"] = families
@@ -4156,6 +4797,7 @@ def main() -> int:
     paths.update(family_training["path_launches"])
     paths.update(bf16_training["path_launches"])
     paths.update(data["path_launches"])
+    paths.update(brs_res["path_launches"])
     for fam in families.values():
         paths.update(fam["path_launches"])
     kernels = []
@@ -4197,7 +4839,7 @@ def main() -> int:
                                "library_fwd_bwd_peak_mb", "max_abs_err",
                                "grad_rel_err") if k in g}
             for g in (training["autograd"] + family_training["autograd"]
-                      + bf16_training["autograd"])
+                      + bf16_training["autograd"] + brs_res["autograd"])
             if g["kernel"] == name]
         if autograd:
             entry["autograd"] = autograd

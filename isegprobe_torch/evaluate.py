@@ -20,7 +20,7 @@ Usage (on a CUDA GPU; ``device=cpu`` runs the plain PyTorch path):
         device_loop=true device_batch=8 [dtype=bfloat16] [eval_mode=fixed448]
         [eval_ritm=false] [device_refill=false] [group_max_jobs=0]
         [n_clicks=20] [target_iou=0.9] [print_ious=true] [min_n_clicks=1]
-        [thresh=0.5] [clicks_limit=null]
+        [thresh=0.5] [clicks_limit=null] [mode=NoBRS]
 
 ``datasets`` is a comma-separated list of the root's ``get_dataset`` keys:
 ``GrabCut``, ``Berkeley``, ``DAVIS``, ``SBD``, ``SBD_Train``,
@@ -43,6 +43,12 @@ mIoU@k as the root ``evaluate.py`` does, with its rule for the target IoU:
 ``min_n_clicks <= 1``, as with ``configs/eval_cfg.yaml``'s defaults, else
 ``target_iou`` floored at 0.8 (``print_ious=false`` gives the early-stop
 protocol).
+
+``mode`` picks the predictor, as the root's does: ``NoBRS`` (the default),
+``f-BRS-A``, ``f-BRS-B``, ``f-BRS-C``, ``RGB-BRS`` or ``DistMap-BRS``
+(``inference/brs.py``), with ``thresh`` as the BRS optimizer's
+``prob_thresh``. The device loop runs NoBRS only: a BRS mode with
+``device_loop=true`` runs the host protocol and says so.
 """
 
 from __future__ import annotations
@@ -176,7 +182,6 @@ def _preinterpolate_pos_embed(config: Dict, params: Dict,
 # keys of the root evaluate.py that the port does not take yet, and the
 # ROADMAP item that brings each
 _NOT_PORTED = {
-    "mode": "ROADMAP Queue 1 item 9 (BRS)",
     "device_mesh": "ROADMAP Queue 1 item 9 (parallel/mesh.py)",
     "mxu_pad": "ROADMAP Queue 1 item 7 (LoftUp's mxu_pad layout)",
     "fuse_hr_head": "ROADMAP Queue 1 item 7 (the fused LoftUp head)",
@@ -214,7 +219,7 @@ _DEFAULTS = dict(checkpoint=None, datasets="Synthetic", **_PATH_DEFAULTS,
                  device_refill="false", group_max_jobs="0",
                  dtype="float32", n_clicks="20", target_iou="0.90",
                  print_ious="true", min_n_clicks="1", thresh="0.5",
-                 clicks_limit="null", device=None)
+                 clicks_limit="null", mode="NoBRS", device=None)
 
 
 def parse_args(argv) -> Dict:
@@ -244,6 +249,11 @@ def parse_args(argv) -> Dict:
                 f"{sorted(DATASET_PATHS)}")
     if not cfg["dataset_names"]:
         raise ValueError("datasets= names no dataset")
+    from isegprobe_torch.inference.brs import BRS_MODES
+
+    if cfg["mode"] not in BRS_MODES:
+        raise ValueError(f"mode={cfg['mode']!r} is not a predictor mode; "
+                         f"takes {list(BRS_MODES)}")
     cfg["eval_ritm"] = _flag(cfg["eval_ritm"])
     # the first dataset's ZoomIn; evaluate() computes each dataset's
     cfg["zoomin"] = get_zoomin_params(cfg["eval_ritm"], cfg["eval_mode"],
@@ -362,7 +372,9 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,
     dataset's ZoomIn. ``model`` must have been loaded for that ZoomIn's
     size (:func:`evaluate_all` does so); by default it is loaded here.
     Returns the dataset's name, the per-object IoUs, the NoC, mIoU@k, the
-    wall seconds, the results table and, for a job queue, its stats.
+    wall seconds, the results table, the protocol that ran (``"host"`` or
+    ``"device_loop"``), a note where a BRS mode asked for the device loop
+    ran the host protocol, and, for a job queue, its stats.
     ``clicks=[]`` collects each object's clicks, (y, x, is_positive)
     rows (the fixed-crop protocols; the adaptive loop records none).
     ``dataset`` runs those samples (a subset) in place of the named
@@ -377,7 +389,7 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,
         evaluate_dataset,
         latency_percentiles,
     )
-    from isegprobe_torch.inference.predictor import get_predictor
+    from isegprobe_torch.inference.brs import get_predictor
 
     device = resolve_device(cfg["device"])
     name = dataset_name or cfg["dataset_names"][0]
@@ -394,8 +406,14 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,
     net_clicks_limit = cfg["clicks_limit"] or cfg["n_clicks"]
     latencies: list = []
     stats: Optional[dict] = None
+    note = None
+    use_device_loop = cfg["device_loop"] and cfg["mode"] == "NoBRS"
+    if cfg["device_loop"] and not use_device_loop:
+        note = (f"mode={cfg['mode']}: the device loop runs NoBRS only; "
+                "running the host protocol")
+        logging.getLogger(__name__).info(note)
     t0 = time()
-    if cfg["device_loop"]:
+    if use_device_loop:
         kw = dict(batch_size=cfg["device_batch"],
                   net_clicks_limit=net_clicks_limit,
                   target_iou=cfg["target_iou"], with_flip=True,
@@ -423,7 +441,8 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,
             all_ious = evaluate_dataset_device(run, dataset, clicks=clicks)
     else:
         predictor = get_predictor(
-            model, with_flip=True, zoom_in_params=zoom,
+            model, brs_mode=cfg["mode"], prob_thresh=cfg["thresh"],
+            with_flip=True, zoom_in_params=zoom,
             predictor_params={"net_clicks_limit": net_clicks_limit},
             device=device)
         all_ious, _ = evaluate_dataset(dataset, predictor,
@@ -436,14 +455,15 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,
     spc, _ = get_time_metrics(all_ious, elapsed)
     model_name = str(cfg["checkpoint"]).rsplit("/", 1)[-1].removesuffix(
         ".ckpt")
-    table = get_results_table(noc, over_max, "NoBRS", name, spc,
+    table = get_results_table(noc, over_max, cfg["mode"], name, spc,
                               elapsed, n_clicks=cfg["n_clicks"],
                               model_name=model_name)
     return dict(dataset=name, all_ious=all_ious, noc=noc, over_max=over_max,
                 miou=miou_at_k(all_ious, cfg["n_clicks"]), elapsed=elapsed,
                 table=table, latency=(latency_percentiles(latencies)
                                       if latencies else None),
-                group_stats=stats)
+                protocol="device_loop" if use_device_loop else "host",
+                note=note, group_stats=stats)
 
 
 def evaluate_all(cfg: Dict) -> list:
@@ -471,6 +491,8 @@ def evaluate_all(cfg: Dict) -> list:
 def main(argv=None) -> int:
     cfg = parse_args(sys.argv[1:] if argv is None else argv)
     for out in evaluate_all(cfg):
+        if out["note"]:
+            print(out["note"])
         print(out["table"])
         if cfg["print_ious"]:
             print("mIoU@k:", " ".join(f"{v:.3f}" for v in out["miou"]))

@@ -5,13 +5,19 @@ decision rule: click the deepest interior point (maximum EDT, image borders
 counted as error boundary) of whichever error region — false negative or
 false positive — is deeper, positive iff it is the false-negative region; a
 pixel is never clicked twice; ties go to the first row-major maximum. The
-squared EDT is exact in integers (``ops/edt.py``), so depth comparisons and
-argmax locations match the JAX package exactly.
+squared EDT is exact in integers (``ops/edt.py``, the native host library),
+so depth comparisons and argmax locations match the JAX package exactly.
+
+Besides the rule, the clicker keeps the click list the predictors read:
+``add_click`` numbers a click ``click_indx_offset + len``, ``get_clicks``
+truncates to a limit, and ``get_state`` / ``set_state`` serve the demo's
+undo.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from copy import deepcopy
+from dataclasses import dataclass, replace
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -25,6 +31,13 @@ class Click:
     coords: Tuple[float, float]  # (y, x)
     indx: Optional[int] = None
 
+    @property
+    def coords_and_indx(self):
+        return (*self.coords, self.indx)
+
+    def copy(self, **kwargs) -> "Click":
+        return replace(self, **kwargs)
+
 
 def _interior_depth(error_mask: np.ndarray, usable: np.ndarray) -> np.ndarray:
     """Squared distance-to-boundary of an error region, zeroed at pixels that
@@ -34,13 +47,22 @@ def _interior_depth(error_mask: np.ndarray, usable: np.ndarray) -> np.ndarray:
 
 
 class Clicker:
-    """Clicks on ``gt_mask`` (1 = object, ``ignore_label`` = ignored)."""
+    """Clicks on ``gt_mask`` (1 = object, ``ignore_label`` = ignored); with
+    no ``gt_mask`` it only keeps the clicks it is given."""
 
-    def __init__(self, gt_mask: np.ndarray, ignore_label: int = -1) -> None:
-        self.gt_mask = gt_mask == 1
-        self.not_ignore_mask = gt_mask != ignore_label
-        self.not_clicked_map = np.ones_like(self.gt_mask, dtype=bool)
-        self.clicks_list: List[Click] = []
+    def __init__(self, gt_mask: Optional[np.ndarray] = None,
+                 init_clicks: Optional[List[Click]] = None,
+                 ignore_label: int = -1, click_indx_offset: int = 0) -> None:
+        self.click_indx_offset = click_indx_offset
+        self.gt_mask = None
+        if gt_mask is not None:
+            self.gt_mask = gt_mask == 1
+            self.not_ignore_mask = gt_mask != ignore_label
+        self.reset_clicks()
+        for click in init_clicks or []:
+            self.add_click(click)
+
+    # -- the decision rule -------------------------------------------------
 
     def _get_next_click(self, pred_mask: np.ndarray) -> Click:
         # already-clicked pixels only lose their score; carving them out of
@@ -57,10 +79,49 @@ class Clicker:
         return Click(is_positive=bool(take_positive), coords=(int(y), int(x)))
 
     def make_next_click(self, pred_mask: np.ndarray) -> None:
-        click = self._get_next_click(pred_mask)
-        click.indx = len(self.clicks_list)
-        self.clicks_list.append(click)
-        self.not_clicked_map[click.coords] = False
+        assert self.gt_mask is not None
+        self.add_click(self._get_next_click(pred_mask))
 
-    def get_clicks(self) -> List[Click]:
-        return self.clicks_list
+    # -- click bookkeeping ---------------------------------------------------
+
+    def add_click(self, click: Click) -> None:
+        click.indx = self.click_indx_offset + len(self.clicks_list)
+        self.clicks_list.append(click)
+        if self.gt_mask is not None:
+            self.not_clicked_map[int(click.coords[0]),
+                                 int(click.coords[1])] = False
+
+    def _remove_last_click(self) -> None:
+        click = self.clicks_list.pop()
+        if self.gt_mask is not None:
+            self.not_clicked_map[int(click.coords[0]),
+                                 int(click.coords[1])] = True
+
+    def get_clicks(self, clicks_limit: Optional[int] = None) -> List[Click]:
+        return self.clicks_list[:clicks_limit]
+
+    @property
+    def num_pos_clicks(self) -> int:
+        return sum(c.is_positive for c in self.clicks_list)
+
+    @property
+    def num_neg_clicks(self) -> int:
+        return len(self.clicks_list) - self.num_pos_clicks
+
+    def reset_clicks(self) -> None:
+        if self.gt_mask is not None:
+            self.not_clicked_map = np.ones_like(self.gt_mask, dtype=bool)
+        self.clicks_list: List[Click] = []
+
+    # the undo state is the click list; restoring re-derives the
+    # not-clicked map from the positions
+    def get_state(self) -> List[Click]:
+        return deepcopy(self.clicks_list)
+
+    def set_state(self, state: List[Click]) -> None:
+        self.reset_clicks()
+        for click in state:
+            self.add_click(click)
+
+    def __len__(self) -> int:
+        return len(self.clicks_list)

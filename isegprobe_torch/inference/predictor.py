@@ -1,26 +1,34 @@
-"""Per-image predictor: the fixed-ZoomIn + flip-TTA click step on the GPU.
+"""Per-image predictors: the fixed-ZoomIn + flip-TTA click step on the GPU.
 
-Counterpart of ``isegprobe_tpu/inference/predictor.py:TPUPredictor``. Per
-click: concat the previous-probability channel, ZoomIn crop-resize to the
-target size, remap the clicks into the crop, batch-double with a width flip
-(flipped click ``x' = W − x − 1``), model forward, average the logits with
-the un-flipped flip, sigmoid, and inverse-paste into the full frame. The
-previous probabilities stay on the device between clicks; only the ROI
-state machine (a few scalar bbox ops on the thresholded previous mask) runs
-on the host, where the clicker needs the mask anyway.
+Counterpart of ``isegprobe_tpu/inference/predictor.py``. :class:`Predictor`
+(the JAX ``TPUPredictor``) does per click: concat the previous-probability
+channel, ZoomIn crop-resize to the target size, remap the clicks into the
+crop, batch-double with a width flip (flipped click ``x' = W − x − 1``),
+model forward, average the logits with the un-flipped flip, sigmoid, and
+inverse-paste into the full frame. The previous probabilities stay on the
+device between clicks; only the ROI state machine (a few scalar bbox ops on
+the thresholded previous mask) runs on the host, where the clicker needs
+the mask anyway. ``click_models`` serves click ``k`` with ensemble member
+``min(k, last)``; a model whose backbone injects the clicks
+``after_backbone`` caches its click-independent trunk per (ROI version, ROI
+value) and reruns only the click embedding, upsampler and head.
 
 Images are zero-padded to 64-pixel buckets and clicks to a fixed
 ``net_clicks_limit`` budget with (−1, −1, −1) rows, as in the JAX package.
-Click-model ensembles and the ``after_backbone`` trunk cache are not ported
-yet (an ``after_backbone`` model runs its full forward every click).
 
 :class:`TransformChainPredictor` is the generic host protocol over a chain
-of invertible transforms (``inference/transforms.py``), the counterpart of
-the JAX package's of that name: the path of the RITM adaptive ZoomIn,
-whose crops have data-dependent sizes. Eager PyTorch needs no static
-shapes, so its forward runs at each crop's true size. :func:`get_predictor`
-picks the predictor for a ZoomIn setting, as the JAX package's
-``inference/brs.py:get_predictor`` does for NoBRS.
+of invertible transforms (``inference/transforms.py``): the path of the
+RITM adaptive ZoomIn, whose crops have data-dependent sizes, and of any
+chain of ``LimitLongestSide``, ``Crops``, flip and sigmoid. Eager PyTorch
+needs no static shapes, so its forward runs at each crop's true size.
+:class:`CropsPredictor` is the tiled sliding-window protocol in one step
+per click: tiles at static offsets, flip TTA, one forward over all tiles,
+logits averaged over each flip, count-averaged stitching.
+
+Every predictor keeps the demo's undo protocol (``get_states`` /
+``set_states``) and takes ``get_prediction(clicker, prev_mask=None)``.
+``inference.brs.get_predictor`` picks the predictor of a mode and ZoomIn
+setting.
 """
 
 from __future__ import annotations
@@ -48,12 +56,13 @@ def _bucket(n: int, step: int = 64) -> int:
 
 
 def _pack_clicks_row(points: np.ndarray, bi: int, clicks: List[Click],
-                     n: int) -> None:
+                     n: int, dy: float = 0.0, dx: float = 0.0) -> None:
     """Fill ``points[bi]`` (a ``[2n, 3]`` row pre-filled with −1) from a
-    click list: positives in ``[0:n]``, negatives in ``[n:2n]``."""
+    click list: positives in ``[0:n]``, negatives in ``[n:2n]``, coords
+    shifted by ``(−dy, −dx)``."""
     pi = ni = 0
     for click in clicks[:n]:
-        row = (click.coords[0], click.coords[1], click.indx)
+        row = (click.coords[0] - dy, click.coords[1] - dx, click.indx)
         if click.is_positive:
             points[bi, pi] = row
             pi += 1
@@ -73,21 +82,35 @@ def _clicks_inside(object_roi: Bbox, clicks_list: List[Click]) -> bool:
     return True
 
 
+def _host_prev_pad(prev, image_hw, pad_hw, device) -> torch.Tensor:
+    """A host ``[H, W]`` probability map zero-padded to ``[1, Hp, Wp, 1]``
+    on ``device``."""
+    h, w = image_hw
+    pad = np.zeros((1, *pad_hw, 1), dtype=np.float32)
+    pad[0, :h, :w, 0] = np.asarray(prev, np.float32).reshape(h, w)
+    return torch.from_numpy(pad).to(device)
+
+
+def _check_device(model, device) -> None:
+    model_device = next(model.parameters()).device
+    if model_device != device:
+        raise ValueError(f"the model lives on {model_device}, the "
+                         f"predictor runs on {device}")
+
+
 class Predictor:
     """Stateful per-image predictor. ``model`` is an ``iSegProbeModel`` that
-    lives on ``device`` (CUDA unless ``device="cpu"`` is passed)."""
+    lives on ``device`` (CUDA unless ``device="cpu"`` is passed);
+    ``click_models``, a list of such models on the same device, makes a
+    click-wise ensemble in its place."""
 
     def __init__(self, model, target_size: Tuple[int, int] = (448, 448),
                  skip_clicks: int = -1, expansion_ratio: float = 1.4,
                  min_crop_size: int = 200, recompute_thresh_iou: float = 0.5,
                  prob_thresh: float = 0.50, net_clicks_limit: int = 20,
-                 with_flip: bool = True, device=None) -> None:
+                 with_flip: bool = True,
+                 click_models: Optional[List] = None, device=None) -> None:
         self.device = resolve_device(device)
-        model_device = next(model.parameters()).device
-        if model_device != self.device:
-            raise ValueError(f"the model lives on {model_device}, the "
-                             f"predictor runs on {self.device}")
-        self.model = model
         self.target_size = tuple(target_size)
         self.skip_clicks = skip_clicks
         self.expansion_ratio = expansion_ratio
@@ -96,7 +119,6 @@ class Predictor:
         self.prob_thresh = prob_thresh
         self.net_clicks_limit = net_clicks_limit
         self.with_flip = with_flip
-        self.with_prev_mask = getattr(model, "with_prev_mask", False)
 
         self.original_image: Optional[torch.Tensor] = None  # [1, Hp, Wp, 3]
         self.image_hw: Tuple[int, int] = (0, 0)
@@ -104,6 +126,26 @@ class Predictor:
         self.prev_prediction: Optional[np.ndarray] = None  # host [H, W]
         self._prev_probs_dev: Optional[torch.Tensor] = None  # [1, Hp, Wp, 1]
         self._object_roi: Optional[Bbox] = None
+        self._roi_version = 0  # bumped when the ROI changes (trunk cache)
+
+        # click-wise ensemble: slot k serves predictions once the click
+        # count reaches k + 1; the last slot serves all later clicks
+        self._slots = list(click_models) if click_models else [model]
+        for m in self._slots:
+            _check_device(m, self.device)
+        self._active_slot = -1
+        self._activate_slot(0)
+
+    def _activate_slot(self, idx: int) -> None:
+        if idx == self._active_slot:
+            return
+        self.model = self._slots[idx]
+        self.with_prev_mask = getattr(self.model, "with_prev_mask", False)
+        self.cache_backbone = getattr(
+            self.model.backbone, "feats_injection_mode",
+            "no_injection") == "after_backbone"
+        self._trunk_cache = None  # (key, trunk) of another net's features
+        self._active_slot = idx
 
     # -- the click step ----------------------------------------------------
 
@@ -120,14 +162,20 @@ class Predictor:
         pts = np.stack([new_y, new_x, points[..., 2]], axis=-1)
         return np.where(valid[..., None], pts, np.float32(-1.0)), valid
 
-    @torch.inference_mode()
-    def _click_step(self, prev_pad: torch.Tensor, roi: Bbox,
-                    points: np.ndarray) -> torch.Tensor:
-        oh, ow = self.target_size
+    def _crop(self, prev_pad: Optional[torch.Tensor], roi: Bbox
+              ) -> torch.Tensor:
+        """The ROI crop ``[1, oh, ow, C]`` of the image (and the previous
+        probabilities for a ``with_prev_mask`` model)."""
         inp = self.original_image
         if self.with_prev_mask:
             inp = torch.cat([inp, prev_pad], dim=-1)
-        crop = crop_resize(inp, roi, (oh, ow))
+        return crop_resize(inp, roi, self.target_size)
+
+    @torch.inference_mode()
+    def _click_step(self, prev_pad: torch.Tensor, roi: Bbox,
+                    points: np.ndarray) -> torch.Tensor:
+        ow = self.target_size[1]
+        crop = self._crop(prev_pad, roi)
         pts, valid = self._crop_points(points, roi)
         if self.with_flip:
             fx = np.float32(ow) - pts[..., 1] - np.float32(1.0)
@@ -137,7 +185,18 @@ class Predictor:
             pts = np.concatenate([pts, flipped], axis=0)
         pts_dev = torch.from_numpy(np.ascontiguousarray(pts, np.float32)).to(
             self.device)
-        logits = self.model(crop, pts_dev)["instances"].float()
+        if self.cache_backbone:
+            # keyed by (ROI version, ROI value): the skip_clicks exits return
+            # the full frame without a new version
+            key = (self._roi_version, tuple(int(v) for v in roi))
+            if self._trunk_cache is None or self._trunk_cache[0] != key:
+                self._trunk_cache = (key,
+                                     self.model.compute_backbone_trunk(crop))
+            out = self.model.forward_with_cached_trunk(
+                crop, pts_dev, self._trunk_cache[1])
+        else:
+            out = self.model(crop, pts_dev)
+        logits = out["instances"].float()
         if self.with_flip:
             logits = 0.5 * (logits[:1] + torch.flip(logits[1:], dims=[2]))
         return inverse_paste(torch.sigmoid(logits), roi, self.pad_hw)
@@ -159,6 +218,7 @@ class Predictor:
         self._prev_probs_dev = torch.zeros((1, hp, wp, 1), dtype=torch.float32,
                                            device=self.device)
         self._object_roi = None
+        self._roi_version += 1
 
     def _compute_roi(self, clicks_list: List[Click]) -> Bbox:
         """ZoomIn ROI state machine (the JAX predictor's ``_compute_roi``)."""
@@ -192,6 +252,7 @@ class Predictor:
             update = True
         if update:
             self._object_roi = current
+            self._roi_version += 1
         return self._object_roi
 
     def get_points_nd(self, clicks_list: List[Click]) -> np.ndarray:
@@ -201,20 +262,48 @@ class Predictor:
         _pack_clicks_row(points, 0, clicks_list, n)
         return points
 
-    def get_prediction(self, clicker: Clicker) -> np.ndarray:
-        """Probabilities ``[H, W]`` for the clicker's clicks so far."""
+    def _select_slot(self, clicker: Clicker, clicks_list: List[Click]):
+        """Click k is served by ensemble member min(k, last)."""
+        if len(self._slots) > 1:
+            offset = getattr(clicker, "click_indx_offset", 0)
+            self._activate_slot(
+                min(offset + len(clicks_list), len(self._slots)) - 1)
+
+    def get_prediction(self, clicker: Clicker, prev_mask=None) -> np.ndarray:
+        """Probabilities ``[H, W]`` for the clicker's clicks so far;
+        ``prev_mask`` ``[H, W]`` replaces the previous prediction as the
+        model's prev-mask input."""
         clicks_list = clicker.get_clicks()
+        self._select_slot(clicker, clicks_list)
         # the ROI machine sees the full click list; only the model's point
         # tensor truncates to net_clicks_limit
         roi = self._compute_roi(clicks_list)
         points = self.get_points_nd(clicks_list)
         h, w = self.image_hw
         # the previous probabilities never leave the device between clicks
-        probs_pad = self._click_step(self._prev_probs_dev, roi, points)
+        prev = (self._prev_probs_dev if prev_mask is None else
+                _host_prev_pad(prev_mask, self.image_hw, self.pad_hw,
+                               self.device))
+        probs_pad = self._click_step(prev, roi, points)
         self._prev_probs_dev = probs_pad
         probs = probs_pad[0, :h, :w, 0].cpu().numpy()
         self.prev_prediction = probs
         return probs
+
+    # -- the demo's undo protocol --------------------------------------------
+
+    def get_states(self) -> Dict:
+        return {"object_roi": self._object_roi,
+                "prev_prediction": None if self.prev_prediction is None
+                else self.prev_prediction.copy()}
+
+    def set_states(self, states: Dict) -> None:
+        self._object_roi = states["object_roi"]
+        self.prev_prediction = states["prev_prediction"]
+        self._roi_version += 1
+        if self.prev_prediction is not None and self.pad_hw != (0, 0):
+            self._prev_probs_dev = _host_prev_pad(
+                self.prev_prediction, self.image_hw, self.pad_hw, self.device)
 
 
 class TransformChainPredictor:
@@ -231,10 +320,7 @@ class TransformChainPredictor:
     def __init__(self, model, transforms: Optional[List] = None,
                  net_clicks_limit: int = 20, device=None) -> None:
         self.device = resolve_device(device)
-        model_device = next(model.parameters()).device
-        if model_device != self.device:
-            raise ValueError(f"the model lives on {model_device}, the "
-                             f"predictor runs on {self.device}")
+        _check_device(model, self.device)
         self.model = model
         self.transforms = transforms or []
         self.net_clicks_limit = net_clicks_limit
@@ -266,9 +352,10 @@ class TransformChainPredictor:
         if self.with_prev_mask:
             prev = self.prev_prediction if prev_mask is None else \
                 torch.as_tensor(prev_mask, dtype=torch.float32,
-                                device=self.device)
+                                device=self.device).reshape(
+                                    self.prev_prediction.shape)
             x = torch.cat([x, prev], dim=-1)
-        # one click list per batch row; the flip doubles both
+        # one click list per batch row; Crops and the flip grow both
         clicks_lists = [clicker.get_clicks()]
         for t in self.transforms:
             x, clicks_lists = t.transform(x, clicks_lists)
@@ -279,47 +366,123 @@ class TransformChainPredictor:
         self.prev_prediction = prediction[:1]
         return prediction[0, :, :, 0].cpu().numpy()
 
+    # -- the demo's undo protocol --------------------------------------------
 
-def get_predictor(model, brs_mode: str = "NoBRS", with_flip: bool = True,
-                  zoom_in_params: Optional[Dict] = None,
-                  predictor_params: Optional[Dict] = None, device=None):
-    """The NoBRS predictor of the JAX package's ``get_predictor``: with a
-    scalar ``zoom_in_params["target_size"]`` (the RITM adaptive ZoomIn) a
-    :class:`TransformChainPredictor` over ``[ZoomIn, AddHorizontalFlip,
-    SigmoidForPred]`` (no flip without ``with_flip``), else the fixed-crop
-    :class:`Predictor` (no ZoomIn: the frame resized to 448², its ROI
-    machine off). The BRS modes, which alone read the JAX signature's
-    ``prob_thresh``, raise."""
-    if brs_mode != "NoBRS":
-        raise NotImplementedError(
-            f"brs_mode={brs_mode!r} is not ported to isegprobe_torch yet: "
-            "ROADMAP Queue 1 item 9 (BRS)")
-    predictor_params = dict(predictor_params or {})
-    predictor_params.pop("optimize_after_n_clicks", None)
-    if zoom_in_params:
-        from isegprobe_torch.inference.transforms import (
-            AddHorizontalFlip,
-            SigmoidForPred,
-            ZoomIn,
-        )
+    def get_states(self) -> Dict:
+        return {"transform_states": [t.get_state() for t in self.transforms],
+                "prev_prediction": None if self.prev_prediction is None
+                else self.prev_prediction.clone()}
 
-        known = {"target_size", "skip_clicks", "expansion_ratio",
-                 "min_crop_size", "recompute_thresh_iou", "prob_thresh"}
-        unknown = set(zoom_in_params) - known
-        if unknown:
-            raise ValueError(f"Unknown zoom_in_params keys: {sorted(unknown)}")
-        zoom_kwargs = dict(zoom_in_params)
-        zoom_kwargs.setdefault("target_size", (448, 448))
-        if isinstance(zoom_kwargs["target_size"], int):
-            chain = [ZoomIn(**zoom_kwargs)]
-            if with_flip:
-                chain.append(AddHorizontalFlip())
-            chain.append(SigmoidForPred())
-            return TransformChainPredictor(
-                model, transforms=chain,
-                net_clicks_limit=predictor_params.get("net_clicks_limit", 20),
-                device=device)
-    else:
-        zoom_kwargs = {"skip_clicks": 10**9}
-    return Predictor(model, with_flip=with_flip, device=device,
-                     **zoom_kwargs, **predictor_params)
+    def set_states(self, states: Dict) -> None:
+        for t, state in zip(self.transforms, states["transform_states"]):
+            t.set_state(state)
+        self.prev_prediction = states["prev_prediction"]
+
+
+class CropsPredictor:
+    """Tiled sliding-window TTA in one step a click: the (image ⊕
+    prev-mask) frame cut into ``crop_size`` tiles at ``get_offsets``'
+    static offsets (a frame smaller than a tile runs whole), clicks
+    shifted into each tile, flip TTA batch doubling, one forward over all
+    tiles, the logits averaged over each flip, sigmoid, and the tiles'
+    probabilities added into the frame and divided by how many tiles cover
+    each pixel. The tiles and counts are those of ``transforms.Crops``; the
+    flip averages logits where ``TransformChainPredictor([Crops,
+    AddHorizontalFlip, SigmoidForPred])`` averages probabilities, and a
+    click row is valid where its index is ``>= 0``, as in the JAX
+    ``CropsPredictor``."""
+
+    def __init__(self, model, crop_size: Tuple[int, int] = (320, 480),
+                 min_overlap: float = 0.2, with_flip: bool = True,
+                 net_clicks_limit: int = 20, device=None) -> None:
+        self.device = resolve_device(device)
+        _check_device(model, self.device)
+        self.model = model
+        self.crop_height, self.crop_width = crop_size
+        self.min_overlap = min_overlap
+        self.with_flip = with_flip
+        self.net_clicks_limit = net_clicks_limit
+        self.with_prev_mask = getattr(model, "with_prev_mask", False)
+        self.original_image: Optional[torch.Tensor] = None  # [H, W, 3]
+        self.prev_prediction: Optional[torch.Tensor] = None  # [H, W, 1]
+        self._offsets: List[Tuple[int, int]] = []
+        self._tile_hw: Tuple[int, int] = (0, 0)
+        self._counts: Optional[torch.Tensor] = None  # [H, W]
+
+    def set_input_image(self, image: np.ndarray) -> None:
+        """image: ``[H, W, 3]`` uint8 or float in [0, 1]."""
+        from isegprobe_torch.inference.transforms import get_offsets
+
+        if image.dtype == np.uint8:
+            image = image.astype(np.float32) / 255.0
+        h, w = image.shape[:2]
+        self.original_image = torch.from_numpy(
+            np.ascontiguousarray(image, np.float32)).to(self.device)
+        self.prev_prediction = torch.zeros((h, w, 1), dtype=torch.float32,
+                                           device=self.device)
+        if h < self.crop_height or w < self.crop_width:
+            ch, cw, y_off, x_off = h, w, [0], [0]
+        else:
+            ch, cw = self.crop_height, self.crop_width
+            y_off = get_offsets(h, ch, self.min_overlap)
+            x_off = get_offsets(w, cw, self.min_overlap)
+        self._offsets = [(dy, dx) for dy in y_off for dx in x_off]
+        self._tile_hw = (ch, cw)
+        counts = torch.zeros((h, w), dtype=torch.float32, device=self.device)
+        for dy, dx in self._offsets:
+            counts[dy:dy + ch, dx:dx + cw] += 1.0
+        self._counts = counts
+
+    def _points_nd(self, clicks_list: List[Click]) -> np.ndarray:
+        """Per-tile padded click rows, coords shifted into the tiles."""
+        n = self.net_clicks_limit
+        points = np.full((len(self._offsets), 2 * n, 3), -1.0, np.float32)
+        for ti, (dy, dx) in enumerate(self._offsets):
+            _pack_clicks_row(points, ti, clicks_list, n, dy=dy, dx=dx)
+        return points
+
+    @torch.inference_mode()
+    def _step(self, x: torch.Tensor, points: np.ndarray) -> torch.Tensor:
+        ch, cw = self._tile_hw
+        tiles = torch.stack([x[dy:dy + ch, dx:dx + cw]
+                             for dy, dx in self._offsets])  # [T, ch, cw, C]
+        t = len(self._offsets)
+        if self.with_flip:
+            real = points[..., 2:3] >= 0
+            flipped = np.where(real, np.stack(
+                [points[..., 0], np.float32(cw - 1) - points[..., 1],
+                 points[..., 2]], axis=-1), points)
+            tiles = torch.cat([tiles, tiles.flip(2)], dim=0)
+            points = np.concatenate([points, flipped], axis=0)
+        pts = torch.from_numpy(np.ascontiguousarray(points, np.float32)).to(
+            self.device)
+        logits = self.model(tiles, pts)["instances"].float()
+        if self.with_flip:
+            logits = 0.5 * (logits[:t] + logits[t:].flip(2))
+        probs = torch.sigmoid(logits)[..., 0]  # [T, ch, cw]
+        out = torch.zeros_like(self._counts)
+        for i, (dy, dx) in enumerate(self._offsets):
+            out[dy:dy + ch, dx:dx + cw] += probs[i]
+        return out / self._counts
+
+    def get_prediction(self, clicker: Clicker, prev_mask=None) -> np.ndarray:
+        x = self.original_image
+        if self.with_prev_mask:
+            prev = self.prev_prediction if prev_mask is None else \
+                torch.as_tensor(prev_mask, dtype=torch.float32,
+                                device=self.device).reshape(
+                                    self.prev_prediction.shape)
+            x = torch.cat([x, prev], dim=-1)
+        probs = self._step(x, self._points_nd(clicker.get_clicks()))
+        self.prev_prediction = probs[..., None]
+        return probs.cpu().numpy()
+
+    # -- the demo's undo protocol (the tiling is fixed per image) ------------
+
+    def get_states(self) -> Dict:
+        return {"prev_prediction": None if self.prev_prediction is None
+                else self.prev_prediction.clone()}
+
+    def set_states(self, states: Dict) -> None:
+        self.prev_prediction = states["prev_prediction"]
+

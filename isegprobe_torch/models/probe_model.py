@@ -23,6 +23,7 @@ from __future__ import annotations
 import inspect
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -124,6 +125,39 @@ def _rect_mask(hw: Tuple[int, int], valid_hw: torch.Tensor) -> torch.Tensor:
     cols = torch.arange(hw[1], device=dev)[None, None, :]
     return ((rows < valid_hw[:, 0, None, None])
             & (cols < valid_hw[:, 1, None, None]))[..., None]
+
+
+def split_points_by_order(points, groups) -> list:
+    """Distribute padded clicks ``[B, 2N, 3]`` (a host array) into one
+    padded array a group by click index, for click-wise ensembles: group
+    ``g`` of size ``groups[g]`` (``<= 0``: N) takes the clicks of index
+    ``g``, the last group every later click and every negative click of
+    index 0. Returns float32 ``[B, 2 * size, 3]`` arrays, positives
+    first, −1-padded."""
+    points = np.asarray(points)
+    num_groups = len(groups)
+    bs = points.shape[0]
+    num_points = points.shape[1] // 2
+    groups = [x if x > 0 else num_points for x in groups]
+    group_points = [np.full((bs, 2 * x, 3), -1, dtype=np.float32)
+                    for x in groups]
+    last_point_indx_group = np.zeros((bs, num_groups, 2), dtype=np.int64)
+    for group_indx, group_size in enumerate(groups):
+        last_point_indx_group[:, group_indx, 1] = group_size
+    for bindx in range(bs):
+        for pindx in range(2 * num_points):
+            point = points[bindx, pindx, :]
+            group_id = int(point[2])
+            if group_id < 0:
+                continue
+            is_negative = int(pindx >= num_points)
+            if group_id >= num_groups or (group_id == 0 and is_negative):
+                group_id = num_groups - 1
+            new_point_indx = last_point_indx_group[bindx, group_id,
+                                                   is_negative]
+            last_point_indx_group[bindx, group_id, is_negative] += 1
+            group_points[group_id][bindx, new_point_indx, :] = point
+    return group_points
 
 
 class iSegProbeModel(nn.Module):

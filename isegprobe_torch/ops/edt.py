@@ -2,12 +2,20 @@
 
 Counterpart of ``isegprobe_tpu/ops/edt.py``.
 
-* :func:`edt_l2sq` — host EDT on scipy. The squared distance is computed as
-  an exact integer from the nearest-zero indices that
-  ``distance_transform_edt`` returns, never by squaring a float square root,
-  so depth comparisons and first-maximum argmax ties resolve exactly as in
-  the JAX package. A mask with no zero pixel is "infinitely far" everywhere:
-  ``float32(1e12)``, the JAX device path's clamp.
+* :func:`edt_l2sq` / :func:`edt_l2` — the host EDT on the native library
+  (``csrc/host/edt.cpp``, the JAX package's exact Felzenszwalb–Huttenlocher
+  source, built by ``utils/host_lib.py``). Squared distances are exact
+  integers in float32, so depth comparisons and first-maximum argmax ties
+  resolve exactly as in the JAX package. A mask with no zero pixel is
+  "infinitely far" everywhere: ``float32(1e12)``, the device path's clamp
+  (the JAX package's C++ returns 1e20 there; the padded callers, the
+  clicker and the click sampler, never reach that case).
+  :func:`edt_l2sq_plain` is its plain version on scipy: the squared
+  distance as an exact integer from the nearest-zero indices that
+  ``distance_transform_edt`` returns. Tests hold the two bitwise.
+* :func:`click_dist_maps_host` — the two layers of minimum normalised
+  squared distance to the rounded clicks, on the native library;
+  :func:`click_dist_maps_plain` is its numpy body.
 * :func:`edt_l2sq_device` — the exact squared EDT on tensors of any leading
   shape: a column pass (``torch.cummax``/``cummin``) and the row pass
   :func:`row_envelope`, the wrapper around the hand-written CUDA kernel C
@@ -33,9 +41,11 @@ import torch
 from scipy.ndimage import distance_transform_edt
 
 from isegprobe_torch.ops import cuda_lib
+from isegprobe_torch.utils import host_lib
 
-__all__ = ["edt_l2sq", "edt_l2sq_device", "next_click_from_error",
-           "row_envelope"]
+__all__ = ["edt_l2sq", "edt_l2", "edt_l2sq_plain", "click_dist_maps_host",
+           "click_dist_maps_plain", "edt_l2sq_device",
+           "next_click_from_error", "row_envelope"]
 
 _BIG = 1.0e6  # "infinity" for column distances; squared stays finite in f32
 # the clamp of every squared distance: float32(1e12) = 999999995904
@@ -55,10 +65,38 @@ _lib = None
 # ---------------------------------------------------------------------------
 
 
+def _f32p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def _native_edt(name: str, mask: np.ndarray) -> np.ndarray:
+    mask_u8 = np.ascontiguousarray(np.asarray(mask) != 0, dtype=np.uint8)
+    if mask_u8.ndim != 2:
+        raise ValueError(f"EDT takes a 2-D mask, got shape {mask_u8.shape}")
+    h, w = mask_u8.shape
+    out = np.empty((h, w), np.float32)
+    if mask_u8.size:
+        getattr(host_lib.load(), name)(
+            mask_u8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w,
+            _f32p(out))
+    return out
+
+
 def edt_l2sq(mask: np.ndarray) -> np.ndarray:
-    """Exact squared L2 EDT of a 2-D mask (float32): the squared distance
-    from each non-zero pixel to the nearest zero pixel, 0 at zeros. Without
-    any zero pixel every value is ``float32(1e12)``, as on the device."""
+    """Exact squared L2 EDT of a 2-D mask (float32) on the native host
+    library: the squared distance from each non-zero pixel to the nearest
+    zero pixel, 0 at zeros. Without any zero pixel every value is
+    ``float32(1e12)``, as on the device."""
+    return _native_edt("edt_l2sq", mask)
+
+
+def edt_l2(mask: np.ndarray) -> np.ndarray:
+    """Exact L2 EDT (float32), the square root of :func:`edt_l2sq`."""
+    return _native_edt("edt_l2", mask)
+
+
+def edt_l2sq_plain(mask: np.ndarray) -> np.ndarray:
+    """:func:`edt_l2sq` on scipy, its plain version."""
     fg = np.asarray(mask) != 0
     if fg.all():
         return np.full(fg.shape, BIG2, np.float32)
@@ -67,6 +105,39 @@ def edt_l2sq(mask: np.ndarray) -> np.ndarray:
     yy, xx = np.indices(fg.shape)
     d2 = (iy - yy).astype(np.int64) ** 2 + (ix - xx).astype(np.int64) ** 2
     return d2.astype(np.float32)
+
+
+def click_dist_maps_host(points: np.ndarray, height: int, width: int,
+                         norm_delimiter: float) -> np.ndarray:
+    """``[2, H, W]`` float32 on the native host library: per layer
+    (positive clicks, the first half of ``points`` ``[2N, 3]``; negative,
+    the second half) the minimum over valid clicks (``max(y, x) >= 0``) of
+    the squared distance to the click's coordinates rounded half to even,
+    divided by ``norm_delimiter²``; 1e6 where a layer has no click."""
+    pts = np.ascontiguousarray(points, dtype=np.float32).reshape(-1, 3)
+    out = np.empty((2, height, width), np.float32)
+    host_lib.load().click_dist_maps(_f32p(pts), pts.shape[0], height, width,
+                                    float(norm_delimiter), _f32p(out))
+    return out
+
+
+def click_dist_maps_plain(points: np.ndarray, height: int, width: int,
+                          norm_delimiter: float) -> np.ndarray:
+    """:func:`click_dist_maps_host` in numpy (float64, cast once), its
+    plain version."""
+    pts = np.asarray(points, dtype=np.float32).reshape(-1, 3)
+    out = np.full((2, height, width), 1e6, dtype=np.float32)
+    rr, cc = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+    n = pts.shape[0]
+    for p in range(n):
+        y, x = pts[p, 0], pts[p, 1]
+        if max(y, x) < 0:
+            continue
+        li = 1 if p >= n // 2 else 0
+        d2 = (((rr - round(float(y))) / norm_delimiter) ** 2
+              + ((cc - round(float(x))) / norm_delimiter) ** 2)
+        out[li] = np.minimum(out[li], d2.astype(np.float32))
+    return out
 
 
 # ---------------------------------------------------------------------------

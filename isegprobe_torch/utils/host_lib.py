@@ -1,13 +1,16 @@
 """Build and load the host (CPU) C++ library of ``isegprobe_torch/csrc/host``.
 
-``csrc/host/jpeg.cpp`` holds the data layer's host image work (the JPEG
-decoder and the PNG row unfilter of ``data/image_io.py``, the bilinear
-affine warp of ``data/raster.py``). It has a plain C
-interface and is compiled by ``g++ -O2 -shared -fPIC`` at first use into
-``csrc/build/`` (git-ignored), under a name that hashes the source and the
-flags, and loaded with ``ctypes``, which releases the GIL for the length of
-each call, so loader threads decode and warp in parallel. There is no fallback: a
-failed build raises with the compiler's output.
+Every ``csrc/host/*.cpp`` goes into one library: ``jpeg.cpp`` holds the
+data layer's host image work (the JPEG decoder and the PNG row unfilter of
+``data/image_io.py``, the bilinear affine warp of ``data/raster.py``),
+``edt.cpp`` the exact distance transform and the click distance maps of
+``ops/edt.py`` (the simulated user's and the click sampler's). They have a
+plain C interface and are compiled by ``g++ -O2 -shared -fPIC`` at first
+use into ``csrc/build/`` (git-ignored), under a name that hashes every
+source and the flags, and loaded with ``ctypes``, which releases the GIL
+for the length of each call, so loader threads decode, warp and measure
+distances in parallel. There is no fallback: a failed build raises with the
+compiler's output.
 """
 
 from __future__ import annotations
@@ -20,11 +23,9 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCE", "CXX_FLAGS", "library_path", "load", "check"]
+__all__ = ["CXX_FLAGS", "sources", "library_path", "load", "check"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCE = CSRC / "host" / "jpeg.cpp"
-BUILD_DIR = CSRC / "build"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
@@ -34,22 +35,31 @@ _lib: list = []
 def _cxx() -> str:
     found = os.environ.get("CXX") or shutil.which("g++")
     if not found:
-        raise RuntimeError("g++ not found: the host image decoder is built "
+        raise RuntimeError("g++ not found: the host library is built "
                            "with it (set CXX or put g++ on PATH)")
     return found
 
 
+def sources() -> list:
+    """The library's sources: every ``csrc/host/*.cpp``, by name."""
+    return sorted((CSRC / "host").glob("*.cpp"))
+
+
 def library_path() -> Path:
-    """Where the library lives: its name hashes the source and the flags."""
-    h = hashlib.sha256(SOURCE.read_bytes())
+    """Where the library lives: its name hashes every source (name and
+    bytes) and the flags."""
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
     h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libhost_{h.hexdigest()[:16]}.so"
+    return CSRC / "build" / f"libhost_{h.hexdigest()[:16]}.so"
 
 
 def _build(out: Path) -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp),
+                           *map(str, sources())],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     if proc.returncode != 0:
@@ -84,6 +94,14 @@ def load() -> ctypes.CDLL:
             u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p,
             ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float)]
         lib.iseg_warp_affine_linear.restype = ctypes.c_int
+        f32p = ctypes.POINTER(ctypes.c_float)
+        for name in ("edt_l2sq", "edt_l2"):
+            getattr(lib, name).argtypes = [u8p, ctypes.c_int, ctypes.c_int,
+                                           f32p]
+            getattr(lib, name).restype = None
+        lib.click_dist_maps.argtypes = [f32p, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_float, f32p]
+        lib.click_dist_maps.restype = None
         _lib.append(lib)
         return lib
 

@@ -807,7 +807,7 @@ def test_trained_host_chain_matches_the_fixture(ritm_results):
     from isegprobe_torch.data.scenes import SYNTHETIC_FIXTURE, SceneDataset
     from isegprobe_torch.evaluate import load_model_for_eval
     from isegprobe_torch.inference.evaluation import evaluate_sample
-    from isegprobe_torch.inference.predictor import get_predictor
+    from isegprobe_torch.inference.brs import get_predictor
 
     fx = ritm_results
     model, _ = load_model_for_eval(str(FLAGSHIP_CKPT), device="cpu",

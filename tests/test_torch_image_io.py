@@ -246,11 +246,15 @@ def test_host_library_name_hashes_the_source(tmp_path, monkeypatch):
     from isegprobe_torch.utils import host_lib
 
     before = host_lib.library_path()
-    copy = tmp_path / "jpeg.cpp"
-    copy.write_bytes(host_lib.SOURCE.read_bytes() + b"\n// edited\n")
-    monkeypatch.setattr(host_lib, "SOURCE", copy)
-    assert host_lib.library_path() != before
-    assert host_lib.library_path().parent == before.parent
+    (tmp_path / "host").mkdir()
+    for src in host_lib.sources():
+        (tmp_path / "host" / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(host_lib, "CSRC", tmp_path)
+    assert host_lib.library_path().name == before.name
+    copy = tmp_path / "host" / "jpeg.cpp"
+    copy.write_bytes(copy.read_bytes() + b"\n// edited\n")
+    assert host_lib.library_path().name != before.name
+    assert host_lib.library_path().parent == tmp_path / "build"
 
 
 # -- affine warps -----------------------------------------------------------------
