@@ -274,6 +274,36 @@ does not hold:
     384], D q [1, 28672, 4, 101] against [1, 1024, 4, 101], E [1, 512,
     512, 384]) as 11c's, with SDPA's and ``F.layer_norm``'s forward +
     backward;
+11j. converted_weights, published weights (main paths 84-88:
+    ``python -m isegprobe_torch.scripts.convert_reference_checkpoint`` and
+    ``convert_weights``, ``PRETRAINED_MODELS`` in the trainer, LoftUp's
+    padded layout and fused head, raw upsampler files through
+    ``upsampler_path``, the CLIP text tower), against
+    ``isegprobe_torch/fixtures/converted_weights.npz``: (a) the trained
+    flagship written in the reference's torch layout (``@serialize``
+    wrappers), converted (params bitwise) and evaluated through the
+    evaluate CLI's ``parse_args`` / ``evaluate`` (device loop, B=8, f32, 78
+    objects, every step 1 C + 12 A + 25 B): trajectories equal to the
+    unconverted checkpoint's and NoC 3.2821 / 3.4615 / 4.3590, JAX's; (b)
+    the flagship's frozen backbone (``init_tree`` at PRNGKey(0)) in the
+    hub's layout, plain and in ``block_chunks``, converted back bitwise,
+    two train steps through ``PRETRAINED_MODELS.DINOV2_VITS14`` with
+    losses bitwise the steps' without it, and a drawn DINOv2-S/14's first
+    loss within 5.9e-6 of JAX's; (c) the trained LoftUp at 448², B=4:
+    padded against unpadded f32 logits within 1e-5 of their scale, forward
+    ms of both layouts in f32 and bf16 (12 A + 82 B + 14 D each), the bf16
+    loops (``mxu_pad`` auto, which pads, and off) on the fixture's 2
+    objects × 4 clicks with NoC within 0.1 of JAX's f32, partings
+    reported; (d) ``fuse_hr_head``: f32 logits within 1e-5 of the unfused
+    ones, the same clicks, ms, and the forward's peak memory above the
+    resident model below half the unfused one's; (e) drawn DINO-S/16, CLIP ViT-B/16 (fp16,
+    visual and text towers), LiFT (``module.``) and raw LoftUp files
+    converted by ``--kind`` or read through ``upsampler_path``, their
+    outputs against JAX's samples (the text tower's ids from a merges file
+    the phase writes, equal to JAX's), with exact launches; A, B and D
+    against their plain versions at these paths' shapes (D at the padded
+    dh 128 and B over 404 of 512 and 203 of 256 channels, f32 and bf16,
+    with SDPA's time beside D);
 12. the learned-upsampler families, LoftUp and JBU-FeatUp on DINOv2-S/14 at
     448² (drawn, calibrated): kernels D (cross-attention, f32 and bf16, at
     every tile and load path as A) and E (JBU filter; also at the edges of
@@ -321,6 +351,7 @@ result when CUDA is not available or the port cannot be imported.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -640,16 +671,12 @@ def eval_load(torch, ckpt, dtype, size=(448, 448), **kw):
     return model, info
 
 
-def build(argv, **kw):
-    """``isegprobe_torch.train.build_trainer`` of the command line ``argv``
-    from the script's ``init_tree(config, 0)``, drawn once per model
-    config and reused by later builds (the numpy draw of a full-width
-    backbone takes 3-11 s; the trainer would draw the same tree)."""
-    import warnings
-
+def initial_tree(argv) -> dict:
+    """The script's ``init_tree(config, 0)`` for the command line ``argv``,
+    drawn once per model config and reused by later calls (the numpy draw
+    of a full-width backbone takes 3-11 s)."""
     from isegprobe_torch import train as train_cli
     from isegprobe_torch.models.init_tree import init_tree
-
     from isegprobe_torch.utils.serialization import merge_params
 
     cfg = train_cli.parse_args(argv)
@@ -670,9 +697,21 @@ def build(argv, **kw):
         else:
             _INIT[key] = merge_params(frozen, init_tree(config, 0,
                                                         skip=frozen))
+    return _INIT[key]
+
+
+def build(argv, **kw):
+    """``isegprobe_torch.train.build_trainer`` of the command line ``argv``
+    from :func:`initial_tree` (the tree the trainer would draw)."""
+    import warnings
+
+    from isegprobe_torch import train as train_cli
+
+    params = initial_tree(argv)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # LoftUp's missing upsampler_path
-        return train_cli.build_trainer(cfg, params=_INIT[key], **kw)
+        return train_cli.build_trainer(train_cli.parse_args(argv),
+                                       params=params, **kw)
 
 
 def _leaves(tree) -> list:
@@ -873,30 +912,38 @@ def variant_cases(torch, F, attention, attn_variants, b, n, heads, dtype,
 
 
 def layernorm_case(torch, F, layernorm, rows_shape, d, dtype, seed,
-                   eps: float = 1e-6):
+                   eps: float = 1e-6, real=None):
     """Check and time the LayerNorm kernel at one shape (weights in the IO
-    dtype, as the model passes them)."""
+    dtype, as the model passes them). With ``real`` the statistics cover
+    the first ``real`` channels and the rest of x, weight and bias are
+    zeros, as in LoftUp's padded layout; no PyTorch call computes that
+    function, so there is no library time."""
     tdt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn((*rows_shape, d), generator=g, device="cuda") * 3 + 1
          ).to(tdt)
     w = (torch.randn(d, generator=g, device="cuda") * 0.5 + 1).to(tdt)
     bias = torch.randn(d, generator=g, device="cuda").to(tdt)
-    got = layernorm.layernorm(x, w, bias, eps)
-    want = layernorm._ln_plain(x, w, bias, eps)
+    if real is not None:
+        x[..., real:], w[real:], bias[real:] = 0, 0, 0
+    got = layernorm.layernorm(x, w, bias, eps, real)
+    want = layernorm._ln_plain(x, w, bias, eps, real)
     torch.cuda.synchronize()
     res = compare(torch, got, want, dtype)
+    if real is not None and got[..., real:].any():
+        res["ok"] = False  # padded channels must stay exact zeros
     res["ms"], res["timing"] = time_ms(
-        torch, lambda: layernorm.layernorm(x, w, bias, eps))
+        torch, lambda: layernorm.layernorm(x, w, bias, eps, real))
     res["plain_ms"], _ = time_ms(
-        torch, lambda: layernorm._ln_plain(x, w, bias, eps))
-    res["library_ms"], _ = time_ms(
-        torch, lambda: F.layer_norm(x, (d,), w, bias, eps))
+        torch, lambda: layernorm._ln_plain(x, w, bias, eps, real))
+    res["library_ms"] = None if real is not None else time_ms(
+        torch, lambda: F.layer_norm(x, (d,), w, bias, eps))[0]
     n = x.numel()
     nbytes = 2 * n * x.element_size() + 2 * d * w.element_size()
     ops = 8.0 * n  # sum, square-sum, centre, scale, affine (f32 math)
     res.update(_bound(ops, nbytes, "float32"))
-    res.update(kernel="layernorm", shape=list(x.shape), dtype=dtype)
+    res.update(kernel="layernorm", shape=list(x.shape), dtype=dtype,
+               **({"real": real} if real is not None else {}))
     return res
 
 
@@ -4207,6 +4254,512 @@ def brs_phase(torch, F) -> dict:
     return res
 
 
+# published weights on the card (phase 11j): the converters' fixture
+# (tests/test_torch_convert.py --export: the seeds, keys and shapes of the
+# full-width state dicts drawn in their published layouts, JAX's outputs on
+# them as 4096 sampled entries and a norm, JAX's first train-step loss with
+# the drawn DINOv2), the drawn inputs' seed, the gates and the shapes the
+# phase times. Gates: (a) the reference-layout round trip's params bitwise,
+# trajectories equal to the unconverted checkpoint's and NoC equal to JAX's
+# (CONVERTED_NOC, the fixture's, to 4 places); (b) the hub-layout round
+# trip bitwise, its two train steps' losses bitwise the steps without it,
+# the drawn backbone's first loss within CONVERTED_STEP_RTOL of JAX's (the
+# bound of the full-width steps so far); (c) padded against unpadded f32
+# logits within CONVERTED_LOGIT_TOL of their scale (exact zeros added in
+# another summation order), the bf16 loops' NoC within LOFTUP_BF16_NOC_TOL
+# of JAX's f32 NoC on the fixture's objects; (d) fused against unfused f32
+# logits within CONVERTED_LOGIT_TOL, clicks equal and IoUs within
+# LOOP_IOU_TOL; (e) the card's outputs against JAX's samples within
+# CONVERTED_OUT_TOL of their largest magnitude (and their norms
+# relatively): 1e-3 for the backbones and the text tower (FORWARD_RTOL,
+# 12 f32 blocks), 1e-4 for LiFT (convolutions), 5e-3 for LoftUp (an ulp of
+# a Fourier phase at frequencies up to e^10 moves a feature by ~1e-3,
+# tests/test_torch_upsamplers.py)
+CONVERTED_FIXTURE = (Path(__file__).resolve().parent / "isegprobe_torch"
+                     / "fixtures" / "converted_weights.npz")
+CONVERTED_NOC = (3.2821, 3.4615, 4.3590)
+CONVERTED_STEP_RTOL = 5.9e-6
+CONVERTED_LOGIT_TOL = 1e-5
+LOFTUP_BF16_NOC_TOL = 0.1
+# the fused head's reason to exist: LoftUp's [B, H, W, C] map is never held
+# whole, so its forward's peak above the resident model stays below this
+# share of the unfused one's (a quarter measured at 448², B=4 and 16)
+FUSED_PEAK_SHARE = 0.5
+CONVERTED_OUT_TOL = {"dino": 1e-3, "clip": 1e-3, "clip_text": 1e-3,
+                     "lift": 1e-4, "loftup": 5e-3}
+CONVERTED_BATCH = 4
+CONVERTED_LAUNCHES = {
+    "dino": {"mha_qkv": 11, "layernorm": 23},
+    "clip": {"mha_qkv": 11, "layernorm": 25},
+    "clip_text": {"layernorm": 12 * 2 + 1},
+    "lift": {},
+    # 224², monolithic: ChannelNorm, the stem's norm, 2 layers of 3 norms
+    # and one D, the transformer's final norm
+    "loftup": {"layernorm": 1 + 1 + 2 * 3 + 1, "mha": 2},
+}
+
+
+def same_click_lists(a, b) -> bool:
+    """Two runs' per-object clicks, (y, x, positive) rows, equal."""
+    return len(a) == len(b) and all(
+        np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(a, b))
+
+
+def fixture_state_dict(torch, fx, name: str) -> dict:
+    """The fixture's state dict ``name`` redrawn from its seed, keys and
+    shapes (``utils/drawn_weights.draw_state_dict``), its SHA-256 checked
+    against the export's."""
+    from isegprobe_torch.utils.drawn_weights import draw_state_dict
+
+    dims = np.split(fx[f"{name}_shapes"], np.cumsum(fx[f"{name}_ndims"])[:-1])
+    layout = [(str(k), tuple(int(d) for d in s))
+              for k, s in zip(fx[f"{name}_keys"], dims)]
+    sd = draw_state_dict(layout, int(fx[f"{name}_seed"]),
+                         getattr(torch, str(fx[f"{name}_dtype"])))
+    digest = hashlib.sha256()
+    for k, v in sd.items():
+        digest.update(k.encode())
+        digest.update(v.contiguous().numpy().tobytes())
+    if digest.hexdigest() != str(fx[f"{name}_digest"]):
+        fail(f"{name}: the redrawn state dict differs from the export's "
+             "(numpy's generator moved?)")
+    return sd
+
+
+def against_samples(torch, got, fx, name: str) -> dict:
+    """The card's output ``got`` against the fixture's JAX samples: shape
+    equal, sampled entries within CONVERTED_OUT_TOL of their largest
+    magnitude, the norm within it relatively."""
+    tol = CONVERTED_OUT_TOL[name]
+    got = got.detach().float().cpu().numpy()
+    if list(got.shape) != [int(v) for v in fx[f"{name}_out_shape"]]:
+        fail(f"{name}: output {got.shape}, JAX's "
+             f"{fx[f'{name}_out_shape']}")
+    want = fx[f"{name}_out_val"]
+    err = float(np.abs(got.reshape(-1)[fx[f"{name}_out_idx"]] - want).max())
+    scale = float(np.abs(want).max())
+    norm = float(np.linalg.norm(got.astype(np.float64)))
+    norm_err = abs(norm / float(fx[f"{name}_out_norm"]) - 1)
+    rec = {"shape": list(got.shape), "max_abs_err": err, "scale": scale,
+           "rel_err": err / scale, "norm_rel_err": norm_err, "tol": tol,
+           "finite": bool(np.isfinite(got).all())}
+    if not rec["finite"] or err > tol * scale or norm_err > tol:
+        fail(f"{name}: the card's output differs from JAX's: {rec}")
+    return rec
+
+
+def converted_weights_phase(torch, F) -> dict:
+    """Main paths of published weights (phase 11j of the module docstring):
+    ``python -m isegprobe_torch.scripts.convert_reference_checkpoint`` and
+    ``convert_weights`` (their ``main``), ``PRETRAINED_MODELS`` in the
+    trainer, LoftUp's padded layout and fused head through
+    ``load_model_for_eval``'s ``mxu_pad`` / ``fuse_hr_head``, the raw
+    upsampler files through ``upsampler_path``, the CLIP text tower and its
+    tokenizer; kernels A, B (with ``real``) and D at these paths' shapes
+    against their plain versions."""
+    import warnings
+
+    import isegprobe_torch.evaluate as evaluate_cli
+    from isegprobe_torch.data.scenes import SYNTHETIC_FIXTURE, SceneDataset
+    from isegprobe_torch.inference import device_eval
+    from isegprobe_torch.inference.metrics import compute_noc_metric
+    from isegprobe_torch.models.convert import (
+        load_jax_params,
+        load_upsampler_params,
+        restrict_to_module,
+    )
+    from isegprobe_torch.models.featurizers.clip_tokenizer import \
+        ClipTokenizer
+    from isegprobe_torch.models.featurizers.maskclip import CLIPTextEncoder
+    from isegprobe_torch.models.probe_model import BACKBONES, synthetic_config
+    from isegprobe_torch.models.upsamplers.lift import LiFTUpsampler
+    from isegprobe_torch.models.upsamplers.loftup import LoftUpUpsampler
+    from isegprobe_torch.ops import attention, layernorm
+    from isegprobe_torch.scripts import convert_reference_checkpoint
+    from isegprobe_torch.scripts import convert_weights
+    from isegprobe_torch.utils import drawn_weights
+    from isegprobe_torch.utils.serialization import (
+        load_checkpoint,
+        msgpack_restore,
+    )
+
+    t_phase = time.time()
+    fx = np.load(CONVERTED_FIXTURE)
+    tmp = Path(scratch()) / "converted"
+    tmp.mkdir(exist_ok=True)
+    res: dict = {}
+    paths: dict = {}
+
+    def same_tree(got, want, what):
+        for (pa, a), (pb, b) in zip(_flat(got), _flat(want)):
+            if pa != pb or not np.array_equal(np.asarray(a), np.asarray(b)):
+                fail(f"{what}: leaf {pa} / {pb} differs")
+        if len(list(_flat(got))) != len(list(_flat(want))):
+            fail(f"{what}: the trees have other leaves")
+
+    # (a) the trained flagship in the reference's torch layout, converted
+    # and evaluated through the command line's functions
+    t0 = time.time()
+    params, config, _ = load_checkpoint(TRAINED_CKPTS["flagship"])
+    ref_path, conv = tmp / "reference.pth", tmp / "converted.ckpt"
+    torch.save(drawn_weights.reference_checkpoint(params, config["params"]),
+               ref_path)
+    convert_reference_checkpoint.main(["--input", str(ref_path),
+                                       "--output", str(conv)])
+    got_params, got_config, _ = load_checkpoint(conv)
+    same_tree(got_params, params, "converted reference checkpoint")
+    runs = {}
+    for name, ckpt in (("converted", conv),
+                       ("unconverted", TRAINED_CKPTS["flagship"])):
+        # print_ious=false: lanes stop at the target IoU (the NoC is read
+        # at each object's first crossing, so it is the all-clicks one)
+        cfg = evaluate_cli.parse_args([f"checkpoint={ckpt}",
+                                       "device_loop=true", "device_batch=8",
+                                       "print_ious=false"])
+        model, _ = eval_load(torch, ckpt, torch.float32)
+        clicks: list = []
+        zero_counters()
+        out = evaluate_cli.evaluate(cfg, model, clicks=clicks)
+        launches = counters()
+        steps = launches["edt_row_envelope"]
+        if not steps or launches != expected(**{
+                k: v * steps for k, v in PER_STEP.items()}):
+            fail(f"{name} checkpoint's loop launched {launches}")
+        runs[name] = (out, clicks, launches)
+        del model
+    (a_out, a_clicks, a_launches), (b_out, b_clicks, _) = (
+        runs["converted"], runs["unconverted"])
+    if not (same_click_lists(a_clicks, b_clicks) and all(
+            np.array_equal(x, y) for x, y in zip(a_out["all_ious"],
+                                                 b_out["all_ious"]))):
+        fail("the converted checkpoint clicks otherwise than the "
+             "unconverted one")
+    noc = [float(v) for v in a_out["noc"]]
+    if any(abs(a - b) > 5e-5 for a, b in zip(noc, CONVERTED_NOC)):
+        fail(f"converted checkpoint NoC {noc}, JAX's {CONVERTED_NOC}")
+    res["reference"] = {"objects": len(a_out["all_ious"]), "noc": noc,
+                        "jax_noc": list(CONVERTED_NOC),
+                        "loop_s": a_out["elapsed"],
+                        "launches": a_launches, "s": time.time() - t0}
+    paths["converted_reference_loop"] = a_launches
+    print("converted_reference", json.dumps(res["reference"]))
+
+    # (b) the flagship's frozen backbone in the hub's layout, plain and
+    # chunked, converted back bitwise; two train steps with and without it
+    t0 = time.time()
+    argv = ["model=synthetic_dinov2_noup", "dataloader.workers=0",
+            f"exp_path={scratch()}"]
+    vit = initial_tree(argv)["backbone"]["model"]
+    weights = tmp / "dinov2_vits14.msgpack"
+    for chunks in (0, 4):
+        hub = tmp / f"hub{chunks}.pth"
+        torch.save(drawn_weights.vit_state_dict(vit, True, chunks), hub)
+        convert_weights.main(["--kind", "dinov2", "--input", str(hub),
+                              "--output", str(weights)])
+        same_tree(msgpack_restore(weights.read_bytes()), vit,
+                  f"DINOv2 hub round trip (chunks {chunks})")
+    step_fx = np.load(TRAIN_FIXTURE)
+
+    def steps_of(extra, n):
+        trainer = build(argv + extra)
+        batch = trainer._upload({k: step_fx[k] for k in ("images", "points",
+                                                          "instances")})
+        zero_counters()
+        # cuDNN's default weight-gradient algorithms add in a varying
+        # order, which moves a second step's loss in its last bits: the
+        # deterministic ones make two runs of a step comparable bit for bit
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            losses = [float(trainer._step(batch, 0)[0]) for _ in range(n)]
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        torch.cuda.synchronize()
+        launches = counters()
+        if launches != expected(**{k: n * v for k, v in
+                                   FORWARD_LAUNCHES["flagship"].items()}):
+            fail(f"pretrained train steps launched {launches}")
+        trainer.shutdown()
+        return losses, launches
+
+    plain, _ = steps_of([], 2)
+    pre, launches = steps_of(
+        [f"PRETRAINED_MODELS.DINOV2_VITS14={weights}"], 2)
+    if plain != pre:
+        fail(f"steps with the round-tripped backbone {pre} differ from the "
+             f"steps without it {plain}")
+    hub = tmp / "drawn_dinov2.pth"
+    torch.save(fixture_state_dict(torch, fx, "dinov2"), hub)
+    convert_weights.main(["--kind", "dinov2", "--input", str(hub),
+                          "--output", str(weights)])
+    (drawn,), _ = steps_of([f"PRETRAINED_MODELS.DINOV2_VITS14={weights}"], 1)
+    want = float(fx["dinov2_step_loss"])
+    err = abs(drawn / want - 1)
+    if err > CONVERTED_STEP_RTOL:
+        fail(f"the drawn DINOv2's first step loss {drawn} differs from "
+             f"JAX's {want} by {err} > {CONVERTED_STEP_RTOL}")
+    res["pretrained"] = {"losses": plain, "drawn_loss": drawn,
+                         "jax_cpu_drawn_loss": want, "loss_rel_err": err,
+                         "launches": launches, "s": time.time() - t0}
+    paths["pretrained_train_steps"] = launches
+    print("converted_pretrained", json.dumps(res["pretrained"]))
+
+    # (c, d) the trained LoftUp padded and fused: logits, forward ms and
+    # the loops on the fixture's objects
+    t0 = time.time()
+    rng = np.random.default_rng(7)
+    b = CONVERTED_BATCH
+    image = torch.from_numpy(rng.random((b, 448, 448, 4), np.float32)).cuda()
+    pts = np.full((b, 4, 3), -1.0, np.float32)
+    pts[:, 0] = (200, 220, 0)
+    pts[:, 2] = (90, 300, 1)
+    pts = torch.from_numpy(pts).cuda()
+    layouts = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # LoftUp's missing upsampler_path
+        for dtype in ("float32", "bfloat16"):
+            # auto: unpadded in f32, padded in bf16 (checked below)
+            for key, kw in (("unpadded", dict(mxu_pad=False)),
+                            ("padded", dict(mxu_pad=True)),
+                            ("auto", {}),
+                            ("fused", dict(mxu_pad=False,
+                                           fuse_hr_head=True))):
+                if dtype == "bfloat16" and key in ("padded", "fused"):
+                    continue
+                layouts[dtype, key] = eval_load(
+                    torch, TRAINED_CKPTS["loftup"], getattr(torch, dtype),
+                    **kw)[0]
+    if not (layouts["bfloat16", "auto"].upsampler.mxu_pad
+            and not layouts["float32", "auto"].upsampler.mxu_pad):
+        fail("mxu_pad=auto must pad in bf16 and not in f32")
+    layouts["bfloat16", "padded"] = layouts["bfloat16", "auto"]
+    fwd = {}
+    with torch.inference_mode():
+        for (dtype, key), model in layouts.items():
+            if key == "auto":  # bf16: the padded model itself
+                continue
+            zero_counters()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            logits = model(image, pts)["instances"].float()
+            torch.cuda.synchronize()
+            peak_mb = (torch.cuda.max_memory_allocated() - resident) / 2**20
+            launches = counters()
+            if launches != expected(**FORWARD_LAUNCHES["loftup"]):
+                fail(f"LoftUp {dtype} {key} forward launched {launches}")
+            ms = time_ms(torch, lambda: model(image, pts), reps=2,
+                         rounds=3, graph=False, warmup=1)[0]
+            fwd[dtype, key] = (logits, ms, peak_mb)
+            paths[f"loftup_{key}_{dtype}_forward"] = launches
+    layout_rec = {}
+    for dtype in ("float32", "bfloat16"):
+        ref_logits, ref_ms, ref_mb = fwd[dtype, "unpadded"]
+        scale = float(ref_logits.abs().max())
+        rec = {"unpadded_ms": ref_ms, "padded_ms": fwd[dtype, "padded"][1],
+               "unpadded_peak_mb": ref_mb,
+               "padded_peak_mb": fwd[dtype, "padded"][2],
+               "logit_scale": scale}
+        rec["padded_speedup"] = rec["unpadded_ms"] / rec["padded_ms"]
+        rec["padded_max_abs_err"] = float(
+            (fwd[dtype, "padded"][0] - ref_logits).abs().max())
+        if dtype == "float32":
+            rec["fused_ms"] = fwd[dtype, "fused"][1]
+            rec["fused_peak_mb"] = fwd[dtype, "fused"][2]
+            if rec["fused_peak_mb"] > FUSED_PEAK_SHARE * ref_mb:
+                fail(f"the fused head's forward peaks at "
+                     f"{rec['fused_peak_mb']:.1f} MB above the resident "
+                     f"model, the unfused one's at {ref_mb:.1f}: not below "
+                     f"{FUSED_PEAK_SHARE} of it")
+            rec["fused_max_abs_err"] = float(
+                (fwd[dtype, "fused"][0] - ref_logits).abs().max())
+            for key in ("padded", "fused"):
+                if rec[f"{key}_max_abs_err"] > CONVERTED_LOGIT_TOL * scale:
+                    fail(f"LoftUp f32 {key} logits differ from the "
+                         f"unpadded, unfused ones: {rec}")
+        layout_rec[dtype] = rec
+        print(f"trained LoftUp {dtype} B={b} at 448²: unpadded "
+              f"{rec['unpadded_ms']:.2f} ms ({ref_mb:.1f} MB peak above the "
+              f"resident model), padded {rec['padded_ms']:.2f} ms "
+              f"({rec['padded_peak_mb']:.1f} MB) a forward"
+              + (f", fused head {rec['fused_ms']:.2f} ms "
+                 f"({rec['fused_peak_mb']:.1f} MB)" if "fused_ms" in rec
+                 else ""))
+    res["loftup_layouts"] = layout_rec
+    del fwd
+
+    sfx = dict(np.load(SYNTHETIC_FIXTURE))
+    m = TRAINED_LOFTUP_OBJECTS
+    mc = TRAINED_LOFTUP_CLICKS
+    data = SceneDataset(SYNTHETIC_FIXTURE, objects=slice(0, m))
+    want_noc = compute_noc_metric(
+        [sfx["loftup_ious"][i, :sfx["loftup_n"][i]] for i in range(m)],
+        [0.8, 0.85, 0.9], mc)[0]
+    per_step = expected(edt_row_envelope=1, **FORWARD_LAUNCHES["loftup"])
+    loops = {}
+    for dtype, key in (("float32", "unpadded"), ("float32", "fused"),
+                       ("bfloat16", "auto"), ("bfloat16", "unpadded")):
+        run = device_eval.make_device_evaluator(
+            layouts[dtype, key], target_size=(448, 448), batch_size=b,
+            max_clicks=mc, net_clicks_limit=mc, pred_thr=TRAINED_THRESH,
+            target_iou=TRAINED_TARGET, record_clicks=True)
+        clicks = []
+        zero_counters()
+        t1 = time.time()
+        got = device_eval.evaluate_dataset_device(run, data, clicks=clicks)
+        wall = time.time() - t1
+        launches = counters()
+        if launches != {k: v * run.steps for k, v in per_step.items()}:
+            fail(f"LoftUp {dtype} {key} loop launched {launches}")
+        noc = compute_noc_metric(got, [0.8, 0.85, 0.9], mc)[0]
+        loops[dtype, key] = (got, clicks)
+        rec = {"dtype": dtype, "layout": key, "batch": b, "objects": m,
+               "steps": run.steps, "ms_per_step": 1e3 * wall / run.steps,
+               "noc": noc, "jax_cpu_f32_noc": want_noc,
+               "launches": launches}
+        if dtype == "bfloat16":
+            gap = max(abs(x - y) for x, y in zip(noc, want_noc))
+            rec["noc_gap_to_jax_f32"] = gap
+            rec["partings"] = []
+            for i, c in enumerate(clicks):
+                got_c = [tuple(int(v) for v in r) for r in c]
+                want_c = [tuple(int(v) for v in r) for r in
+                          sfx["loftup_clicks"][i, :sfx["loftup_n"][i]]]
+                if got_c != want_c:
+                    k = next((j for j, (p, q) in enumerate(zip(got_c, want_c))
+                              if p != q), min(len(got_c), len(want_c)))
+                    rec["partings"].append({"object": i, "click": k + 1})
+            if gap > LOFTUP_BF16_NOC_TOL:
+                fail(f"LoftUp bf16 {key} loop NoC {noc} differ from JAX's "
+                     f"f32 {want_noc} by {gap} > {LOFTUP_BF16_NOC_TOL}")
+        print("converted_loftup_loop", json.dumps(rec))
+        res.setdefault("loftup_loops", []).append(rec)
+        paths[f"loftup_{key}_{dtype}_loop"] = launches
+    (u_ious, u_clicks), (f_ious, f_clicks) = (loops["float32", "unpadded"],
+                                              loops["float32", "fused"])
+    if not same_click_lists(u_clicks, f_clicks) or any(
+            np.abs(np.asarray(x) - np.asarray(y)).max() > LOOP_IOU_TOL
+            for x, y in zip(u_ious, f_ious)):
+        fail("the fused head's loop clicks otherwise than the unfused one")
+    del layouts, loops
+    res["loftup_s"] = time.time() - t0
+
+    # (e) drawn raw files in their published layouts on the card, against
+    # JAX's outputs on the same drawn inputs
+    t0 = time.time()
+    rng = np.random.default_rng(int(fx["inputs_seed"]))
+    # drawn in float64 and rounded, in the export's order
+    inputs = {"image": rng.standard_normal((1, 224, 224, 3)),
+              "source": rng.standard_normal((1, 16, 16, 384)),
+              "guidance": rng.random((1, 224, 224, 3))}
+    inputs = {k: torch.from_numpy(v.astype(np.float32)).cuda()
+              for k, v in inputs.items()}
+    outs = {}
+    for name in ("dino", "clip"):
+        sd = fixture_state_dict(torch, fx, name)
+        src = tmp / f"{name}.pth"
+        torch.save({"model": sd} if name == "dino" else sd, src)
+        kind = {"dino": "dino", "clip": "clip"}[name]
+        dst = tmp / f"{name}.msgpack"
+        convert_weights.main(["--kind", kind, "--input", str(src),
+                              "--output", str(dst)])
+        script = "vit_noup" if name == "dino" else "maskclip_noup"
+        btype = "vit" if name == "dino" else "mask_clip"
+        module = BACKBONES[btype](
+            **synthetic_config(script)["backbone_cfg"]["params"]).cuda()
+        load_jax_params(module.model, restrict_to_module(
+            msgpack_restore(dst.read_bytes()), module.model))
+        outs[name] = (module, lambda m=module: m(inputs["image"]))
+        if name == "clip":
+            dst = tmp / "clip_text.msgpack"
+            convert_weights.main(["--kind", "clip_text", "--input", str(src),
+                                  "--output", str(dst)])
+            text = load_jax_params(CLIPTextEncoder().cuda(),
+                                   msgpack_restore(dst.read_bytes()))
+            merges = drawn_weights.write_merges(
+                tmp / "merges.txt.gz", [str(w) for w in fx["merge_words"]])
+            ids = ClipTokenizer(str(merges))(
+                [str(t) for t in fx["text_strings"]])
+            if not np.array_equal(ids, fx["text_ids"]):
+                fail("the tokenizer's ids differ from JAX's")
+            ids = torch.from_numpy(ids).cuda()
+            outs["clip_text"] = (text, lambda m=text: m(ids))
+        del sd
+    for name, cls in (("lift", LiFTUpsampler), ("loftup", LoftUpUpsampler)):
+        src = tmp / f"{name}.pth"
+        sd = fixture_state_dict(torch, fx, name)
+        torch.save({"state_dict": sd} if name == "lift" else sd, src)
+        module = load_jax_params(cls(n_dim=384).cuda(), load_upsampler_params(
+            {"type": name, "params": {"upsampler_path": str(src)}}))
+        outs[name] = (module, lambda m=module: m(inputs["source"],
+                                                  inputs["guidance"]))
+    samples = {}
+    with torch.inference_mode():
+        for name, (module, call) in outs.items():
+            zero_counters()
+            got = call()
+            torch.cuda.synchronize()
+            launches = counters()
+            if launches != expected(**CONVERTED_LAUNCHES[name]):
+                fail(f"{name} forward launched {launches}")
+            samples[name] = dict(against_samples(torch, got, fx, name),
+                                 launches=launches,
+                                 ms=time_ms(torch, call, reps=3, rounds=3,
+                                            graph=False)[0])
+            paths[f"converted_{name}_forward"] = launches
+            print("converted_features", name, json.dumps(samples[name]))
+    res["drawn_files"] = samples
+    res["drawn_s"] = time.time() - t0
+    del outs
+
+    # A, B (with real) and D at these paths' shapes against their plain
+    # versions: the DINO and CLIP towers at 224², the text tower, and the
+    # padded LoftUp at 448², B=4 (D at dh 128; B over 404 of 512 and 203
+    # of 256 channels)
+    t0 = time.time()
+    checks = []
+    checks += attention_case(torch, F, attention, 1, 197, 6, 64, "float32",
+                             seed=90)
+    checks += attention_case(torch, F, attention, 1, 197, 12, 64,
+                             "float32", seed=91)
+    checks.append(layernorm_case(torch, F, layernorm, (3, 77), 512,
+                                 "float32", seed=92, eps=1e-5))
+    seed = 93
+    for dtype in ("float32", "bfloat16"):
+        checks += cross_attention_case(torch, F, attention, b, 64 * 448,
+                                       1024, 4, 128, dtype, seed=seed)
+        for rows, d, real in (((64 * 448,), 512, 404),
+                              ((68, 448), 256, 203)):
+            checks.append(layernorm_case(torch, F, layernorm, (b, *rows), d,
+                                         dtype, seed=seed + 1, eps=1e-5,
+                                         real=real))
+            seed += 2
+    for c in checks:
+        print("check", json.dumps(c))
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        fail(f"kernel disagrees with its plain version: {bad}")
+    res["kernels_s"] = time.time() - t0
+    res["s"] = time.time() - t_phase
+    seconds = {k: res[k]["s"] for k in ("reference", "pretrained")}
+    seconds.update((k, res[k]) for k in ("loftup_s", "drawn_s", "kernels_s",
+                                         "s"))
+    print("converted_seconds", json.dumps(seconds))
+    res["path_launches"] = paths
+    res["checks"] = checks
+    return res
+
+
+def _flat(tree, prefix=""):
+    """(path, leaf) of a nested dict, in key order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
 def variant_sweep(torch, F) -> tuple:
     """Kernels F (nodiv) and G (merged) against their plain versions and
     bit for bit against each other and kernel A, at B=2, at the sweep's
@@ -4748,6 +5301,13 @@ def main() -> int:
     results["brs"] = brs_res
 
     done("11i brs")
+    # 11j. published weights: the converters, PRETRAINED_MODELS, LoftUp's
+    # padded layout and fused head, the CLIP text tower
+    converted = converted_weights_phase(torch, F)
+    results["converted_weights"] = {k: v for k, v in converted.items()
+                                    if k != "checks"}
+
+    done("11j converted_weights")
     # 12. the learned-upsampler families (main paths 3-6)
     families = {name: learned_family(torch, name) for name in UPSAMPLERS}
     results["families"] = families
@@ -4798,6 +5358,7 @@ def main() -> int:
     paths.update(bf16_training["path_launches"])
     paths.update(data["path_launches"])
     paths.update(brs_res["path_launches"])
+    paths.update(converted["path_launches"])
     for fam in families.values():
         paths.update(fam["path_launches"])
     kernels = []
@@ -4859,6 +5420,15 @@ def main() -> int:
             for o in ritm["checks"] if o["kernel"] == name]
         if adaptive_shapes:
             entry["adaptive_shapes"] = adaptive_shapes
+        # published weights' shapes (phase 11j): D at LoftUp's padded
+        # dh 128, B over the padded layout's real channels
+        converted_shapes = [
+            {"shape": o["shape"], "dtype": o["dtype"],
+             **({"real": o["real"]} if "real" in o else {}),
+             **{k: o[k] for k in timing_keys}}
+            for o in converted["checks"] if o["kernel"] == name]
+        if converted_shapes:
+            entry["converted_weights_shapes"] = converted_shapes
         if name == "jbu_filter":
             entry.update(tile=jbu_config, ptxas=jbu_ptxas)
         if name == "edt_row_envelope":

@@ -4,6 +4,9 @@
 // (kernel _ln_kernel, pallas_call at :70). Per row of D values:
 //     mean = E[x], var = max(0, E[x^2] - mean^2)   (fast variance, f32)
 //     y = (x - mean) * rsqrt(var + eps) * gamma + beta, written in x's dtype.
+// The statistics cover the first `real` of the D channels (flax's
+// LayerNorm(mask=): LoftUp's zero-padded layout, 404 of 512 and 203 of 256);
+// every channel is normalised with them. real = D is the plain LayerNorm.
 //
 // Bound on this card: bytes. Each row is read once and written once
 // (2 * rows * D * sizeof(T), plus gamma and beta once), a few operations per
@@ -47,7 +50,7 @@ template <typename T, typename W, int VEC>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
 ln_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
           const W* __restrict__ beta, T* __restrict__ y, int rows, int d,
-          float eps) {
+          int real, float eps) {
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
@@ -65,8 +68,10 @@ ln_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
       for (int e = 0; e < VEC; ++e) {
         const float f = to_f32(p.v[e]);
         v[k * VEC + e] = f;
-        s += f;
-        ss = fmaf(f, f, ss);
+        if (i + e < real) {
+          s += f;
+          ss = fmaf(f, f, ss);
+        }
       }
     }
   }
@@ -75,7 +80,7 @@ ln_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
     s += __shfl_xor_sync(0xffffffffu, s, off);
     ss += __shfl_xor_sync(0xffffffffu, ss, off);
   }
-  const float inv_d = 1.f / (float)d;
+  const float inv_d = 1.f / (float)real;
   const float mean = s * inv_d;
   const float var = fmaxf(0.f, ss * inv_d - mean * mean);
   const float rstd = rsqrtf(var + eps);
@@ -98,7 +103,8 @@ ln_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
 
 template <typename T, typename W>
 cudaError_t launch(const void* x, const void* g, const void* b, void* y,
-                   int rows, int d, float eps, cudaStream_t stream) {
+                   int rows, int d, int real, float eps,
+                   cudaStream_t stream) {
   constexpr int vec = 16 / sizeof(T);
   const bool aligned = d % vec == 0 &&
                        reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
@@ -110,9 +116,11 @@ cudaError_t launch(const void* x, const void* g, const void* b, void* y,
   const W* bp = static_cast<const W*>(b);
   T* yp = static_cast<T*>(y);
   if (aligned)
-    ln_kernel<T, W, vec><<<grid, block, 0, stream>>>(xp, gp, bp, yp, rows, d, eps);
+    ln_kernel<T, W, vec><<<grid, block, 0, stream>>>(xp, gp, bp, yp, rows, d,
+                                                     real, eps);
   else
-    ln_kernel<T, W, 1><<<grid, block, 0, stream>>>(xp, gp, bp, yp, rows, d, eps);
+    ln_kernel<T, W, 1><<<grid, block, 0, stream>>>(xp, gp, bp, yp, rows, d,
+                                                   real, eps);
   return cudaGetLastError();
 }
 
@@ -120,23 +128,27 @@ cudaError_t launch(const void* x, const void* g, const void* b, void* y,
 
 extern "C" {
 
-// x and y [rows, d] contiguous of x_dtype; gamma and beta [d] of w_dtype.
+// x and y [rows, d] contiguous of x_dtype; gamma and beta [d] of w_dtype;
+// statistics over the first real channels (1 <= real <= d).
 // dtypes: 0 = float32, 1 = bfloat16. Returns cudaGetLastError().
 int iseg_layernorm(const void* x, const void* gamma, const void* beta,
-                   void* y, int rows, int d, float eps, int x_dtype,
+                   void* y, int rows, int d, int real, float eps, int x_dtype,
                    int w_dtype, void* stream) {
-  if (rows < 1 || d < 1 || d > 32 * kMaxPerLane)
+  if (rows < 1 || d < 1 || d > 32 * kMaxPerLane || real < 1 || real > d)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0 && w_dtype == 0)
-    return (int)launch<float, float>(x, gamma, beta, y, rows, d, eps, s);
+    return (int)launch<float, float>(x, gamma, beta, y, rows, d, real, eps,
+                                           s);
   if (x_dtype == 1 && w_dtype == 1)
     return (int)launch<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, y, rows,
-                                                     d, eps, s);
+                                                     d, real, eps, s);
   if (x_dtype == 1 && w_dtype == 0)
-    return (int)launch<__nv_bfloat16, float>(x, gamma, beta, y, rows, d, eps, s);
+    return (int)launch<__nv_bfloat16, float>(x, gamma, beta, y, rows, d, real,
+                                                  eps, s);
   if (x_dtype == 0 && w_dtype == 1)
-    return (int)launch<float, __nv_bfloat16>(x, gamma, beta, y, rows, d, eps, s);
+    return (int)launch<float, __nv_bfloat16>(x, gamma, beta, y, rows, d, real,
+                                                  eps, s);
   return (int)cudaErrorInvalidValue;
 }
 

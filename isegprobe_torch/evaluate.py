@@ -20,7 +20,8 @@ Usage (on a CUDA GPU; ``device=cpu`` runs the plain PyTorch path):
         device_loop=true device_batch=8 [dtype=bfloat16] [eval_mode=fixed448]
         [eval_ritm=false] [device_refill=false] [group_max_jobs=0]
         [n_clicks=20] [target_iou=0.9] [print_ious=true] [min_n_clicks=1]
-        [thresh=0.5] [clicks_limit=null] [mode=NoBRS]
+        [thresh=0.5] [clicks_limit=null] [mode=NoBRS] [mxu_pad=auto]
+        [fuse_hr_head=false]
 
 ``datasets`` is a comma-separated list of the root's ``get_dataset`` keys:
 ``GrabCut``, ``Berkeley``, ``DAVIS``, ``SBD``, ``SBD_Train``,
@@ -49,6 +50,15 @@ protocol).
 (``inference/brs.py``), with ``thresh`` as the BRS optimizer's
 ``prob_thresh``. The device loop runs NoBRS only: a BRS mode with
 ``device_loop=true`` runs the host protocol and says so.
+
+A LoftUp probe is evaluated in its zero-padded layout in bfloat16 and
+unpadded in float32, the faster of the two on the H100 in each dtype
+(PERF.md): ``mxu_pad`` is accepted for the root's command lines, and a
+value other than ``auto`` that names the other layout is ignored with a
+warning. ``fuse_hr_head=true`` runs the head inside LoftUp's slab loop, so
+that LoftUp's ``[B, H, W, C]`` map never exists whole (a quarter of the
+peak memory at 448² on the H100, PERF.md). Both are the same function
+(``load_model_for_eval``); other probes ignore them.
 """
 
 from __future__ import annotations
@@ -72,6 +82,7 @@ from isegprobe_torch.models.convert import (
     interpolate_pos_embed_params,
     load_jax_params,
     overlay_upsampler_params,
+    pad_loftup_params,
 )
 from isegprobe_torch.models.featurizers.dino import DINO_TRUNK
 from isegprobe_torch.models.featurizers.dinov2 import DINOV2_ARCHS
@@ -91,7 +102,9 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def load_model_for_eval(checkpoint: str, dtype=torch.float32,
                         target_size: Tuple[int, int] = (448, 448),
                         device=None, eval_ritm: bool = False,
-                        frozen: Optional[Dict] = None
+                        frozen: Optional[Dict] = None,
+                        mxu_pad: Optional[bool] = None,
+                        fuse_hr_head: bool = False
                         ) -> Tuple[torch.nn.Module, Dict]:
     """The checkpoint's probe as the root ``evaluate.py:load_model_for_eval``
     builds it, as a model of the port on ``device`` (CUDA unless ``device=
@@ -120,9 +133,15 @@ def load_model_for_eval(checkpoint: str, dtype=torch.float32,
     RITM transform's 64 channels was trained with it, and its config says
     so); a probe that embeds the raw click maps, as every probe of the paper
     does, the root cannot build with the transform, and the port evaluates
-    it as it was trained. LoftUp's
-    padded ``mxu_pad`` layout, which that script uses for bf16, is the same
-    function with zero-padded channels and is not ported."""
+    it as it was trained.
+
+    ``mxu_pad`` (None: on for bfloat16 and off for float32, as the root's
+    ``auto``; True or False force it) builds a LoftUp probe in the
+    zero-padded layout: its params are padded by ``models.convert.pad_loftup_params``
+    after the unpadded init and overlay, so that the init stream is
+    unchanged, and the config's upsampler params carry ``mxu_pad=True``.
+    ``fuse_hr_head`` runs the head inside LoftUp's slab loop (a build
+    override, as the root's; the saved config does not hold it)."""
     device = resolve_device(device)
     params, config, _ = load_checkpoint(checkpoint)
     t0 = time()
@@ -134,10 +153,24 @@ def load_model_for_eval(checkpoint: str, dtype=torch.float32,
     params = merge_params(frozen, params)
     params = overlay_upsampler_params(params,
                                       config["params"].get("upsampler_cfg"))
+    if mxu_pad is None:
+        mxu_pad = dtype == torch.bfloat16
+    up_cfg = dict(config["params"].get("upsampler_cfg") or {})
+    if up_cfg.get("type") == "loftup" and mxu_pad:
+        up_params = dict(up_cfg.get("params") or {})
+        params = dict(params, upsampler=pad_loftup_params(
+            params["upsampler"], n_dim=int(up_params.get("n_dim", 384)),
+            n_freqs=int(up_params.get("n_freqs", 20)),
+            heads=int(up_params.get("num_heads", 4)),
+            num_layers=int(up_params.get("num_layers", 2))))
+        up_params["mxu_pad"] = True
+        config = dict(config, params=dict(
+            config["params"], upsampler_cfg=dict(up_cfg, params=up_params)))
     if not eval_ritm:
         config, params = _preinterpolate_pos_embed(config, params,
                                                    target_size)
-    model = load_jax_params(build_model(config, device, dtype), params)
+    model = load_jax_params(build_model(config, device, dtype,
+                                        fuse_hr_head=fuse_hr_head), params)
     return model, dict(config=config, frozen=frozen,
                        init_seconds=init_seconds,
                        frozen_params=count_params(frozen))
@@ -183,8 +216,6 @@ def _preinterpolate_pos_embed(config: Dict, params: Dict,
 # ROADMAP item that brings each
 _NOT_PORTED = {
     "device_mesh": "ROADMAP Queue 1 item 9 (parallel/mesh.py)",
-    "mxu_pad": "ROADMAP Queue 1 item 7 (LoftUp's mxu_pad layout)",
-    "fuse_hr_head": "ROADMAP Queue 1 item 7 (the fused LoftUp head)",
     "vis_preds": "ROADMAP Queue 1 item 9 (plots and eval_utils)",
     "save_feats": "ROADMAP Queue 1 item 9 (plots and eval_utils)",
     "save_ious": "ROADMAP Queue 1 item 9 (eval_utils)",
@@ -219,7 +250,8 @@ _DEFAULTS = dict(checkpoint=None, datasets="Synthetic", **_PATH_DEFAULTS,
                  device_refill="false", group_max_jobs="0",
                  dtype="float32", n_clicks="20", target_iou="0.90",
                  print_ious="true", min_n_clicks="1", thresh="0.5",
-                 clicks_limit="null", mode="NoBRS", device=None)
+                 clicks_limit="null", mode="NoBRS", mxu_pad="auto",
+                 fuse_hr_head="false", device=None)
 
 
 def parse_args(argv) -> Dict:
@@ -280,6 +312,12 @@ def parse_args(argv) -> Dict:
             f"(got {cfg['device_batch']})")
         cfg["device_refill"] = False
     cfg["group_max_jobs"] = int(cfg["group_max_jobs"])
+    pad = cfg.pop("mxu_pad").lower()
+    if pad != "auto" and _flag(pad) != (cfg["dtype"] == "bfloat16"):
+        logging.getLogger(__name__).warning(
+            f"mxu_pad={pad} ignored: LoftUp's layout follows dtype (padded "
+            "in bfloat16, unpadded in float32), the faster one in each")
+    cfg["fuse_hr_head"] = _flag(cfg["fuse_hr_head"])
     cfg["n_clicks"] = int(cfg["n_clicks"])
     cfg["print_ious"] = _flag(cfg["print_ious"])
     cfg["min_n_clicks"] = int(cfg["min_n_clicks"])
@@ -398,7 +436,8 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,
         model, _ = load_model_for_eval(cfg["checkpoint"],
                                        DTYPES[cfg["dtype"]],
                                        _pos_embed_size(zoom), device,
-                                       eval_ritm=cfg["eval_ritm"])
+                                       eval_ritm=cfg["eval_ritm"],
+                                       fuse_hr_head=cfg["fuse_hr_head"])
     if dataset is None:
         dataset = get_dataset(name, cfg)
     protocol = dict(pred_thr=cfg["thresh"], min_clicks=cfg["min_n_clicks"],
@@ -482,7 +521,8 @@ def evaluate_all(cfg: Dict) -> list:
             models.clear()  # one model resident at a time
             models[size], info = load_model_for_eval(
                 cfg["checkpoint"], DTYPES[cfg["dtype"]], size, device,
-                eval_ritm=cfg["eval_ritm"], frozen=frozen)
+                eval_ritm=cfg["eval_ritm"], frozen=frozen,
+                fuse_hr_head=cfg["fuse_hr_head"])
             frozen = info["frozen"]
         results.append(evaluate(cfg, models[size], name))
     return results

@@ -1,8 +1,9 @@
 """MaskCLIP featurizer: dense CLIP ViT-B/16 features by the value-projection
 trick, with the three click-feature injection modes.
 
-Counterpart of ``isegprobe_tpu/models/featurizers/maskclip.py`` (the visual
-tower; the text tower is not ported). CLIP's ViT differs from the DINO
+Counterpart of ``isegprobe_tpu/models/featurizers/maskclip.py``: the visual
+tower, and the text tower :class:`CLIPTextEncoder` (on no probe's path).
+CLIP's ViT differs from the DINO
 family: a bias-free conv stem, a pre-LN stem (``ln_pre``), QuickGELU MLPs,
 torch ``MultiheadAttention``'s packed ``in_proj`` (q, k and v at rows 0, C
 and 2C of ``in_proj_weight``), a position table without a batch dim that is
@@ -33,6 +34,7 @@ from isegprobe_torch.models.vit import (
     dynamic_table,
 )
 from isegprobe_torch.ops.attention import mha_qkv
+from isegprobe_torch.ops.layernorm import layernorm
 from isegprobe_torch.ops.resize import resize
 
 CLIP_ARCHS = {
@@ -45,13 +47,31 @@ LN_EPS = 1e-5
 INTERPOLATE_OFFSET = 0.1
 
 
+def _causal_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """Self-attention under the text tower's additive upper-triangular
+    mask, in plain PyTorch as the JAX package computes it (scores and
+    weighted sum accumulated in f32; kernel A has no causal mask): packed
+    ``[B, N, 3C]`` -> ``[B, N, C]`` in the input's dtype."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    dh = c // heads
+    q, k, v = (t.reshape(b, n, heads, dh) for t in qkv.split(c, dim=-1))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * dh**-0.5
+    mask = torch.full((n, n), float("-inf"), device=qkv.device).triu(1)
+    p = torch.softmax(s + mask, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return out.to(qkv.dtype).reshape(b, n, c)
+
+
 class _CLIPAttention(nn.Module):
     """torch ``nn.MultiheadAttention``'s layout: packed ``in_proj`` and
-    ``out_proj``; attention through the packed-qkv kernel."""
+    ``out_proj``; attention through the packed-qkv kernel, or with
+    ``causal`` (the text tower) the plain masked attention."""
 
-    def __init__(self, width: int, heads: int) -> None:
+    def __init__(self, width: int, heads: int, causal: bool = False) -> None:
         super().__init__()
         self.heads = heads
+        self.causal = causal
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
         self.out_proj = Linear(width, width)
@@ -66,6 +86,8 @@ class _CLIPAttention(nn.Module):
     def forward(self, x: torch.Tensor,
                 key_mask: torch.Tensor | None = None) -> torch.Tensor:
         qkv = self._in_proj(x, slice(None))
+        if self.causal:
+            return self.out_proj(_causal_attention(qkv, self.heads))
         dh = x.shape[-1] // self.heads
         out = mha_qkv(qkv, self.heads, scale=dh**-0.5, key_mask=key_mask)
         return self.out_proj(out)
@@ -77,13 +99,14 @@ class _CLIPAttention(nn.Module):
 
 class _CLIPBlock(nn.Module):
     """A residual attention block; ``value_only`` builds the last block of
-    the dense tower, which keeps only ``ln_1`` and ``attn``."""
+    the dense tower, which keeps only ``ln_1`` and ``attn``; ``causal``
+    masks the attention (the text tower)."""
 
-    def __init__(self, width: int, heads: int,
-                 value_only: bool = False) -> None:
+    def __init__(self, width: int, heads: int, value_only: bool = False,
+                 causal: bool = False) -> None:
         super().__init__()
         self.ln_1 = LayerNorm(width, LN_EPS)
-        self.attn = _CLIPAttention(width, heads)
+        self.attn = _CLIPAttention(width, heads, causal)
         if not value_only:
             self.ln_2 = LayerNorm(width, LN_EPS)
             self.c_fc = Linear(width, 4 * width)
@@ -227,3 +250,42 @@ class MaskCLIPFeaturizer(nn.Module):
         if additional_features is not None and mode == "after_backbone":
             feats = feats + additional_features.float()
         return feats.reshape(b, gh, gw, -1)
+
+
+class CLIPTextEncoder(nn.Module):
+    """CLIP's text tower: token ids ``[B, context_length]`` -> joint-space
+    embeddings ``[B, output_dim]`` (float32).
+
+    Token embedding plus the learned positional embedding, ``layers``
+    causal QuickGELU blocks (the visual tower's block under the additive
+    triangular mask, plain attention), ``ln_final`` in float32, and the
+    projection of the end-of-text position, found per row as
+    ``argmax(ids)`` (its id is the largest). Parameter names are the
+    checkpoint's (``models.convert.convert_clip_text``). ViT-B/16's text
+    config: width 512, 8 heads, 12 layers, vocabulary 49408, context 77,
+    output 512."""
+
+    def __init__(self, width: int = 512, heads: int = 8, layers: int = 12,
+                 vocab_size: int = 49408, context_length: int = 77,
+                 output_dim: int = 512) -> None:
+        super().__init__()
+        self.token_embedding = nn.Parameter(torch.zeros(vocab_size, width))
+        self.positional_embedding = nn.Parameter(
+            torch.zeros(context_length, width))
+        self.resblocks = nn.ModuleList(
+            _CLIPBlock(width, heads, causal=True) for _ in range(layers))
+        self.ln_final = LayerNorm(width, LN_EPS)
+        self.text_projection = nn.Parameter(torch.zeros(width, output_dim))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        dt = compute_dtype(self, self.token_embedding)
+        ids = ids.long()
+        x = self.token_embedding[ids].to(dt)
+        x = x + self.positional_embedding.to(dt)[None]
+        for blk in self.resblocks:
+            x = blk(x)
+        x = layernorm(x.float().contiguous(), self.ln_final.weight.float(),
+                      self.ln_final.bias.float(), LN_EPS)
+        eot = ids.argmax(dim=-1)
+        pooled = x[torch.arange(x.shape[0], device=x.device), eot]
+        return pooled @ self.text_projection.float()

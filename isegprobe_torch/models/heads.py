@@ -9,6 +9,13 @@ cast to bfloat16. ``masked(x, valid_hw)`` is each head on the adaptive
 canvas, whose top-left ``valid_hw`` ``[B, 2]`` rect is valid per lane: the
 3x3 convhead zeroes what lies outside it before every conv, as a true-size
 input's zero padding would; the pointwise heads need nothing.
+
+``tail_halo`` and ``banded(x, in_frame)`` are the row-banded contract that
+LoftUp's slab loop runs a head by (``fuse_hr_head``): ``x`` is a slab of
+output rows with ``tail_halo`` more rows each side (one a 3x3 conv, 0 for
+the pointwise heads), ``in_frame[r]`` is 1 where row r lies inside the
+frame, and out-of-frame rows are zeroed before every conv, so the slab's
+output rows equal the monolithic head's.
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ def _head(convs, classifier: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 class SimpleClassifierHead(nn.Module):
     """'linear': a single 1x1 conv classifier."""
 
+    tail_halo = 0
+
     def __init__(self, in_channels: int, num_classes: int = 1) -> None:
         super().__init__()
         self.classifier = nn.Conv2d(in_channels, num_classes, 1)
@@ -43,9 +52,14 @@ class SimpleClassifierHead(nn.Module):
     def masked(self, x: torch.Tensor, valid_hw: torch.Tensor) -> torch.Tensor:
         return self(x)  # pointwise
 
+    def banded(self, x: torch.Tensor, in_frame: torch.Tensor) -> torch.Tensor:
+        return self(x)  # pointwise
+
 
 class SimpleConvSegHead(nn.Module):
     """'simple_conv': N 1x1 conv+ReLU layers, then the classifier."""
+
+    tail_halo = 0
 
     def __init__(self, in_channels: int, num_layers: int,
                  num_classes: int = 1) -> None:
@@ -60,6 +74,9 @@ class SimpleConvSegHead(nn.Module):
     def masked(self, x: torch.Tensor, valid_hw: torch.Tensor) -> torch.Tensor:
         return self(x)  # pointwise
 
+    def banded(self, x: torch.Tensor, in_frame: torch.Tensor) -> torch.Tensor:
+        return self(x)  # pointwise
+
 
 class ConvSegHead(nn.Module):
     """'convhead': the head of the flagship experiment."""
@@ -72,8 +89,23 @@ class ConvSegHead(nn.Module):
             for _ in range(num_layers))
         self.classifier = nn.Conv2d(in_channels, num_classes, 1)
 
+    @property
+    def tail_halo(self) -> int:
+        return len(self.convs)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _head(self.convs, self.classifier, x)
+
+    def banded(self, x: torch.Tensor, in_frame: torch.Tensor) -> torch.Tensor:
+        """``x`` ``[B, rows, W, C]`` with ``tail_halo`` halo rows each side
+        -> ``[B, rows - 2 * tail_halo, W, 1]``: each 3x3 conv takes one
+        halo row a side, and out-of-frame rows are zeroed before it."""
+        mask = in_frame.float()[None, None, :, None]
+        x = x.float().permute(0, 3, 1, 2) * mask
+        for conv in self.convs:
+            mask = mask[:, :, 1:-1]
+            x = torch.relu(_conv_f32(conv, x))[:, :, 1:-1] * mask
+        return _conv_f32(self.classifier, x).permute(0, 2, 3, 1)
 
     def masked(self, x: torch.Tensor, valid_hw: torch.Tensor) -> torch.Tensor:
         """``x`` ``[B, H, W, C]`` with each lane's valid rect ``valid_hw``

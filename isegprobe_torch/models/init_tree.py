@@ -42,8 +42,6 @@ from isegprobe_torch.utils import jax_rng
 
 __all__ = ["init_tree", "count_params"]
 
-_OTHER_FAMILIES = "ROADMAP Queue 1 item 7 (other model families)"
-
 
 def _zeros(key, shape):
     return np.zeros(shape, np.float32)
@@ -233,8 +231,10 @@ def _lift(scope: _Scope, params: Dict) -> None:
 def _loftup(scope: _Scope, params: Dict) -> None:
     if params.get("mxu_pad", False):
         raise NotImplementedError(
-            "LoftUp's mxu_pad layout is not ported to isegprobe_torch yet: "
-            f"{_OTHER_FAMILIES}")
+            "init_tree draws LoftUp's unpadded layout only (flax draws the "
+            "padded one with other shapes, so another stream): draw it "
+            "without mxu_pad and pad it with models.convert."
+            "pad_loftup_params, as evaluate.py does")
     dim = int(params.get("n_dim", 384))
     n_freqs = int(params.get("n_freqs", 20))
     num_layers = int(params.get("num_layers", 2))
@@ -324,9 +324,7 @@ def init_tree(config: Dict, seed: int = 0,
         elif utype == "lift":
             _lift(root.child("upsampler"), uparams)
         elif utype not in ("identity", "nearest", "bilinear", "bicubic"):
-            raise NotImplementedError(
-                f"upsampler type {utype!r} is not ported to isegprobe_torch "
-                f"yet: {_OTHER_FAMILIES}")
+            raise ValueError(f"Unsupported upsampler type: {utype}")
 
     head_cfg = config["head_cfg"]
     htype, hp = head_cfg["type"], head_cfg["params"]

@@ -44,12 +44,11 @@ from isegprobe_torch.ops.resize import resize
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
-_OTHER_FAMILIES = "ROADMAP Queue 1 item 7 (other model families)"
 BACKBONES = {"dinov2": DINOv2Featurizer, "vit": DINOFeaturizer,
              "mask_clip": MaskCLIPFeaturizer}
 
 
-def _unsupported(what: str, item: str = _OTHER_FAMILIES):
+def _unsupported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to isegprobe_torch yet: {item}")
 
@@ -73,7 +72,7 @@ def build_upsampler(utype: str, params: Optional[Dict],
     different module. ``feat_dim`` (the backbone's width) goes to the
     upsamplers that need it at construction."""
     if utype not in UPSAMPLER_REGISTRY:
-        raise _unsupported(f"upsampler type {utype!r}")
+        raise ValueError(f"Unsupported upsampler type: {utype}")
     cls = UPSAMPLER_REGISTRY[utype]
     kwargs = dict(params or {})
     takes = set(inspect.signature(cls).parameters)
@@ -174,8 +173,12 @@ class iSegProbeModel(nn.Module):
     bf16-rounded weights, as in the JAX package. ``dtype`` is not part of
     the saved config (the JAX package does not record it either). ``attn_impl`` and
     ``cpu_dist_maps`` are accepted for config compatibility: the port always
-    uses its own kernels on a GPU. ``quant`` must be None and
-    ``fuse_hr_head`` False (not ported yet). The model is built on ``device`` (CUDA
+    uses its own kernels on a GPU. ``quant`` must be None (int8 is not
+    ported yet). ``fuse_hr_head`` runs the head inside LoftUp's slab loop
+    (the head's ``banded`` contract), so the ``[B, H, W, C]`` feature map
+    never exists whole: the same logits (serving; the fused slabs are not
+    checkpointed under autograd); other upsamplers ignore it. The model
+    is built on ``device`` (CUDA
     unless the caller passes ``device="cpu"``) with placeholder parameters;
     load weights with ``models.convert.load_jax_params`` or draw them with
     ``models.vit.init_params``.
@@ -202,10 +205,6 @@ class iSegProbeModel(nn.Module):
         if quant is not None:
             raise _unsupported(f"quant={quant!r} (int8 W8A8 serving)",
                                "ROADMAP Queue 1 item 9 (ops/quant.py)")
-        if fuse_hr_head:
-            raise _unsupported("the head fused into LoftUp's slab loop "
-                               "(fuse_hr_head)", "ROADMAP Queue 1 item 7 "
-                               "(LoftUp's mxu_pad layout and fused head)")
         # the constructor config, with the JAX package's field names and
         # order (``utils.serialization.model_config`` writes it)
         self.ctor_config = dict(
@@ -219,6 +218,7 @@ class iSegProbeModel(nn.Module):
             norm_mean_std=norm_mean_std, attn_impl=attn_impl, quant=quant,
             fuse_hr_head=fuse_hr_head)
         self.save_cfg = save_cfg
+        self.fuse_hr_head = fuse_hr_head
         self.norm_radius = norm_radius
         self.use_disks = use_disks
         self.with_prev_mask = with_prev_mask
@@ -303,7 +303,19 @@ class iSegProbeModel(nn.Module):
 
     # -- forward ----------------------------------------------------------
 
+    def _fused_head(self) -> bool:
+        """The head runs inside the upsampler's slab loop: ``fuse_hr_head``
+        on LoftUp with a head of the banded contract."""
+        return (self.fuse_hr_head and self.upsampler_type == "loftup"
+                and hasattr(self.head, "banded"))
+
     def _upsample_and_head(self, feats, image) -> torch.Tensor:
+        """upsampler -> (resize) -> head, the head fused into LoftUp's slab
+        loop when :meth:`_fused_head` (LoftUp's output is guidance-sized,
+        so the fused path needs no resize)."""
+        if self._fused_head():
+            return self.upsampler(feats, image, tail=self.head.banded,
+                                  tail_halo=self.head.tail_halo)
         h, w = image.shape[1], image.shape[2]
         feats = self.upsampler(feats, image)
         if self.upsampler_type != "identity" and feats.shape[1:3] != (h, w):

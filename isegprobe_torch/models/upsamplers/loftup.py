@@ -24,9 +24,15 @@ their input as it comes and cast their output (flax's ``nn.LayerNorm``),
 the ConvNeXt LayerNorm casts its parameters, the Fourier phases stay
 float32, and the FrozenBatchNorm parameters are raw.
 
-Not ported (raise ``NotImplementedError``): the MXU-aligned zero-padded
-layout ``mxu_pad=True`` and the fused head ``tail``, both exact re-layouts
-of the same function (ROADMAP Queue 1 item 7).
+``mxu_pad=True`` is the zero-padded layout of the same function: the stem
+widths pad from 203 to 256, cdim from 404 to 512 and the head dim from 101
+to 128, the weights padded once (``models.convert.pad_loftup_params``), the
+LayerNorm statistics taken over the real channels only (kernel B's
+``real``), and the softmax scale kept at the real head's ``101**-0.5``.
+``forward(..., tail=head.banded, tail_halo=head.tail_halo)`` runs a head
+inside the slab loop (``fuse_hr_head``), so the ``[B, H, W, n_dim]``
+feature map never exists whole; the fused slabs are not checkpointed, as
+in the JAX package (serving only).
 """
 
 from __future__ import annotations
@@ -45,15 +51,25 @@ from isegprobe_torch.ops.attention import mha
 from isegprobe_torch.ops.grid import linspace
 
 LN_EPS = 1e-5
-_ROADMAP = "ROADMAP Queue 1 item 7 (LoftUp's mxu_pad layout and fused head)"
+
+
+def _align(n: int) -> int:
+    """``n`` rounded up to a multiple of 128 (the padded layout's widths)."""
+    return -(-n // 128) * 128
+
+
+def _pad_ch(x: torch.Tensor, to: int) -> torch.Tensor:
+    """Zero-pad the channel axis to ``to`` (a no-op at that width)."""
+    return x if x.shape[-1] == to else F.pad(x, (0, to - x.shape[-1]))
 
 
 class ChannelNorm(nn.Module):
-    """LayerNorm over the channel axis (flax's, eps 1e-5)."""
+    """LayerNorm over the channel axis (flax's, eps 1e-5); ``real``: the
+    statistics cover the first ``real`` channels (the padded layout)."""
 
-    def __init__(self, dim: int) -> None:
+    def __init__(self, dim: int, real: int = 0) -> None:
         super().__init__()
-        self.norm = LayerNorm(dim, LN_EPS)
+        self.norm = LayerNorm(dim, LN_EPS, real=real)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(x)
@@ -137,11 +153,14 @@ class ImplicitFeaturizer(nn.Module):
 class TorchMHA(nn.Module):
     """``torch.nn.MultiheadAttention``-style cross-attention: packed
     ``in_proj_weight [3d, d]``, head dim ``d // heads``, attention through
-    ``ops.attention.mha``."""
+    ``ops.attention.mha``. ``real_dim``: the padded layout's real width,
+    whose head dim gives the softmax scale (the padded head's zero tail
+    adds nothing to the logits)."""
 
-    def __init__(self, dim: int, heads: int) -> None:
+    def __init__(self, dim: int, heads: int, real_dim: int = 0) -> None:
         super().__init__()
         self.dim, self.heads = dim, heads
+        self.scale = ((real_dim or dim) // heads) ** -0.5
         self.in_proj_weight = nn.Parameter(torch.zeros(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = Linear(dim, dim)
@@ -158,16 +177,16 @@ class TorchMHA(nn.Module):
         v = F.linear(kv_in, w[2 * d:], bias[2 * d:])
         b, nq, nk = q.shape[0], q.shape[1], k.shape[1]
         out = mha(q.reshape(b, nq, heads, dh), k.reshape(b, nk, heads, dh),
-                  v.reshape(b, nk, heads, dh), scale=dh**-0.5)
+                  v.reshape(b, nk, heads, dh), scale=self.scale)
         return self.out_proj(out.reshape(b, nq, d))
 
 
 class CrossAttentionLayer(nn.Module):
-    def __init__(self, dim: int, heads: int) -> None:
+    def __init__(self, dim: int, heads: int, real_dim: int = 0) -> None:
         super().__init__()
-        self.norm_q = LayerNorm(dim, LN_EPS)
-        self.norm_kv = LayerNorm(dim, LN_EPS)
-        self.attention = TorchMHA(dim, heads)
+        self.norm_q = LayerNorm(dim, LN_EPS, real=real_dim)
+        self.norm_kv = LayerNorm(dim, LN_EPS, real=real_dim)
+        self.attention = TorchMHA(dim, heads, real_dim)
 
     def forward(self, query: torch.Tensor,
                 key_value: torch.Tensor) -> torch.Tensor:
@@ -175,9 +194,9 @@ class CrossAttentionLayer(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, dim: int, hidden_dim: int) -> None:
+    def __init__(self, dim: int, hidden_dim: int, real_dim: int = 0) -> None:
         super().__init__()
-        self.norm = LayerNorm(dim, LN_EPS)
+        self.norm = LayerNorm(dim, LN_EPS, real=real_dim)
         self.fc1 = Linear(dim, hidden_dim)
         self.fc2 = Linear(hidden_dim, dim)
 
@@ -187,13 +206,13 @@ class FeedForward(nn.Module):
 
 class CATransformer(nn.Module):
     def __init__(self, dim: int, depth: int, heads: int,
-                 mlp_dim: int) -> None:
+                 mlp_dim: int, real_dim: int = 0) -> None:
         super().__init__()
-        self.ca = nn.ModuleList(CrossAttentionLayer(dim, heads)
+        self.ca = nn.ModuleList(CrossAttentionLayer(dim, heads, real_dim)
                                 for _ in range(depth))
-        self.ff = nn.ModuleList(FeedForward(dim, mlp_dim)
+        self.ff = nn.ModuleList(FeedForward(dim, mlp_dim, real_dim)
                                 for _ in range(depth))
-        self.norm = LayerNorm(dim, LN_EPS)
+        self.norm = LayerNorm(dim, LN_EPS, real=real_dim)
 
     def forward(self, query: torch.Tensor,
                 key_value: torch.Tensor) -> torch.Tensor:
@@ -227,7 +246,8 @@ class LoftUpUpsampler(nn.Module):
     accepted for config compatibility and not read: weights come through
     the bridge (``models.convert.load_jax_params``, which raises if the
     upsampler's subtree is missing), and the port picks its attention path
-    by device.
+    by device. With ``mxu_pad`` the module takes the padded tree of
+    ``models.convert.pad_loftup_params``.
     """
 
     def __init__(self, n_dim: int = 384, n_freqs: int = 20,
@@ -237,23 +257,24 @@ class LoftUpUpsampler(nn.Module):
                  query_chunk_min_pixels: int = 120_000,
                  mxu_pad: bool = False) -> None:
         super().__init__()
-        if mxu_pad:
-            raise NotImplementedError(
-                "LoftUp's MXU-aligned padded layout (mxu_pad=True) is not "
-                f"ported to isegprobe_torch yet: {_ROADMAP}")
         self.n_dim = n_dim
+        self.mxu_pad = mxu_pad
         self.query_chunk_rows = query_chunk_rows
         self.query_chunk_min_pixels = query_chunk_min_pixels
-        self.cdim = n_dim + 2 * 5 * 2  # + sine PE (no color, n_freqs=5)
-        stem = 2 * n_freqs * 5 + 3
+        creal = n_dim + 2 * 5 * 2  # + sine PE (no color, n_freqs=5)
+        stem_real = 2 * n_freqs * 5 + 3
+        self.cdim = _align(creal) if mxu_pad else creal
+        self.stem = _align(stem_real) if mxu_pad else stem_real
         self.channelnorm = ChannelNorm(n_dim)
         self.lr_pe = ImplicitFeaturizer(False, 5)
         self.fourier_feat = ImplicitFeaturizer(True, n_freqs)
-        self.first_norm = ChannelNorm(stem)
-        self.first_conv1 = ConvBNRelu(stem, self.cdim)
+        self.first_norm = ChannelNorm(self.stem,
+                                      real=stem_real if mxu_pad else 0)
+        self.first_conv1 = ConvBNRelu(self.stem, self.cdim)
         self.first_conv2 = ConvBNRelu(self.cdim, self.cdim)
         self.ca_transformer = CATransformer(self.cdim, num_layers, num_heads,
-                                            n_dim)
+                                            n_dim,
+                                            creal if mxu_pad else 0)
         self.final_conv = Conv2d(self.cdim, n_dim, 1)
         self.final_ln = ConvNeXtLayerNorm(n_dim)
 
@@ -264,28 +285,34 @@ class LoftUpUpsampler(nn.Module):
         out = out.reshape(b, rows, w, self.cdim)
         return self.final_ln(conv1x1(self.final_conv, out))
 
+    def _stem(self, x: torch.Tensor, row_coords=None) -> torch.Tensor:
+        """Fourier features (zero-padded to the stem width) and their
+        norm."""
+        return self.first_norm(_pad_ch(
+            self.fourier_feat(x, row_coords=row_coords), self.stem))
+
     def _slab(self, x_rows, kv, row_coords, in_frame):
         """Query tower of one horizontal slab with its 2-row halo: Fourier
         stem -> convs (out-of-frame rows re-zeroed after the norm and the
         first conv, as the monolithic convs' zero padding would) ->
         cross-attention -> head."""
         frame = in_frame[None, :, None, None]
-        xb = self.first_norm(self.fourier_feat(x_rows, row_coords=row_coords))
+        xb = self._stem(x_rows, row_coords)
         xb = self.first_conv1(xb * frame)[:, 1:-1] * frame[:, 1:-1]
         xb = self.first_conv2(xb)[:, 1:-1]  # [b, chunk, w, cdim], exact
         return self._head(xb, kv)
 
     def forward(self, source: torch.Tensor, guidance: torch.Tensor,
                 tail=None, tail_halo: int = 0) -> torch.Tensor:
-        if tail is not None:
-            raise NotImplementedError(
-                "the head fused into LoftUp's slab loop (fuse_hr_head) is "
-                f"not ported to isegprobe_torch yet: {_ROADMAP}")
+        """``tail(x, in_frame)``: a head's ``banded`` contract, applied to
+        the output rows with ``tail_halo`` more rows each side (zeroed
+        where ``in_frame`` is 0, outside the frame), inside the slab loop
+        (or once, on the whole frame, below the banding threshold)."""
         source = self.channelnorm(source)
         b = source.shape[0]
         # keys/values: low-res features + sine positional features
         kv = torch.cat([source, self.lr_pe(source).to(source.dtype)], dim=-1)
-        kv = kv.reshape(b, -1, self.cdim)
+        kv = _pad_ch(kv, self.cdim).reshape(b, -1, self.cdim)
 
         h, w = guidance.shape[1], guidance.shape[2]
         x_scaled = min_max_scale(guidance)  # full frame, per sample
@@ -293,22 +320,31 @@ class LoftUpUpsampler(nn.Module):
         if chunk > 0:  # largest divisor of h not above the requested rows
             while h % chunk:
                 chunk -= 1
+        th = tail_halo if tail is not None else 0
         if not (0 < chunk < h and h * w > self.query_chunk_min_pixels):
-            x = self.first_norm(self.fourier_feat(x_scaled))
-            x = self.first_conv2(self.first_conv1(x))
-            return self._head(x, kv)
+            x = self.first_conv2(self.first_conv1(self._stem(x_scaled)))
+            out = self._head(x, kv)
+            if tail is None:
+                return out
+            # the monolithic head's zero padding, as zero halo rows
+            out = F.pad(out, (0, 0, 0, 0, th, th))
+            return tail(out, F.pad(out.new_ones(h, dtype=torch.float32),
+                                   (th, th)))
 
         rows = linspace(-1.0, 1.0, h, device=guidance.device)
         slab = self._slab
-        if torch.is_grad_enabled():
+        if tail is None and torch.is_grad_enabled():
             slab = functools.partial(checkpoint, self._slab,
                                      use_reentrant=False,
                                      preserve_rng_state=False)
         outs = []
         for r0 in range(0, h, chunk):
-            band = torch.arange(r0 - 2, r0 + chunk + 2,
+            # the slab, its 2-row stem halo and the tail's halo rows
+            band = torch.arange(r0 - 2 - th, r0 + chunk + 2 + th,
                                 device=guidance.device)
             idx = band.clamp(0, h - 1)
             in_frame = ((band >= 0) & (band < h)).to(x_scaled.dtype)
-            outs.append(slab(x_scaled[:, idx], kv, rows[idx], in_frame))
+            hr = slab(x_scaled[:, idx], kv, rows[idx], in_frame)
+            # the stem took its 2-row halo: in_frame[2:-2] marks the rest
+            outs.append(hr if tail is None else tail(hr, in_frame[2:-2]))
         return torch.cat(outs, dim=1)

@@ -84,13 +84,16 @@ class LayerNorm(nn.Module):
     the CUDA kernel on a GPU), output in the compute dtype. As flax's
     ``nn.LayerNorm`` it takes the input as it comes; with ``cast_input``,
     as the JAX ViT's ``FusedLayerNorm``, it casts the input to the compute
-    dtype first."""
+    dtype first. ``real`` (0: all): the statistics cover the first
+    ``real`` of ``dim`` channels, as flax's ``nn.LayerNorm(mask=)`` in
+    LoftUp's zero-padded layout."""
 
     def __init__(self, dim: int, eps: float = NORM_EPS,
-                 cast_input: bool = False) -> None:
+                 cast_input: bool = False, real: int = 0) -> None:
         super().__init__()
         self.eps = eps
         self.cast_input = cast_input
+        self.real = real or None
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
@@ -99,7 +102,7 @@ class LayerNorm(nn.Module):
         if self.cast_input:
             x = x.to(dt)
         return layernorm(x.contiguous(), self.weight, self.bias,
-                         self.eps).to(dt)
+                         self.eps, self.real).to(dt)
 
 
 class Attention(nn.Module):

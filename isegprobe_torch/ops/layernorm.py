@@ -5,7 +5,11 @@ Counterpart of ``isegprobe_tpu/ops/layernorm.py:layernorm``; the kernel
 replaces the Pallas TPU kernel ``_ln_pallas``. Numerics are flax's default
 LayerNorm: f32 statistics by fast variance, ``max(0, E[x²] − E[x]²)``,
 whatever the IO dtype, then rsqrt, scale and bias, output in the IO dtype.
-(``F.layer_norm`` takes its variance in two passes and is not used.) The
+(``F.layer_norm`` takes its variance in two passes and is not used.)
+``real`` (default: every channel) takes the statistics over the first
+``real`` channels only and normalises every channel with them: flax's
+``nn.LayerNorm(mask=arange(C) < real)``, which LoftUp's zero-padded
+``mxu_pad`` layout runs (404 of 512 channels, 203 of 256). The
 kernel's source note gives its bound (bytes) and design.
 
 On a CPU tensor :func:`layernorm` computes the plain version; on a CUDA
@@ -20,6 +24,7 @@ trains through the frozen backbone's LayerNorms.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -34,11 +39,14 @@ _lib = None
 
 
 def _ln_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-              eps: float) -> torch.Tensor:
-    """The same function in plain PyTorch (the JAX package's ``_ln_jnp``)."""
+              eps: float, real: Optional[int] = None) -> torch.Tensor:
+    """The same function in plain PyTorch (the JAX package's ``_ln_jnp``;
+    with ``real``, flax's masked statistics over the first ``real``
+    channels)."""
     xf = x.float()
-    m = xf.mean(dim=-1, keepdim=True)
-    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - m * m, min=0.0)
+    xs = xf if real is None else xf[..., :real]
+    m = xs.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xs * xs).mean(dim=-1, keepdim=True) - m * m, min=0.0)
     y = (xf - m) * torch.rsqrt(var + eps)
     y = y * weight.float() + bias.float()
     return y.to(x.dtype)
@@ -49,7 +57,7 @@ def _load():
     if _lib is None:
         lib = cuda_lib.load("layernorm")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.iseg_layernorm.argtypes = [vp, vp, vp, vp, ci, ci,
+        lib.iseg_layernorm.argtypes = [vp, vp, vp, vp, ci, ci, ci,
                                        ctypes.c_float, ci, ci, vp]
         lib.iseg_layernorm.restype = ci
         _lib = lib
@@ -57,8 +65,9 @@ def _load():
 
 
 def _ln_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-             eps: float) -> torch.Tensor:
+             eps: float, real: Optional[int] = None) -> torch.Tensor:
     d = x.shape[-1]
+    real = d if real is None else real
     for name, t in (("x", x), ("weight", weight), ("bias", bias)):
         if t.dtype not in _DTYPE_CODES:
             raise TypeError(f"layernorm kernel takes float32 or bfloat16 "
@@ -75,7 +84,7 @@ def _ln_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     with torch.cuda.device(x.device):
         err = lib.iseg_layernorm(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            x.numel() // d, d, float(eps), _DTYPE_CODES[x.dtype],
+            x.numel() // d, d, real, float(eps), _DTYPE_CODES[x.dtype],
             _DTYPE_CODES[weight.dtype], cuda_lib.current_stream(x))
     cuda_lib.check(lib, err, "layernorm kernel launch")
     return y
@@ -87,29 +96,35 @@ class LayerNormKernel(torch.autograd.Function):
     for the inputs that need a gradient."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, real=None):
         ctx.save_for_backward(x, weight, bias)
-        ctx.eps = eps
-        return _ln_cuda(x, weight, bias, eps)
+        ctx.eps, ctx.real = eps, real
+        return _ln_cuda(x, weight, bias, eps, real)
 
     @staticmethod
     def backward(ctx, grad):
         return (*plain_vjp(_ln_plain, ctx.saved_tensors,
-                           ctx.needs_input_grad[:3], grad, ctx.eps), None)
+                           ctx.needs_input_grad[:3], grad, ctx.eps,
+                           ctx.real), None, None)
 
 
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-              eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm over the last axis with f32 fast-variance statistics."""
+              eps: float = 1e-6, real: Optional[int] = None) -> torch.Tensor:
+    """LayerNorm over the last axis with f32 fast-variance statistics (over
+    its first ``real`` channels when given)."""
+    if real is not None and not 1 <= real <= x.shape[-1]:
+        raise ValueError(f"real={real} channels of {x.shape[-1]}")
+    if real == x.shape[-1]:
+        real = None
     if x.device.type == "cpu":
-        return _ln_plain(x, weight, bias, eps)
+        return _ln_plain(x, weight, bias, eps, real)
     if x.device.type != "cuda":
         raise ValueError(f"layernorm runs on cpu or cuda, not {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
                                     or bias.requires_grad):
-        out = LayerNormKernel.apply(x, weight, bias, eps)
+        out = LayerNormKernel.apply(x, weight, bias, eps, real)
     else:
-        out = _ln_cuda(x, weight, bias, eps)
+        out = _ln_cuda(x, weight, bias, eps, real)
     layernorm.launches += 1
     return out
 

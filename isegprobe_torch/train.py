@@ -50,7 +50,8 @@ Keys: those of ``configs/train_cfg.yaml`` that apply (``exp.name``,
 ``dataloader.*``, ``training_params.*``, ``training.seed``,
 ``training.start_epoch``, ``training.resume_exp``,
 ``training.resume_prefix``, ``training.weights``), ``DATASETS.SBD_PATH``
-(``configs/main_cfg.yaml``'s default; the port reads no YAML), plus the
+and ``PRETRAINED_MODELS.{DINOV2_VITS14,DINO_VITS16,MASKCLIP_VITB16}``
+(``configs/main_cfg.yaml``'s defaults; the port reads no YAML), plus the
 port's ``model``, ``device``, ``exp_path`` and ``epoch_len`` /
 ``val_epoch_len`` (items an epoch; by default the script's: 320 and 48 for
 the Synthetic scenes, the whole split and 500 for SBD). A run goes to
@@ -69,6 +70,11 @@ JAX package numbers its runs (``utils/exp.py``).
   ``008``); ``training.weights=<checkpoint>`` merges a checkpoint over the
   initial weights. Both restore weights, not the optimizer state;
   ``training.start_epoch`` re-seeds the data order of the epoch it names.
+- ``PRETRAINED_MODELS.DINOV2_VITS14=<file>.msgpack`` (``DINO_VITS16``
+  for the ``vit`` backbone, ``MASKCLIP_VITB16`` for ``mask_clip``): the
+  backbone starts from converted published weights
+  (``python -m isegprobe_torch.scripts.convert_weights``) instead of its
+  init, as in the JAX trainer; a path that does not exist warns.
 - ``dataloader.mp=true`` builds the items in spawned worker processes
   (``dataloader.workers`` of them) instead of threads; the items are the
   same.
@@ -161,6 +167,9 @@ DEFAULTS: Dict[str, object] = {
     "training.weights": None,
     "wandb.log_wandb": False,
     "DATASETS.SBD_PATH": "/data/sbd",
+    "PRETRAINED_MODELS.DINOV2_VITS14": "",
+    "PRETRAINED_MODELS.DINO_VITS16": "",
+    "PRETRAINED_MODELS.MASKCLIP_VITB16": "",
     "epoch_len": None,
     "val_epoch_len": None,
     "exp_path": "./experiments/torch",
@@ -389,6 +398,9 @@ def build_trainer(cfg: Dict, on_step=None, params: Optional[Dict] = None,
         training=SimpleNamespace(
             start_epoch=cfg["training.start_epoch"],
             weights=run["weights"] or cfg["training.weights"]),
+        PRETRAINED_MODELS={
+            k.split(".", 1)[1]: v for k, v in cfg.items()
+            if k.startswith("PRETRAINED_MODELS.")},
         EXP_PATH=str(run["exp_path"]),
         CHECKPOINTS_PATH=str(run["checkpoints_path"]))
     lr = float(cfg["training_params.lr"])

@@ -44,6 +44,7 @@ import copy
 import logging
 import random
 import time
+import warnings
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -57,6 +58,7 @@ from isegprobe_torch.models.convert import (
     jax_params_to_state_dict,
     load_jax_params,
     overlay_upsampler_params,
+    restrict_to_module,
     state_dict_to_jax_params,
 )
 from isegprobe_torch.models.init_tree import init_tree
@@ -73,13 +75,17 @@ from isegprobe_torch.utils.serialization import (
     load_checkpoint,
     merge_params,
     model_config,
+    msgpack_restore,
     save_checkpoint,
 )
 
-__all__ = ["FROZEN_PREFIXES", "split_params", "get_next_points_device",
-           "iSegTrainer"]
+__all__ = ["FROZEN_PREFIXES", "PRETRAINED_KEYS", "split_params",
+           "get_next_points_device", "iSegTrainer"]
 
 logger = logging.getLogger("isegprobe_torch")
+# the backbone type -> its key of PRETRAINED_MODELS (configs/main_cfg.yaml)
+PRETRAINED_KEYS = {"dinov2": "DINOV2_VITS14", "vit": "DINO_VITS16",
+                   "mask_clip": "MASKCLIP_VITB16"}
 
 FROZEN_PREFIXES = ("backbone", "upsampler")
 TRAINABLE_PREFIXES = ("embed_coords", "head", "neck")
@@ -168,12 +174,17 @@ class iSegTrainer:
     Takes the JAX trainer's constructor arguments that its training of the
     Synthetic probes uses (the image-dump, TensorBoard and prev-mask
     dropout ones are not ported). ``params`` is the param
-    tree (flax names, numpy) the model starts from; by default
+    tree (flax names, numpy) the model is initialised with; by default
     ``init_tree(config, seed)``, the JAX trainer's ``model.init(
-    PRNGKey(seed))``, with the upsampler weights that the config's
-    ``upsampler_path`` names overlaid when the file exists (it warns when
-    it does not), as the JAX trainer's ``_load_pretrained`` does, and the
-    checkpoint of ``cfg.training.weights`` merged over them.
+    PRNGKey(seed))``. Over it go, in the JAX trainer's order
+    (``_load_pretrained``, then ``training.weights``): the converted
+    backbone that ``cfg.PRETRAINED_MODELS`` names for the backbone's type
+    (``DINOV2_VITS14`` for ``dinov2``, ``DINO_VITS16`` for ``vit``,
+    ``MASKCLIP_VITB16`` for ``mask_clip``; a ``.msgpack`` of
+    ``scripts/convert_weights.py``, merged under ``backbone/model``), the
+    upsampler weights that the config's ``upsampler_path`` names, and the
+    checkpoint of ``cfg.training.weights``. A configured file that does not
+    exist warns and leaves its part as it was.
     ``click_models`` is a list of param trees (flax names, numpy, any
     subset of the model's leaves), each merged over those params: iteration
     k of the click simulation runs ``click_models[k]``, later iterations
@@ -237,10 +248,10 @@ class iSegTrainer:
             self.base_lr, milestones, (lr_scheduler or {}).get("gamma", 0.1),
             steps_per_epoch)
 
+        config = model_config(model)["params"]
         if params is None:
-            config = model_config(model)["params"]
-            params = overlay_upsampler_params(init_tree(config, self.seed),
-                                              config.get("upsampler_cfg"))
+            params = init_tree(config, self.seed)
+        params = self._load_pretrained(params, config)
         weights = _get(cfg, "training.weights")
         if weights:
             loaded, _, _ = load_checkpoint(weights)
@@ -277,6 +288,28 @@ class iSegTrainer:
                                        "data_wait_s": [], "step_device_ms": [],
                                        "loss": []}
         self.epoch_losses: List[float] = []
+
+    def _load_pretrained(self, params: Dict, config: Dict) -> Dict:
+        """``params`` with the converted backbone of ``cfg.
+        PRETRAINED_MODELS`` and the upsampler's ``upsampler_path`` weights
+        overlaid (the JAX trainer's ``_load_pretrained``)."""
+        key = PRETRAINED_KEYS.get(config["backbone_cfg"]["type"].lower())
+        path = _get(self.cfg, f"PRETRAINED_MODELS.{key}") if key else None
+        if path:
+            if Path(path).exists():
+                # layers the probe never calls are dropped (flax leaves
+                # them unused)
+                loaded = restrict_to_module(
+                    msgpack_restore(Path(path).read_bytes()),
+                    self.model.backbone.model)
+                params = dict(params, backbone=merge_params(
+                    params["backbone"], {"model": loaded}))
+                logger.info("Loaded pretrained backbone from %s", path)
+            else:
+                warnings.warn(f"PRETRAINED_MODELS.{key}={path} does not "
+                              "exist: the backbone keeps its init",
+                              stacklevel=3)
+        return overlay_upsampler_params(params, config.get("upsampler_cfg"))
 
     def _click_state(self, tree: Dict) -> Dict[str, torch.Tensor]:
         """A click model's leaves as tensors on the model's device, under

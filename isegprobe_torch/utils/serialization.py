@@ -271,16 +271,18 @@ def merge_params(full_params: Dict, loaded: Dict) -> Dict:
     return merged
 
 
-def build_model(config: Dict, device=None, dtype=None):
+def build_model(config: Dict, device=None, dtype=None, **overrides):
     """The port's model for a checkpoint's ``config``, with placeholder
     parameters, on ``device`` (CUDA unless ``device="cpu"``) and in
-    ``dtype`` when given. ``config["class"]`` must name the JAX package's
-    ``iSegProbeModel``, whose counterpart the port builds; any other class
-    raises."""
+    ``dtype`` when given; ``overrides`` replace constructor params (the JAX
+    package's ``build_model(config, **override_kwargs)``).
+    ``config["class"]`` must name the JAX package's ``iSegProbeModel``,
+    whose counterpart the port builds; any other class raises."""
     from isegprobe_torch.models.probe_model import iSegProbeModel
 
     if config["class"] != _JAX_MODEL_CLASS:
         raise NotImplementedError(f"model class {config['class']!r} has no "
                                   "counterpart in isegprobe_torch")
-    model = iSegProbeModel(**config["params"], device=device)
+    model = iSegProbeModel(**{**config["params"], **overrides},
+                           device=device)
     return model if dtype is None else model.to(dtype)

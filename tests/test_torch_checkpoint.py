@@ -198,11 +198,24 @@ def test_upsampler_params_from_msgpack_and_torch(tmp_path):
                                  "params": {"upsampler_path": str(path)}})
     np.testing.assert_array_equal(got["final_ln"]["weight"],
                                   tree["final_ln"]["weight"])
+    # a raw torch checkpoint of the reference is converted
+    from isegprobe_torch.models.convert import convert_loftup_raw
+    from isegprobe_torch.utils.drawn_weights import (
+        draw_state_dict,
+        loftup_raw_layout,
+    )
+
+    sd = draw_state_dict(loftup_raw_layout(32, 4, 2), 0)
     raw = tmp_path / "loftup.pth"
-    raw.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        load_upsampler_params({"type": "loftup",
-                               "params": {"upsampler_path": str(raw)}})
+    torch.save(sd, raw)
+    got = load_upsampler_params({"type": "loftup", "params": {
+        "upsampler_path": str(raw), "num_layers": 2}})
+    want = convert_loftup_raw(sd, 2)
+    assert [p for p, _ in _flat(got)] == [p for p, _ in _flat(want)]
+    for (_, a), (_, b) in zip(_flat(got), _flat(want)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got["channelnorm"]["norm"]["scale"],
+                                  sd["model.1.norm.weight"].numpy())
     assert load_upsampler_params({"type": "identity", "params": {}}) is None
 
 

@@ -135,6 +135,31 @@ def test_layernorm_kernel_matches_plain(cuda_device, dtype, w_dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,real", [((2, 300, 512), 404),
+                                        ((3, 100, 256), 203),
+                                        ((7, 101), 57), ((4, 96), 96)])
+def test_layernorm_kernel_real_channels_match_plain(cuda_device, dtype,
+                                                    shape, real):
+    """Statistics over the first ``real`` channels (LoftUp's padded
+    layout): the kernel against the masked plain version, padded channels
+    of zero input and zero weights exact zeros."""
+    x = (_randn(shape, 3, cuda_device) * 3 + 1).to(dtype)
+    x[..., real:] = 0
+    w = (_randn(shape[-1:], 4, cuda_device) * 0.5 + 1).to(dtype)
+    bias = _randn(shape[-1:], 5, cuda_device, dtype)
+    w[real:], bias[real:] = 0, 0
+    before = layernorm.layernorm.launches
+    got = layernorm.layernorm(x, w, bias, 1e-5, real)
+    torch.cuda.synchronize()
+    assert layernorm.layernorm.launches == before + 1
+    want = layernorm._ln_plain(x, w, bias, 1e-5, real)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    assert not got[..., real:].any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 2, 66, 82), (64, 64), (5, 33, 129),
                                    (3, 1, 4096), (7, 1)])
 def test_edt_row_kernel_matches_plain_bitwise(cuda_device, shape):
@@ -269,7 +294,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,nq,nk,heads,dh", [
-    (2, 1000, 1024, 4, 101), (1, 300, 77, 2, 64), (2, 129, 200, 3, 13),
+    (2, 1000, 1024, 4, 101), (2, 1000, 1024, 4, 128),
+    (1, 300, 77, 2, 64), (2, 129, 200, 3, 13),
     (1, 64, 1, 1, 128), (1, 5, 130, 2, 40), (2, 1025, 777, 2, 16),
     (1, 65, 1024, 4, 101), (2, 63, 777, 2, 64), (1, 1, 1, 1, 13)])
 def test_cross_attention_kernel_matches_plain(cuda_device, dtype, b, nq, nk,

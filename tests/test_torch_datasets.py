@@ -674,7 +674,10 @@ def test_evaluate_cli_datasets_and_zoomin_per_dataset(monkeypatch):
     loads, runs = [], []
     frozens = []
 
-    def load(ckpt, dtype, size, device, eval_ritm, frozen):
+    def load(ckpt, dtype, size, device, eval_ritm, frozen, **layout):
+        # LoftUp's fused head, at the command line's default (the padded
+        # layout follows the dtype inside load_model_for_eval)
+        assert layout == {"fuse_hr_head": False}
         loads.append(size)
         frozens.append(frozen)
         return size, {"frozen": frozen or {"drawn": size}}

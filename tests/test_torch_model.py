@@ -201,13 +201,16 @@ def test_unported_configs_raise():
     )
 
     cfg = flagship_config((56, 56))
-    for override in (
-            dict(upsampler_cfg=dict(type="loftup",
-                                    params=dict(mxu_pad=True))),
-            dict(fuse_hr_head=True),
-            dict(quant="int8")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            iSegProbeModel(**{**cfg, **override}, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        iSegProbeModel(**cfg, quant="int8", device="cpu")
+    # LoftUp's padded layout and the fused head are ported
+    padded = iSegProbeModel(**{**cfg, "upsampler_cfg": dict(
+        type="loftup", params=dict(mxu_pad=True))}, fuse_hr_head=True,
+        device="cpu")
+    assert padded.upsampler.cdim == 512 and padded._fused_head()
+    # the fused head applies to LoftUp only
+    assert not iSegProbeModel(**cfg, fuse_hr_head=True,
+                              device="cpu")._fused_head()
     # the RITM maps transform is ported
     model = iSegProbeModel(**cfg, use_rgb_conv=True, device="cpu")
     assert model.maps_transform is not None

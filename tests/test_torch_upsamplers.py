@@ -202,14 +202,34 @@ def test_loftup_matches_jax(kw):
 
 
 def test_loftup_unported_layouts_raise():
+    """The padded layout and the tail, once unported, now build and run:
+    the padded widths, and a tail that sees every output row with its
+    ``tail_halo`` rows each side, those outside the frame marked by
+    ``in_frame`` (the shapes; tests/test_torch_loftup_pad.py holds the
+    values against JAX)."""
     from isegprobe_torch.models.upsamplers.loftup import LoftUpUpsampler
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LoftUpUpsampler(n_dim=32, mxu_pad=True)
-    up = LoftUpUpsampler(n_dim=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        up(torch.zeros(1, 4, 4, 32), torch.zeros(1, 56, 56, 3),
-           tail=lambda x, f: x)
+    padded = LoftUpUpsampler(n_dim=32, mxu_pad=True)
+    assert (padded.cdim, padded.stem) == (128, 256)
+    assert padded.first_norm.norm.real == 203
+    assert padded.ca_transformer.norm.real == 52
+    for kw in (dict(query_chunk_rows=0),
+               dict(query_chunk_rows=16, query_chunk_min_pixels=0)):
+        up = LoftUpUpsampler(n_dim=32, **kw)
+        seen = []
+
+        def tail(x, in_frame):
+            seen.append((x.shape[1], in_frame.tolist()))
+            return x[:, 2:-2]
+
+        with torch.no_grad():
+            out = up(torch.zeros(1, 4, 4, 32), torch.rand(1, 56, 56, 3),
+                     tail=tail, tail_halo=2)
+        assert out.shape == (1, 56, 56, 32)
+        rows = [n for n, _ in seen]
+        assert sum(rows) - 4 * len(rows) == 56
+        assert seen[0][1][:3] == [0.0, 0.0, 1.0]
+        assert seen[-1][1][-3:] == [1.0, 0.0, 0.0]
 
 
 def test_jbu_featup_matches_jax():
