@@ -304,6 +304,31 @@ does not hold:
     against their plain versions at these paths' shapes (D at the padded
     dh 128 and B over 404 of 512 and 203 of 256 channels, f32 and bf16,
     with SDPA's time beside D);
+11k. run_outputs, a researcher's outputs (main paths 89-91: what
+    ``evaluate ... vis_preds save_feats save_ious iou_analysis`` and
+    ``train ... image_dump_interval`` leave behind), against
+    ``isegprobe_torch/fixtures/eval_outputs.npz``: (a) the evaluate CLI
+    with every output key on the GrabCut, Berkeley and DAVIS trees (the
+    trained flagship, f32, 448², 20 clicks an object, the host protocol:
+    each click a prediction and a feature probe, 2 × (12 A + 25 B)), its
+    files equal to the root CLI's set, its trajectories cut at IoU 0.9
+    held against ``fixtures/datasets.npz`` as 11h holds them, each JSON
+    IoU the pickle's × 100; the feature dumps (~308 MB a HighRes map at
+    448²) removed after; ms a host click with ``vis_preds`` off, on and
+    off; (b) the first-click feature probe of the trained flagship (f32
+    and bf16) and LoftUp (f32) on 2 Synthetic objects: exact launches
+    (12 A + 25 B; LoftUp 12 A + 82 B + 14 D), within 1e-4 (bf16 0.05) of
+    the plain-version forward's scale on the card and within 1e-3 (bf16
+    0.05) of JAX's samples, ms a call; (c) two epochs of 12 steps of the
+    flagship's train CLI at 224², batch 8, three times without dumps and
+    writer and three times with image dumps every 4 steps, interleaved:
+    ``train.log``, the script's copy and the dumps in the run directory,
+    the events' tags and steps (JAX's); the best of the three runs' median
+    ms of the steps that neither dump nor follow a dump, with dumps, at
+    most 1.25 × the best without (every run draws the same clicks); one
+    more run each under ``set_sync_debug_mode("warn")``: those steps make
+    exactly the synchronizing calls they make without dumps; the
+    device-busy shares, ms to encode a 448² panel;
 12. the learned-upsampler families, LoftUp and JBU-FeatUp on DINOv2-S/14 at
     448² (drawn, calibrated): kernels D (cross-attention, f32 and bf16, at
     every tile and load path as A) and E (JBU filter; also at the edges of
@@ -4750,6 +4775,449 @@ def converted_weights_phase(torch, F) -> dict:
     return res
 
 
+# what a researcher's run leaves behind (phase 11k): the evaluate CLI with
+# every output key on the GrabCut, Berkeley and DAVIS trees against the
+# root CLI's files (isegprobe_torch/fixtures/eval_outputs.npz, from
+# tests/test_torch_eval_outputs.py --export) and the 11h trajectories; the
+# feature probe of the trained probes against the plain versions on the
+# card (OUTPUTS_PLAIN_TOL of the map's scale; bf16: OUTPUTS_BF16_TOL) and
+# against JAX's samples (OUTPUTS_FEAT_TOL; bf16: OUTPUTS_BF16_TOL); two
+# short epochs of the flagship's train CLI with image dumps every
+# OUTPUTS_DUMP_INTERVAL steps and without the dumps and the writer,
+# OUTPUTS_PAIRS times each, interleaved. Every run draws the same clicks
+# (0-3 a step, seeded by the epoch), so the runs' steps are the same work.
+# The host clock of a step moves by a third between runs of one kind (the
+# loader threads, the host's other tenants), so the gate takes the best of
+# each kind's runs: the best median wall time of the steps that neither
+# dump nor follow a dump, with dumps, must be at most OUTPUTS_STEP_NOISE
+# times the best without. One more run of each kind under
+# set_sync_debug_mode("warn") counts the synchronizing calls of each step:
+# those steps must make exactly as many with dumps as without
+OUTPUTS_FIXTURE = (Path(__file__).resolve().parent / "isegprobe_torch"
+                   / "fixtures" / "eval_outputs.npz")
+OUTPUTS_DATASETS = ("GrabCut", "Berkeley", "DAVIS")
+OUTPUTS_KEYS = ("vis_preds=true", "save_feats=true", "save_feats_for_n_imgs=2",
+                "save_ious=true", "iou_analysis=true")
+OUTPUTS_PLAIN_TOL = 1e-4
+OUTPUTS_FEAT_TOL = 1e-3
+OUTPUTS_BF16_TOL = 0.05
+OUTPUTS_FEAT_OBJECTS = 2
+OUTPUTS_FEAT_REPS = 5
+OUTPUTS_DUMP_INTERVAL = 4
+OUTPUTS_EPOCH_LEN = 96
+OUTPUTS_VAL_LEN = 8
+OUTPUTS_STEP_NOISE = 1.25
+OUTPUTS_PAIRS = 3
+OUTPUTS_TAGS = sorted([
+    "Losses/instance_loss", "Losses/nfl_k", "Losses/nfl_m_max",
+    "Losses/overall", "States/learning_rate", "Metrics/AdaptiveIoU_ema_iou",
+    "Metrics/AdaptiveIoU_iou_thresh", "Metrics/AdaptiveIoU", "Val/loss",
+    "Val/AdaptiveIoU"])
+
+
+class plain_kernels:
+    """Kernels A, B and D computed by their plain versions on the card
+    (their wrappers still count the calls): the plain-version forward."""
+
+    def __enter__(self):
+        from isegprobe_torch.ops import attention, layernorm
+
+        self.saved = [(attention, "_mha_qkv_cuda"), (attention, "_mha_cuda"),
+                      (layernorm, "_ln_cuda")]
+        self.saved = [(m, a, getattr(m, a)) for m, a in self.saved]
+        attention._mha_qkv_cuda = lambda qkv, heads, scale, plan: \
+            attention._mha_qkv_plain(qkv, heads, scale, None)
+        attention._mha_cuda = lambda q, k, v, scale, plan: \
+            attention._mha_plain(q, k, v, scale)
+        layernorm._ln_cuda = layernorm._ln_plain
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in self.saved:
+            setattr(module, attr, fn)
+
+
+def _run_tags(dataset) -> list:
+    """The vis callback's file tags of a dataset's objects, in order."""
+    tags = []
+    for i in range(len(dataset)):
+        for n, _ in enumerate(dataset.get_sample(i).objects_ids):
+            tags.append(f"{i}" if n == 0 else f"{i}_obj{n}")
+    return tags
+
+
+def _stop_at_target(ious, clicks, target: float) -> tuple:
+    """A trajectory of every click cut where the early-stop protocol
+    stops: the first click whose IoU reaches ``target``."""
+    hit = np.flatnonzero(np.asarray(ious) >= target)
+    n = int(hit[0]) + 1 if hit.size else len(ious)
+    return np.asarray(ious[:n]), clicks[:n]
+
+
+def outputs_eval_part(torch, fx) -> tuple:
+    """(a) of phase 11k: the evaluate CLI with every output key; returns
+    (record, launches)."""
+    import pickle
+    import re
+    import shutil
+
+    from isegprobe_torch import evaluate as evaluate_cli
+
+    data_fx = dict(np.load(DATA_FIXTURE))
+    logs = Path(scratch()) / "eval_outputs"
+    common = [f"checkpoint={TRAINED_CKPTS['flagship']}", "eval_mode=fixed448",
+              f"n_clicks={TRAINED_CLICKS}",
+              *(f"DATASETS.{k}_PATH={DATA_TREES / v}"
+                for k, v in DATA_PATH_KEYS.items())]
+    cfg = evaluate_cli.parse_args([
+        *common, f"datasets={','.join(OUTPUTS_DATASETS)}", *OUTPUTS_KEYS,
+        f"logs_path={logs}"])
+    clicks: dict = {}
+    saves = []  # seconds of each feature dump's np.save (map to disk)
+    real_save = np.save
+
+    def timed_save(*a, **kw):
+        t = time.perf_counter()
+        real_save(*a, **kw)
+        saves.append(time.perf_counter() - t)
+
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.time()
+    np.save = timed_save
+    try:
+        results = evaluate_cli.evaluate_all(cfg, clicks=clicks)
+    finally:
+        np.save = real_save
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n_clicks = sum(len(a) for r in results for a in r["all_ious"])
+    # a prediction (flip: one forward at batch 2) and the feature probe
+    # (one forward at batch 1) a click
+    want = expected(**{k: 2 * v * n_clicks for k, v in
+                       FORWARD_LAUNCHES["flagship"].items()})
+    launches = counters()
+    if launches != want:
+        fail(f"evaluate CLI with outputs launched {launches} for {n_clicks} "
+             f"clicks, expected {want}")
+    files = sorted(str(p.relative_to(logs)) for p in logs.rglob("*")
+                   if p.is_file())
+    named = sorted(re.sub(r"_\d{4}-\d\d-\d\d_\d\d:\d\d", "_DATE", f)
+                   for f in files)
+    if named != sorted(fx["card_files"]):
+        missing = sorted(set(fx["card_files"]) - set(named))
+        extra = sorted(set(named) - set(fx["card_files"]))
+        fail(f"evaluate CLI outputs differ from the root CLI's: missing "
+             f"{missing[:10]}, extra {extra[:10]}")
+    feats_bytes = sum(p.stat().st_size for p in (logs / "feats").rglob("*")
+                      if p.is_file())
+    per = {}
+    for out in results:
+        name = out["dataset"]
+        with open(logs / f"{name}_NoBRS_{TRAINED_CLICKS}_"
+                  f"{out['model_name']}.pickle", "rb") as f:
+            ious = pickle.load(f)["all_ious"]
+        tags = _run_tags(evaluate_cli.get_dataset(name, cfg))
+        json_err = 0.0
+        for tag, traj in zip(tags, ious):
+            for k, v in enumerate(traj):
+                got = json.loads((logs / "predictions_vis" / name / "iou"
+                                  / f"{tag}_{k}.json").read_text())["iou"]
+                json_err = max(json_err, abs(got - float(v) * 100))
+        if json_err > 1e-4:
+            fail(f"{name}: a JSON IoU differs from the pickle's × 100 by "
+                 f"{json_err}")
+        cut = [_stop_at_target(a, c, TRAINED_TARGET)
+               for a, c in zip(ious, clicks[name])]
+        rec = against_fixture([c[0] for c in cut], [c[1] for c in cut],
+                              data_fx[f"eval_{name}_ious"],
+                              data_fx[f"eval_{name}_n"],
+                              data_fx[f"eval_{name}_clicks"],
+                              f"{name} evaluate CLI with outputs",
+                              TRAINED_MAX_DIVERGED)
+        per[name] = {"objects": len(ious), "json_vs_pickle_max_err": json_err,
+                     "noc": list(out["noc"]), **rec}
+    shutil.rmtree(logs / "feats")
+    # ms a host click with the prediction dumps off and on, on GrabCut
+    model, _ = eval_load(torch, TRAINED_CKPTS["flagship"], torch.float32)
+    host = {}
+    for key, extra in (("vis_off", []), ("vis_on", ["vis_preds=true"]),
+                       ("vis_off_again", [])):
+        run_cfg = evaluate_cli.parse_args([
+            *common, "datasets=GrabCut", f"logs_path={logs}_{key}", *extra])
+        out = evaluate_cli.evaluate(run_cfg, model, "GrabCut")
+        n = sum(len(a) for a in out["all_ious"])
+        host[key] = {"clicks": n, "ms_per_click": 1e3 * out["elapsed"] / n}
+        shutil.rmtree(f"{logs}_{key}", ignore_errors=True)
+    del model
+    rec = {"wall_s": wall, "clicks": n_clicks, "launches": launches,
+           "ms_per_click_with_outputs": 1e3 * wall / n_clicks,
+           "feature_saves": len(saves), "feature_saves_s": sum(saves),
+           "files": len(files), "feats_mb": feats_bytes / 2**20,
+           "datasets": per, "host_click": host,
+           "results_txt": (logs / "results.txt").read_text().splitlines()}
+    print("outputs_eval", json.dumps(rec))
+    return rec, launches
+
+
+def outputs_feats_part(torch, fx) -> tuple:
+    """(b) of phase 11k: the first-click feature probe of the trained
+    flagship (f32, bf16) and LoftUp (f32) against the plain versions and
+    JAX's samples, with exact launches; returns (record, launches)."""
+    from isegprobe_torch.data.scenes import SceneDataset
+    from isegprobe_torch.inference.clicker import Clicker
+    from isegprobe_torch.inference.predictor import Predictor
+
+    ds = SceneDataset(objects=slice(0, OUTPUTS_FEAT_OBJECTS))
+    recs, total = [], expected()
+    for name, dtype in (("flagship", torch.float32),
+                        ("flagship", torch.bfloat16),
+                        ("loftup", torch.float32)):
+        bf16 = dtype == torch.bfloat16
+        model, _ = eval_load(torch, TRAINED_CKPTS[name], dtype)
+        pred = Predictor(model, target_size=(448, 448),
+                         prob_thresh=TRAINED_THRESH)
+        for k in range(OUTPUTS_FEAT_OBJECTS):
+            sample = ds.get_sample(k)
+            gt = sample.gt_mask(sample.objects_ids[0])
+            pred.set_input_image(sample.image)
+            clicker = Clicker(gt_mask=gt)
+            clicker.make_next_click(np.zeros(gt.shape, bool))
+            torch.cuda.synchronize()
+            zero_counters()
+            _, feats = pred.get_lowres_highres_feats(clicker)
+            torch.cuda.synchronize()
+            launches = counters()
+            if launches != expected(**FORWARD_LAUNCHES[name]):
+                fail(f"{name} feature probe launched {launches}, expected "
+                     f"{expected(**FORWARD_LAUNCHES[name])}")
+            total = {kk: total[kk] + launches[kk] for kk in KERNELS}
+            with plain_kernels():
+                _, plain = pred.get_lowres_highres_feats(clicker)
+            t0 = time.perf_counter()
+            for _ in range(OUTPUTS_FEAT_REPS):
+                pred.get_lowres_highres_feats(clicker)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / OUTPUTS_FEAT_REPS
+            rec = {"model": name, "dtype": "bfloat16" if bf16 else "float32",
+                   "object": k, "ms_per_call": ms,
+                   "launches": {kk: v for kk, v in launches.items() if v}}
+            for m in ("LowRes", "HighRes"):
+                x = feats[m].float()
+                if tuple(x.shape) != tuple(fx[f"feats_{name}_{k}_{m}_shape"]) \
+                        or not bool(torch.isfinite(x).all()):
+                    fail(f"{name} {m}: bad map of shape {tuple(x.shape)}")
+                scale = float(x.abs().max())
+                plain_err = float((x - plain[m].float()).abs().max()) / scale
+                host = x.cpu().numpy().ravel()
+                jscale = float(fx[f"feats_{name}_{k}_{m}_stats"][0])
+                fx_err = float(np.abs(
+                    host[fx[f"feats_{name}_{k}_{m}_idx"]]
+                    - fx[f"feats_{name}_{k}_{m}_vals"]).max()) / jscale
+                plain_tol = OUTPUTS_BF16_TOL if bf16 else OUTPUTS_PLAIN_TOL
+                fx_tol = OUTPUTS_BF16_TOL if bf16 else OUTPUTS_FEAT_TOL
+                if plain_err > plain_tol:
+                    fail(f"{name} {rec['dtype']} {m}: {plain_err} of its "
+                         f"scale from the plain-version forward")
+                if fx_err > fx_tol:
+                    fail(f"{name} {rec['dtype']} {m}: {fx_err} of JAX's "
+                         f"scale from JAX's samples")
+                rec[m] = {"shape": list(x.shape), "scale": scale,
+                          "plain_rel_err": plain_err,
+                          "jax_rel_err": fx_err}
+            recs.append(rec)
+            print("outputs_feats", json.dumps(rec))
+        del model, pred
+    return recs, total
+
+
+def outputs_train_run(torch, key: str, rep, syncs: dict | None = None):
+    """One run of (c) of phase 11k: two short epochs of the flagship's
+    train CLI, ``key`` "dumps" (image dumps every OUTPUTS_DUMP_INTERVAL
+    steps, the writer at every step) or "off" (neither), every step's
+    launches checked. With ``syncs`` (a dict) the run goes under
+    ``set_sync_debug_mode("warn")`` and ``syncs[g]`` is the number of
+    synchronizing calls within the wall time of training step ``g`` (an
+    epoch's last step is left out: its read falls after the loop). Returns
+    (trainer, launches by kind)."""
+    import warnings
+
+    per_step = {"train": [], "val": []}
+    exp = Path(scratch()) / f"outputs_train_{key}_{rep}"
+    argv = ["model=synthetic_dinov2_noup", "training_params.epochs=2",
+            f"dataloader.workers={TRAIN_WORKERS}", f"exp_path={exp}",
+            f"epoch_len={OUTPUTS_EPOCH_LEN}",
+            f"val_epoch_len={OUTPUTS_VAL_LEN}", "tb_dump_period=1",
+            "image_dump_interval="
+            f"{0 if key == 'off' else OUTPUTS_DUMP_INTERVAL}"]
+    checker = step_checker(f"outputs {key}", FORWARD_LAUNCHES["flagship"],
+                           per_step)
+    caught: list = []
+    steps_per_epoch = OUTPUTS_EPOCH_LEN // TRAIN_BATCH
+
+    def on_step(kind, index, num_iters):
+        checker(kind, index, num_iters)
+        if syncs is not None and kind == "train":
+            # the calls since the last step's launch: the read of the step
+            # before that one (with its dump), this step's upload and launch
+            # -- all within the wall time of step index - 1
+            if index % steps_per_epoch:
+                syncs[index - 1] = sum("synchroniz" in str(w.message)
+                                       for w in caught)
+            caught.clear()
+
+    trainer = build(argv, on_step=on_step)
+    if key == "off":
+        trainer.cfg.LOGS_PATH = None
+    torch.cuda.synchronize()
+    zero_counters()
+    if syncs is None:
+        trainer.run(2, validation=True)
+    else:
+        with warnings.catch_warnings(record=True) as log:
+            warnings.simplefilter("always")
+            caught = log
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                trainer.run(2, validation=True)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    trainer.shutdown()
+    return trainer, {kind: {k: sum(c[k] for c in per_step[kind])
+                            for k in KERNELS} for kind in per_step}
+
+
+def outputs_train_part(torch) -> tuple:
+    """(c) of phase 11k: two short epochs of the flagship's train CLI with
+    and without image dumps and writer, OUTPUTS_PAIRS times each,
+    interleaved, then once more each counting the synchronizing calls;
+    returns (record, launches of each kind's first run)."""
+    from isegprobe_torch.data import image_io
+    from isegprobe_torch.utils.log import read_scalars
+
+    runs, total = {}, {}
+    quiet_ms = {"off": [], "dumps": []}
+    quiet_dev = {"off": [], "dumps": []}
+    for rep in range(OUTPUTS_PAIRS):
+        for key in ("off", "dumps"):
+            t0 = time.time()
+            trainer, launches = outputs_train_run(torch, key, rep)
+            wall = time.time() - t0
+            st = trainer.stats
+            steps = len(st["num_iters"])
+            per_epoch = steps // 2
+            # a dump step's panel is drawn in the step after it (the
+            # deferred read): the steps that neither dump nor follow a dump
+            quiet = [i for i in range(steps)
+                     if (i % per_epoch) % OUTPUTS_DUMP_INTERVAL not in (0, 1)]
+            walls = np.asarray(st["step_wall_s"]) * 1e3
+            dev = np.asarray(st["step_device_ms"])
+            quiet_ms[key].append(float(np.median(walls[quiet])))
+            quiet_dev[key].append(float(np.median(dev[quiet])))
+            if rep:
+                continue
+            total[key] = launches
+            runs[key] = {
+                "steps": steps, "wall_s": wall,
+                "ms_per_step_median": float(np.median(walls)),
+                "device_ms_per_step_median": float(np.median(dev)),
+                "device_busy_share": float(dev.sum() / walls.sum()),
+                "quiet_device_busy_share": float(dev[quiet].sum()
+                                                 / walls[quiet].sum())}
+            run = Path(trainer.cfg.EXP_PATH)
+            if key == "off":
+                if (run / "vis" / "train").exists() and any(
+                        (run / "vis" / "train").iterdir()):
+                    fail("image_dump_interval=0 wrote dumps")
+                continue
+            if not (run / "logs" / "train.log").read_text().count(
+                    "val loss") == 2:
+                fail(f"train.log of {run} lacks the epochs' lines")
+            if not (run / "dinov2_noup.py").exists():
+                fail(f"{run} lacks the model script's copy")
+            dumps = sorted((run / "vis" / "train").iterdir())
+            want = [f"{g:06d}_instance_segmentation.jpg"
+                    for g in range(steps) if g % OUTPUTS_DUMP_INTERVAL == 0]
+            if [p.name for p in dumps] != want:
+                fail(f"image dumps {[p.name for p in dumps]}, expected "
+                     f"{want}")
+            shape = image_io.read_rgb(dumps[0]).shape
+            if shape != (224, 3 * 224, 3):
+                fail(f"an image dump is {shape}")
+            t0 = time.perf_counter()
+            panel = np.zeros((448, 3 * 448, 3), np.uint8)
+            panel[:, :448] = image_io.read_rgb(dumps[0])[:, :224].repeat(
+                2, 0).repeat(2, 1)
+            for _ in range(5):
+                image_io.encode_jpeg(panel, 85)
+            runs[key]["encode_448_panel_ms"] = 1e3 * (
+                time.perf_counter() - t0) / 5
+            scalars = read_scalars(run / "logs")
+            if sorted(scalars) != OUTPUTS_TAGS:
+                fail(f"event tags {sorted(scalars)}, expected "
+                     f"{OUTPUTS_TAGS}")
+            if [s for s, _ in scalars["Losses/overall"]] != list(
+                    range(steps)) or [s for s, _ in scalars["Val/loss"]] \
+                    != [0, 1]:
+                fail("event steps differ from the JAX trainer's")
+            runs[key]["dumps"] = len(dumps)
+            runs[key]["events_bytes"] = sum(
+                p.stat().st_size for p in (run / "logs").glob("events.*"))
+    ratio = min(quiet_ms["dumps"]) / min(quiet_ms["off"])
+    runs["quiet_steps"] = {
+        "steps": len(quiet), "runs": OUTPUTS_PAIRS,
+        "ms_medians_dumps": quiet_ms["dumps"],
+        "ms_medians_off": quiet_ms["off"],
+        "device_ms_medians_dumps": quiet_dev["dumps"],
+        "device_ms_medians_off": quiet_dev["off"],
+        "dumps_over_off": ratio,
+        "off_spread": max(quiet_ms["off"]) / min(quiet_ms["off"])}
+    if ratio > OUTPUTS_STEP_NOISE:
+        fail(f"with dumps the best median of the steps that neither dump "
+             f"nor follow a dump is {ratio:.3f}x the best without dumps "
+             f"(medians {quiet_ms['dumps']} against {quiet_ms['off']} ms)")
+    syncs = {"off": {}, "dumps": {}}
+    for key in ("off", "dumps"):
+        outputs_train_run(torch, key, "syncs", syncs[key])
+    if sorted(syncs["off"]) != sorted(syncs["dumps"]):
+        fail(f"the sync-counted runs' steps differ: {sorted(syncs['off'])} "
+             f"against {sorted(syncs['dumps'])}")
+    quiet_syncs = {key: [syncs[key][g] for g in sorted(syncs[key])
+                         if g in quiet] for key in syncs}
+    runs["syncs"] = {
+        "per_step_off": [syncs["off"][g] for g in sorted(syncs["off"])],
+        "per_step_dumps": [syncs["dumps"][g] for g in sorted(syncs["dumps"])],
+        "quiet_off": sum(quiet_syncs["off"]),
+        "quiet_dumps": sum(quiet_syncs["dumps"])}
+    if quiet_syncs["dumps"] != quiet_syncs["off"]:
+        fail(f"with dumps the steps that neither dump nor follow a dump make "
+             f"{quiet_syncs['dumps']} synchronizing calls, without "
+             f"{quiet_syncs['off']}")
+    if not sum(quiet_syncs["off"]):
+        fail("set_sync_debug_mode('warn') counted no synchronizing call")
+    print("outputs_train", json.dumps(runs))
+    return runs, total
+
+
+def run_outputs_phase(torch) -> dict:
+    """Main paths of a researcher's outputs (phase 11k of the module
+    docstring): (a) the evaluate CLI with every output key; (b) the
+    feature probe of the trained probes; (c) the train CLI's run logs,
+    events and image dumps. Returns the records and the path launches."""
+    fx = dict(np.load(OUTPUTS_FIXTURE))
+    res: dict = {}
+    res["evaluate"], eval_launches = outputs_eval_part(torch, fx)
+    res["feats"], feats_launches = outputs_feats_part(torch, fx)
+    res["train"], train_launches = outputs_train_part(torch)
+    res["path_launches"] = {
+        "outputs_evaluate_cli": eval_launches,
+        "outputs_feature_probe": feats_launches,
+        **{f"outputs_train_{key}_{kind}": counts
+           for key, by_kind in train_launches.items()
+           for kind, counts in by_kind.items()}}
+    return res
+
+
 def _flat(tree, prefix=""):
     """(path, leaf) of a nested dict, in key order."""
     for k in sorted(tree):
@@ -5308,6 +5776,13 @@ def main() -> int:
                                     if k != "checks"}
 
     done("11j converted_weights")
+    # 11k. a researcher's outputs: the evaluate CLI's dumps, IoU pickles and
+    # results.txt, the feature probe, the train CLI's run logs, events and
+    # image dumps
+    outputs = run_outputs_phase(torch)
+    results["run_outputs"] = outputs
+
+    done("11k run_outputs")
     # 12. the learned-upsampler families (main paths 3-6)
     families = {name: learned_family(torch, name) for name in UPSAMPLERS}
     results["families"] = families
@@ -5359,6 +5834,7 @@ def main() -> int:
     paths.update(data["path_launches"])
     paths.update(brs_res["path_launches"])
     paths.update(converted["path_launches"])
+    paths.update(outputs["path_launches"])
     for fam in families.values():
         paths.update(fam["path_launches"])
     kernels = []

@@ -1,6 +1,7 @@
 // Host image work for the data layer: a sequential (baseline and extended
-// Huffman) JPEG decoder, the PNG row unfilter, and the bilinear affine warp
-// of uint8 images.
+// Huffman) JPEG decoder, a baseline JPEG encoder (below, with its own
+// notes), the PNG row unfilter, and the bilinear affine warp of uint8
+// images.
 //
 // The JPEG decoder gives the pixels that libjpeg-turbo gives with its
 // default decompression settings, the settings OpenCV's imread uses:
@@ -40,6 +41,8 @@ enum {
   kUnsupported = 4,
   kTruncated = 5,
   kBadFilter = 6,
+  kSmallBuffer = 7,
+  kBadArgument = 8,
 };
 
 // natural order of the zig-zag positions, with libjpeg's 16 extra entries
@@ -637,6 +640,440 @@ inline uint8_t clamp255(int v) {
   return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v);
 }
 
+// ---------------------------------------------------------------------------
+// Baseline JPEG encoder: the file libjpeg-turbo writes with OpenCV's
+// imwrite settings (no optimized tables, no restarts, not progressive):
+// the Annex K tables scaled by jpeg_quality_scaling (forced to 8 bits),
+// the table-driven RGB -> YCbCr conversion (jccolor.c), 2x2 chroma
+// subsampling with the alternating 1, 2 bias (jcsample.c h2v2), edges
+// replicated as the preprocessing controller replicates them (the last
+// column; the last row of each component after downsampling), dummy blocks
+// with the neighbouring DC past the component's blocks (jccoefct.c), the
+// accurate integer forward DCT (jfdctint.c), quantization by 16-bit
+// reciprocal (jcdctmgr.c, the SIMD build's), and the standard Huffman
+// tables. libjpeg-turbo's SIMD paths are bit-exact with that C code.
+
+const uint8_t kStdLumQ[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+const uint8_t kStdChromQ[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+const uint8_t kDcLumBits[17] = {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChromBits[17] = {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumBits[17] = {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcLumVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChromBits[17] = {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcChromVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+struct HuffEnc {
+  const uint8_t* bits;  // bits[1..16]
+  const uint8_t* vals;
+  int nvals;
+  uint16_t code[256];
+  uint8_t size[256];
+
+  void derive(const uint8_t* b, const uint8_t* v) {
+    bits = b;
+    vals = v;
+    nvals = 0;
+    for (int l = 1; l <= 16; ++l) nvals += b[l];
+    std::memset(size, 0, sizeof size);
+    int c = 0, k = 0;
+    for (int l = 1; l <= 16; ++l) {
+      for (int i = 0; i < b[l]; ++i, ++k) {
+        code[v[k]] = (uint16_t)c++;
+        size[v[k]] = (uint8_t)l;
+      }
+      c <<= 1;
+    }
+  }
+};
+
+struct BitWriter {
+  std::vector<uint8_t>& out;
+  uint32_t acc = 0;
+  int nbits = 0;
+  explicit BitWriter(std::vector<uint8_t>& o) : out(o) {}
+  void put(uint32_t v, int n) {
+    acc = (acc << n) | (v & ((1u << n) - 1));
+    nbits += n;
+    while (nbits >= 8) {
+      uint8_t byte = (uint8_t)(acc >> (nbits - 8));
+      out.push_back(byte);
+      if (byte == 0xFF) out.push_back(0);
+      nbits -= 8;
+    }
+    acc &= (1u << nbits) - 1;
+  }
+  void flush() {
+    if (nbits) put(0x7F, 7);  // pad with 1-bits to the byte boundary
+    nbits = 0;
+    acc = 0;
+  }
+};
+
+// libjpeg's jpeg_fdct_islow on level-shifted samples, in place; outputs
+// are scaled up by 8
+void fdct_islow(int* d) {
+  const int kConst = 13, kPass1 = 2;
+  auto descale = [](long x, int n) { return (int)((x + (1L << (n - 1))) >> n); };
+  for (int pass = 0; pass < 2; ++pass) {
+    const int stride = pass ? 8 : 1;   // element step within a line
+    const int advance = pass ? 1 : 8;  // step between lines
+    const int shift_even = pass ? kPass1 : 0;
+    const int shift_odd = pass ? kConst + kPass1 : kConst - kPass1;
+    for (int ctr = 0; ctr < 8; ++ctr) {
+      int* p = d + ctr * advance;
+      long t0 = p[0] + p[7 * stride], t7 = p[0] - p[7 * stride];
+      long t1 = p[stride] + p[6 * stride], t6 = p[stride] - p[6 * stride];
+      long t2 = p[2 * stride] + p[5 * stride],
+           t5 = p[2 * stride] - p[5 * stride];
+      long t3 = p[3 * stride] + p[4 * stride],
+           t4 = p[3 * stride] - p[4 * stride];
+      long t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
+      if (pass == 0) {
+        p[0] = (int)((t10 + t11) * (1 << kPass1));
+        p[4 * stride] = (int)((t10 - t11) * (1 << kPass1));
+      } else {
+        p[0] = descale(t10 + t11, shift_even);
+        p[4 * stride] = descale(t10 - t11, shift_even);
+      }
+      long z1 = (t12 + t13) * 4433;
+      p[2 * stride] = descale(z1 + t13 * 6270, shift_odd);
+      p[6 * stride] = descale(z1 + t12 * -15137, shift_odd);
+      z1 = t4 + t7;
+      long z2 = t5 + t6, z3 = t4 + t6, z4 = t5 + t7;
+      long z5 = (z3 + z4) * 9633;
+      t4 *= 2446;
+      t5 *= 16819;
+      t6 *= 25172;
+      t7 *= 12299;
+      z1 *= -7373;
+      z2 *= -20995;
+      z3 *= -16069;
+      z4 *= -3196;
+      z3 += z5;
+      z4 += z5;
+      p[7 * stride] = descale(t4 + z1 + z3, shift_odd);
+      p[5 * stride] = descale(t5 + z2 + z4, shift_odd);
+      p[3 * stride] = descale(t6 + z2 + z3, shift_odd);
+      p[stride] = descale(t7 + z1 + z4, shift_odd);
+    }
+  }
+}
+
+// jcdctmgr.c's compute_reciprocal with 16-bit DCTELEM
+struct Divisor {
+  uint32_t recip, corr;
+  int shift;
+};
+
+Divisor reciprocal(uint16_t divisor) {
+  if (divisor == 1) return {1, 0, 0};
+  int b = 0;
+  while ((1u << (b + 1)) <= divisor) ++b;  // floor(log2)
+  int r = 16 + b;
+  uint32_t fq = (uint32_t)((1ull << r) / divisor);
+  uint32_t fr = (uint32_t)((1ull << r) % divisor);
+  uint32_t c = divisor / 2;
+  if (fr == 0) {
+    fq >>= 1;
+    --r;
+  } else if (fr <= divisor / 2u) {
+    ++c;
+  } else {
+    ++fq;
+  }
+  return {fq & 0xFFFF, c & 0xFFFF, r};
+}
+
+int quantize(int v, const Divisor& q) {
+  const uint32_t a = (uint32_t)(v < 0 ? -v : v);
+  const uint32_t prod = (a + q.corr) * q.recip;
+  const int t = (int)(prod >> q.shift);
+  return v < 0 ? -t : t;
+}
+
+struct EncComp {
+  int id, h, v, tq;
+  int bw, bh;  // the component's blocks (width_in_blocks, height_in_blocks)
+  int pw, ph;  // the plane's size (bw * 8 rounded up to the MCU, ...)
+  std::vector<uint8_t> plane;
+};
+
+void put16(std::vector<uint8_t>& o, int v) {
+  o.push_back((uint8_t)(v >> 8));
+  o.push_back((uint8_t)v);
+}
+
+void emit_dht(std::vector<uint8_t>& o, int cls_id, const uint8_t* bits,
+              const uint8_t* vals, int nvals) {
+  o.push_back(0xFF);
+  o.push_back(0xC4);
+  put16(o, 2 + 1 + 16 + nvals);
+  o.push_back((uint8_t)cls_id);
+  for (int l = 1; l <= 16; ++l) o.push_back(bits[l]);
+  for (int i = 0; i < nvals; ++i) o.push_back(vals[i]);
+}
+
+// The encoder behind iseg_jpeg_encode: `px` is [h, w, channels] (RGB or
+// gray), `quality` 1-100.
+void jpeg_encode(const uint8_t* px, int h, int w, int channels, int quality,
+                 std::vector<uint8_t>& out) {
+  // jpeg_quality_scaling and jpeg_add_quant_table(force_baseline)
+  int q = quality <= 0 ? 1 : quality > 100 ? 100 : quality;
+  const int scale = q < 50 ? 5000 / q : 200 - q * 2;
+  uint16_t qt[2][64];
+  Divisor dv[2][64];
+  for (int t = 0; t < 2; ++t)
+    for (int i = 0; i < 64; ++i) {
+      long v = ((long)(t ? kStdChromQ : kStdLumQ)[i] * scale + 50L) / 100L;
+      v = v <= 0 ? 1 : v > 255 ? 255 : v;
+      qt[t][i] = (uint16_t)v;
+      dv[t][i] = reciprocal((uint16_t)(v << 3));
+    }
+  HuffEnc dc[2], ac[2];
+  dc[0].derive(kDcLumBits, kDcVals);
+  dc[1].derive(kDcChromBits, kDcVals);
+  ac[0].derive(kAcLumBits, kAcLumVals);
+  ac[1].derive(kAcChromBits, kAcChromVals);
+
+  const bool color = channels == 3;
+  const int hmax = color ? 2 : 1, vmax = color ? 2 : 1;
+  const int mcux = (w + 8 * hmax - 1) / (8 * hmax);
+  const int mcuy = (h + 8 * vmax - 1) / (8 * vmax);
+  const int ncomp = color ? 3 : 1;
+  std::vector<EncComp> comps(ncomp);
+  for (int ci = 0; ci < ncomp; ++ci) {
+    EncComp& c = comps[ci];
+    c.id = ci + 1;
+    c.h = ci == 0 ? hmax : 1;
+    c.v = ci == 0 ? vmax : 1;
+    c.tq = ci == 0 ? 0 : 1;
+    c.bw = (w * c.h + 8 * hmax - 1) / (8 * hmax);
+    c.bh = (h * c.v + 8 * vmax - 1) / (8 * vmax);
+    c.pw = mcux * 8 * c.h;
+    c.ph = mcuy * 8 * c.v;
+    c.plane.assign((size_t)c.pw * c.ph, 0);
+  }
+
+  // colour conversion at full resolution, edges replicated
+  const int fw = color ? mcux * 16 : comps[0].pw;  // full-res plane width
+  const int fh = color ? (h + 1) / 2 * 2 : h;      // full rows kept
+  std::vector<std::vector<uint8_t>> full(ncomp,
+                                         std::vector<uint8_t>((size_t)fw * fh));
+  // jccolor.c's rgb_ycc_tab (Y, Cb and Cr by table lookups and a 16-bit
+  // shift; the B->Cb and R->Cr columns are one)
+  static const std::vector<int32_t> tab = [] {
+    std::vector<int32_t> t(8 * 256);
+    const int32_t half = 1 << 15, off = 128 << 16;
+    auto fix = [](double x) { return (int32_t)(x * 65536.0 + 0.5); };
+    for (int i = 0; i < 256; ++i) {
+      t[i] = fix(0.29900) * i;
+      t[i + 256] = fix(0.58700) * i;
+      t[i + 512] = fix(0.11400) * i + half;
+      t[i + 768] = -fix(0.16874) * i;
+      t[i + 1024] = -fix(0.33126) * i;
+      t[i + 1280] = fix(0.50000) * i + off + half - 1;
+      t[i + 1536] = -fix(0.41869) * i;
+      t[i + 1792] = -fix(0.08131) * i;
+    }
+    return t;
+  }();
+  for (int y = 0; y < fh; ++y) {
+    const uint8_t* row = px + (size_t)(y < h ? y : h - 1) * w * channels;
+    for (int x = 0; x < fw; ++x) {
+      const uint8_t* p = row + (size_t)(x < w ? x : w - 1) * channels;
+      const size_t o = (size_t)y * fw + x;
+      if (!color) {
+        full[0][o] = p[0];
+        continue;
+      }
+      const int r = p[0], g = p[1], b = p[2];
+      full[0][o] = (uint8_t)((tab[r] + tab[g + 256] + tab[b + 512]) >> 16);
+      full[1][o] = (uint8_t)((tab[r + 768] + tab[g + 1024] + tab[b + 1280]) >> 16);
+      full[2][o] = (uint8_t)((tab[r + 1280] + tab[g + 1536] + tab[b + 1792]) >> 16);
+    }
+  }
+  // downsampling; the last row of each component replicated to the MCU
+  for (int ci = 0; ci < ncomp; ++ci) {
+    EncComp& c = comps[ci];
+    const bool sub = color && ci > 0;
+    const int rows = sub ? fh / 2 : fh;
+    for (int y = 0; y < c.ph; ++y) {
+      uint8_t* o = &c.plane[(size_t)y * c.pw];
+      const int sy = y < rows ? y : rows - 1;
+      if (!sub) {
+        std::memcpy(o, &full[ci][(size_t)sy * fw], c.pw);
+        continue;
+      }
+      const uint8_t* r0 = &full[ci][(size_t)(2 * sy) * fw];
+      const uint8_t* r1 = r0 + fw;
+      int bias = 1;
+      for (int x = 0; x < c.pw; ++x) {
+        o[x] = (uint8_t)((r0[2 * x] + r0[2 * x + 1] + r1[2 * x] + r1[2 * x + 1] +
+                          bias) >> 2);
+        bias ^= 3;
+      }
+    }
+  }
+
+  // headers
+  out.clear();
+  const uint8_t soi_app0[] = {0xFF, 0xD8, 0xFF, 0xE0, 0x00, 0x10, 'J',  'F',
+                              'I',  'F',  0x00, 0x01, 0x01, 0x00, 0x00, 0x01,
+                              0x00, 0x01, 0x00, 0x00};
+  out.insert(out.end(), soi_app0, soi_app0 + sizeof soi_app0);
+  for (int t = 0; t < (color ? 2 : 1); ++t) {
+    out.push_back(0xFF);
+    out.push_back(0xDB);
+    put16(out, 67);
+    out.push_back((uint8_t)t);
+    for (int k = 0; k < 64; ++k) out.push_back((uint8_t)qt[t][kNatural[k]]);
+  }
+  out.push_back(0xFF);
+  out.push_back(0xC0);
+  put16(out, 8 + 3 * ncomp);
+  out.push_back(8);
+  put16(out, h);
+  put16(out, w);
+  out.push_back((uint8_t)ncomp);
+  for (auto& c : comps) {
+    out.push_back((uint8_t)c.id);
+    out.push_back((uint8_t)((c.h << 4) | c.v));
+    out.push_back((uint8_t)c.tq);
+  }
+  for (int t = 0; t < (color ? 2 : 1); ++t) {
+    emit_dht(out, t, dc[t].bits, dc[t].vals, dc[t].nvals);
+    emit_dht(out, 0x10 | t, ac[t].bits, ac[t].vals, ac[t].nvals);
+  }
+  out.push_back(0xFF);
+  out.push_back(0xDA);
+  put16(out, 6 + 2 * ncomp);
+  out.push_back((uint8_t)ncomp);
+  for (auto& c : comps) {
+    out.push_back((uint8_t)c.id);
+    out.push_back((uint8_t)((c.tq << 4) | c.tq));
+  }
+  out.push_back(0);
+  out.push_back(63);
+  out.push_back(0);
+
+  // scan
+  BitWriter bw(out);
+  int last_dc[3] = {0, 0, 0};
+  int blk[64], coef[4][64];
+  auto encode_block = [&](const int* c, int ci, int t) {
+    int temp = c[0] - last_dc[ci], temp2 = temp;
+    last_dc[ci] = c[0];
+    if (temp < 0) {
+      temp = -temp;
+      --temp2;
+    }
+    int nbits = 0;
+    while (temp) {
+      ++nbits;
+      temp >>= 1;
+    }
+    bw.put(dc[t].code[nbits], dc[t].size[nbits]);
+    if (nbits) bw.put((uint32_t)temp2, nbits);
+    int run = 0;
+    for (int k = 1; k < 64; ++k) {
+      int v = c[kNatural[k]];
+      if (v == 0) {
+        ++run;
+        continue;
+      }
+      while (run > 15) {
+        bw.put(ac[t].code[0xF0], ac[t].size[0xF0]);
+        run -= 16;
+      }
+      int a = v, a2 = v;
+      if (a < 0) {
+        a = -a;
+        --a2;
+      }
+      nbits = 1;
+      while ((a >>= 1)) ++nbits;
+      const int sym = (run << 4) + nbits;
+      bw.put(ac[t].code[sym], ac[t].size[sym]);
+      bw.put((uint32_t)a2, nbits);
+      run = 0;
+    }
+    if (run > 0) bw.put(ac[t].code[0], ac[t].size[0]);
+  };
+  for (int my = 0; my < mcuy; ++my) {
+    for (int mx = 0; mx < mcux; ++mx) {
+      for (int ci = 0; ci < ncomp; ++ci) {
+        EncComp& c = comps[ci];
+        int n = 0;
+        for (int by = 0; by < c.v; ++by) {
+          for (int bx = 0; bx < c.h; ++bx, ++n) {
+            const int gy = my * c.v + by, gx = mx * c.h + bx;
+            int* out_blk = coef[n];
+            if (gy >= c.bh) {  // a row of dummy blocks at the bottom
+              std::memset(out_blk, 0, sizeof coef[0]);
+              out_blk[0] = coef[by * c.h - 1][0];
+              continue;
+            }
+            if (gx >= c.bw) {  // a dummy block at the right edge
+              std::memset(out_blk, 0, sizeof coef[0]);
+              out_blk[0] = coef[n - 1][0];
+              continue;
+            }
+            for (int r = 0; r < 8; ++r) {
+              const uint8_t* s = &c.plane[(size_t)(gy * 8 + r) * c.pw + gx * 8];
+              for (int k = 0; k < 8; ++k) blk[r * 8 + k] = (int)s[k] - 128;
+            }
+            fdct_islow(blk);
+            for (int k = 0; k < 64; ++k)
+              out_blk[k] = quantize(blk[k], dv[c.tq][k]);
+          }
+        }
+        for (int k = 0; k < n; ++k) encode_block(coef[k], ci, c.tq);
+      }
+    }
+  }
+  bw.flush();
+  out.push_back(0xFF);
+  out.push_back(0xD9);
+}
+
 }  // namespace
 
 extern "C" {
@@ -652,6 +1089,9 @@ const char* iseg_host_error(int code) {
              "non-integral sampling, or over 2^28 pixels)";
     case kTruncated: return "truncated JPEG";
     case kBadFilter: return "PNG row filter type out of range";
+    case kSmallBuffer: return "output buffer too small";
+    case kBadArgument: return "JPEG encoder takes 1 or 3 channels and a "
+                              "size of 1 to 65535 pixels a side";
   }
   return "unknown error";
 }
@@ -805,6 +1245,23 @@ int iseg_warp_affine_linear(const uint8_t* src, int sh, int sw, int ch,
       }
     }
   }
+  return kOk;
+}
+
+// Encode [h, w, channels] uint8 pixels (RGB, or gray with channels = 1) as
+// the baseline JPEG that OpenCV's imwrite writes at `quality`; the file's
+// size goes to *n. If it exceeds `cap`, nothing is written to `out` and
+// kSmallBuffer is returned with the size needed in *n.
+int iseg_jpeg_encode(const uint8_t* px, int h, int w, int channels,
+                     int quality, uint8_t* out, size_t cap, size_t* n) {
+  if ((channels != 1 && channels != 3) || h < 1 || w < 1 || h > 65535 ||
+      w > 65535)
+    return kBadArgument;
+  std::vector<uint8_t> buf;
+  jpeg_encode(px, h, w, channels, quality, buf);
+  *n = buf.size();
+  if (buf.size() > cap) return kSmallBuffer;
+  std::memcpy(out, buf.data(), buf.size());
   return kOk;
 }
 

@@ -24,6 +24,12 @@ pixels:
 ``cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2GRAY)`` (the 15-bit
 fixed-point weights that this OpenCV build's conversion uses, bitwise on
 all 2^24 colours).
+
+:func:`encode_jpeg` writes the other way: the baseline JPEG that
+``cv2.imencode(".jpg", bgr, [cv2.IMWRITE_JPEG_QUALITY, q])`` writes
+(libjpeg-turbo's compression with OpenCV's settings, in
+``csrc/host/jpeg.cpp``), from RGB or gray pixels; :func:`write_jpeg` is
+``cv2.imwrite``.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ import numpy as np
 from isegprobe_torch.utils import host_lib
 
 __all__ = ["read_bgr", "read_rgb", "read_gray", "decode_bgr",
-           "bgr_to_gray"]
+           "bgr_to_gray", "encode_jpeg", "write_jpeg"]
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -85,6 +91,38 @@ def decode_bgr(data: bytes, name: str = "<bytes>") -> np.ndarray:
 
 def _as_u8p(buf):
     return ctypes.cast(buf, ctypes.POINTER(ctypes.c_uint8))
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
+    """The JPEG file of uint8 ``img``, ``[H, W, 3]`` RGB or ``[H, W]`` (or
+    ``[H, W, 1]``) gray, at ``quality`` (1-100; OpenCV's default is 95):
+    the bytes ``cv2.imencode`` writes for the same pixels in BGR."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[:, :, 0]
+    channels = 1 if img.ndim == 2 else img.shape[2]
+    h, w = img.shape[:2]
+    lib = host_lib.load()
+    n = ctypes.c_size_t()
+    cap = 4096 + 2 * img.size
+    while True:
+        out = np.empty(cap, np.uint8)
+        code = lib.iseg_jpeg_encode(
+            img.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w,
+            channels, int(quality),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap,
+            ctypes.byref(n))
+        if code == 7 and n.value > cap:  # kSmallBuffer
+            cap = n.value
+            continue
+        host_lib.check(code, f"JPEG encode of {img.shape}")
+        return out[:n.value].tobytes()
+
+
+def write_jpeg(path, img: np.ndarray, quality: int = 95) -> None:
+    """``cv2.imwrite(path, img[..., ::-1], [IMWRITE_JPEG_QUALITY,
+    quality])`` for RGB ``img`` (gray as it is)."""
+    Path(path).write_bytes(encode_jpeg(img, quality))
 
 
 def _decode_jpeg(data: bytes, name: str) -> np.ndarray:

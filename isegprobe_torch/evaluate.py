@@ -21,7 +21,12 @@ Usage (on a CUDA GPU; ``device=cpu`` runs the plain PyTorch path):
         [eval_ritm=false] [device_refill=false] [group_max_jobs=0]
         [n_clicks=20] [target_iou=0.9] [print_ious=true] [min_n_clicks=1]
         [thresh=0.5] [clicks_limit=null] [mode=NoBRS] [mxu_pad=auto]
-        [fuse_hr_head=false]
+        [fuse_hr_head=false] [vis_preds=false] [save_feats=false]
+        [save_feats_folder_name=features] [save_feats_for_n_imgs=50]
+        [save_ious=false] [iou_analysis=false] [logs_path=]
+        [EXPS_PATH=./experiments] [exp_path=] [model_name=null]
+        [wandb=false] [wandb_project=iSegProbe-Eval] [wandb_name=null]
+        [wandb_dir=/path/to/logs]
 
 ``datasets`` is a comma-separated list of the root's ``get_dataset`` keys:
 ``GrabCut``, ``Berkeley``, ``DAVIS``, ``SBD``, ``SBD_Train``,
@@ -38,12 +43,27 @@ DAVIS, ``skip_clicks=1``): the host transform chain, or with
 batching, windows of ``group_max_jobs`` frames, 0 for 32); with
 ``device_batch <= 1`` it warns and runs lockstep, as the root does.
 
-It prints a results table for each dataset and, with ``print_ious``,
-mIoU@k as the root ``evaluate.py`` does, with its rule for the target IoU:
-1.01 (every object runs all ``n_clicks``) when ``print_ious`` is on and
-``min_n_clicks <= 1``, as with ``configs/eval_cfg.yaml``'s defaults, else
-``target_iou`` floored at 0.8 (``print_ious=false`` gives the early-stop
-protocol).
+It prints a results table for each dataset × checkpoint and, with
+``print_ious``, mIoU@k as the root ``evaluate.py`` does, with its rule for
+the target IoU: 1.01 (every object runs all ``n_clicks``) when
+``print_ious`` or ``iou_analysis`` is on and ``min_n_clicks <= 1``, as with
+``configs/eval_cfg.yaml``'s defaults, else ``target_iou`` floored at 0.8
+(``print_ious=false`` gives the early-stop protocol).
+
+What a run leaves in ``logs_path`` (``<EXPS_PATH>/evaluation_logs`` by
+default), as the root's does (``inference/eval_utils.py``): every table line
+appended to ``results.txt``; with ``save_ious`` or ``iou_analysis`` the IoU
+trajectories in ``<dataset>_<mode>_<n_clicks>_<model>.pickle`` (``model``
+is ``model_name`` or the checkpoint's stem); with ``vis_preds`` each click's
+drawn prediction and IoU in ``predictions_vis/<dataset>/``; with
+``save_feats`` the first click's LowRes and HighRes maps (float32 ``.npy``)
+and image of the first ``save_feats_for_n_imgs`` samples in
+``feats/<dataset>/<save_feats_folder_name>_<date>/``. Either callback runs
+the host protocol (a ``device_loop`` run falls back to it and says so).
+``exp_path=<run under EXPS_PATH>[:<prefix>]`` evaluates that run's
+checkpoints (``get_checkpoints_list``) in place of ``checkpoint=``.
+``wandb=true`` logs each result to W&B when the ``wandb`` package is
+there, and does nothing when it is not.
 
 ``mode`` picks the predictor, as the root's does: ``NoBRS`` (the default),
 ``f-BRS-A``, ``f-BRS-B``, ``f-BRS-C``, ``RGB-BRS`` or ``DistMap-BRS``
@@ -65,6 +85,7 @@ from __future__ import annotations
 
 import logging
 import sys
+from pathlib import Path
 from time import time
 from typing import Dict, Optional, Tuple
 
@@ -215,12 +236,8 @@ def _preinterpolate_pos_embed(config: Dict, params: Dict,
 # keys of the root evaluate.py that the port does not take yet, and the
 # ROADMAP item that brings each
 _NOT_PORTED = {
-    "device_mesh": "ROADMAP Queue 1 item 9 (parallel/mesh.py)",
-    "vis_preds": "ROADMAP Queue 1 item 9 (plots and eval_utils)",
-    "save_feats": "ROADMAP Queue 1 item 9 (plots and eval_utils)",
-    "save_ious": "ROADMAP Queue 1 item 9 (eval_utils)",
-    "iou_analysis": "ROADMAP Queue 1 item 9 (eval_utils)",
-    "wandb": "ROADMAP Queue 1 item 9 (eval_utils)",
+    "device_mesh": "ROADMAP Queue 1 item 9 (parallel/, the multi-device "
+                   "job queues)",
     "profile_dir": "ROADMAP Queue 1 item 2 (the port's bench leg)",
 }
 # the root get_dataset's keys and the path key each reads
@@ -251,7 +268,13 @@ _DEFAULTS = dict(checkpoint=None, datasets="Synthetic", **_PATH_DEFAULTS,
                  dtype="float32", n_clicks="20", target_iou="0.90",
                  print_ious="true", min_n_clicks="1", thresh="0.5",
                  clicks_limit="null", mode="NoBRS", mxu_pad="auto",
-                 fuse_hr_head="false", device=None)
+                 fuse_hr_head="false", device=None, vis_preds="false",
+                 save_feats="false", save_feats_folder_name="features",
+                 save_feats_for_n_imgs="50", save_ious="false",
+                 iou_analysis="false", logs_path="",
+                 EXPS_PATH="./experiments", exp_path="", model_name="null",
+                 wandb="false", wandb_project="iSegProbe-Eval",
+                 wandb_name="null", wandb_dir="/path/to/logs")
 
 
 def parse_args(argv) -> Dict:
@@ -271,8 +294,9 @@ def parse_args(argv) -> Dict:
             raise ValueError(f"unknown key {key!r}; takes "
                              f"{sorted(_DEFAULTS)}")
         cfg[key] = value
-    if not cfg["checkpoint"]:
-        raise ValueError("checkpoint=<path to a .ckpt> is required")
+    if not cfg["checkpoint"] and not cfg["exp_path"]:
+        raise ValueError("checkpoint=<path to a .ckpt> (or exp_path=<run>) "
+                         "is required")
     cfg["dataset_names"] = [n for n in cfg["datasets"].split(",") if n]
     for name in cfg["dataset_names"]:
         if name not in DATASET_PATHS:
@@ -325,10 +349,19 @@ def parse_args(argv) -> Dict:
     limit = cfg["clicks_limit"]
     cfg["clicks_limit"] = (None if limit.lower() in ("null", "none", "")
                            else int(limit))
-    # the root evaluate.py's rule: every click when the IoUs are printed
-    # (iou_analysis, the rule's other key, raises above), else the target
-    # floored at 0.8
-    if cfg["print_ious"] and cfg["min_n_clicks"] <= 1:
+    for key in ("vis_preds", "save_feats", "save_ious", "iou_analysis",
+                "wandb"):
+        cfg[key] = _flag(cfg[key])
+    cfg["save_feats_for_n_imgs"] = int(cfg["save_feats_for_n_imgs"])
+    for key in ("model_name", "wandb_name"):
+        if cfg[key].lower() in ("null", "none", ""):
+            cfg[key] = None
+    cfg["logs_path"] = str(Path(cfg["logs_path"]) if cfg["logs_path"]
+                           else Path(cfg["EXPS_PATH"]) / "evaluation_logs")
+    # the root evaluate.py's rule: every click when the IoUs are printed or
+    # analysed, else the target floored at 0.8
+    if (cfg["print_ious"] or cfg["iou_analysis"]) and \
+            cfg["min_n_clicks"] <= 1:
         cfg["target_iou"] = 1.01
     else:
         cfg["target_iou"] = max(0.8, float(cfg["target_iou"]))
@@ -404,7 +437,9 @@ def get_zoomin_params(eval_ritm: bool, eval_mode: str,
 
 def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,
              dataset_name: Optional[str] = None,
-             clicks: Optional[list] = None, dataset=None) -> Dict:
+             clicks: Optional[list] = None, dataset=None,
+             checkpoint: Optional[str] = None,
+             print_header: bool = True) -> Dict:
     """Run one checkpoint over one dataset (by default the first of
     ``datasets=``) with the settings of :func:`parse_args` and that
     dataset's ZoomIn. ``model`` must have been loaded for that ZoomIn's
@@ -416,7 +451,9 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,
     ``clicks=[]`` collects each object's clicks, (y, x, is_positive)
     rows (the fixed-crop protocols; the adaptive loop records none).
     ``dataset`` runs those samples (a subset) in place of the named
-    dataset's."""
+    dataset's. ``checkpoint`` (by default ``cfg["checkpoint"]``) names the
+    model in the table. ``vis_preds`` and ``save_feats`` write their
+    callbacks' files under ``logs_path`` here (the host protocol)."""
     from isegprobe_torch.inference.adaptive_eval import make_adaptive_evaluator
     from isegprobe_torch.inference.device_eval import (
         evaluate_dataset_device,
@@ -428,12 +465,17 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,
         latency_percentiles,
     )
     from isegprobe_torch.inference.brs import get_predictor
+    from isegprobe_torch.inference.eval_utils import (
+        get_prediction_vis_callback,
+        get_save_feats_callback,
+    )
 
     device = resolve_device(cfg["device"])
     name = dataset_name or cfg["dataset_names"][0]
+    checkpoint = checkpoint or cfg["checkpoint"]
     zoom = get_zoomin_params(cfg["eval_ritm"], cfg["eval_mode"], name)
     if model is None:
-        model, _ = load_model_for_eval(cfg["checkpoint"],
+        model, _ = load_model_for_eval(checkpoint,
                                        DTYPES[cfg["dtype"]],
                                        _pos_embed_size(zoom), device,
                                        eval_ritm=cfg["eval_ritm"],
@@ -451,6 +493,18 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,
         note = (f"mode={cfg['mode']}: the device loop runs NoBRS only; "
                 "running the host protocol")
         logging.getLogger(__name__).info(note)
+    callback = (get_prediction_vis_callback(cfg["logs_path"], name,
+                                            cfg["thresh"])
+                if cfg.get("vis_preds") else None)
+    feats_callback = (get_save_feats_callback(
+        cfg["logs_path"], name, cfg["save_feats_folder_name"],
+        cfg["save_feats_for_n_imgs"]) if cfg.get("save_feats") else None)
+    if use_device_loop and (callback or feats_callback):
+        # the device loop keeps each click's maps on the card
+        note = ("vis_preds/save_feats requested: falling back from "
+                "device_loop to the host per-click path for callbacks")
+        logging.getLogger(__name__).info(note)
+        use_device_loop = False
     t0 = time()
     if use_device_loop:
         kw = dict(batch_size=cfg["device_batch"],
@@ -487,17 +541,20 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,
         all_ious, _ = evaluate_dataset(dataset, predictor,
                                        latencies=latencies, clicks=clicks,
                                        max_iou_thr=cfg["target_iou"],
+                                       callback=callback,
+                                       feats_callback=feats_callback,
                                        **protocol)
     elapsed = time() - t0
     noc, _, over_max = compute_noc_metric(all_ious, [0.8, 0.85, 0.9],
                                           cfg["n_clicks"])
     spc, _ = get_time_metrics(all_ious, elapsed)
-    model_name = str(cfg["checkpoint"]).rsplit("/", 1)[-1].removesuffix(
-        ".ckpt")
+    model_name = cfg.get("model_name") or Path(checkpoint).stem
     table = get_results_table(noc, over_max, cfg["mode"], name, spc,
                               elapsed, n_clicks=cfg["n_clicks"],
-                              model_name=model_name)
+                              model_name=model_name,
+                              print_header=print_header)
     return dict(dataset=name, all_ious=all_ious, noc=noc, over_max=over_max,
+                model_name=model_name, spc=spc,
                 miou=miou_at_k(all_ious, cfg["n_clicks"]), elapsed=elapsed,
                 table=table, latency=(latency_percentiles(latencies)
                                       if latencies else None),
@@ -505,26 +562,58 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,
                 note=note, group_stats=stats)
 
 
-def evaluate_all(cfg: Dict) -> list:
-    """Every dataset of ``datasets=`` in turn, as the root's loop over
-    datasets × checkpoint: the checkpoint is loaded for each dataset's
-    ZoomIn size (once a size, the frozen parts drawn once). Returns
+def evaluate_all(cfg: Dict, clicks: Optional[Dict] = None) -> list:
+    """Every dataset of ``datasets=`` × every checkpoint
+    (``get_checkpoints_list``: ``exp_path``'s, or ``checkpoint``), the
+    root's loops: a checkpoint is loaded for each dataset's ZoomIn size
+    (the frozen parts drawn once). Each result's table line is appended to
+    ``<logs_path>/results.txt`` (the first with the header), its IoUs
+    pickled with ``save_ious`` or ``iou_analysis``, and logged to W&B with
+    ``wandb``. ``clicks={}`` collects each dataset's clicks (a list a
+    dataset name, the last checkpoint's) as :func:`evaluate` does. Returns
     :func:`evaluate`'s results in order."""
+    from isegprobe_torch.inference.eval_utils import (
+        get_checkpoints_list,
+        log_eval_to_wandb,
+        save_iou_analysis_data,
+    )
+
     device = resolve_device(cfg["device"])
+    logs_path = Path(cfg["logs_path"])
+    logs_path.mkdir(parents=True, exist_ok=True)
+    checkpoints = get_checkpoints_list(cfg, cfg["EXPS_PATH"])
     models: Dict = {}
     frozen = None
     results = []
     for name in cfg["dataset_names"]:
         zoom = get_zoomin_params(cfg["eval_ritm"], cfg["eval_mode"], name)
         size = _pos_embed_size(zoom)
-        if size not in models:
-            models.clear()  # one model resident at a time
-            models[size], info = load_model_for_eval(
-                cfg["checkpoint"], DTYPES[cfg["dtype"]], size, device,
-                eval_ritm=cfg["eval_ritm"], frozen=frozen,
-                fuse_hr_head=cfg["fuse_hr_head"])
-            frozen = info["frozen"]
-        results.append(evaluate(cfg, models[size], name))
+        for checkpoint in checkpoints:
+            key = (checkpoint, size)
+            if key not in models:
+                models.clear()  # one model resident at a time
+                models[key], info = load_model_for_eval(
+                    checkpoint, DTYPES[cfg["dtype"]], size, device,
+                    eval_ritm=cfg["eval_ritm"], frozen=frozen,
+                    fuse_hr_head=cfg["fuse_hr_head"])
+                frozen = info["frozen"]
+            got_clicks = None if clicks is None else []
+            out = evaluate(cfg, models[key], name, clicks=got_clicks,
+                           checkpoint=checkpoint, print_header=not results)
+            if clicks is not None:
+                clicks[name] = got_clicks
+            if cfg["iou_analysis"] or cfg["save_ious"]:
+                save_iou_analysis_data(logs_path, name, out["model_name"],
+                                       out["all_ious"],
+                                       n_clicks=cfg["n_clicks"],
+                                       mode=cfg["mode"])
+            log_eval_to_wandb(cfg, name, out["model_name"], out["noc"],
+                              out["over_max"],
+                              list(map(float, out["miou"])), out["spc"],
+                              out["elapsed"])
+            with open(logs_path / "results.txt", "a") as f:
+                f.write(out["table"] + "\n")
+            results.append(out)
     return results
 
 

@@ -7,6 +7,7 @@ reached, and the predictor answers each click with a mask.
 
 from __future__ import annotations
 
+from copy import deepcopy
 from time import time
 from typing import Callable, List, Optional, Tuple
 
@@ -20,9 +21,13 @@ def evaluate_sample(image: np.ndarray, gt_mask: np.ndarray, predictor,
                     min_clicks: int = 1, max_clicks: int = 20,
                     sample_id: Optional[int] = None,
                     callback: Optional[Callable] = None,
+                    feats_callback: Optional[Callable] = None,
                     ) -> Tuple[List[Click], np.ndarray, np.ndarray]:
     """Run the click loop on one object. Returns (clicks, per-click IoUs,
-    final probabilities)."""
+    final probabilities). ``callback(image, gt_mask, probs, sample_id,
+    click_indx, clicks)`` runs after each prediction; ``feats_callback(
+    image, feats, sample_id, click_indx, clicks)`` before it, with the
+    predictor's ``get_lowres_highres_feats`` of a copy of the clicker."""
     clicker = Clicker(gt_mask=gt_mask)
     pred_mask = np.zeros_like(gt_mask, dtype=bool)
     ious_list = []
@@ -31,6 +36,10 @@ def evaluate_sample(image: np.ndarray, gt_mask: np.ndarray, predictor,
     predictor.set_input_image(image)
     for click_indx in range(max_clicks):
         clicker.make_next_click(pred_mask)
+        if feats_callback is not None:
+            _, feats = predictor.get_lowres_highres_feats(deepcopy(clicker))
+            feats_callback(image, feats, sample_id, click_indx,
+                           clicker.clicks_list)
         pred_probs = predictor.get_prediction(clicker)
         pred_mask = pred_probs > pred_thr
         if callback is not None:

@@ -290,6 +290,24 @@ class Predictor:
         self.prev_prediction = probs
         return probs
 
+    @torch.inference_mode()
+    def get_lowres_highres_feats(self, clicker: Clicker) -> Tuple[Dict, Dict]:
+        """The model's :meth:`get_lowres_highres_feats` on this click's
+        ZoomIn crop (the image and the previous prediction cropped to the
+        ROI and resized to the target size, the clicks remapped into it),
+        without the flip; the maps stay on the device. The ROI state
+        machine advances as for a prediction, as in the JAX package."""
+        clicks_list = clicker.get_clicks()
+        roi = self._compute_roi(clicks_list)
+        points = self.get_points_nd(clicks_list)
+        prev = _host_prev_pad(self.prev_prediction, self.image_hw,
+                              self.pad_hw, self.device)
+        crop = self._crop(prev, roi)
+        pts, _ = self._crop_points(points, roi)
+        pts_dev = torch.from_numpy(np.ascontiguousarray(pts, np.float32)).to(
+            self.device)
+        return self.model.get_lowres_highres_feats(crop, pts_dev)
+
     # -- the demo's undo protocol --------------------------------------------
 
     def get_states(self) -> Dict:

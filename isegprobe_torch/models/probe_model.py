@@ -370,6 +370,32 @@ class iSegProbeModel(nn.Module):
         out = resize(out, (h, w), "bilinear", align_corners=True)
         return {"instances": out, "instances_aux": None}
 
+    # -- the feature probe ----------------------------------------------------
+
+    def get_lowres_highres_feats(self, image: torch.Tensor,
+                                 points: torch.Tensor) -> Tuple[Dict, Dict]:
+        """The maps the paper's feature figures probe: ``({"coord_features":
+        the click maps as the click encoder takes them}, {"LowRes": the
+        backbone's ``[B, gh, gw, C]`` features, "HighRes": the upsampler's
+        ``[B, H, W, C]``})``. The RITM maps transform runs before the click
+        encoder, as in the forward; the identity and LiFT outputs are
+        resized to the input size (bilinear, align corners). On CUDA the
+        backbone, upsampler and click encoder run their kernels as the
+        forward does; the head does not run."""
+        image, prev_mask = self.prepare_input(image)
+        coord_features = self.get_coord_features(image, prev_mask, points)
+        if self.maps_transform is not None:
+            coord_features = self.maps_transform(coord_features)
+        coord_tokens = self.embed_coords(coord_features)
+        lr_feats = self.backbone(image, coord_tokens)
+        hr_feats = self.upsampler(lr_feats, image)
+        if self.upsampler_type in ("identity", "lift"):
+            h, w = image.shape[1], image.shape[2]
+            hr_feats = resize(hr_feats, (h, w), "bilinear",
+                              align_corners=True)
+        return {"coord_features": coord_features}, {"LowRes": lr_feats,
+                                                    "HighRes": hr_feats}
+
     # -- the adaptive canvas's forward -------------------------------------
 
     def forward_masked(self, image: torch.Tensor, points: torch.Tensor,

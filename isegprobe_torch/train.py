@@ -55,8 +55,23 @@ and ``PRETRAINED_MODELS.{DINOV2_VITS14,DINO_VITS16,MASKCLIP_VITB16}``
 port's ``model``, ``device``, ``exp_path`` and ``epoch_len`` /
 ``val_epoch_len`` (items an epoch; by default the script's: 320 and 48 for
 the Synthetic scenes, the whole split and 500 for SBD). A run goes to
-``<exp_path>/<MODEL_NAME>/<NNN>_<exp.name>/checkpoints``, numbered as the
-JAX package numbers its runs (``utils/exp.py``).
+``<exp_path>/<script's directory under models/>/<script stem>/
+<NNN>_<exp.name>/`` (for example ``synthetic/dinov2_noup/000_run`` or
+``sbd/dinov2/patch-embed_noup/000_run``), the path and numbering the JAX
+package gives a run of the same script (``utils/exp.py``), with
+``checkpoints/``, ``logs/`` (``train.log`` and the TensorBoard events),
+``vis/train/`` (the image dumps) and a copy of the JAX model script.
+
+- ``image_dump_interval`` (300, the scripts' ``models/common.py``): every
+  that many steps the trainer writes the image | GT | prediction panel of
+  the batch's first sample to ``vis/train/<step>_instance_segmentation.jpg``
+  (0 writes none); ``tb_dump_period`` (25): the window of the averaged
+  TensorBoard scalars; ``prev_mask_drop_prob`` (0): the chance a sample's
+  prev mask is zeroed after its simulated clicks.
+- ``wandb.log_wandb=true`` (``wandb.project``, ``wandb.name``,
+  ``wandb.dir``): a W&B run synced from the TensorBoard events, as the JAX
+  package starts one; without the ``wandb`` package it warns and trains
+  on.
 
 - ``training_params.dtype=bfloat16`` (or ``bf16``): mixed precision, the
   model computing in bf16 by flax's rules over float32 master weights;
@@ -79,8 +94,8 @@ JAX package numbers its runs (``utils/exp.py``).
   (``dataloader.workers`` of them) instead of threads; the items are the
   same.
 
-``training.model_parallel > 1``, ``training.n_devices`` and wandb raise
-``NotImplementedError`` naming their ROADMAP items; a key or a model that
+``training.model_parallel > 1`` and ``training.n_devices`` raise
+``NotImplementedError`` naming their ROADMAP item; a key or a model that
 is not known raises ``ValueError``.
 """
 
@@ -90,11 +105,12 @@ import ast
 import logging
 import sys
 import time
+from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 from isegprobe_torch import resolve_device
 
-__all__ = ["DEFAULTS", "MODELS", "parse_args", "train_dtype",
+__all__ = ["DEFAULTS", "MODELS", "MODEL_SCRIPTS", "parse_args", "train_dtype",
            "model_kwargs", "synthetic_datasets", "sbd_datasets", "loss_cfg",
            "build_trainer", "main"]
 
@@ -128,11 +144,31 @@ MODELS = {
         "sbd_maskclip_noup_convhead_patchembed_earlyinject_224",
     "sbd_vit_noup": "sbd_vit_noup_convhead_patchembed_earlyinject_224",
 }
+# model= key -> its script under the repository's models/ (its runs go
+# where the JAX package puts the script's runs; the script is copied, not
+# imported)
+MODEL_SCRIPTS = {
+    "synthetic_dinov2_noup": "synthetic/dinov2_noup.py",
+    "synthetic_dinov2_loftup": "synthetic/dinov2_loftup.py",
+    "synthetic_dinov2_jbu": "synthetic/dinov2_jbu.py",
+    "synthetic_dinov2_lift": "synthetic/dinov2_lift.py",
+    "synthetic_dinov2_simplevit": "synthetic/dinov2_simplevit.py",
+    "synthetic_vit_noup": "synthetic/vit_noup.py",
+    "synthetic_maskclip_noup": "synthetic/maskclip_noup.py",
+    "sbd_dinov2_noup": "sbd/dinov2/patch-embed_noup.py",
+    "sbd_dinov2_bilinear": "sbd/dinov2/patch-embed_bilinear.py",
+    "sbd_dinov2_jbu": "sbd/dinov2/patch-embed_jbu.py",
+    "sbd_dinov2_lift": "sbd/dinov2/patch-embed_lift.py",
+    "sbd_dinov2_loftup": "sbd/dinov2/patch-embed_loftup.py",
+    "sbd_dinov2_simplevit": "sbd/dinov2/simple-vit_noup.py",
+    "sbd_maskclip_noup": "sbd/maskclip/patch-embed_noup.py",
+    "sbd_vit_noup": "sbd/vit/patch-embed_noup.py",
+}
+MODELS_DIR = Path(__file__).resolve().parents[1] / "models"
 _NOT_PORTED = {
-    "training.n_devices": "ROADMAP Queue 1 item 9 (parallel/mesh.py)",
+    "training.n_devices": "ROADMAP Queue 1 item 9 (parallel/mesh.py, the "
+                          "multi-device job queues)",
     "training.model_parallel": "ROADMAP Queue 1 item 9 (parallel/tp.py)",
-    "wandb.log_wandb": "ROADMAP Queue 1 item 6 (training: TensorBoard and "
-                       "wandb)",
 }
 # items an epoch when epoch_len / val_epoch_len are not given: the
 # Synthetic scripts' 320 and 48, SBD's whole split (-1) and 500
@@ -166,6 +202,9 @@ DEFAULTS: Dict[str, object] = {
     "training.start_epoch": 0,
     "training.weights": None,
     "wandb.log_wandb": False,
+    "wandb.project": "iSegProbe-Train",
+    "wandb.name": "",
+    "wandb.dir": "/path/to/logs",
     "DATASETS.SBD_PATH": "/data/sbd",
     "PRETRAINED_MODELS.DINOV2_VITS14": "",
     "PRETRAINED_MODELS.DINO_VITS16": "",
@@ -174,6 +213,9 @@ DEFAULTS: Dict[str, object] = {
     "val_epoch_len": None,
     "exp_path": "./experiments/torch",
     "device": None,
+    "image_dump_interval": 300,
+    "tb_dump_period": 25,
+    "prev_mask_drop_prob": 0.0,
 }
 
 
@@ -358,15 +400,17 @@ def loss_cfg() -> Dict:
 def build_trainer(cfg: Dict, on_step=None, params: Optional[Dict] = None,
                   click_models=None):
     """The model, datasets, run directory and trainer of a parsed command
-    line (the run's directories are the trainer's ``cfg.EXP_PATH`` and
-    ``cfg.CHECKPOINTS_PATH``). ``click_models`` goes to the trainer; as in
-    the JAX package, no command-line key sets it."""
+    line (the run's directories are the trainer's ``cfg.EXP_PATH``,
+    ``cfg.CHECKPOINTS_PATH``, ``cfg.VIS_PATH`` and ``cfg.LOGS_PATH``; the
+    W&B run starts here when asked for). ``click_models`` goes to the
+    trainer; as in the JAX package, no command-line key sets it."""
     from types import SimpleNamespace
 
     from isegprobe_torch.models.probe_model import iSegProbeModel
     from isegprobe_torch.training.metrics import AdaptiveIoU
     from isegprobe_torch.training.trainer import iSegTrainer
     from isegprobe_torch.utils.exp import init_experiment
+    from isegprobe_torch.utils.log import init_wandb
 
     device = resolve_device(cfg["device"])
     crop = tuple(cfg["training_params.crop_size"])
@@ -387,9 +431,11 @@ def build_trainer(cfg: Dict, on_step=None, params: Optional[Dict] = None,
             crop, cfg["training_params.num_max_points"], cfg["epoch_len"],
             cfg["val_epoch_len"], cfg["training_params.render_size"],
             cfg["training_params.aug_scale_range"])
-    run = init_experiment(cfg["exp_path"], MODELS[cfg["model"]],
+    run = init_experiment(cfg["exp_path"],
+                          MODELS_DIR / MODEL_SCRIPTS[cfg["model"]],
                           cfg["exp.name"], cfg["training.resume_exp"],
                           cfg["training.resume_prefix"])
+    init_wandb(cfg, run["logs_path"])
     tcfg = SimpleNamespace(
         dataloader=SimpleNamespace(
             batch_size=batch_size, val_batch_size=val_batch_size,
@@ -402,7 +448,8 @@ def build_trainer(cfg: Dict, on_step=None, params: Optional[Dict] = None,
             k.split(".", 1)[1]: v for k, v in cfg.items()
             if k.startswith("PRETRAINED_MODELS.")},
         EXP_PATH=str(run["exp_path"]),
-        CHECKPOINTS_PATH=str(run["checkpoints_path"]))
+        CHECKPOINTS_PATH=str(run["checkpoints_path"]),
+        VIS_PATH=str(run["vis_path"]), LOGS_PATH=str(run["logs_path"]))
     lr = float(cfg["training_params.lr"])
     return iSegTrainer(
         model, tcfg, loss_cfg(), trainset, valset, optimizer="adam",
@@ -411,9 +458,14 @@ def build_trainer(cfg: Dict, on_step=None, params: Optional[Dict] = None,
                       "gamma": 0.1},
         checkpoint_interval=[tuple(x) for x in
                              cfg["training_params.checkpoint_interval"]],
+        image_dump_interval=int(cfg["image_dump_interval"]),
+        tb_dump_period=int(cfg["tb_dump_period"]),
+        max_interactive_points=cfg["training_params.num_max_points"],
         metrics=[AdaptiveIoU()], max_num_next_clicks=3,
-        click_models=click_models, seed=cfg["training.seed"], params=params,
-        device=device, on_step=on_step)
+        click_models=click_models,
+        prev_mask_drop_prob=float(cfg["prev_mask_drop_prob"]),
+        seed=cfg["training.seed"], params=params, device=device,
+        on_step=on_step)
 
 
 def main(argv=None) -> int:

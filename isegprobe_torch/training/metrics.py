@@ -126,6 +126,14 @@ class AdaptiveIoU:
         self._epoch_iou_sum = 0.0
         self._epoch_batch_count = 0
 
+    def log_states(self, sw, tag_prefix: str, global_step: int) -> None:
+        """The EMA IoU and the threshold as ``<tag_prefix>_ema_iou`` and
+        ``<tag_prefix>_iou_thresh`` (the JAX ``log_states``)."""
+        sw.add_scalar(tag=tag_prefix + "_ema_iou", value=self._ema_iou,
+                      global_step=global_step)
+        sw.add_scalar(tag=tag_prefix + "_iou_thresh", value=self._iou_thresh,
+                      global_step=global_step)
+
     @property
     def iou_thresh(self) -> float:
         return self._iou_thresh

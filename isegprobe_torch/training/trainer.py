@@ -18,6 +18,22 @@ queries). Nothing in a step reads the device: each step's
 scalars are read once, one step later (the JAX trainer's deferred read),
 so the host builds and uploads the next batch while the card computes.
 
+What a run leaves behind, as the JAX trainer leaves it: TensorBoard
+scalars in ``cfg.LOGS_PATH`` (``utils/log.py:SummaryWriterAvg``, windows of
+``tb_dump_period``; every step ``Losses/<name>``, ``States/learning_rate``
+and the metrics' ``log_states``, at each epoch ``Metrics/<name>``, after
+validation ``Val/loss`` and ``Val/<name>``, at the JAX trainer's steps:
+``epoch * steps an epoch + i``), read from the deferred read; and every
+``image_dump_interval`` steps the image | GT | prediction panel of the
+batch's first sample in ``cfg.VIS_PATH/train/<step>_instance_segmentation
+.jpg`` (quality 85; positive clicks green, negative red, GT's ignored
+pixels at 0.25). A dump step carries its first sample's probabilities and
+points out of the step, and they join that step's deferred read: the
+other steps compute and read nothing more. ``prev_mask_drop_prob`` zeroes
+a sample's prev mask after the simulated clicks with that probability (a
+Bernoulli a sample from the trainer's generator, drawn every step), only
+in a step where at least one click ran.
+
 Mixed precision: a model built with ``dtype=torch.bfloat16`` computes by
 flax's dtype rules over float32 parameters (``models/dtype.py``), which
 are the master weights: Adam's moments are float32, and checkpoints are
@@ -71,6 +87,7 @@ from isegprobe_torch.training.optim import (
     multistep_lr,
     trainable_parameters,
 )
+from isegprobe_torch.utils.log import SummaryWriterAvg
 from isegprobe_torch.utils.serialization import (
     load_checkpoint,
     merge_params,
@@ -172,8 +189,7 @@ class iSegTrainer:
     """Epoch loop with on-card click simulation.
 
     Takes the JAX trainer's constructor arguments that its training of the
-    Synthetic probes uses (the image-dump, TensorBoard and prev-mask
-    dropout ones are not ported). ``params`` is the param
+    probes uses. ``params`` is the param
     tree (flax names, numpy) the model is initialised with; by default
     ``init_tree(config, seed)``, the JAX trainer's ``model.init(
     PRNGKey(seed))``. Over it go, in the JAX trainer's order
@@ -205,10 +221,14 @@ class iSegTrainer:
                  optimizer: str = "adam",
                  optimizer_params: Optional[Dict] = None,
                  layerwise_decay: bool = False,
+                 image_dump_interval: int = 200,
                  checkpoint_interval: Any = 10,
+                 tb_dump_period: int = 25,
+                 max_interactive_points: int = 0,
                  lr_scheduler: Optional[Dict] = None,
                  metrics: Optional[List] = None,
                  max_num_next_clicks: int = 0, click_models=None,
+                 prev_mask_drop_prob: float = 0.0,
                  seed: int = -1,
                  params: Optional[Dict] = None, device=None,
                  on_step: Optional[Callable] = None) -> None:
@@ -222,6 +242,12 @@ class iSegTrainer:
         self.cfg = cfg
         self.loss_cfg = loss_cfg
         self.max_num_next_clicks = max_num_next_clicks
+        self.max_interactive_points = max_interactive_points
+        self.prev_mask_drop_prob = prev_mask_drop_prob
+        self.image_dump_interval = image_dump_interval
+        self.tb_dump_period = tb_dump_period
+        self.sw: Optional[SummaryWriterAvg] = None
+        self.vis_payload = None
         self.checkpoint_interval = checkpoint_interval
         self.seed = seed if seed != -1 else 0
         self.on_step = on_step
@@ -370,13 +396,22 @@ class iSegTrainer:
             prev = torch.sigmoid(out["instances"].float())
             points = get_next_points_device(prev, gt, points, i + 1,
                                             self.generator)
+        if self.max_num_next_clicks > 0 and self.prev_mask_drop_prob > 0:
+            drop = torch.rand(images.shape[0], generator=self.generator,
+                              device=images.device) < self.prev_mask_drop_prob
+            if num_iters > 0:
+                prev = torch.where(drop[:, None, None, None],
+                                   torch.zeros_like(prev), prev)
         return prev, points
 
     def _step(self, batch: Dict[str, torch.Tensor], num_iters: int,
               iou_thresh: float = 0.4, iou_step: float = 0.025,
-              training: bool = True):
+              training: bool = True, vis: bool = False):
         """One step on a batch already on the device. Returns (loss,
-        logging dict, (iou triplet, valid)), all tensors on the device."""
+        logging dict, (iou triplet, valid)), all tensors on the device.
+        With ``vis`` the step also leaves the first sample's probabilities
+        ``[H, W]`` and points ``[2N, 3]``, on the device, in
+        ``self.vis_payload`` (else None)."""
         images = batch["images"]
         if not images.is_floating_point():
             images = images.float() / 255.0
@@ -402,6 +437,10 @@ class iSegTrainer:
         logging_out["overall"] = loss.detach()
         iou = device_iou_stats(outputs["instances"].detach(), gt, iou_thresh,
                                iou_step)
+        self.vis_payload = None
+        if vis:
+            self.vis_payload = (torch.sigmoid(
+                outputs["instances"][0, ..., 0].detach().float()), points[0])
         return loss.detach(), logging_out, iou
 
     # -- epochs -----------------------------------------------------------
@@ -421,7 +460,19 @@ class iSegTrainer:
         return metrics[0].iou_thresh, getattr(metrics[0], "thresh_step",
                                                0.025)
 
+    def _ensure_writer(self) -> None:
+        """The TensorBoard writer on ``cfg.LOGS_PATH`` (none without it)."""
+        logs = _get(self.cfg, "LOGS_PATH")
+        if self.sw is None and logs:
+            self.sw = SummaryWriterAvg(log_dir=str(logs),
+                                       dump_period=self.tb_dump_period)
+
+    def _dump_step(self, global_step: int) -> bool:
+        return (self.image_dump_interval > 0
+                and global_step % self.image_dump_interval == 0)
+
     def training(self, epoch: int) -> None:
+        self._ensure_writer()
         for metric in self.train_metrics:
             metric.reset_epoch_stats()
         self.train_data.set_epoch(epoch)
@@ -436,7 +487,11 @@ class iSegTrainer:
         nxt = next(data_it, None)
         waited = time.time() - t_wait
         step_start = None
+        steps_per_epoch = len(self.train_data)
+        i = -1
         while nxt is not None:
+            i += 1
+            global_step = epoch * steps_per_epoch + i
             now = time.time()
             if step_start is not None:
                 self.stats["step_wall_s"].append(now - step_start)
@@ -450,20 +505,22 @@ class iSegTrainer:
                 ev = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
                 ev[0].record()
-            result = self._step(batch, num_iters, thr, step, training=True)
+            result = self._step(batch, num_iters, thr, step, training=True,
+                                vis=self._dump_step(global_step))
             if cuda:
                 ev[1].record()
                 events.append(ev)
             if self.on_step is not None:
                 self.on_step("train", self.num_updates - 1, num_iters)
             # the next batch is built and uploaded while the card computes
+            batch_np = nxt
             t_wait = time.time()
             nxt = next(data_it, None)
             waited = time.time() - t_wait
             if pending is not None:
                 train_loss += self._finish_train_step(*pending)
                 n += 1
-            pending = result
+            pending = (global_step, batch_np, *result, self.vis_payload)
         if pending is not None:
             train_loss += self._finish_train_step(*pending)
             n += 1
@@ -476,15 +533,62 @@ class iSegTrainer:
         self.epoch_losses.append(train_loss / max(n, 1))
         logger.info("Epoch %d: train loss %.4f (%.1fs, %.3f s/step)", epoch,
                     train_loss / max(n, 1), elapsed, elapsed / max(n, 1))
+        if self.sw is not None:
+            for m in self.train_metrics:
+                self.sw.add_scalar(f"Metrics/{m.name}", m.get_epoch_value(),
+                                   epoch)
         self.save_checkpoint(epoch)
 
-    def _finish_train_step(self, loss, logging_out, iou) -> float:
-        """Read one step's scalars (one transfer) and update the metrics."""
-        host = torch.stack([loss, iou[1].float(), *iou[0]]).cpu().numpy()
+    def _finish_train_step(self, global_step, batch_np, loss, logging_out,
+                           iou, vis) -> float:
+        """Read one step's scalars (one transfer, with the dump's payload
+        on a dump step), log them and update the metrics."""
+        names = list(logging_out)
+        host = torch.stack([loss, iou[1].float(), *iou[0],
+                            *(logging_out[k].float() for k in names)]
+                           ).cpu().numpy()
+        if self.sw is not None:
+            for k, v in zip(names, host[5:]):
+                self.sw.add_scalar(f"Losses/{k}", float(v), global_step)
+            self.sw.add_scalar("States/learning_rate",
+                               float(self.lr_schedule(global_step)),
+                               global_step)
+            for m in self.train_metrics:
+                m.log_states(self.sw, f"Metrics/{m.name}", global_step)
+        if vis is not None:
+            self.save_visualization(batch_np, vis, global_step,
+                                    prefix="train")
         for m in self.train_metrics:
-            m.update_from_stats(host[2:], bool(host[1]))
+            m.update_from_stats(host[2:5], bool(host[1]))
         self.stats["loss"].append(float(host[0]))
         return float(host[0])
+
+    def save_visualization(self, batch_np: Dict[str, np.ndarray], vis,
+                           global_step: int, prefix: str) -> Path:
+        """The image | GT | prediction panel of the batch's first sample,
+        ``<VIS_PATH>/<prefix>/<step>_instance_segmentation.jpg`` at quality
+        85 (the JAX ``save_visualization``); returns its path."""
+        from isegprobe_torch.data.image_io import write_jpeg
+        from isegprobe_torch.utils.viz import draw_points, draw_probmap
+
+        vis_dir = Path(_get(self.cfg, "VIS_PATH", "./vis")) / prefix
+        vis_dir.mkdir(parents=True, exist_ok=True)
+        probs, points = (t.cpu().numpy() for t in vis)
+        images = batch_np["images"]
+        image = np.asarray(images[0], dtype=np.float32)
+        if not np.issubdtype(images.dtype, np.integer):
+            image = image * 255.0
+        gt = np.asarray(batch_np["instances"][0, ..., 0], dtype=np.float32)
+        gt[gt < 0] = 0.25
+        n_pos = self.max_interactive_points or points.shape[0] // 2
+        panel_img = draw_points(image, points[:n_pos], (0, 255, 0))
+        panel_img = draw_points(panel_img, points[n_pos:], (255, 0, 0))
+        panel = np.hstack([np.clip(panel_img, 0, 255).astype(np.uint8),
+                           draw_probmap(gt),
+                           draw_probmap(np.asarray(probs, np.float32))])
+        path = vis_dir / f"{global_step:06d}_instance_segmentation.jpg"
+        write_jpeg(path, panel, quality=85)
+        return path
 
     def validation(self, epoch: int) -> None:
         for metric in self.val_metrics:
@@ -506,6 +610,11 @@ class iSegTrainer:
         if count:
             self.val_loss = val_loss / count
             logger.info("Epoch %d: val loss %.4f", epoch, self.val_loss)
+            if self.sw is not None:
+                self.sw.add_scalar("Val/loss", self.val_loss, epoch)
+                for m in self.val_metrics:
+                    self.sw.add_scalar(f"Val/{m.name}", m.get_epoch_value(),
+                                       epoch)
 
     # -- checkpoints ------------------------------------------------------
 
@@ -545,3 +654,6 @@ class iSegTrainer:
     def shutdown(self) -> None:
         self.train_data.shutdown()
         self.val_data.shutdown()
+        if self.sw is not None:
+            self.sw.close()
+            self.sw = None

@@ -1,25 +1,33 @@
-"""Run directories of the train command line: numbering and resuming.
+"""Run directories of the train command line: numbering, resuming, the
+script copy and the run log.
 
-Counterpart of the run numbering and resume lookup of
-``isegprobe_tpu/utils/exp.py:init_experiment``. A model's runs live under
-``<exp_path>/<model_name>/`` as ``NNN_<name>`` (zero-padded, one more than
-the highest number there), each with its ``checkpoints/``. Resuming
-(``resume_exp``) picks the last run whose directory name starts with the
-given prefix (an int is zero-padded: ``0`` is ``000``; ``False`` means a
-fresh run, not run 000) and, inside its ``checkpoints/``, the last
-checkpoint whose name starts with ``resume_prefix`` (``latest``:
-``last_checkpoint*``; an int is zero-padded to the epoch checkpoints'
-``008.ckpt``). The resumed run keeps writing into its own directory.
+Counterpart of ``isegprobe_tpu/utils/exp.py:init_experiment``. A run of
+the model script ``models/<dirs>/<stem>.py`` lives under
+``<exp_path>/<dirs>/<stem>/`` as ``NNN_<name>`` (zero-padded, one more than
+the highest number there; a script outside ``models/`` goes to
+``<exp_path>/<stem>/``), the path the JAX package gives it, so that one
+``exp_path`` holds the runs of either package. A run directory holds
+``checkpoints/``, ``vis/`` (the training image dumps), ``logs/`` (the
+TensorBoard events and ``train.log``, a file handler on the package
+logger) and a copy of the model script when the script exists (a file
+copy: the port does not import it). Resuming (``resume_exp``) picks the
+last run whose directory name starts with the given prefix (an int is
+zero-padded: ``0`` is ``000``; ``False`` means a fresh run, not run 000)
+and, inside its ``checkpoints/``, the last checkpoint whose name starts
+with ``resume_prefix`` (``latest``: ``last_checkpoint*``; an int is
+zero-padded to the epoch checkpoints' ``008.ckpt``). The resumed run keeps
+writing into its own directory.
 """
 
 from __future__ import annotations
 
 import logging
+import shutil
 from datetime import datetime
 from pathlib import Path
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
-__all__ = ["init_experiment"]
+__all__ = ["init_experiment", "run_parent"]
 
 logger = logging.getLogger("isegprobe_torch")
 
@@ -42,15 +50,46 @@ def _find_resume_exp(parent: Path, pattern: str) -> Path:
     return candidates[-1]
 
 
-def init_experiment(exp_path: Union[str, Path], model_name: str,
+def run_parent(model_path: Union[str, Path]) -> Tuple[Path, str]:
+    """(directories, stem) of a model script's runs: the script's
+    directories under the last ``models`` of its path (none outside
+    ``models/``) and its stem."""
+    model_path = Path(model_path)
+    parts = model_path.parts
+    if "models" in parts:
+        idx = len(parts) - 1 - parts[::-1].index("models")
+        return Path(*parts[idx + 1:-1]), model_path.stem
+    return Path(), model_path.stem
+
+
+class _RunLog(logging.FileHandler):
+    """The file handler of a run's ``train.log``."""
+
+
+def _log_to(path: Path) -> None:
+    """Route the package logger to ``path`` (the run's ``train.log``),
+    closing the handler of an earlier run of this process."""
+    for old in [h for h in logger.handlers if isinstance(h, _RunLog)]:
+        logger.removeHandler(old)
+        old.close()
+    handler = _RunLog(path)
+    handler.setFormatter(logging.Formatter(
+        "%(asctime)s %(levelname)s %(message)s"))
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+
+
+def init_experiment(exp_path: Union[str, Path],
+                    model_path: Union[str, Path],
                     name: Optional[str] = None, resume_exp=None,
                     resume_prefix="latest") -> Dict:
-    """Make (or, with ``resume_exp``, find) a run directory of
-    ``model_name`` under ``exp_path``. Returns ``{"exp_path": run
-    directory, "checkpoints_path": its checkpoints/, "weights": the
-    checkpoint to resume from or None}``. ``name`` defaults to today's
-    date, as in the JAX package."""
-    parent = Path(exp_path) / model_name
+    """Make (or, with ``resume_exp``, find) a run directory of the model
+    script ``model_path`` under ``exp_path``. Returns ``{"exp_path": run
+    directory, "checkpoints_path", "vis_path", "logs_path": its
+    subdirectories, "weights": the checkpoint to resume from or None}``.
+    ``name`` defaults to today's date, as in the JAX package."""
+    rel, stem = run_parent(model_path)
+    parent = Path(exp_path) / rel / stem
     parent.mkdir(parents=True, exist_ok=True)
     if isinstance(resume_exp, bool):
         resume_exp = None  # false means "do not resume", not run 000
@@ -70,8 +109,13 @@ def init_experiment(exp_path: Union[str, Path], model_name: str,
         name = name or datetime.now().strftime("%Y-%m-%d")
         run = parent / f"{last + 1:03d}_{name}"
         run.mkdir()
-    checkpoints = run / "checkpoints"
-    checkpoints.mkdir(exist_ok=True)
+    paths = {key: run / sub for key, sub in (
+        ("checkpoints_path", "checkpoints"), ("vis_path", "vis"),
+        ("logs_path", "logs"))}
+    for p in paths.values():
+        p.mkdir(exist_ok=True)
+    if Path(model_path).exists():
+        shutil.copy(model_path, run / Path(model_path).name)
+    _log_to(paths["logs_path"] / "train.log")
     logger.info("Experiment dir: %s", run)
-    return {"exp_path": run, "checkpoints_path": checkpoints,
-            "weights": weights}
+    return {"exp_path": run, **paths, "weights": weights}

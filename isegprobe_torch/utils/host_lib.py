@@ -1,8 +1,9 @@
 """Build and load the host (CPU) C++ library of ``isegprobe_torch/csrc/host``.
 
 Every ``csrc/host/*.cpp`` goes into one library: ``jpeg.cpp`` holds the
-data layer's host image work (the JPEG decoder and the PNG row unfilter of
-``data/image_io.py``, the bilinear affine warp of ``data/raster.py``),
+data layer's host image work (the JPEG decoder and encoder and the PNG row
+unfilter of ``data/image_io.py``, the bilinear affine warp of
+``data/raster.py``),
 ``edt.cpp`` the exact distance transform and the click distance maps of
 ``ops/edt.py`` (the simulated user's and the click sampler's). They have a
 plain C interface and are compiled by ``g++ -O2 -shared -fPIC`` at first
@@ -87,6 +88,10 @@ def load() -> ctypes.CDLL:
         lib.iseg_jpeg_info.restype = ctypes.c_int
         lib.iseg_jpeg_decode_rgb.argtypes = [u8p, ctypes.c_size_t, u8p]
         lib.iseg_jpeg_decode_rgb.restype = ctypes.c_int
+        lib.iseg_jpeg_encode.argtypes = [
+            u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p,
+            ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t)]
+        lib.iseg_jpeg_encode.restype = ctypes.c_int
         lib.iseg_png_unfilter.argtypes = [u8p, u8p, ctypes.c_int,
                                           ctypes.c_int, ctypes.c_int]
         lib.iseg_png_unfilter.restype = ctypes.c_int

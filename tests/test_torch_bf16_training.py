@@ -545,7 +545,7 @@ def test_bf16_cli_writes_float32_checkpoints_jax_reads(tmp_path):
                        "dataloader.val_batch_size=2", "epoch_len=4",
                        "val_epoch_len=2", "training_params.epochs=1",
                        "dataloader.workers=0", f"exp_path={out}"]) == 0
-    (ckpt,) = out.glob("*/000_*/checkpoints/last_checkpoint.ckpt")
+    (ckpt,) = out.glob("*/*/000_*/checkpoints/last_checkpoint.ckpt")
     params, config, extra = load_checkpoint(ckpt)
     jparams, jconfig, _ = jax_load_checkpoint(ckpt)
     assert config == jconfig and "dtype" not in config["params"]

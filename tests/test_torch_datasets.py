@@ -646,12 +646,12 @@ def test_fixture_evaluation_is_consistent(fixture):
             assert ious[i, k - 1] >= 0.9 or k == EVAL_CLICKS
 
 
-def test_evaluate_cli_datasets_and_zoomin_per_dataset(monkeypatch):
+def test_evaluate_cli_datasets_and_zoomin_per_dataset(monkeypatch, tmp_path):
     """Every key of the root's ``get_dataset`` builds its loader from its
     path key; ``evaluate_all`` runs datasets × checkpoint with each
     dataset's ZoomIn (DAVIS at 672² under ``cvpr``), loading the
-    checkpoint once a size and drawing its frozen parts once; an unknown
-    key raises."""
+    checkpoint once a size and drawing its frozen parts once, each table
+    line appended to ``results.txt``; an unknown key raises."""
     from isegprobe_torch import evaluate as ev
     from isegprobe_torch.data import datasets as tds
     from isegprobe_torch.data.scenes import SceneDataset
@@ -683,11 +683,23 @@ def test_evaluate_cli_datasets_and_zoomin_per_dataset(monkeypatch):
         return size, {"frozen": frozen or {"drawn": size}}
 
     monkeypatch.setattr(ev, "load_model_for_eval", load)
-    monkeypatch.setattr(ev, "evaluate", lambda cfg, model, name: (
-        runs.append((name, model)) or {"dataset": name}))
+
+    def evaluate(cfg, model, name, **kw):
+        # evaluate_all's keywords: the clicks' list, the checkpoint (the
+        # model's name in the table) and whether the table has a header
+        assert kw["checkpoint"] == "x" and kw["print_header"] == (not runs)
+        runs.append((name, model))
+        return {"dataset": name, "model_name": "x", "table": f"| {name} |",
+                "noc": [1.0] * 3, "over_max": [0] * 3, "miou": [0.5],
+                "spc": 0.0, "elapsed": 0.0, "all_ious": []}
+
+    monkeypatch.setattr(ev, "evaluate", evaluate)
     cfg["device"] = "cpu"
+    cfg["logs_path"] = str(tmp_path)
     out = ev.evaluate_all(cfg)
     assert [r["dataset"] for r in out] == cfg["dataset_names"]
+    assert (tmp_path / "results.txt").read_text().splitlines() == [
+        f"| {name} |" for name in cfg["dataset_names"]]
     assert loads == [(448, 448), (672, 672), (448, 448)]
     # the frozen parts are drawn by the first load only
     assert frozens == [None, {"drawn": (448, 448)}, {"drawn": (448, 448)}]

@@ -624,7 +624,7 @@ def test_train_cli_trains_each_script_and_both_readers_read_it(
             "dataloader.batch_size=2", "dataloader.val_batch_size=2",
             "epoch_len=4", "val_epoch_len=2", "training_params.epochs=1",
             "dataloader.workers=0", f"exp_path={out}"]) == 0
-    (ckpt,) = out.glob("*/000_*/checkpoints/last_checkpoint.ckpt")
+    (ckpt,) = out.glob("*/*/000_*/checkpoints/last_checkpoint.ckpt")
     params, config, extra = load_checkpoint(ckpt)
     jparams, jconfig, jextra = jax_load_checkpoint(ckpt)
     assert sorted(params) == sorted(jparams) == ["embed_coords", "head"]

@@ -1,6 +1,7 @@
 """The port stands alone: no module of isegprobe_torch, and not
-chip_smoke.py, imports JAX, flax, msgpack, OpenCV, PIL or the JAX package
-(the GPU machine has none of them; tests may use PIL to write files). Checked on the source text (AST), so lazy
+chip_smoke.py, imports JAX, flax, msgpack, OpenCV, PIL, tensorboardX,
+TensorBoard or the JAX package (the GPU machine has none of them; tests may
+use PIL to write files). Checked on the source text (AST), so lazy
 imports inside functions count too."""
 
 import ast
@@ -10,7 +11,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cv2", "msgpack", "PIL",
-             "isegprobe_tpu"}
+             "tensorboardX", "tensorboard", "isegprobe_tpu"}
 SOURCES = sorted((REPO / "isegprobe_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
 

@@ -149,8 +149,10 @@ def test_init_experiment_matches_jax(tmp_path, monkeypatch, resume_exp,
     (tmp_path / "jax").mkdir(exist_ok=True)
     jrun, jweights = _jax_run(tmp_path / "jax", monkeypatch, training,
                               "second")
-    port = init_experiment(tmp_path / "port" / "exps" / "synthetic",
-                           "demo_model", "second", resume_exp, resume_prefix)
+    port = init_experiment(tmp_path / "port" / "exps",
+                           tmp_path / "port" / "models" / "synthetic"
+                           / "demo_model.py", "second", resume_exp,
+                           resume_prefix)
     assert port["exp_path"].name == jrun.name == want_run
     assert port["checkpoints_path"] == port["exp_path"] / "checkpoints"
     assert port["checkpoints_path"].is_dir()
@@ -191,7 +193,7 @@ def test_train_cli_resumes_a_run(tmp_path):
     out = tmp_path / "exp"
     assert train.main([*_cli_args(out), "training_params.epochs=1",
                        "training_params.checkpoint_interval=[[0,1]]"]) == 0
-    (run,) = out.glob("*/000_run")
+    (run,) = out.glob("*/*/000_run")
     ckpt = run / "checkpoints" / "last_checkpoint.ckpt"
     saved, _, _ = load_checkpoint(ckpt)
     assert (run / "checkpoints" / "000.ckpt").exists()

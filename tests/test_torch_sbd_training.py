@@ -271,7 +271,7 @@ def test_sbd_cli_runs_two_steps_with_process_workers(tmp_path):
         "epoch_len=4", "val_epoch_len=2", "training_params.epochs=1",
         "dataloader.workers=2", "dataloader.mp=true",
         f"exp_path={out}"]) == 0
-    ckpt = (out / "sbd_dinov2_bilinear_convhead_patchembed_earlyinject_224"
+    ckpt = (out / "sbd" / "dinov2" / "patch-embed_bilinear"
             / "000_exp_name_test" / "checkpoints" / "last_checkpoint.ckpt")
     params, config, _ = load_checkpoint(str(ckpt))
     assert sorted(params) == ["embed_coords", "head"]

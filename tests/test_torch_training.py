@@ -772,8 +772,9 @@ def test_train_cli_arguments():
 def test_train_cli_runs_two_steps_and_evaluate_reads_it(tmp_path):
     """``python -m isegprobe_torch.train`` on the CPU (``device=cpu``): two
     full-width steps at a 112² crop and a reduced epoch length write a
-    checkpoint (in the run directory ``<exp_path>/<MODEL_NAME>/
-    000_<exp.name>``) that ``python -m isegprobe_torch.evaluate`` reads, and the JAX package's
+    checkpoint (in the run directory ``<exp_path>/synthetic/dinov2_noup/
+    000_<exp.name>``, the JAX package's path for the script) that
+    ``python -m isegprobe_torch.evaluate`` reads, and the JAX package's
     model config for the same script."""
     from isegprobe_torch import evaluate, train
     from isegprobe_torch.utils.serialization import load_checkpoint
@@ -784,8 +785,8 @@ def test_train_cli_runs_two_steps_and_evaluate_reads_it(tmp_path):
                        "epoch_len=16", "val_epoch_len=8",
                        "training_params.epochs=1", "dataloader.workers=2",
                        f"exp_path={out}"]) == 0
-    ckpt = (out / "synthetic_dinov2_noup_convhead_patchembed_earlyinject_224"
-            / "000_exp_name_test" / "checkpoints" / "last_checkpoint.ckpt")
+    ckpt = (out / "synthetic" / "dinov2_noup" / "000_exp_name_test"
+            / "checkpoints" / "last_checkpoint.ckpt")
     params, config, extra = load_checkpoint(ckpt)
     assert sorted(params) == ["embed_coords", "head"] and extra == {
         "epoch": 0}
