@@ -9,7 +9,8 @@ does not hold:
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels of ``isegprobe_torch/csrc`` (A attention, B
    LayerNorm, C EDT row envelope, D cross-attention, E JBU filter, F and G
-   attention variants; A, D, F and G on the flash core
+   attention variants, H int8 row quantizer and I int8 GEMM with its
+   dequantizing epilogue; A, D, F and G on the flash core
    ``csrc/flash_core.cuh``) with nvcc, one process per source, all started
    together, print the ptxas report and, on a line of its own, the count of
    its C7515 lines (wgmma serialized by ptxas); read kernel E's tiling,
@@ -329,6 +330,27 @@ does not hold:
     more run each under ``set_sync_debug_mode("warn")``: those steps make
     exactly the synchronizing calls they make without dumps; the
     device-busy shares, ms to encode a 448² panel;
+11l. int8, W8A8 serving (main paths 92-97: ``dtype=int8`` of the
+    evaluate CLI, ``load_model_for_eval(..., "int8")``), against
+    ``isegprobe_torch/fixtures/synthetic_int8.npz``: kernels H (rows of
+    [16400, 384], [16400, 1536] and [2050, 384] in bf16 and f32, the weights
+    [1152, 384], [1536, 384], [384, 1536]) and I (the flagship's four
+    products at M = 16400 and 2050, MaskCLIP's four at M = 2·785, its
+    packed in_proj with the bias after the cast, one f32 output) bit for
+    bit against their plain versions, timed beside their bounds, the plain
+    versions and the yardsticks ``torch._int_mm`` with the plain epilogue
+    and bf16 ``F.linear``; the trained flagship in int8: one 448² batch-2
+    forward within 2^-6 of JAX's int8 logit scale and 0.08 in probability
+    of the bf16 forward, exactly 12 A + 25 B + 48 I + 96 H, ms a forward
+    at batch 2 and 16 beside bf16's; the device loop at B=8 on the 78
+    objects beside bf16's (NoC on the fixture's 24 objects within 0.1 of
+    JAX's int8, the distance to JAX's f32 NoC printed, every step 1 C +
+    12 A + 25 B + 48 I + 96 H); host clicks on 2 objects (p50, exact
+    launches); the trained MaskCLIP in int8 on the card against its CPU
+    plain path at 224² (within 0.05 of the logit scale; 11 A + 25 B + 45 I
+    + 90 H); the drawn DINO key probe in int8 (11 A + 23 B + 45 I + 90 H);
+    the trained 448² LoftUp in int8 (padded, D at dh 128) through a loop of
+    2 objects × 4 clicks beside JAX's f32 trajectories;
 12. the learned-upsampler families, LoftUp and JBU-FeatUp on DINOv2-S/14 at
     448² (drawn, calibrated): kernels D (cross-attention, f32 and bf16, at
     every tile and load path as A) and E (JBU filter; also at the edges of
@@ -354,14 +376,15 @@ does not hold:
     reference and timed (the kernel times of F and G in the ``kernels``
     line), with every counter set to 0 just before and read just after, and
     each variant's kernel launched exactly as often as the sweep calls it;
-14. print the ``{"kernels": [...]}`` line (kernels A-G, launches by path,
+14. print the ``{"kernels": [...]}`` line (kernels A-I, launches by path,
     the training and other-backbone paths among them, A, B, D and E with
     their forward + backward times at the train steps' shapes (D also
     SDPA's), A and B with their times at the other backbones' shapes,
     the flash core named beside A, D, F and G,
     the flagship's and LoftUp's bf16 forwards among the paths, phase
     11g's bf16 training paths and A, B, D and E's bf16 forward + backward
-    under autograd; A, F and G
+    under autograd; H and I at 11l's shapes with their yardsticks; A, F
+    and G
     also in bf16 at the sweep's shape, D at the LoftUp loop's; A and D with
     the plan their wrapper picked, E with the tiling and resources its
     library reports and its ptxas entry, C with its layout, its ptxas
@@ -389,7 +412,7 @@ import numpy as np
 # Hopper H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the roofline that
 # every bound_ms is computed against
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 # special-function (exp) rate of the H100 SXM, from the FlashAttention-3
 # paper (Shah et al., 2024: "3.9 TFLOPS of special functions"):
 # an attention's B·H·Nq·Nk exps bound it as much as its bf16 products
@@ -439,7 +462,7 @@ FORWARD_LAUNCHES = {
     "jbu_featup": {"mha_qkv": 12, "layernorm": 25, "jbu_filter": 4},
 }
 KERNELS = ("edt_row_envelope", "mha_qkv", "layernorm", "mha", "jbu_filter",
-           "mha_qkv_nodiv", "mha_qkv_merged")
+           "mha_qkv_nodiv", "mha_qkv_merged", "quantize_rows", "int8_gemm")
 # what the loop's steps must launch, per step
 PER_STEP = {"edt_row_envelope": 1, **FORWARD_LAUNCHES["flagship"]}
 # the learned-upsampler families: crop size, device loop batch, clicks and
@@ -459,6 +482,26 @@ UPSAMPLERS = {
     "jbu_featup": dict(type="jbu_featup", params=dict(backbone_type="dinov2",
                                                       use_norm=True)),
 }
+
+# int8 W8A8 serving (phase 11l): the JAX package's int8 results for the
+# trained flagship (isegprobe_torch/fixtures/synthetic_int8.npz: its device
+# loop on the first 24 objects, one 448² batch-2 forward's logits). A W8A8
+# layer launches one I and two H (its input's rows and its weight's): the
+# DINOv2 trunk has 12 × 4 such layers, MaskCLIP 11 × 4 and its last block's
+# out_proj, the DINO key probe 11 × 4 and its last block's qkv. Gates: the
+# forward within 2^-6 of JAX's int8 logit scale (the bf16 probes'
+# tolerance) and within 0.08 in probability of the bf16 forward (the JAX
+# package's own int8 bound), NoC within 0.1 of JAX's int8 NoC on the
+# fixture's objects, MaskCLIP's card forward within 0.05 of the logit scale
+# of its CPU plain path (at 224², batch 2: the CPU's share of the phase)
+INT8_FIXTURE = (Path(__file__).resolve().parent / "isegprobe_torch"
+                / "fixtures" / "synthetic_int8.npz")
+INT8_LOGIT_TOL = 2.0**-6
+INT8_PROB_TOL = 0.08
+INT8_NOC_TOL = 0.1
+INT8_MASKCLIP_TOL = 0.05
+INT8_HOST_OBJECTS = 2
+INT8_CLIP_SIZE = 224
 
 
 # the trained probes (isegprobe_torch/evaluate.py) on the JAX package's
@@ -521,6 +564,17 @@ OTHER_FORWARD_LAUNCHES = {
     "dinov2_lift": {"mha_qkv": 12, "layernorm": 25},
 }
 OTHER_CLICKS = 5
+# what one int8 forward launches (phase 11l; LoftUp in its padded layout)
+INT8_LAUNCHES = {
+    "flagship": {**FORWARD_LAUNCHES["flagship"], "int8_gemm": 48,
+                 "quantize_rows": 96},
+    "loftup": {**FORWARD_LAUNCHES["loftup"], "int8_gemm": 48,
+               "quantize_rows": 96},
+    "maskclip_noup": {**OTHER_FORWARD_LAUNCHES["maskclip_noup"],
+                      "int8_gemm": 45, "quantize_rows": 90},
+    "vit_noup": {**OTHER_FORWARD_LAUNCHES["vit_noup"], "int8_gemm": 45,
+                 "quantize_rows": 90},
+}
 
 # the RITM adaptive protocol and continuous batching (phase 11e): the JAX
 # package's adaptive results for the trained flagship (its device loop on
@@ -1385,13 +1439,15 @@ def bf16_forward(torch, model, cfg: dict, img_d, pts_d, logits,
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from isegprobe_torch.ops import attention, attn_variants, edt, jbu
-    from isegprobe_torch.ops import layernorm
+    from isegprobe_torch.ops import layernorm, quant
 
     return {"edt_row_envelope": edt.row_envelope,
             "mha_qkv": attention.mha_qkv, "layernorm": layernorm.layernorm,
             "mha": attention.mha, "jbu_filter": jbu.jbu_filter,
             "mha_qkv_nodiv": attn_variants.mha_qkv_nodiv,
-            "mha_qkv_merged": attn_variants.mha_qkv_merged}
+            "mha_qkv_merged": attn_variants.mha_qkv_merged,
+            "quantize_rows": quant.quantize_rows,
+            "int8_gemm": quant.int8_gemm}
 
 
 def counters() -> dict:
@@ -5218,6 +5274,437 @@ def run_outputs_phase(torch) -> dict:
     return res
 
 
+# -- phase 11l: int8 W8A8 serving ------------------------------------------------
+
+def quantize_case(torch, quant, shape, dtype: str, seed: int,
+                  what: str) -> dict:
+    """Kernel H against its plain version at one ``[R, K]`` shape, bit for
+    bit (the int8 rows and the f32 scales), timed beside it. Rows are
+    drawn with magnitudes spread over e^±3, as activations are; no PyTorch
+    call computes this function (``library_ms`` None)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows, k = shape
+    x = (torch.randn(shape, generator=g, device="cuda") * torch.exp(
+        torch.rand((rows, 1), generator=g, device="cuda") * 6 - 3)
+         ).to(getattr(torch, dtype))
+    q, s = quant.quantize_rows(x)
+    want_q, want_s = quant._quantize_rows_plain(x)
+    torch.cuda.synchronize()
+    err = max(float((q.int() - want_q.int()).abs().max()),
+              float((s - want_s).abs().max()))
+    res = {"max_abs_err": err, "ok": bool(torch.equal(q, want_q))
+           and bool(torch.equal(s, want_s)), "library_ms": None}
+    res["ms"], res["timing"] = time_ms(torch, lambda: quant.quantize_rows(x))
+    res["plain_ms"], _ = time_ms(
+        torch, lambda: quant._quantize_rows_plain(x))
+    n = x.numel()
+    # |x|, max, divide, round a value (f32, outside the tensor cores); x
+    # read once, q written once, one scale a row
+    res.update(_bound(4.0 * n, n * (x.element_size() + 1) + 4 * rows,
+                      "float32"))
+    res.update(kernel="quantize_rows", shape=list(shape), dtype=dtype,
+               what=what)
+    return res
+
+
+def int8_gemm_case(torch, F, quant, m: int, k: int, n: int, dtype: str,
+                   seed: int, what: str, bias_after_cast: bool = False
+                   ) -> dict:
+    """Kernel I against its plain version at ``[m, k] x [n, k]``, bit for
+    bit, on operands that kernel H quantized from drawn bf16 activations
+    and weights, writing ``dtype`` with a bias of that dtype, timed beside
+    the plain version and two yardsticks the port never calls:
+    ``torch._int_mm`` with the plain epilogue (``library_ms``) and bf16
+    ``F.linear`` of the same product (``linear_bf16_ms``)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out_dtype = getattr(torch, dtype)
+    x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((n, k), generator=g, device="cuda") / k**0.5).to(
+        torch.bfloat16)
+    bias = torch.randn(n, generator=g, device="cuda").to(out_dtype)
+    xq, sx = quant.quantize_rows(x)
+    wq, sw = quant.quantize_rows(w)
+    sw = sw.reshape(-1)
+
+    def kernel():
+        return quant.int8_gemm(xq, wq, sx, sw, bias, out_dtype,
+                               bias_after_cast)
+
+    def plain():
+        return quant._int8_gemm_plain(xq, wq, sx, sw, bias, out_dtype,
+                                      bias_after_cast)
+
+    def int_mm():
+        acc = torch._int_mm(xq, wq.t())
+        return quant._epilogue_plain(acc.float(), sx, sw, bias, out_dtype,
+                                     bias_after_cast)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    res = {"max_abs_err": float((got.float() - want.float()).abs().max()),
+           "ok": bool(torch.equal(got, want))}
+    res["ms"], res["timing"] = time_ms(torch, kernel)
+    res["plain_ms"], _ = time_ms(torch, plain)
+    try:
+        lib = int_mm()
+        res["library_equal"] = bool(torch.equal(lib, want))
+        res["library_ms"], _ = time_ms(torch, int_mm)
+    except RuntimeError as e:  # a yardstick only
+        res["library_ms"], res["library_error"] = None, str(e)[:200]
+    wb, bb = w, bias.to(torch.bfloat16)
+    res["linear_bf16_ms"], _ = time_ms(torch, lambda: F.linear(x, wb, bb))
+    ops = 2.0 * m * n * k
+    nbytes = (m * k + n * k + 4 * (m + n) + n * bias.element_size()
+              + m * n * got.element_size())
+    res.update(_bound(ops, nbytes, "int8"))
+    res["linear_bf16_bound_ms"] = _bound(
+        ops, 2 * (m * k + n * k + n + m * n), "bfloat16")["bound_ms"]
+    res.update(kernel="int8_gemm", shape=[m, k, n], dtype=dtype, what=what,
+               bias_after_cast=bias_after_cast)
+    return res
+
+
+def noc_gap(a, b) -> float:
+    return max(abs(float(x) - float(y)) for x, y in zip(a, b))
+
+
+def int8_host_clicks(torch, model, fx, per_forward: dict,
+                     what: str) -> dict:
+    """The host protocol (``Predictor``, fixed-448 ZoomIn, flip, the
+    trained protocol) on the int8 fixture's first INT8_HOST_OBJECTS
+    objects: exactly one forward's launches a click, p50 ms per click and
+    per ``get_prediction``, and the IoUs beside JAX's int8 device loop's
+    (a report: int8 rounds the card's bf16 noise into whole quanta, so no
+    per-IoU gate)."""
+    from isegprobe_torch.data.scenes import SYNTHETIC_FIXTURE, SceneDataset
+    from isegprobe_torch.inference.evaluation import (
+        evaluate_sample,
+        latency_percentiles,
+    )
+    from isegprobe_torch.inference.predictor import Predictor
+
+    m = INT8_HOST_OBJECTS
+    predictor = Predictor(model, target_size=(448, 448), with_flip=True,
+                          net_clicks_limit=TRAINED_CLICKS)
+    data = SceneDataset(SYNTHETIC_FIXTURE, objects=slice(0, m))
+    samples = [data.get_sample(i) for i in range(m)]
+    evaluate_sample(samples[0].image, samples[0].gt_mask(0), predictor,
+                    max_iou_thr=2.0, max_clicks=1)  # warm-up
+    click_s = time_clicks(predictor)
+    per_click, ious = [], []
+    zero_counters()
+    for sample in samples:
+        t0 = time.time()
+        _, got, _ = evaluate_sample(
+            sample.image, sample.gt_mask(0), predictor,
+            max_iou_thr=TRAINED_TARGET, pred_thr=TRAINED_THRESH,
+            max_clicks=TRAINED_CLICKS)
+        per_click.append((time.time() - t0) / len(got))
+        ious.append([float(v) for v in got])
+    launches = counters()
+    n_clicks = sum(len(a) for a in ious)
+    if launches != expected(**{k: v * n_clicks
+                               for k, v in per_forward.items()}):
+        fail(f"{what} host protocol launched {launches} for {n_clicks} "
+             "clicks")
+    rec = {"objects": m, "clicks": n_clicks, "launches": launches,
+           "per_get_prediction": latency_percentiles(click_s),
+           "per_click_protocol": latency_percentiles(per_click),
+           "ious": ious,
+           "jax_int8_loop_ious": [[float(v) for v in fx["int8_ious"][i, :int(
+               fx["int8_n"][i])]] for i in range(m)]}
+    print(f"{what} host", json.dumps(rec))
+    return rec
+
+
+def int8_phase(torch, F) -> dict:
+    """int8 W8A8 serving (phase 11l of the module docstring): kernels H
+    and I bit for bit against their plain versions at the paths' shapes,
+    timed beside their bounds and yardsticks; the trained flagship loaded
+    with ``dtype="int8"`` (one host forward against JAX's int8 logits and
+    the port's bf16 forward, ms a forward; the device loop at B=8 on the 78
+    objects against JAX's int8 NoC on the fixture's; one host click); the
+    trained MaskCLIP in int8 against its CPU plain path; the drawn DINO key
+    probe in int8; the trained 448² LoftUp in int8 (padded) through a loop.
+    Every path's launches are exact. Returns the records, the path launches
+    and the kernel checks."""
+    from isegprobe_torch.data.scenes import SYNTHETIC_FIXTURE, SceneDataset
+    from isegprobe_torch.inference import device_eval
+    from isegprobe_torch.inference.metrics import compute_noc_metric
+    from isegprobe_torch.models.probe_model import (
+        iSegProbeModel,
+        synthetic_config,
+    )
+    from isegprobe_torch.models.vit import init_params
+    from isegprobe_torch.ops import quant
+
+    res: dict = {}
+    paths: dict = {}
+    fwd, host = 2 * TRAINED_BATCH * 1025, 2 * 1025
+    clip_rows = 2 * 785
+    checks, seed = [], 400
+    for shape, dtype in [((r, d), dt) for dt in ("bfloat16", "float32")
+                         for r, d in ((fwd, 384), (fwd, 1536),
+                                      (host, 384))] + [
+            ((1152, 384), "bfloat16"), ((1536, 384), "bfloat16"),
+            ((384, 1536), "bfloat16")]:
+        checks.append(quantize_case(torch, quant, shape, dtype, seed,
+                                    "weight" if shape[0] < host
+                                    else "activations"))
+        seed += 1
+    products = ((384, 1152), (384, 384), (384, 1536), (1536, 384))
+    for m in (fwd, host):
+        for k, n in products:
+            checks.append(int8_gemm_case(torch, F, quant, m, k, n,
+                                         "bfloat16", seed, "flagship"))
+            seed += 1
+    for k, n in ((768, 2304), (768, 768), (768, 3072), (3072, 768)):
+        checks.append(int8_gemm_case(
+            torch, F, quant, clip_rows, k, n, "bfloat16", seed, "maskclip",
+            bias_after_cast=(k, n) == (768, 2304)))
+        seed += 1
+    checks.append(int8_gemm_case(torch, F, quant, host, 384, 1152,
+                                 "float32", seed, "float32 output"))
+    for c in checks:
+        print(f"int8 check {c['kernel']} {c['shape']} {c['dtype']}: "
+              f"bitwise {c['ok']}, {c['ms']:.4f} ms (bound "
+              f"{c['bound_ms']:.4f}, {c['bound_by']}; plain "
+              f"{c['plain_ms']:.4f}; library {c['library_ms']}"
+              + (f"; bf16 F.linear {c['linear_bf16_ms']:.4f}"
+                 if "linear_bf16_ms" in c else "") + ")")
+
+    fx = dict(np.load(INT8_FIXTURE))
+    scenes = dict(np.load(SYNTHETIC_FIXTURE))
+    data = SceneDataset(SYNTHETIC_FIXTURE)
+    k_fx = int(fx["int8_objects"])
+    per_forward = INT8_LAUNCHES["flagship"]
+    models = {}
+    for name, dtype in (("int8", "int8"), ("bfloat16", torch.bfloat16)):
+        t0 = time.time()
+        models[name], _ = eval_load(torch, TRAINED_CKPTS["flagship"], dtype)
+        res[f"load_{name}_s"] = time.time() - t0
+    model = models["int8"]
+
+    # one host forward at 448², batch 2, against JAX's int8 logits and the
+    # port's bf16 forward
+    img = fx["logits_image"].astype(np.float32) / 255.0
+    image = np.zeros((2, 448, 448, 4), np.float32)
+    image[0, ..., :3], image[1, ..., :3] = img, img[:, ::-1]
+    img_d = torch.from_numpy(image).cuda()
+    pts_d = torch.from_numpy(fx["logits_points"].astype(np.float32)).cuda()
+    with torch.inference_mode():
+        zero_counters()
+        logits = model(img_d, pts_d)["instances"]
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counters().items() if v}
+        logits16 = models["bfloat16"](img_d, pts_d)["instances"]
+        ms = {}
+        for name, b in (("batch2", 2), ("batch16", 2 * TRAINED_BATCH)):
+            reps = -(-b // 2)
+            img_b, pts_b = img_d.repeat(reps, 1, 1, 1), pts_d.repeat(reps, 1,
+                                                                     1)
+            for dt in ("bfloat16", "int8", "int8", "bfloat16"):
+                ms.setdefault(f"{dt}_{name}", []).append(time_ms(
+                    torch, lambda m=models[dt]: m(img_b, pts_b), reps=5,
+                    rounds=3, graph=False)[0])
+    want = fx["logits"]
+    out = logits.float().cpu().numpy()
+    scale = float(np.abs(want).max())
+    err = float(np.abs(out - want).max())
+    p8 = 1 / (1 + np.exp(-out))
+    p16 = 1 / (1 + np.exp(-logits16.float().cpu().numpy()))
+    prob_err = float(np.abs(p8 - p16).max())
+    res["forward"] = {"launches_per_forward": got,
+                      "max_abs_err_vs_jax_int8": err, "logit_scale": scale,
+                      "err_share_of_scale": err / scale,
+                      "max_prob_err_vs_bf16": prob_err,
+                      "forward_ms": {k: min(v) for k, v in ms.items()},
+                      "forward_ms_all": ms}
+    print("int8 forward", json.dumps(res["forward"]))
+    if not np.isfinite(out).all() or out.shape != want.shape:
+        fail(f"int8 forward: bad logits {out.shape}")
+    if err > INT8_LOGIT_TOL * scale:
+        fail(f"int8 forward differs from JAX's int8 logits by {err} > "
+             f"2^-6 of their scale {scale}")
+    if prob_err > INT8_PROB_TOL:
+        fail(f"int8 probabilities differ from bf16's by {prob_err} > "
+             f"{INT8_PROB_TOL}")
+    if got != per_forward:
+        fail(f"int8 forward launched {got}, expected {per_forward}")
+    paths["int8_forward"] = expected(**per_forward)
+
+    # the device loops at B=8 on the 78 objects: bf16 beside int8; int8's
+    # NoC on the fixture's objects against JAX's int8 NoC
+    def evaluator(m, batch, max_clicks=TRAINED_CLICKS):
+        return device_eval.make_device_evaluator(
+            m, target_size=(448, 448), batch_size=batch,
+            max_clicks=max_clicks, net_clicks_limit=max_clicks,
+            pred_thr=TRAINED_THRESH, target_iou=TRAINED_TARGET,
+            record_clicks=True)
+
+    def noc_of(all_ious, max_clicks=TRAINED_CLICKS):
+        return [float(v) for v in compute_noc_metric(
+            all_ious, [0.8, 0.85, 0.9], max_clicks)[0]]
+
+    loops = {}
+    for name in ("bfloat16", "int8"):
+        m = models[name]
+        device_eval.evaluate_dataset_device(evaluator(m, TRAINED_BATCH, 1),
+                                            data)  # warm-up
+        run = evaluator(m, TRAINED_BATCH)
+        clicks: list = []
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.time()
+        got = device_eval.evaluate_dataset_device(run, data, clicks=clicks)
+        wall = time.time() - t0
+        launches = counters()
+        per_step = dict(edt_row_envelope=1,
+                        **(per_forward if name == "int8"
+                           else FORWARD_LAUNCHES["flagship"]))
+        want_l = expected(**{k: v * run.steps for k, v in per_step.items()})
+        if launches != want_l:
+            fail(f"{name} B=8 loop launched {launches} in {run.steps} "
+                 f"steps, expected {want_l}")
+        n_clicks = sum(len(a) for a in got)
+        rec = {"batch": TRAINED_BATCH, "objects": len(got),
+               "steps": run.steps, "clicks": n_clicks, "wall_s": wall,
+               "ms_per_step": 1e3 * wall / run.steps,
+               "lane_clicks_per_s": n_clicks / wall, "noc": noc_of(got),
+               "jax_f32_noc": [float(v) for v in scenes["flagship_noc"]]}
+        rec["noc_gap_to_jax_f32"] = noc_gap(rec["noc"], rec["jax_f32_noc"])
+        if name == "int8":
+            rec["launches"] = launches
+            rec["fixture_objects"] = k_fx
+            rec["noc_on_fixture"] = noc_of(got[:k_fx])
+            rec["jax_int8_noc"] = [float(v) for v in fx["int8_noc"]]
+            rec["noc_gap_to_jax_int8"] = noc_gap(rec["noc_on_fixture"],
+                                                 rec["jax_int8_noc"])
+            parted = []
+            for i in range(k_fx):
+                n = int(fx["int8_n"][i])
+                mine = [tuple(int(v) for v in c) for c in clicks[i]]
+                theirs = [tuple(int(v) for v in c)
+                          for c in fx["int8_clicks"][i, :n]]
+                if mine != theirs:
+                    j = next((j for j, (a, b) in enumerate(zip(mine, theirs))
+                              if a != b), min(len(mine), n))
+                    parted.append({"object": i, "click": j + 1})
+            rec["objects_parting_from_jax_int8"] = parted
+            paths["int8_device_loop"] = launches
+        loops[name] = rec
+        print(f"{name} B=8 device loop", json.dumps(rec))
+    res["device_loops"] = loops
+    if loops["int8"]["noc_gap_to_jax_int8"] > INT8_NOC_TOL:
+        fail(f"int8 NoC@80/85/90 {loops['int8']['noc_on_fixture']} on the "
+             f"fixture's {k_fx} objects differ from JAX's int8 "
+             f"{loops['int8']['jax_int8_noc']} by more than {INT8_NOC_TOL}")
+
+    # host clicks in bf16, then int8: the host protocol on the fixture's
+    # first objects, exact launches a click, p50 ms beside JAX's int8 IoUs
+    res["host_bf16"] = int8_host_clicks(
+        torch, models["bfloat16"], fx, FORWARD_LAUNCHES["flagship"], "bf16")
+    res["host"] = int8_host_clicks(torch, model, fx, per_forward, "int8")
+    paths["int8_host"] = res["host"]["launches"]
+    del models
+
+    # the trained MaskCLIP in int8: a 224² batch-2 forward on the card
+    # against the CPU plain path
+    clip_fwd = INT8_LAUNCHES["maskclip_noup"]
+    clip, _ = eval_load(torch, TRAINED_CKPTS["maskclip"], "int8")
+    clip_cpu, _ = eval_load(torch, TRAINED_CKPTS["maskclip"], "int8",
+                            device="cpu")
+    rng = np.random.default_rng(7)
+    size = INT8_CLIP_SIZE
+    image = rng.random((2, size, size, 4), dtype=np.float32)
+    points = np.full((2, 4, 3), -1.0, np.float32)
+    points[:, 0] = (size * 0.4, size * 0.5, 0)
+    points[1, 2] = (size * 0.8, size * 0.2, 1)
+    with torch.inference_mode():
+        zero_counters()
+        got_l = clip(torch.from_numpy(image).cuda(),
+                     torch.from_numpy(points).cuda())["instances"]
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counters().items() if v}
+        ref = clip_cpu(torch.from_numpy(image),
+                       torch.from_numpy(points))["instances"]
+    err = float((got_l.float().cpu() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    res["maskclip"] = {"size": size, "launches_per_forward": got,
+                       "max_abs_err_vs_cpu": err, "logit_scale": scale}
+    print("int8 MaskCLIP forward", json.dumps(res["maskclip"]))
+    if err > INT8_MASKCLIP_TOL * scale or not bool(
+            torch.isfinite(got_l).all()):
+        fail(f"int8 MaskCLIP: card forward differs from the CPU plain path "
+             f"by {err} (logit scale {scale})")
+    if got != clip_fwd:
+        fail(f"int8 MaskCLIP launched {got}, expected {clip_fwd}")
+    paths["int8_maskclip_forward"] = expected(**clip_fwd)
+    del clip, clip_cpu
+
+    # the drawn DINO key probe in int8 (bf16 params, as the CLI casts them)
+    key_fwd = INT8_LAUNCHES["vit_noup"]
+    cfg = synthetic_config("vit_noup", (448, 448))
+    key = init_params(iSegProbeModel(**cfg, quant="int8"), seed=0).eval()
+    key.to(torch.bfloat16)
+    with torch.inference_mode():
+        zero_counters()
+        kl = key(img_d, pts_d)["instances"]
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counters().items() if v}
+    res["dino_key"] = {"launches_per_forward": got,
+                       "finite": bool(torch.isfinite(kl).all()),
+                       "shape": list(kl.shape)}
+    print("int8 DINO key probe forward", json.dumps(res["dino_key"]))
+    if got != key_fwd or not res["dino_key"]["finite"]:
+        fail(f"int8 DINO key probe: launched {got} (expected {key_fwd}), "
+             f"finite {res['dino_key']['finite']}")
+    paths["int8_dino_key_forward"] = expected(**key_fwd)
+    del key
+
+    # the trained 448² LoftUp in int8: the padded layout (D at dh 128), a
+    # loop of the fixture's LoftUp objects and clicks, beside JAX's f32
+    loft, info = eval_load(torch, TRAINED_CKPTS["loftup"], "int8")
+    if not info["config"]["params"]["upsampler_cfg"]["params"].get(
+            "mxu_pad"):
+        fail("int8 LoftUp: not in the padded layout")
+    run = evaluator(loft, TRAINED_LOFTUP_OBJECTS, TRAINED_LOFTUP_CLICKS)
+    loft_data = SceneDataset(SYNTHETIC_FIXTURE,
+                             objects=slice(0, TRAINED_LOFTUP_OBJECTS))
+    clicks = []
+    zero_counters()
+    t0 = time.time()
+    got = device_eval.evaluate_dataset_device(run, loft_data, clicks=clicks)
+    wall = time.time() - t0
+    launches = counters()
+    per_step = dict(edt_row_envelope=1, **INT8_LAUNCHES["loftup"])
+    want_l = expected(**{k: v * run.steps for k, v in per_step.items()})
+    if launches != want_l:
+        fail(f"int8 LoftUp loop launched {launches} in {run.steps} steps, "
+             f"expected {want_l}")
+    res["loftup"] = {
+        "objects": TRAINED_LOFTUP_OBJECTS, "clicks": TRAINED_LOFTUP_CLICKS,
+        "steps": run.steps, "wall_s": wall,
+        "ms_per_step": 1e3 * wall / run.steps,
+        "ious": [[float(v) for v in a] for a in got],
+        "jax_f32_ious": [[float(v) for v in fx_i[:int(n)]] for fx_i, n in
+                         zip(scenes["loftup_ious"], scenes["loftup_n"])],
+        "same_clicks_as_jax_f32": [
+            [tuple(int(v) for v in c) for c in clicks[i]]
+            == [tuple(int(v) for v in c)
+                for c in scenes["loftup_clicks"][i, :int(
+                    scenes["loftup_n"][i])]]
+            for i in range(TRAINED_LOFTUP_OBJECTS)]}
+    print("int8 LoftUp loop", json.dumps(res["loftup"]))
+    if not all(np.isfinite(a).all() and len(a) for a in got):
+        fail(f"int8 LoftUp loop: bad trajectories {got}")
+    paths["int8_loftup_loop"] = launches
+    del loft
+    res["path_launches"] = paths
+    res["checks"] = checks
+    return res
+
+
 def _flat(tree, prefix=""):
     """(path, leaf) of a nested dict, in key order."""
     for k in sorted(tree):
@@ -5783,6 +6270,19 @@ def main() -> int:
     results["run_outputs"] = outputs
 
     done("11k run_outputs")
+    # 11l. int8 W8A8 serving: kernels H and I bitwise, the trained
+    # flagship's int8 forward, device loop and host clicks against JAX's
+    # int8 results, MaskCLIP, the DINO key probe and LoftUp in int8
+    int8 = int8_phase(torch, F)
+    results["int8"] = {k: v for k, v in int8.items() if k != "checks"}
+    for c in int8["checks"]:
+        print("check", json.dumps(c))
+    checks += int8["checks"]
+    bad = [c for c in int8["checks"] if not c["ok"]]
+    if bad:
+        fail(f"kernel disagrees with its plain version: {bad}")
+
+    done("11l int8")
     # 12. the learned-upsampler families (main paths 3-6)
     families = {name: learned_family(torch, name) for name in UPSAMPLERS}
     results["families"] = families
@@ -5818,7 +6318,15 @@ def main() -> int:
                           sweep_shape),
         "mha_qkv_merged": ("isegprobe_torch/csrc/attn_variants.cu",
                            "scripts/bench_attn_variants.py:101",
-                           sweep_shape)}
+                           sweep_shape),
+        # no pallas_call: H and I are the XLA ops of the JAX
+        # int8_dynamic_matmul, at the int8 loop's forward (B=8, flip)
+        "quantize_rows": ("isegprobe_torch/csrc/quant.cu",
+                          "isegprobe_tpu/ops/quant.py:44",
+                          [2 * TRAINED_BATCH * 1025, 384]),
+        "int8_gemm": ("isegprobe_torch/csrc/quant.cu",
+                      "isegprobe_tpu/ops/quant.py:44",
+                      [2 * TRAINED_BATCH * 1025, 384, 1152])}
     # the kernels whose source instantiates the shared flash core
     on_core = ("mha_qkv", "mha", "mha_qkv_nodiv", "mha_qkv_merged")
     paths = {"host_protocol": launches, "device_loop": loop_launches,
@@ -5835,6 +6343,7 @@ def main() -> int:
     paths.update(brs_res["path_launches"])
     paths.update(converted["path_launches"])
     paths.update(outputs["path_launches"])
+    paths.update(int8["path_launches"])
     for fam in families.values():
         paths.update(fam["path_launches"])
     kernels = []
@@ -5848,7 +6357,9 @@ def main() -> int:
                      and "plain_ms" in c), None)
 
     for name, (src, replaces, shape) in sources.items():
-        c = timed_check(name, shape, "float32")
+        # I writes bf16 on every path; its f32 output is checked elsewhere
+        c = timed_check(name, shape, "float32") or timed_check(
+            name, shape, "bfloat16")
         by_path = {p: counts[name] for p, counts in paths.items()}
         if not any(by_path.values()):
             fail(f"kernel {name} was launched on no main path: {by_path}")
@@ -5859,7 +6370,7 @@ def main() -> int:
                  "launches_by_path": by_path,
                  **{k: c[k] for k in timing_keys}, "shape": shape}
         c16 = timed_check(name, shape, "bfloat16")
-        if c16 is not None:
+        if c16 is not None and c16 is not c:
             entry["bfloat16"] = {k: c16[k] for k in timing_keys}
             if "plan" in c16:
                 entry["bfloat16"]["plan"] = c16["plan"]
@@ -5905,6 +6416,17 @@ def main() -> int:
             for o in converted["checks"] if o["kernel"] == name]
         if converted_shapes:
             entry["converted_weights_shapes"] = converted_shapes
+        # int8 serving's shapes (phase 11l), with the yardsticks
+        int8_shapes = [
+            {"shape": o["shape"], "dtype": o["dtype"], "what": o["what"],
+             **{k: o[k] for k in timing_keys},
+             **{k: o[k] for k in ("linear_bf16_ms", "linear_bf16_bound_ms",
+                                  "bias_after_cast") if k in o}}
+            for o in int8["checks"] if o["kernel"] == name]
+        if int8_shapes:
+            entry["int8_shapes"] = int8_shapes
+            entry["replaces_kind"] = ("no pallas_call: the XLA ops of "
+                                      "int8_dynamic_matmul")
         if name == "jbu_filter":
             entry.update(tile=jbu_config, ptxas=jbu_ptxas)
         if name == "edt_row_envelope":

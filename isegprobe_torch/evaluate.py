@@ -71,8 +71,16 @@ there, and does nothing when it is not.
 ``prob_thresh``. The device loop runs NoBRS only: a BRS mode with
 ``device_loop=true`` runs the host protocol and says so.
 
-A LoftUp probe is evaluated in its zero-padded layout in bfloat16 and
-unpadded in float32, the faster of the two on the H100 in each dtype
+``dtype`` is ``float32`` (the default), ``bfloat16`` (every f32 param
+rounded to bf16, as the root casts them) or ``int8``: bf16 with the
+backbone's dense layers in dynamic W8A8 (``ops/quant.py``, kernels H and
+I), as the root builds ``quant="int8"``; everything else, the click
+encoder and the head included, runs bf16. int8 serves only: a BRS mode
+runs under autograd, whose gradient crosses a W8A8 layer only through its
+row scales, as in JAX.
+
+A LoftUp probe is evaluated in its zero-padded layout in bfloat16 and int8
+and unpadded in float32, the faster of the two on the H100 in each dtype
 (PERF.md): ``mxu_pad`` is accepted for the root's command lines, and a
 value other than ``auto`` that names the other layout is ignored with a
 warning. ``fuse_hr_head=true`` runs the head inside LoftUp's slab loop, so
@@ -117,7 +125,9 @@ from isegprobe_torch.utils.serialization import (
 __all__ = ["load_model_for_eval", "get_dataset", "parse_args", "evaluate",
            "evaluate_all", "main"]
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the CLI's dtype names; "int8" is bf16 with the backbone in W8A8
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int8": "int8"}
 
 
 def load_model_for_eval(checkpoint: str, dtype=torch.float32,
@@ -129,14 +139,15 @@ def load_model_for_eval(checkpoint: str, dtype=torch.float32,
                         ) -> Tuple[torch.nn.Module, Dict]:
     """The checkpoint's probe as the root ``evaluate.py:load_model_for_eval``
     builds it, as a model of the port on ``device`` (CUDA unless ``device=
-    "cpu"``) in ``dtype``. Returns (model, info): ``info`` holds the
-    config the model was built from (``config``), the frozen parts
-    (``frozen``), the seconds they took to rebuild (``init_seconds``) and
-    their count of scalars (``frozen_params``). ``frozen`` reuses the
-    frozen parts of an earlier load (its ``info["frozen"]``) or any tree
-    drawn by ``init_tree(config, 0)`` for the same backbone and upsampler
-    config, instead of drawing them again: they are a function of that
-    config alone.
+    "cpu"``) in ``dtype`` (``torch.float32``, ``torch.bfloat16``, or
+    ``"int8"``: bfloat16 with ``quant="int8"``). Returns (model, info):
+    ``info`` holds the config the model was built from (``config``), the
+    frozen parts (``frozen``), the seconds they took to rebuild
+    (``init_seconds``) and their count of scalars (``frozen_params``).
+    ``frozen`` reuses the frozen parts of an earlier load (its
+    ``info["frozen"]``) or any tree drawn by ``init_tree(config, 0)`` for
+    the same backbone and upsampler config, instead of drawing them again:
+    they are a function of that config alone.
 
     The frozen parts (every top-level subtree the checkpoint leaves out) are
     ``model.init(PRNGKey(0))``'s; the checkpoint's subtrees replace theirs
@@ -145,9 +156,10 @@ def load_model_for_eval(checkpoint: str, dtype=torch.float32,
     load_upsampler_params`` warns when it does not). The DINOv2 and DINO
     pos-embeds are resized once to the eval grid, as
     ``interpolate_backbone_pos_embed`` does, so that the forward's own
-    interpolation is a no-op (:func:`_preinterpolate_pos_embed`). In bf16 the
-    f32 params are rounded into the bf16 model, as the root ``evaluate.py``
-    casts its params. ``eval_ritm`` (the RITM protocol) skips the pos-embed
+    interpolation is a no-op (:func:`_preinterpolate_pos_embed`). In bf16
+    and int8 the f32 params are rounded into the bf16 model, as the root
+    ``evaluate.py`` casts its params (int8 quantizes from them on every
+    call). ``eval_ritm`` (the RITM protocol) skips the pos-embed
     resize, as the root's does. The root also forces ``use_rgb_conv`` on
     there; the port builds the checkpoint's own model instead. Where the
     root's build succeeds the two agree (a click embedding that takes the
@@ -156,14 +168,17 @@ def load_model_for_eval(checkpoint: str, dtype=torch.float32,
     does, the root cannot build with the transform, and the port evaluates
     it as it was trained.
 
-    ``mxu_pad`` (None: on for bfloat16 and off for float32, as the root's
-    ``auto``; True or False force it) builds a LoftUp probe in the
-    zero-padded layout: its params are padded by ``models.convert.pad_loftup_params``
+    ``mxu_pad`` (None: on for bfloat16 and int8 and off for float32, as
+    the root's ``auto``; True or False force it) builds a LoftUp probe in
+    the zero-padded layout: its params are padded by ``models.convert.pad_loftup_params``
     after the unpadded init and overlay, so that the init stream is
     unchanged, and the config's upsampler params carry ``mxu_pad=True``.
     ``fuse_hr_head`` runs the head inside LoftUp's slab loop (a build
     override, as the root's; the saved config does not hold it)."""
     device = resolve_device(device)
+    quant = "int8" if dtype == "int8" else None
+    if quant:
+        dtype = torch.bfloat16
     params, config, _ = load_checkpoint(checkpoint)
     t0 = time()
     if frozen is None:
@@ -190,7 +205,7 @@ def load_model_for_eval(checkpoint: str, dtype=torch.float32,
     if not eval_ritm:
         config, params = _preinterpolate_pos_embed(config, params,
                                                    target_size)
-    model = load_jax_params(build_model(config, device, dtype,
+    model = load_jax_params(build_model(config, device, dtype, quant=quant,
                                         fuse_hr_head=fuse_hr_head), params)
     return model, dict(config=config, frozen=frozen,
                        init_seconds=init_seconds,
@@ -316,9 +331,7 @@ def parse_args(argv) -> Dict:
                                       cfg["dataset_names"][0])
     cfg["target_size"] = _pos_embed_size(cfg["zoomin"])
     if cfg["dtype"] not in DTYPES:
-        raise NotImplementedError(
-            f"dtype={cfg['dtype']}: the port evaluates in float32 or "
-            "bfloat16; int8 W8A8 is ROADMAP Queue 1 item 9 (ops/quant.py)")
+        raise ValueError(f"dtype={cfg['dtype']}: takes {sorted(DTYPES)}")
     cfg["device_loop"] = _flag(cfg["device_loop"])
     cfg["device_batch"] = int(cfg["device_batch"])
     refill = cfg["device_refill"].lower()
@@ -337,10 +350,11 @@ def parse_args(argv) -> Dict:
         cfg["device_refill"] = False
     cfg["group_max_jobs"] = int(cfg["group_max_jobs"])
     pad = cfg.pop("mxu_pad").lower()
-    if pad != "auto" and _flag(pad) != (cfg["dtype"] == "bfloat16"):
+    if pad != "auto" and _flag(pad) != (cfg["dtype"] != "float32"):
         logging.getLogger(__name__).warning(
             f"mxu_pad={pad} ignored: LoftUp's layout follows dtype (padded "
-            "in bfloat16, unpadded in float32), the faster one in each")
+            "in bfloat16 and int8, unpadded in float32), the faster one in "
+            "each")
     cfg["fuse_hr_head"] = _flag(cfg["fuse_hr_head"])
     cfg["n_clicks"] = int(cfg["n_clicks"])
     cfg["print_ious"] = _flag(cfg["print_ious"])

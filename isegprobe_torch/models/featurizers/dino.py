@@ -30,16 +30,20 @@ class DINOFeaturizer(nn.Module):
     def __init__(self, arch: str = "dino_vits16", patch_size: int = 16,
                  feat_type: str = "key",
                  feats_injection_mode: str = "no_injection",
-                 pretrain_grid=None, remat_blocks: bool = False) -> None:
+                 pretrain_grid=None, remat_blocks: bool = False,
+                 quant: str | None = None) -> None:
         """``remat_blocks``: recompute each block in the backward (it does
-        not change the forward)."""
+        not change the forward). ``quant='int8'``: the blocks' dense layers
+        in dynamic W8A8 (``ops/quant.py``), the key probe's qkv among
+        them."""
         super().__init__()
         if feats_injection_mode not in INJECTION_MODES:
             raise ValueError(
                 f"Unknown injection mode: {feats_injection_mode}")
         if feat_type not in FEAT_TYPES:
             raise ValueError(f"Unknown feat_type: {feat_type}")
-        overrides = dict(patch_size=patch_size, remat_blocks=remat_blocks)
+        overrides = dict(patch_size=patch_size, remat_blocks=remat_blocks,
+                         quant=quant)
         if pretrain_grid is not None:
             # eval-time pre-interpolated pos embeddings
             overrides["pretrain_grid"] = tuple(pretrain_grid)

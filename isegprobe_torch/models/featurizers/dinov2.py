@@ -28,10 +28,12 @@ INJECTION_MODES = ("no_injection", "before_backbone", "after_backbone")
 class DINOv2Featurizer(nn.Module):
     def __init__(self, arch: str = "dinov2_vits14",
                  feats_injection_mode: str = "no_injection",
-                 pretrain_grid=None, remat_blocks: bool = False) -> None:
+                 pretrain_grid=None, remat_blocks: bool = False,
+                 quant: str | None = None) -> None:
         """``remat_blocks``: recompute each block in the backward
         (``training_params.remat_backbone``, the memory lever of high-res
-        training); it does not change the forward."""
+        training); it does not change the forward. ``quant='int8'``: the
+        blocks' dense layers in dynamic W8A8 (``ops/quant.py``)."""
         super().__init__()
         if arch not in DINOV2_ARCHS:
             raise NotImplementedError(f"Unknown DINOv2 arch: {arch}")
@@ -39,7 +41,7 @@ class DINOv2Featurizer(nn.Module):
             raise ValueError(
                 f"Unknown injection mode: {feats_injection_mode}")
         cfg = dataclasses.replace(DINOV2_ARCHS[arch],
-                                  remat_blocks=remat_blocks)
+                                  remat_blocks=remat_blocks, quant=quant)
         if pretrain_grid is not None:
             # eval-time pre-interpolated pos embeddings
             cfg = dataclasses.replace(cfg, pretrain_grid=tuple(pretrain_grid))

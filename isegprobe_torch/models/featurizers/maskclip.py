@@ -26,15 +26,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from isegprobe_torch.models.dtype import Conv2d, Linear, compute_dtype
+from isegprobe_torch.models.dtype import Conv2d, compute_dtype
 from isegprobe_torch.models.featurizers.dinov2 import INJECTION_MODES
 from isegprobe_torch.models.vit import (
     LayerNorm,
     canvas_token_mask,
+    dense,
     dynamic_table,
 )
 from isegprobe_torch.ops.attention import mha_qkv
 from isegprobe_torch.ops.layernorm import layernorm
+from isegprobe_torch.ops.quant import quant_linear
 from isegprobe_torch.ops.resize import resize
 
 CLIP_ARCHS = {
@@ -45,6 +47,11 @@ CLIP_ARCHS = {
 LN_EPS = 1e-5
 # the '+0.1' scale trick of the pos-embed interpolation
 INTERPOLATE_OFFSET = 0.1
+
+
+# under quant='int8' the resblocks' W8A8 layers write bfloat16 whatever the
+# compute dtype, as the JAX tower's QuantDense keeps its default dtype
+_QUANT_OUT = torch.bfloat16
 
 
 def _causal_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
@@ -66,15 +73,23 @@ def _causal_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
 class _CLIPAttention(nn.Module):
     """torch ``nn.MultiheadAttention``'s layout: packed ``in_proj`` and
     ``out_proj``; attention through the packed-qkv kernel, or with
-    ``causal`` (the text tower) the plain masked attention."""
+    ``causal`` (the text tower) the plain masked attention.
 
-    def __init__(self, width: int, heads: int, causal: bool = False) -> None:
+    ``quant='int8'`` keeps the JAX tower's asymmetries: the packed
+    ``in_proj`` runs in W8A8, cast to the input's dtype before its bias is
+    added in that dtype (``maskclip.py:_qkv``), and ``out_proj`` writes
+    bfloat16 whatever the compute dtype (``QuantDense``'s default), while
+    :meth:`value_path` keeps its v-slice of ``in_proj`` in float."""
+
+    def __init__(self, width: int, heads: int, causal: bool = False,
+                 quant: str | None = None) -> None:
         super().__init__()
         self.heads = heads
         self.causal = causal
+        self.quant = quant
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
-        self.out_proj = Linear(width, width)
+        self.out_proj = dense(quant, width, width, _QUANT_OUT)
 
     def _in_proj(self, x: torch.Tensor, rows: slice) -> torch.Tensor:
         """``x @ in_proj_weight[rows].T + in_proj_bias[rows]`` in the
@@ -83,9 +98,15 @@ class _CLIPAttention(nn.Module):
         return F.linear(x.to(dt), self.in_proj_weight[rows].to(dt),
                         self.in_proj_bias[rows].to(dt))
 
+    def _qkv(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant == "int8":
+            return quant_linear(x, self.in_proj_weight, self.in_proj_bias,
+                                x.dtype, bias_after_cast=True)
+        return self._in_proj(x, slice(None))
+
     def forward(self, x: torch.Tensor,
                 key_mask: torch.Tensor | None = None) -> torch.Tensor:
-        qkv = self._in_proj(x, slice(None))
+        qkv = self._qkv(x)
         if self.causal:
             return self.out_proj(_causal_attention(qkv, self.heads))
         dh = x.shape[-1] // self.heads
@@ -100,17 +121,18 @@ class _CLIPAttention(nn.Module):
 class _CLIPBlock(nn.Module):
     """A residual attention block; ``value_only`` builds the last block of
     the dense tower, which keeps only ``ln_1`` and ``attn``; ``causal``
-    masks the attention (the text tower)."""
+    masks the attention (the text tower); ``quant='int8'`` runs its dense
+    layers in W8A8, ``c_fc`` and ``c_proj`` writing bfloat16."""
 
     def __init__(self, width: int, heads: int, value_only: bool = False,
-                 causal: bool = False) -> None:
+                 causal: bool = False, quant: str | None = None) -> None:
         super().__init__()
         self.ln_1 = LayerNorm(width, LN_EPS)
-        self.attn = _CLIPAttention(width, heads, causal)
+        self.attn = _CLIPAttention(width, heads, causal, quant)
         if not value_only:
             self.ln_2 = LayerNorm(width, LN_EPS)
-            self.c_fc = Linear(width, 4 * width)
-            self.c_proj = Linear(4 * width, width)
+            self.c_fc = dense(quant, width, 4 * width, _QUANT_OUT)
+            self.c_proj = dense(quant, 4 * width, width, _QUANT_OUT)
 
     def forward(self, x: torch.Tensor,
                 key_mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -125,7 +147,9 @@ class _CLIPBlock(nn.Module):
 class CLIPVisionTransformer(nn.Module):
     def __init__(self, patch_size: int = 16, width: int = 768,
                  layers: int = 12, heads: int = 12, output_dim: int = 512,
-                 pretrain_grid: int = 14) -> None:
+                 pretrain_grid: int = 14, quant: str | None = None) -> None:
+        """``quant='int8'``: the resblocks' dense layers in dynamic W8A8
+        (``ops/quant.py``); the stem, the norms and ``proj`` stay float."""
         super().__init__()
         self.patch_size = patch_size
         self.width = width
@@ -137,7 +161,7 @@ class CLIPVisionTransformer(nn.Module):
             torch.zeros(pretrain_grid**2 + 1, width))
         self.ln_pre = LayerNorm(width, LN_EPS)
         self.resblocks = nn.ModuleList(
-            _CLIPBlock(width, heads, value_only=i == layers - 1)
+            _CLIPBlock(width, heads, value_only=i == layers - 1, quant=quant)
             for i in range(layers))
         self.ln_post = LayerNorm(width, LN_EPS)
         self.proj = nn.Parameter(torch.zeros(width, output_dim))
@@ -206,7 +230,8 @@ class MaskCLIPFeaturizer(nn.Module):
     """The tower with click injection; output ``[B, gh, gw, 512]``."""
 
     def __init__(self, model_name: str = "ViT-B/16",
-                 feats_injection_mode: str = "no_injection") -> None:
+                 feats_injection_mode: str = "no_injection",
+                 quant: str | None = None) -> None:
         super().__init__()
         if model_name not in CLIP_ARCHS:
             raise ValueError(f"Currently unsupported model_name for "
@@ -218,7 +243,7 @@ class MaskCLIPFeaturizer(nn.Module):
         self.feats_injection_mode = feats_injection_mode
         self.patch_size = arch["patch_size"]
         self.embed_dim = arch["output_dim"]
-        self.model = CLIPVisionTransformer(**arch)
+        self.model = CLIPVisionTransformer(**arch, quant=quant)
 
     def forward(self, x: torch.Tensor,
                 additional_features: torch.Tensor | None = None

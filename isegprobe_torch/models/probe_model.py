@@ -8,9 +8,9 @@ resize. It takes the JAX package's constructor config (so a checkpoint's
 probing) and ``mask_clip`` backbones, the ``patchEmbed`` and ``simple_vit``
 click encoders, the heads of ``models.heads`` and the upsamplers of
 ``models.upsamplers`` (the non-learnable ones, LiFT, LoftUp and the
-JBU-FeatUp stack), and the RITM maps transform of ``use_rgb_conv``. Other
-options raise ``NotImplementedError`` naming the ROADMAP item that brings
-them. ``forward_masked`` is the forward on the adaptive ZoomIn's canvas.
+JBU-FeatUp stack), the RITM maps transform of ``use_rgb_conv``, and the
+int8 W8A8 backbone of ``quant='int8'``. ``forward_masked`` is the forward
+on the adaptive ZoomIn's canvas.
 
 Call as ``model(image, points)`` with image ``[B, H, W, 3]`` in [0, 1] (plus a
 prev-mask channel when ``with_prev_mask``) and points ``[B, 2N, 3]`` rows of
@@ -48,15 +48,17 @@ BACKBONES = {"dinov2": DINOv2Featurizer, "vit": DINOFeaturizer,
              "mask_clip": MaskCLIPFeaturizer}
 
 
-def _unsupported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to isegprobe_torch yet: {item}")
-
-
-def build_simple_vit(params: Dict, channels: int) -> SimpleViTFeaturizer:
+def build_simple_vit(params: Dict, channels: int,
+                     quant=None) -> SimpleViTFeaturizer:
     """The ``simple_vit`` click encoder of ``embed_coords_cfg["params"]``,
     with the config's key names (the JAX package's ``build_featurizer``),
-    for inputs of ``channels`` channels."""
+    for inputs of ``channels`` channels. It is trainable and stays float:
+    ``quant`` raises, as the JAX package's does (the probe builds it
+    without, so an int8 probe keeps a float click encoder)."""
+    if quant:
+        raise NotImplementedError(
+            f"quant={quant!r} is not supported for simple_vit (frozen "
+            "backbone towers only)")
     return SimpleViTFeaturizer(
         image_size=params["img_size"], patch_size=params["patch_size"],
         dim=params["embed_dim"], depth=params["depth"],
@@ -173,11 +175,15 @@ class iSegProbeModel(nn.Module):
     bf16-rounded weights, as in the JAX package. ``dtype`` is not part of
     the saved config (the JAX package does not record it either). ``attn_impl`` and
     ``cpu_dist_maps`` are accepted for config compatibility: the port always
-    uses its own kernels on a GPU. ``quant`` must be None (int8 is not
-    ported yet). ``fuse_hr_head`` runs the head inside LoftUp's slab loop
-    (the head's ``banded`` contract), so the ``[B, H, W, C]`` feature map
-    never exists whole: the same logits (serving; the fused slabs are not
-    checkpointed under autograd); other upsamplers ignore it. The model
+    uses its own kernels on a GPU. ``quant='int8'`` (the evaluate CLI's
+    ``dtype=int8``, serving only) runs the backbone's dense layers in
+    dynamic W8A8 (``ops/quant.py``); the click encoder, the upsampler and
+    the head stay float, and the saved config records it, as the JAX
+    package's ``model_config`` does. ``fuse_hr_head`` runs the head inside
+    LoftUp's slab loop (the head's ``banded`` contract), so the ``[B, H,
+    W, C]`` feature map never exists whole: the same logits (serving; the
+    fused slabs are not checkpointed under autograd); other upsamplers
+    ignore it. The model
     is built on ``device`` (CUDA
     unless the caller passes ``device="cpu"``) with placeholder parameters;
     load weights with ``models.convert.load_jax_params`` or draw them with
@@ -202,9 +208,6 @@ class iSegProbeModel(nn.Module):
             raise NotImplementedError(
                 f"architecture {architecture!r}: necks are unimplemented in "
                 "the reference too")
-        if quant is not None:
-            raise _unsupported(f"quant={quant!r} (int8 W8A8 serving)",
-                               "ROADMAP Queue 1 item 9 (ops/quant.py)")
         # the constructor config, with the JAX package's field names and
         # order (``utils.serialization.model_config`` writes it)
         self.ctor_config = dict(
@@ -228,7 +231,8 @@ class iSegProbeModel(nn.Module):
         btype = backbone_cfg["type"].lower()
         if btype not in BACKBONES:
             raise ValueError(f"Unsupported backbone type: {btype}")
-        self.backbone = BACKBONES[btype](**(backbone_cfg.get("params") or {}))
+        self.backbone = BACKBONES[btype](**(backbone_cfg.get("params") or {}),
+                                         quant=quant)
 
         self.upsampler_type = (upsampler_cfg["type"].lower() if upsampler_cfg
                                else "bilinear")

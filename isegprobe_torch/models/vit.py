@@ -4,8 +4,9 @@ Counterpart of ``isegprobe_tpu/models/vit.py``: ``PatchEmbed``,
 ``Attention`` (the packed-qkv path), ``Mlp`` with exact GELU, ``LayerScale``,
 ``Block`` and ``ViT`` with the bicubic pos-embed interpolation and its
 exact-size short-circuit, the last block's keys for DINO's key probing, and
-the SimpleViT sin-cos embedding (``posemb_sincos_2d``), and the adaptive
-canvas's forward (``ViT.forward_tokens_masked``). The two ported
+the SimpleViT sin-cos embedding (``posemb_sincos_2d``), the adaptive
+canvas's forward (``ViT.forward_tokens_masked``), and the blocks' dense
+layers in dynamic W8A8 under ``quant='int8'`` (``ops/quant.py``). The two ported
 trunks differ only in LayerScale, ``ViTConfig``'s one family switch; what
 they share (qkv biases, a cls token, LayerNorm eps 1e-6, MLP ratio 4,
 exact GELU, the '+0.1' pos-embed scale trick) is fixed here. Module and
@@ -39,6 +40,7 @@ from isegprobe_torch.models.dtype import Conv2d, Linear, compute_dtype
 from isegprobe_torch.ops.attention import mha_qkv
 from isegprobe_torch.ops.dynamic_resize import dyn_matrix
 from isegprobe_torch.ops.layernorm import layernorm
+from isegprobe_torch.ops.quant import QuantLinear
 from isegprobe_torch.ops.resize import resize
 
 
@@ -63,6 +65,9 @@ class ViTConfig:
     layerscale: bool = True
     # recompute each block in the backward (high-res training)
     remat_blocks: bool = False
+    # 'int8': the blocks' dense layers (qkv, proj, fc1, fc2) in dynamic
+    # W8A8 (ops/quant.py), the serving knob; None: the compute dtype
+    quant: str | None = None
 
 
 class PatchEmbed(nn.Module):
@@ -105,12 +110,25 @@ class LayerNorm(nn.Module):
                          self.eps, self.real).to(dt)
 
 
+def dense(quant: str | None, in_features: int, out_features: int,
+          out_dtype: torch.dtype | None = None) -> nn.Module:
+    """A block's dense layer: :class:`Linear`, or its dynamic W8A8 drop-in
+    (the same parameters) under ``quant='int8'`` (the JAX ``_dense``),
+    writing ``out_dtype`` (None: the compute dtype)."""
+    if quant == "int8":
+        return QuantLinear(in_features, out_features, out_dtype=out_dtype)
+    if quant is not None:
+        raise ValueError(f"Unknown quant mode: {quant!r}")
+    return Linear(in_features, out_features)
+
+
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int) -> None:
+    def __init__(self, dim: int, num_heads: int,
+                 quant: str | None = None) -> None:
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = Linear(dim, 3 * dim)
-        self.proj = Linear(dim, dim)
+        self.qkv = dense(quant, dim, 3 * dim)
+        self.proj = dense(quant, dim, dim)
 
     def forward(self, x: torch.Tensor,
                 key_mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -123,10 +141,11 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden_dim: int) -> None:
+    def __init__(self, dim: int, hidden_dim: int,
+                 quant: str | None = None) -> None:
         super().__init__()
-        self.fc1 = Linear(dim, hidden_dim)
-        self.fc2 = Linear(hidden_dim, dim)
+        self.fc1 = dense(quant, dim, hidden_dim)
+        self.fc2 = dense(quant, hidden_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
@@ -146,10 +165,10 @@ class Block(nn.Module):
         super().__init__()
         d = cfg.embed_dim
         self.norm1 = LayerNorm(d, cast_input=True)
-        self.attn = Attention(d, cfg.num_heads)
+        self.attn = Attention(d, cfg.num_heads, cfg.quant)
         self.ls1 = LayerScale(d) if cfg.layerscale else nn.Identity()
         self.norm2 = LayerNorm(d, cast_input=True)
-        self.mlp = Mlp(d, MLP_RATIO * d)
+        self.mlp = Mlp(d, MLP_RATIO * d, cfg.quant)
         self.ls2 = LayerScale(d) if cfg.layerscale else nn.Identity()
 
     def forward(self, x: torch.Tensor,

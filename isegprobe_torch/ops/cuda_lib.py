@@ -27,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("attention", "layernorm", "edt", "mha", "jbu", "attn_variants")
+SOURCES = ("attention", "layernorm", "edt", "mha", "jbu", "attn_variants",
+           "quant")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

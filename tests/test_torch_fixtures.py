@@ -110,9 +110,11 @@ def _np_lane_key(mask):
     return (len(rows), int(rows.sum()), int(cols.sum()))
 
 
-def jax_device_run(ckpt, objects_data, batch_size, max_clicks):
-    """The JAX f32 device evaluator over ``objects_data`` (``_objects``):
-    per-object IoUs, click counts and clicks [N, max_clicks, 3]."""
+def jax_device_run(ckpt, objects_data, batch_size, max_clicks,
+                   dtype="float32"):
+    """The JAX device evaluator (f32, or ``evaluate.py``'s ``dtype``) over
+    ``objects_data`` (``_objects``): per-object IoUs, click counts and
+    clicks [N, max_clicks, 3]."""
     import jax
     import jax.numpy as jnp
 
@@ -120,7 +122,7 @@ def jax_device_run(ckpt, objects_data, batch_size, max_clicks):
 
     evaluate = _evaluate_cli()
     model, params = evaluate.load_model_for_eval(
-        str(ckpt), {"dtype": "float32"}, target_size=TARGET)
+        str(ckpt), {"dtype": dtype}, target_size=TARGET)
     seen = {}
 
     def record(key, n_prior, is_pos, cy, cx):

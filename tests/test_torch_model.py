@@ -201,8 +201,18 @@ def test_unported_configs_raise():
     )
 
     cfg = flagship_config((56, 56))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        iSegProbeModel(**cfg, quant="int8", device="cpu")
+    # int8 W8A8 is ported: the backbone's dense layers become QuantLinear;
+    # an unknown mode raises, as the JAX package's _dense does
+    from isegprobe_torch.ops.quant import QuantLinear
+
+    int8 = iSegProbeModel(**cfg, quant="int8", device="cpu")
+    assert sum(isinstance(m, QuantLinear)
+               for m in int8.backbone.modules()) == 48
+    assert not any(isinstance(m, QuantLinear)
+                   for part in (int8.embed_coords, int8.head)
+                   for m in part.modules())
+    with pytest.raises(ValueError, match="Unknown quant mode"):
+        iSegProbeModel(**cfg, quant="int4", device="cpu")
     # LoftUp's padded layout and the fused head are ported
     padded = iSegProbeModel(**{**cfg, "upsampler_cfg": dict(
         type="loftup", params=dict(mxu_pad=True))}, fuse_hr_head=True,
