@@ -351,6 +351,30 @@ does not hold:
     + 90 H); the drawn DINO key probe in int8 (11 A + 23 B + 45 I + 90 H);
     the trained 448² LoftUp in int8 (padded, D at dh 128) through a loop of
     2 objects × 4 clicks beside JAX's f32 trajectories;
+11m. demo_parallel, the interactive demo and ``parallel/`` (main paths
+    98-104: ``python -m isegprobe_torch.demo``'s builder and
+    ``interactive_demo/controller.py``, data and tensor parallelism on
+    ``torch.distributed``, the multi-device evaluators, the evaluate CLI's
+    ``device_mesh``), on the trained flagship unless named: (b) two gloo
+    ranks on the one card, spawned (a ``FileStore``, joined with a
+    timeout), each a data-parallel step (224², 4 rows a rank, 2 simulated
+    clicks drawn for the global batch) within 1e-6 in loss and 1e-5 of
+    each leaf's norm of one rank's step on the 8 rows (the same
+    ``init_tree(config, 0)`` flagship; exactly 36 A + 75 B + 2 C), and the
+    tensor-parallel forward (1 × 2: 3 heads a rank in kernel A, 12 A + 25 B)
+    within 1e-5 of the logit scale of the replicated forward; meanwhile in
+    this process an NCCL group of one (``HashStore``) whose step is
+    bitwise the plain step; (a) the demo's predictor builder and
+    controller, headless, at the fixture's clicks on 2 objects: every
+    map bitwise the host ``Predictor``'s, undo bitwise, the finished mask,
+    its PNG read back, exactly one forward's launches a click (a host
+    click's), p50 ms a controller click beside a host click; (c) the mesh
+    evaluator (16 lanes over ``[cuda:0, cuda:0]``) and one job queue a
+    device on the 78 objects, lane for lane equal to the one-device loop at
+    8 lanes (NoC equal, and within 0.05 of the fixture's 3.2821 / 3.4615 /
+    4.3590), and the evaluate CLI with ``device_mesh=true`` (lockstep and
+    with ``device_refill``) on the first 16 objects: one warning (one
+    visible GPU), results equal to the command without it;
 12. the learned-upsampler families, LoftUp and JBU-FeatUp on DINOv2-S/14 at
     448² (drawn, calibrated): kernels D (cross-attention, f32 and bf16, at
     every tile and load path as A) and E (JBU filter; also at the edges of
@@ -5705,6 +5729,474 @@ def int8_phase(torch, F) -> dict:
     return res
 
 
+# -- phase 11m: the demo and parallel/ -------------------------------------
+
+# the gloo ranks' and the NCCL group of one's steps: the flagship at 224²,
+# batch 8 (4 a rank on two ranks), two simulated clicks
+PAR_ITERS = 2
+PAR_ARGV = ["model=synthetic_dinov2_noup", "dataloader.workers=0",
+            "training.seed=0"]
+# a data-parallel step against one rank's (tests/test_torch_parallel.py):
+# loss within 1e-6, each trainable leaf within 1e-5 of its L2 norm
+PAR_LOSS_ATOL = 1e-6
+PAR_LEAF_RTOL = 1e-5
+# the TP forward against the replicated one, of the logit scale (JAX's
+# tests/test_tensor_parallel.py: rtol = atol = 1e-5)
+PAR_TP_RTOL = 1e-5
+PAR_SPAWN_TIMEOUT = 240
+DEMO_OBJECTS = 2
+
+
+def _parallel_rank(rank, world, store, out_dir):
+    """One of two gloo ranks on the one card (phase 11m (b)): a
+    data-parallel step (2 × 1, 4 rows a rank) and the tensor-parallel
+    forward (1 × 2, 3 heads a rank) of the flagship, from the parent's
+    initial tree; results and launch counts to ``out_dir/rank<k>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from isegprobe_torch import train as train_cli
+    from isegprobe_torch.parallel import tp
+    from isegprobe_torch.parallel.mesh import make_mesh, put_global_batch
+
+    out_dir = Path(out_dir)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    out: dict = {}
+    try:
+        params = torch.load(out_dir / "tree.pt", weights_only=False)
+        gb = dict(np.load(out_dir / "batch.npz"))
+        argv = [*PAR_ARGV, f"exp_path={out_dir / 'runs'}"]
+        mesh = make_mesh(device="cuda:0")
+        trainer = train_cli.build_trainer(train_cli.parse_args(argv),
+                                          params=params, mesh=mesh)
+        rows = put_global_batch(gb, mesh, multiprocess=False)
+        torch.cuda.synchronize()
+        zero_counters()
+        loss = float(trainer._step(rows, PAR_ITERS)[0])
+        torch.cuda.synchronize()
+        out["dp"] = {"loss": loss, "launches": counters(),
+                     "rows": int(rows["images"].shape[0]),
+                     "leaves": {n: p.detach().cpu() for n, p in
+                                trainer.model.named_parameters()
+                                if p.requires_grad}}
+        trainer.shutdown()
+        del trainer
+        mesh = make_mesh(model_parallel=2, device="cuda:0")
+        trainer = train_cli.build_trainer(train_cli.parse_args(argv),
+                                          params=params, mesh=mesh)
+        attn = [m for m in trainer.model.modules()
+                if isinstance(m, tp.TPAttention)]
+        batch = trainer._upload(gb)
+        with torch.no_grad():
+            images = batch["images"].float() / 255.0
+            net = torch.cat([images, torch.zeros_like(images[..., :1])], -1)
+            torch.cuda.synchronize()
+            zero_counters()
+            logits = trainer.model(net, batch["points"])["instances"]
+            torch.cuda.synchronize()
+        out["tp"] = {"logits": logits.cpu(), "launches": counters(),
+                     "heads": [m.num_heads for m in attn],
+                     "qkv_width": int(attn[0].qkv.weight.shape[0])}
+        trainer.shutdown()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, out_dir / f"rank{rank}.pt")
+
+
+def _start_ranks(torch, world: int, out_dir: Path):
+    import torch.multiprocessing as mp
+
+    return mp.start_processes(_parallel_rank,
+                              args=(world, str(out_dir / "store"),
+                                    str(out_dir)),
+                              nprocs=world, join=False,
+                              start_method="spawn")
+
+
+def _join_ranks(ctx) -> float:
+    t0 = time.time()
+    deadline = t0 + PAR_SPAWN_TIMEOUT
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.time())):
+            if time.time() > deadline:
+                fail(f"the gloo ranks did not finish in {PAR_SPAWN_TIMEOUT} "
+                     "s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return time.time() - t0
+
+
+def _leaf_errors(got: dict, want: dict) -> float:
+    """The largest L2 norm of a leaf's difference over the leaf's."""
+    if got.keys() != want.keys():
+        fail(f"the leaves differ: {sorted(got)} != {sorted(want)}")
+    return max(float((got[k] - want[k]).norm() / want[k].norm().clamp_min(
+        1e-30)) for k in want)
+
+
+def demo_part(torch, model, fx, per_forward: dict) -> tuple:
+    """(a) of phase 11m: the demo's predictor builder and controller,
+    headless, on the trained flagship at the fixture's first objects'
+    clicks (JAX's), beside the port's host ``Predictor`` at the same clicks:
+    every map bitwise, undo bitwise, the committed mask, a mask PNG round
+    trip, launches and p50 ms a click. Returns (record, launches of the
+    controller's clicks)."""
+    from isegprobe_torch.data.image_io import read_bgr, write_png
+    from isegprobe_torch.data.scenes import SYNTHETIC_FIXTURE, SceneDataset
+    from isegprobe_torch.demo import make_predictor_builder, parse_args
+    from isegprobe_torch.inference.clicker import Click, Clicker
+    from isegprobe_torch.inference.evaluation import latency_percentiles
+    from isegprobe_torch.inference.predictor import Predictor
+    from isegprobe_torch.interactive_demo.controller import (
+        InteractiveController,
+    )
+
+    cfg = parse_args([f"checkpoint={TRAINED_CKPTS['flagship']}",
+                      "eval_mode=fixed448"])
+    builder = make_predictor_builder(cfg, model=model)
+    ctrl = InteractiveController(lambda: builder(),
+                                 prob_thresh=TRAINED_THRESH)
+    data = SceneDataset(SYNTHETIC_FIXTURE, objects=slice(0, DEMO_OBJECTS))
+    ctrl_ms, host_ms, n_clicks = [], [], 0
+    zero_counters()
+    ctrl_launches = counters()
+    for i in range(DEMO_OBJECTS):
+        sample = data.get_sample(i)
+        n = int(fx["flagship_n"][i])
+        clicks = [tuple(int(v) for v in c)
+                  for c in fx["flagship_clicks"][i, :n]]
+        host = Predictor(model, target_size=(448, 448), with_flip=True,
+                         net_clicks_limit=TRAINED_CLICKS)
+        host.set_input_image(sample.image)
+        clicker = Clicker()
+        ctrl.set_image(sample.image)
+        maps = []
+        for y, x, pos in clicks:
+            clicker.add_click(Click(is_positive=bool(pos), coords=(y, x)))
+            zero_counters()
+            t = time.perf_counter()
+            want = host.get_prediction(clicker)
+            host_ms.append(1e3 * (time.perf_counter() - t))
+            got_h = counters()
+            zero_counters()
+            t = time.perf_counter()
+            ctrl.add_click(x, y, bool(pos))
+            ctrl_ms.append(1e3 * (time.perf_counter() - t))
+            got_c = counters()
+            if got_c != got_h or got_h != expected(**per_forward):
+                fail(f"demo object {i}: a controller click launched "
+                     f"{got_c}, a host click {got_h}, one forward "
+                     f"{per_forward}")
+            for k in KERNELS:
+                ctrl_launches[k] += got_c[k]
+            n_clicks += 1
+            prob = ctrl.current_object_prob
+            if not np.array_equal(prob, want):
+                fail(f"demo object {i} click {len(maps) + 1}: the "
+                     "controller's map differs from the host Predictor's "
+                     f"by {float(np.abs(prob - want).max())}")
+            maps.append(prob)
+        if n > 1:
+            ctrl.undo_click()
+            if not np.array_equal(ctrl.current_object_prob, maps[-2]):
+                fail(f"demo object {i}: undo does not restore the previous "
+                     "map")
+            y, x, pos = clicks[-1]
+            ctrl.add_click(x, y, bool(pos))
+            if not np.array_equal(ctrl.current_object_prob, maps[-1]):
+                fail(f"demo object {i}: the click after undo differs")
+        ctrl.finish_object()
+        labels = ctrl.result_mask
+        if ctrl.object_count != 1 or not np.array_equal(
+                labels, (maps[-1] > TRAINED_THRESH).astype(np.uint16)):
+            fail(f"demo object {i}: result_mask is not the finished draft")
+        path = Path(scratch()) / f"demo_mask_{i}.png"
+        write_png(path, labels.astype(np.uint8) * 255)
+        back = read_bgr(path)[:, :, 0] > 127
+        if not np.array_equal(back, labels > 0) or not ctrl.set_mask(back):
+            fail(f"demo object {i}: the mask PNG does not round-trip")
+        ctrl.reset_last_object()
+    rec = {"objects": DEMO_OBJECTS, "clicks": n_clicks,
+           "controller_click_ms": latency_percentiles(
+               [v / 1e3 for v in ctrl_ms]),
+           "host_click_ms": latency_percentiles([v / 1e3 for v in host_ms]),
+           "controller_click_p50_ms": float(np.median(ctrl_ms)),
+           "host_click_p50_ms": float(np.median(host_ms)),
+           "launches_per_click": expected(**per_forward)}
+    print("demo", json.dumps(rec))
+    print(f"demo: {n_clicks} controller clicks bitwise the host Predictor's, "
+          f"p50 {rec['controller_click_p50_ms']:.2f} ms a controller click, "
+          f"{rec['host_click_p50_ms']:.2f} ms a host click")
+    return rec, ctrl_launches
+
+
+def evaluators_part(torch, model, fx) -> tuple:
+    """(c) of phase 11m: the mesh evaluator (16 lanes, 8 a device) and one
+    job queue a device (8 lanes) on ``[cuda:0, cuda:0]`` over the 78
+    objects against the one-device lockstep loop at 8 lanes, lane for lane
+    (a device's lanes see the shapes of the one-device run), NoC against
+    the fixture's; the evaluate CLI with ``device_mesh=true`` (one visible
+    GPU: one warning, then the one-device run), lockstep and with
+    ``device_refill``, against the same command without it on the first
+    16 objects."""
+    import logging
+
+    from isegprobe_torch import evaluate as cli
+    from isegprobe_torch.data.scenes import SYNTHETIC_FIXTURE, SceneDataset
+    from isegprobe_torch.inference import device_eval
+    from isegprobe_torch.inference.metrics import compute_noc_metric
+
+    data = SceneDataset(SYNTHETIC_FIXTURE)
+    devices = [torch.device("cuda", 0)] * 2
+    kw = dict(target_size=(448, 448), max_clicks=TRAINED_CLICKS,
+              net_clicks_limit=TRAINED_CLICKS, pred_thr=TRAINED_THRESH,
+              target_iou=TRAINED_TARGET, record_clicks=True)
+    rec, launches, runs = {}, {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.time()
+        clicks: list = []
+        ious = fn(clicks)
+        torch.cuda.synchronize()
+        launches[name] = counters()
+        runs[name] = (ious, clicks)
+        noc = [float(v) for v in compute_noc_metric(
+            ious, [0.8, 0.85, 0.9], TRAINED_CLICKS)[0]]
+        rec[name] = {"s": time.time() - t0, "noc": noc,
+                     "clicks": sum(len(a) for a in ious)}
+        return ious, clicks
+
+    one = device_eval.make_device_evaluator(model, batch_size=TRAINED_BATCH,
+                                            **kw)
+    timed("lockstep_one_device", lambda c: device_eval.evaluate_dataset_device(
+        one, data, clicks=c))
+    mesh = device_eval.make_device_evaluator(
+        model, batch_size=2 * TRAINED_BATCH, mesh=devices, **kw)
+    timed("mesh_evaluator", lambda c: device_eval.evaluate_dataset_device(
+        mesh, data, clicks=c))
+    group = device_eval.make_device_evaluator(
+        model, batch_size=TRAINED_BATCH, group_api=True, **kw)
+    stats: dict = {}
+    timed("queue_per_device", lambda c: device_eval.evaluate_dataset_group(
+        group, data, devices=devices, stats=stats, clicks=c))
+    rec["queue_per_device"]["jobs_by_device"] = stats["jobs_by_device"]
+    want_ious, want_clicks = runs["lockstep_one_device"]
+    for name in ("mesh_evaluator", "queue_per_device"):
+        ious, clicks = runs[name]
+        same = all(np.array_equal(a, b) for a, b in zip(ious, want_ious)) \
+            and all(np.array_equal(a, b) for a, b in zip(clicks, want_clicks))
+        if not same or len(ious) != len(want_ious):
+            fail(f"{name} on [cuda:0, cuda:0]: trajectories differ from the "
+                 "one-device lockstep loop's")
+        if rec[name]["noc"] != rec["lockstep_one_device"]["noc"]:
+            fail(f"{name}: NoC {rec[name]['noc']} != the one-device run's")
+    want_noc = [float(v) for v in fx["flagship_noc"]]
+    gap = max(abs(a - b) for a, b in zip(rec["lockstep_one_device"]["noc"],
+                                         want_noc))
+    if gap > TRAINED_NOC_TOL:
+        fail(f"the one-device loop's NoC {rec['lockstep_one_device']['noc']}"
+             f" is {gap} from the fixture's {want_noc}")
+    rec["fixture_noc"] = want_noc
+
+    # the evaluate CLI's device_mesh on one visible GPU
+    first = SceneDataset(SYNTHETIC_FIXTURE, objects=slice(0, 16))
+    base = [f"checkpoint={TRAINED_CKPTS['flagship']}", "eval_mode=fixed448",
+            "device_loop=true", f"device_batch={TRAINED_BATCH}",
+            "print_ious=false", f"thresh={TRAINED_THRESH}"]
+    log = logging.getLogger(cli.__name__)
+    cli_rec = {}
+    for refill in ([], ["device_refill=true"]):
+        key = "refill" if refill else "lockstep"
+        out = {}
+        for mesh_arg in ([], ["device_mesh=true"]):
+            records: list = []
+            handler = logging.Handler()
+            handler.emit = records.append
+            log.addHandler(handler)
+            try:
+                zero_counters()
+                res = cli.evaluate(cli.parse_args([*base, *refill,
+                                                   *mesh_arg]),
+                                   model, "Synthetic", dataset=first)
+                torch.cuda.synchronize()
+            finally:
+                log.removeHandler(handler)
+            warned = [r.getMessage() for r in records
+                      if "device_mesh" in r.getMessage()]
+            out[bool(mesh_arg)] = (res, warned, counters())
+        (plain, w0, _), (meshed, w1, got) = out[False], out[True]
+        if w0 or len(w1) != 1:
+            fail(f"evaluate CLI {key}: device_mesh warned {w1} (and "
+                 f"without it {w0}); expected one warning")
+        if not all(np.array_equal(a, b) for a, b in
+                   zip(meshed["all_ious"], plain["all_ious"])):
+            fail(f"evaluate CLI {key}: device_mesh=true differs from the "
+                 "run without it")
+        launches[f"evaluate_cli_device_mesh_{key}"] = got
+        cli_rec[key] = {"warning": w1[0], "noc": [float(v) for v in
+                                                   meshed["noc"]],
+                        "protocol": meshed["protocol"]}
+    rec["evaluate_cli"] = cli_rec
+    print("evaluators", json.dumps(rec))
+    return rec, launches
+
+
+def demo_parallel_phase(torch) -> dict:
+    """Main paths of the interactive demo and ``parallel/`` (phase 11m of
+    the module docstring): (b) two gloo ranks on the one card, started
+    first and joined after the NCCL group of one's check, (a) the demo and
+    (c) the multi-device evaluators. Returns the records and the path
+    launches."""
+    from isegprobe_torch.data.scenes import SYNTHETIC_FIXTURE
+
+    t_phase = time.time()
+    res: dict = {}
+    paths: dict = {}
+    per_forward = FORWARD_LAUNCHES["flagship"]
+    per_step = expected(**{k: v * (1 + PAR_ITERS)
+                           for k, v in per_forward.items()},
+                        edt_row_envelope=PAR_ITERS)
+
+    # (b) the parallel paths: the two gloo ranks run while the parent
+    # checks the plain step and the NCCL group of one
+    out_dir = Path(scratch()) / "parallel"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    argv = [*PAR_ARGV, f"exp_path={out_dir / 'runs_parent'}"]
+    tree = initial_tree(argv)
+    torch.save(tree, out_dir / "tree.pt")
+    gb = drawn_batch(TRAIN_CROP, TRAIN_BATCH, seed=110)
+    np.savez(out_dir / "batch.npz", **gb)
+    ranks = _start_ranks(torch, 2, out_dir)
+    try:
+        plain_loss, plain_leaves, replicated = _parent_steps(
+            torch, argv, gb, per_step, paths, res)
+    finally:
+        wait_s = _join_ranks(ranks)
+    got = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+           for r in range(2)]
+    dp, tp_rec = [], []
+    scale = float(replicated.abs().max())
+    for r, g in enumerate(got):
+        loss_err = abs(g["dp"]["loss"] - plain_loss)
+        leaf_err = _leaf_errors(g["dp"]["leaves"], plain_leaves)
+        if g["dp"]["launches"] != per_step or g["dp"]["rows"] != 4:
+            fail(f"gloo rank {r}: the DP step launched "
+                 f"{g['dp']['launches']} on {g['dp']['rows']} rows")
+        if loss_err > PAR_LOSS_ATOL or leaf_err > PAR_LEAF_RTOL:
+            fail(f"gloo rank {r}: the DP step's loss is {loss_err} and a "
+                 f"leaf {leaf_err} of its norm from one rank's batch 8")
+        dp.append({"loss": g["dp"]["loss"], "loss_err": loss_err,
+                   "leaf_rel_err": leaf_err})
+        tp_err = float((g["tp"]["logits"] - replicated).abs().max())
+        if tp_err > PAR_TP_RTOL * scale:
+            fail(f"gloo rank {r}: the TP forward is {tp_err} from the "
+                 f"replicated one (logit scale {scale})")
+        if g["tp"]["heads"] != [3] * 12 or g["tp"]["launches"] != expected(
+                **per_forward):
+            fail(f"gloo rank {r}: TP heads {g['tp']['heads']}, launches "
+                 f"{g['tp']['launches']}")
+        tp_rec.append({"max_abs_err": tp_err, "logit_scale": scale,
+                       "heads_a_rank": 3, "qkv_width": g["tp"]["qkv_width"]})
+        paths[f"dp_step_gloo_rank{r}"] = g["dp"]["launches"]
+        paths[f"tp_forward_gloo_rank{r}"] = g["tp"]["launches"]
+    res["gloo_dp"] = dp
+    res["gloo_tp"] = tp_rec
+    res["gloo_wait_s"] = wait_s
+    print("parallel", json.dumps(res))
+
+    # (a) the demo, (c) the evaluators, on the trained flagship
+    fx = dict(np.load(SYNTHETIC_FIXTURE))
+    model, _ = eval_load(torch, TRAINED_CKPTS["flagship"], torch.float32)
+    res["demo"], ctrl_launches = demo_part(torch, model, fx, per_forward)
+    paths["demo_controller_clicks"] = ctrl_launches
+    res["evaluators"], eval_launches = evaluators_part(torch, model, fx)
+    paths.update(eval_launches)
+    del model
+    res["s"] = time.time() - t_phase
+    res["path_launches"] = paths
+    print(f"phase 11m demo_parallel: {res['s']:.1f} s")
+    return res
+
+
+def _parent_steps(torch, argv, gb, per_step: dict, paths: dict,
+                  res: dict) -> tuple:
+    """(b) of phase 11m in this process, while the gloo ranks run: the
+    replicated forward and the plain step (one rank, batch 8), and the same
+    step through an NCCL group of one (``HashStore``), bitwise. Both steps
+    run with cuDNN's deterministic algorithms: with cuDNN's defaults the
+    two steps' losses were equal and their leaves 1.7e-7 of a leaf's norm
+    apart on the H100, the convolutions' weight gradients being free to
+    add in another order from call to call, which is not what the group
+    of one is held to.
+    Returns (plain loss, plain leaves, replicated logits)."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        return _parent_steps_deterministic(torch, argv, gb, per_step, paths,
+                                           res)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+def _parent_steps_deterministic(torch, argv, gb, per_step: dict,
+                                paths: dict, res: dict) -> tuple:
+    import torch.distributed as dist
+
+    from isegprobe_torch.parallel.mesh import make_mesh
+
+    def leaves(trainer):
+        return {n: p.detach().cpu() for n, p in
+                trainer.model.named_parameters() if p.requires_grad}
+
+    plain = build(argv)
+    batch = plain._upload(gb)
+    with torch.no_grad():
+        images = batch["images"].float() / 255.0
+        net = torch.cat([images, torch.zeros_like(images[..., :1])], -1)
+        replicated = plain.model(net, batch["points"])["instances"].cpu()
+    zero_counters()
+    plain_loss = float(plain._step(batch, PAR_ITERS)[0])
+    torch.cuda.synchronize()
+    if counters() != per_step:
+        fail(f"the plain step launched {counters()}, expected {per_step}")
+    plain_leaves = leaves(plain)
+    plain.shutdown()
+    del plain
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(device="cuda:0")
+        nccl = build(argv, mesh=mesh)
+        zero_counters()
+        nccl_loss = float(nccl._step(nccl._upload(gb), PAR_ITERS)[0])
+        torch.cuda.synchronize()
+        paths["dp_step_nccl_group_of_one"] = counters()
+        nccl_leaves = leaves(nccl)
+        nccl.shutdown()
+        del nccl
+    finally:
+        dist.destroy_process_group()
+    if paths["dp_step_nccl_group_of_one"] != per_step:
+        fail(f"the NCCL group of one's step launched "
+             f"{paths['dp_step_nccl_group_of_one']}, expected {per_step}")
+    bitwise = nccl_loss == plain_loss and all(
+        torch.equal(nccl_leaves[k], v) for k, v in plain_leaves.items())
+    if not bitwise:
+        fail("the NCCL group of one's step is not bitwise the plain step: "
+             f"loss {nccl_loss} vs {plain_loss}, leaves "
+             f"{_leaf_errors(nccl_leaves, plain_leaves)}")
+    res["nccl_group_of_one"] = {"loss": nccl_loss, "bitwise": bitwise}
+    return plain_loss, plain_leaves, replicated
+
+
 def _flat(tree, prefix=""):
     """(path, leaf) of a nested dict, in key order."""
     for k in sorted(tree):
@@ -6283,6 +6775,13 @@ def main() -> int:
         fail(f"kernel disagrees with its plain version: {bad}")
 
     done("11l int8")
+    # 11m. the interactive demo and parallel/: the demo's controller
+    # against the host Predictor, DP and TP on torch.distributed, the
+    # multi-device evaluators and the evaluate CLI's device_mesh
+    demo_parallel = demo_parallel_phase(torch)
+    results["demo_parallel"] = demo_parallel
+
+    done("11m demo_parallel")
     # 12. the learned-upsampler families (main paths 3-6)
     families = {name: learned_family(torch, name) for name in UPSAMPLERS}
     results["families"] = families
@@ -6344,6 +6843,7 @@ def main() -> int:
     paths.update(converted["path_launches"])
     paths.update(outputs["path_launches"])
     paths.update(int8["path_launches"])
+    paths.update(demo_parallel["path_launches"])
     for fam in families.values():
         paths.update(fam["path_launches"])
     kernels = []

@@ -29,7 +29,10 @@ all 2^24 colours).
 ``cv2.imencode(".jpg", bgr, [cv2.IMWRITE_JPEG_QUALITY, q])`` writes
 (libjpeg-turbo's compression with OpenCV's settings, in
 ``csrc/host/jpeg.cpp``), from RGB or gray pixels; :func:`write_jpeg` is
-``cv2.imwrite``.
+``cv2.imwrite``. :func:`encode_png` and :func:`write_png` write a PNG of
+8-bit gray or BGR pixels (16-bit gray too) with ``zlib`` and filter 0 on
+every row: the same pixels that ``cv2.imwrite(path, img)`` stores, in
+other bytes.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ import numpy as np
 from isegprobe_torch.utils import host_lib
 
 __all__ = ["read_bgr", "read_rgb", "read_gray", "decode_bgr",
-           "bgr_to_gray", "encode_jpeg", "write_jpeg"]
+           "bgr_to_gray", "encode_jpeg", "write_jpeg", "encode_png",
+           "write_png"]
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -215,6 +219,43 @@ def _decode_png(data: bytes, name: str) -> np.ndarray:
     else:
         rgb = samples[:, :, :3]
     return np.ascontiguousarray(rgb[:, :, ::-1])
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """The PNG file of ``img``: uint8 ``[H, W, 3]`` BGR (stored as RGB, as
+    ``cv2.imwrite`` stores it), uint8 or uint16 ``[H, W]`` (or ``[H, W,
+    1]``) gray. Every row has filter 0 (none); the data is one ``zlib``
+    stream at level 6."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[:, :, 0]
+    if img.ndim == 3 and img.shape[2] == 3 and img.dtype == np.uint8:
+        ctype, depth = 2, 8
+        rows = img[:, :, ::-1].reshape(img.shape[0], -1)
+    elif img.ndim == 2 and img.dtype in (np.uint8, np.uint16):
+        ctype, depth = 0, img.dtype.itemsize * 8
+        rows = img.astype(">u2") if depth == 16 else img
+    else:
+        raise ValueError(f"encode_png takes uint8 BGR [H, W, 3] or uint8 / "
+                         f"uint16 gray [H, W]; got {img.dtype} "
+                         f"{list(img.shape)}")
+    h, w = img.shape[:2]
+    raw = np.ascontiguousarray(rows).view(np.uint8).reshape(h, -1)
+    filtered = np.concatenate([np.zeros((h, 1), np.uint8), raw], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)
+    return (_PNG_SIGNATURE + _png_chunk(b"IHDR", ihdr)
+            + _png_chunk(b"IDAT", zlib.compress(filtered.tobytes(), 6))
+            + _png_chunk(b"IEND", b""))
+
+
+def write_png(path, img: np.ndarray) -> None:
+    """``cv2.imwrite(path, img)`` for a ``.png`` path (:func:`encode_png`)."""
+    Path(path).write_bytes(encode_png(img))
 
 
 # -- BMP ------------------------------------------------------------------

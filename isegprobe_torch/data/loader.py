@@ -14,7 +14,11 @@ workers do (spawn, not fork: the parent holds a CUDA context; as with any
 spawned pool, the main script must guard its entry with ``if __name__ ==
 "__main__"``). Either way the items are the same. ``num_workers=0`` builds in the caller's thread.
 Batches are stacked numpy arrays (uint8 images, int8 masks) that the
-trainer uploads.
+trainer uploads. With ``rank``/``world`` (a data-parallel run's data index
+and size) each rank loads its own shard of the epoch's order, the JAX
+loader's rank striding: every rank shuffles with the same ``(seed,
+epoch)`` key and takes positions ``rank, rank + world, ...``, and an epoch
+has ``len(dataset) // world // batch_size`` batches on every rank.
 """
 
 from __future__ import annotations
@@ -67,7 +71,8 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 4, seed: int = 0,
                  prefetch: int = 2, salt: str = "",
-                 use_processes: bool = False) -> None:
+                 use_processes: bool = False, rank: int = 0,
+                 world: int = 1) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -78,9 +83,14 @@ class DataLoader:
         self.use_processes = use_processes
         self._epoch = 0
         self._pool = None
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} is not in a world of {world}")
+        self.rank = rank
+        self.world = world
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size  # the tail is dropped
+        # the tail is dropped
+        return len(self.dataset) // self.world // self.batch_size
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
@@ -89,7 +99,7 @@ class DataLoader:
         idx = list(range(len(self.dataset)))
         if self.shuffle:
             random.Random(self.seed + self._epoch).shuffle(idx)
-        return idx
+        return idx[self.rank::self.world]
 
     def item(self, epoch: int, position: int, index: int) -> Dict:
         """Item ``position`` of ``epoch`` (dataset index ``index``)."""

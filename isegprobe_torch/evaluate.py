@@ -26,13 +26,19 @@ Usage (on a CUDA GPU; ``device=cpu`` runs the plain PyTorch path):
         [save_ious=false] [iou_analysis=false] [logs_path=]
         [EXPS_PATH=./experiments] [exp_path=] [model_name=null]
         [wandb=false] [wandb_project=iSegProbe-Eval] [wandb_name=null]
-        [wandb_dir=/path/to/logs]
+        [wandb_dir=/path/to/logs] [cpu=false] [trunk_cache=auto]
+        [device_mesh=false] [main_cfg_path=] [profile_dir=]
 
 ``datasets`` is a comma-separated list of the root's ``get_dataset`` keys:
 ``GrabCut``, ``Berkeley``, ``DAVIS``, ``SBD``, ``SBD_Train``,
 ``PascalVOC``, ``COCO_MVal`` (each read from its ``DATASETS.*_PATH`` key,
-``configs/main_cfg.yaml``'s defaults; the port reads no YAML) and
-``Synthetic`` (the stored scenes of ``scenes=``). ``eval_mode`` and
+``configs/main_cfg.yaml``'s defaults) and ``Synthetic`` (the stored scenes
+of ``scenes=``). ``main_cfg_path=<file>`` reads ``EXPS_PATH`` and the
+``DATASETS.*`` paths from a file of ``configs/main_cfg.yaml``'s form
+(``utils/main_cfg.py``; the port needs no YAML package), as the root does
+(without it, the committed file's values, built in); a ``DATASETS.*=`` or
+``EXPS_PATH=`` key on the command line wins over the file (the root's
+command line has no such keys). ``eval_mode`` and
 ``eval_ritm`` pick each dataset's ZoomIn as the root's
 ``get_zoomin_params`` does: ``fixed<n>`` (or ``fixed<h>,<w>``) crops to
 that size, ``cvpr`` to 448² (672² on DAVIS), and ``eval_ritm=true
@@ -42,6 +48,14 @@ DAVIS, ``skip_clicks=1``): the host transform chain, or with
 ``device_batch > 1`` runs the device loop as a job queue (continuous
 batching, windows of ``group_max_jobs`` frames, 0 for 32); with
 ``device_batch <= 1`` it warns and runs lockstep, as the root does.
+``device_mesh=true`` spreads the device loop over every visible GPU, as the
+root spreads it over its chips: the lockstep loop's lanes split over them
+(``device_batch`` must divide among them), or with ``device_refill`` one
+job queue a GPU. With one visible device it warns and runs on that one.
+``trunk_cache`` (``auto``, ``on``, ``off``, or ``true``/``false`` for
+``on``/``off``) goes to the fixed-crop device loop. ``cpu=true`` is
+``device=cpu``. ``profile_dir`` is accepted empty; a directory raises
+``NotImplementedError`` (the port's bench leg, ROADMAP Queue 1 item 2).
 
 It prints a results table for each dataset × checkpoint and, with
 ``print_ious``, mIoU@k as the root ``evaluate.py`` does, with its rule for
@@ -122,8 +136,8 @@ from isegprobe_torch.utils.serialization import (
     merge_params,
 )
 
-__all__ = ["load_model_for_eval", "get_dataset", "parse_args", "evaluate",
-           "evaluate_all", "main"]
+__all__ = ["load_model_for_eval", "get_dataset", "get_zoomin_params",
+           "parse_args", "evaluate", "evaluate_all", "main"]
 
 # the CLI's dtype names; "int8" is bf16 with the backbone in W8A8
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -248,13 +262,6 @@ def _preinterpolate_pos_embed(config: Dict, params: Dict,
 
 # -- command line -------------------------------------------------------------
 
-# keys of the root evaluate.py that the port does not take yet, and the
-# ROADMAP item that brings each
-_NOT_PORTED = {
-    "device_mesh": "ROADMAP Queue 1 item 9 (parallel/, the multi-device "
-                   "job queues)",
-    "profile_dir": "ROADMAP Queue 1 item 2 (the port's bench leg)",
-}
 # the root get_dataset's keys and the path key each reads
 DATASET_PATHS = {
     "GrabCut": "DATASETS.GRABCUT_PATH",
@@ -289,26 +296,44 @@ _DEFAULTS = dict(checkpoint=None, datasets="Synthetic", **_PATH_DEFAULTS,
                  iou_analysis="false", logs_path="",
                  EXPS_PATH="./experiments", exp_path="", model_name="null",
                  wandb="false", wandb_project="iSegProbe-Eval",
-                 wandb_name="null", wandb_dir="/path/to/logs")
+                 wandb_name="null", wandb_dir="/path/to/logs",
+                 cpu="false", trunk_cache="auto", device_mesh="false",
+                 main_cfg_path="", profile_dir="")
+# the keys a main_cfg_path file gives
+_MAIN_CFG_KEYS = ("EXPS_PATH", *_PATH_DEFAULTS)
 
 
 def parse_args(argv) -> Dict:
-    """``key=value`` overrides into the run's settings; a key of the root
-    ``evaluate.py`` that is not ported raises ``NotImplementedError``
-    naming its ROADMAP item, any other unknown key ``ValueError``."""
+    """``key=value`` overrides into the run's settings; an unknown key
+    raises ``ValueError``, a non-empty ``profile_dir``
+    ``NotImplementedError`` naming its ROADMAP item."""
     cfg = dict(_DEFAULTS)
+    given = set()
     for arg in argv:
         key, sep, value = arg.partition("=")
         if not sep:
             raise ValueError(f"expected key=value, got {arg!r}")
-        if key in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{key}= is not ported to isegprobe_torch.evaluate yet: "
-                f"{_NOT_PORTED[key]}")
         if key not in cfg:
             raise ValueError(f"unknown key {key!r}; takes "
                              f"{sorted(_DEFAULTS)}")
         cfg[key] = value
+        given.add(key)
+    if cfg["profile_dir"]:
+        raise NotImplementedError(
+            "profile_dir= is not ported to isegprobe_torch.evaluate yet: "
+            "ROADMAP Queue 1 item 2 (the port's bench leg)")
+    if cfg["main_cfg_path"]:
+        from isegprobe_torch.utils.main_cfg import read_main_cfg
+
+        machine = read_main_cfg(cfg["main_cfg_path"])
+        for key in _MAIN_CFG_KEYS:
+            if key in machine and key not in given:
+                cfg[key] = machine[key]
+    cfg["cpu"] = _flag(cfg["cpu"])
+    if cfg["cpu"]:
+        cfg["device"] = "cpu"
+    cfg["trunk_cache"] = normalize_trunk_cache(cfg["trunk_cache"])
+    cfg["device_mesh"] = _flag(cfg["device_mesh"])
     if not cfg["checkpoint"] and not cfg["exp_path"]:
         raise ValueError("checkpoint=<path to a .ckpt> (or exp_path=<run>) "
                          "is required")
@@ -421,6 +446,62 @@ def _flag(value: str) -> bool:
     return value.lower() in ("true", "1")
 
 
+def normalize_trunk_cache(value: str) -> str:
+    """The root's ``_normalize_trunk_cache``: ``on``, ``auto`` or ``off``,
+    ``true`` and ``false`` for ``on`` and ``off``; anything else raises
+    ``ValueError``."""
+    mode = str(value).strip().lower()
+    mode = {"true": "on", "false": "off"}.get(mode, mode)
+    if mode not in ("on", "auto", "off"):
+        raise ValueError(
+            f"trunk_cache={value!r}: expected on/auto/off (or true/false)")
+    return mode
+
+
+def visible_devices(device: torch.device) -> list:
+    """The devices ``device_mesh`` spreads over: every visible GPU for a
+    CUDA run, the one device otherwise."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _mesh_plan(cfg: Dict, device: torch.device, adaptive: bool):
+    """The root's ``device_mesh`` rules: (lockstep devices or None, job
+    queue devices or None), with its warnings."""
+    log = logging.getLogger(__name__)
+    if not cfg["device_mesh"]:
+        return None, None
+    devices = visible_devices(device)
+    if cfg["device_refill"]:
+        if len(devices) <= 1:
+            log.warning("device_mesh=true with device_refill: only one "
+                        "device visible - running the single-device job "
+                        "queue")
+            return None, None
+        return None, devices
+    batch = cfg["device_batch"]
+    if batch <= 1:
+        log.warning("device_mesh=true ignored: needs device_batch>1 (got "
+                    f"{batch}) to have a sample axis to shard")
+        return None, None
+    if len(devices) <= 1:
+        log.warning("device_mesh=true ignored: only one device visible - "
+                    "running single-device")
+        return None, None
+    if batch % len(devices):
+        raise ValueError(
+            f"device_batch={batch} must be divisible by the number of "
+            f"devices ({len(devices)}) to shard the sample axis; pick e.g. "
+            f"device_batch={-(-batch // len(devices)) * len(devices)}")
+    if adaptive:
+        log.warning("adaptive (RITM cvpr) device eval is single-device; "
+                    "ignoring device_mesh")
+        return None, None
+    return devices, None
+
+
 def _parse_fixed_mode(eval_mode: str) -> Tuple[int, int]:
     """'fixed<n>' or 'fixed<h>,<w>' -> (h, w)."""
     crop = eval_mode[5:].split(",")
@@ -526,7 +607,10 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,
                   target_iou=cfg["target_iou"], with_flip=True,
                   device=device, **protocol)
         refill = cfg["device_refill"]
-        if zoom["skip_clicks"] >= 0 and isinstance(zoom["target_size"], int):
+        adaptive = (zoom["skip_clicks"] >= 0
+                    and isinstance(zoom["target_size"], int))
+        mesh, refill_devices = _mesh_plan(cfg, device, adaptive)
+        if adaptive:
             # the RITM adaptive ZoomIn, scalar target
             if clicks is not None:
                 raise ValueError("the adaptive device loop records no clicks")
@@ -536,14 +620,16 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,
         else:
             run = make_device_evaluator(model,
                                         target_size=zoom["target_size"],
-                                        group_api=refill,
+                                        group_api=refill, mesh=mesh,
+                                        trunk_cache=cfg["trunk_cache"],
                                         record_clicks=clicks is not None,
                                         **kw)
         if refill:
             stats = {}
             all_ious = evaluate_dataset_group(
                 run, dataset, stats=stats,
-                max_jobs_per_dispatch=cfg["group_max_jobs"], clicks=clicks)
+                max_jobs_per_dispatch=cfg["group_max_jobs"], clicks=clicks,
+                devices=refill_devices)
         else:
             all_ious = evaluate_dataset_device(run, dataset, clicks=clicks)
     else:

@@ -32,10 +32,21 @@ Continuous batching (``group_api=True``, :class:`GroupEvaluator` and
 :func:`evaluate_dataset_group`): a lane that finishes takes the next job
 from a staged window of frames on the device, so lanes no longer idle until
 their batch's slowest one.
+
+Several devices in one process, as the JAX package spreads the loop over
+its chips: ``make_device_evaluator(..., mesh=[dev0, dev1, ...])`` splits
+the lane axis over the devices, each running its lanes on its own replica
+of the model, in lockstep (:class:`MeshEvaluator`: each step launches every
+device's click before reading any flag); ``evaluate_dataset_group(...,
+devices=[...])`` deals each shape group's jobs round-robin into one job
+queue a device, on replicas made when a device first gets a job. Lanes are
+independent, so both give the one-device evaluator's trajectories, and
+neither runs a collective. A list may name one device twice.
 """
 
 from __future__ import annotations
 
+import copy
 from time import time
 from typing import Dict, List, Optional, Tuple
 
@@ -449,6 +460,81 @@ class DeviceEvaluator:
             return ious[0], n[0]
         return self._run(images, gts, valid_hws)
 
+    def replica(self, device) -> "DeviceEvaluator":
+        """The same protocol on ``device``, over a copy of the model there,
+        with its own counters."""
+        other = copy.copy(self)
+        other.model = copy.deepcopy(self.model).to(device)
+        other.device = torch.device(device)
+        other.steps = other.host_reads = other.trunk_recomputes = 0
+        other.clicks = None
+        return other
+
+
+class MeshEvaluator:
+    """The lockstep click loop over several devices: lanes ``[i·b, (i+1)·b)``
+    of a call run on device ``i`` (``shards[i]``, a :class:`DeviceEvaluator`
+    of ``b`` lanes over that device's replica). Called as a
+    :class:`DeviceEvaluator` of all the lanes, with inputs on the first
+    device, where the outputs come back. Each step starts every device's
+    click before it reads a device's flag, so the devices compute at once;
+    a device whose lanes are all done sits the step out. ``steps`` counts
+    the lockstep steps, ``host_reads`` and ``trunk_recomputes`` sum the
+    shards'."""
+
+    def __init__(self, shards: List[DeviceEvaluator]) -> None:
+        self.shards = shards
+        first = shards[0]
+        self.device = first.device
+        self.batch_size = sum(s.batch_size for s in shards)
+        self.max_clicks = first.max_clicks
+        self.record_clicks = first.record_clicks
+        self.steps = 0
+        self.clicks: Optional[torch.Tensor] = None
+
+    @property
+    def host_reads(self) -> int:
+        return sum(s.host_reads for s in self.shards)
+
+    @property
+    def trunk_recomputes(self) -> int:
+        return sum(s.trunk_recomputes for s in self.shards)
+
+    @torch.inference_mode()
+    def __call__(self, images: torch.Tensor, gts: torch.Tensor,
+                 valid_hws: torch.Tensor):
+        one = self.batch_size == 1
+        if one:
+            images, gts, valid_hws = images[None], gts[None], valid_hws[None]
+        if images.shape[0] != self.batch_size:
+            raise ValueError(f"expected {self.batch_size} lanes, got "
+                             f"{images.shape[0]}")
+        states, lo = [], 0
+        for sh in self.shards:
+            part = slice(lo, lo + sh.batch_size)
+            lo += sh.batch_size
+            states.append(sh._init_state(
+                *(t[part].to(sh.device, non_blocking=True)
+                  for t in (images, gts, valid_hws))))
+        mc = self.max_clicks
+        while True:
+            actives = [~st["done"] & (st["n"] < mc) for st in states]
+            flags = [sh._read(a.any()) for sh, a in zip(self.shards, actives)]
+            if not any(flags):
+                break
+            for i, sh in enumerate(self.shards):
+                if flags[i]:
+                    states[i] = sh._body(states[i], actives[i])
+                    sh.steps += 1
+            self.steps += 1
+
+        def gather(key):
+            return torch.cat([st[key].to(self.device) for st in states])
+
+        ious, n = gather("ious"), gather("n")
+        self.clicks = gather("clicks") if self.record_clicks else None
+        return (ious[0], n[0]) if one else (ious, n)
+
 
 class GroupEvaluator:
     """Continuous batching: the click loop of a lane protocol (a
@@ -460,8 +546,8 @@ class GroupEvaluator:
     idling until its batch's slowest lane.
 
     ``init(imgs, gts, hws)`` builds an all-parked lane state for the first
-    window; ``run(st, q, imgs, gts, hws, n_valid, win_base)`` runs the
-    protocol until every job is done or a lane wants a job beyond the
+    window; ``stepper(st, q, imgs, gts, hws, n_valid, win_base)`` runs
+    the protocol until every job is done or a lane wants a job beyond the
     staged window (``want_refill``), and returns ``(st, q)``: the lane
     state carries across windows, so a window switch pauses the busy lanes
     at a step boundary rather than draining them. Jobs are handed out on
@@ -486,6 +572,11 @@ class GroupEvaluator:
     @property
     def steps(self) -> int:
         return self.protocol.steps
+
+    def replica(self, device) -> "GroupEvaluator":
+        """The same job queue on ``device``, over a copy of the model
+        there."""
+        return GroupEvaluator(self.protocol.replica(device))
 
     def init(self, imgs, gts, hws) -> Dict[str, torch.Tensor]:
         b = self.batch_size
@@ -536,8 +627,15 @@ class GroupEvaluator:
         return st
 
     @torch.inference_mode()
-    def run(self, st, q, imgs, gts, hws, n_valid: torch.Tensor,
-            win_base: torch.Tensor):
+    def stepper(self, st, q, imgs, gts, hws, n_valid: torch.Tensor,
+                win_base: torch.Tensor):
+        """Runs the protocol over one staged window (see the class
+        docstring) as a generator that leaves the host reads to its
+        driver: it yields each step's flag pair (a device tensor), takes
+        the pair read back (through the protocol's ``_read``) by ``send``
+        and returns ``(st, q)``. :func:`evaluate_dataset_group` drives
+        several queues in lockstep: every queue's step is started before
+        any queue's flags are read, so their devices compute at once."""
         p, mc = self.protocol, self.max_clicks
         win, w = (imgs, gts, hws), imgs.shape[0]
         sent = q["out_n"].shape[0] - 1  # the scratch row
@@ -550,8 +648,8 @@ class GroupEvaluator:
             take, rel, q = self._hand_out(q, want, w, n_valid, win_base)
             # a lane that takes a job starts it at click 0, not done
             active = busy | take
-            go, took = p._read(torch.stack(
-                [active.any() & ~q["want_refill"], take.any()]))
+            go, took = yield torch.stack(
+                [active.any() & ~q["want_refill"], take.any()])
             if took:
                 st = self._fill(st, take, rel, win)
                 self.fills += 1
@@ -593,15 +691,42 @@ def make_device_evaluator(model, target_size: Tuple[int, int] = (448, 448),
     raises for other injection modes); ``'off'`` disables it.
     ``record_clicks`` keeps every click on the device for the caller
     (``DeviceEvaluator.clicks``; the JAX evaluator has no such record), at
-    a few small ops a step. ``group_api`` returns the
+    a few small ops a step.
+    ``group_api`` returns the
     :class:`GroupEvaluator` over this protocol, for
     :func:`evaluate_dataset_group` (continuous batching; ``batch_size`` >
-    1). ``mesh`` is not ported yet and raises ``NotImplementedError``."""
+    1). ``mesh`` (a list of devices) returns a :class:`MeshEvaluator`: the
+    ``batch_size`` lanes split evenly over the devices (it must divide),
+    each device running its lanes on its replica of the model (the model
+    itself on its own device; a copy on each other entry, a repeated
+    device included); ``device`` is then the first device, where the
+    inputs and outputs live. ``group_api`` with ``mesh`` raises, as in
+    JAX: use ``evaluate_dataset_group(devices=...)``."""
     if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-sharded device evaluator is not ported to "
-            "isegprobe_torch yet: ROADMAP Queue 1 item 9 (parallel/mesh.py "
-            "on torch.distributed)")
+        if group_api:
+            raise ValueError("group_api takes no mesh (the job queue is one "
+                             "device's); use evaluate_dataset_group("
+                             "devices=...) or the lockstep evaluator with "
+                             "mesh")
+        devices = [resolve_device(d) for d in mesh]
+        if batch_size % len(devices):
+            raise ValueError(f"batch_size {batch_size} not divisible by the "
+                             f"{len(devices)} devices of the mesh")
+        kw = dict(target_size=target_size, max_clicks=max_clicks,
+                  net_clicks_limit=net_clicks_limit, pred_thr=pred_thr,
+                  target_iou=target_iou, min_clicks=min_clicks,
+                  with_flip=with_flip, roi_prob_thresh=roi_prob_thresh,
+                  expansion_ratio=expansion_ratio,
+                  min_crop_size=min_crop_size,
+                  recompute_thresh_iou=recompute_thresh_iou,
+                  batch_size=batch_size // len(devices),
+                  trunk_cache=trunk_cache, record_clicks=record_clicks)
+        home = next(model.parameters()).device
+        first = make_device_evaluator(
+            model if devices[0] == home else
+            copy.deepcopy(model).to(devices[0]), device=devices[0], **kw)
+        shards = [first] + [first.replica(d) for d in devices[1:]]
+        return MeshEvaluator(shards)
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     if group_api and batch_size <= 1:
@@ -788,8 +913,8 @@ def evaluate_dataset_group(ev: GroupEvaluator, dataset, bucket: int = 64,
     distinct shapes, for CUDA graphs of the step). Window i+1 is uploaded
     (asynchronously from pinned memory on a GPU) before window i runs and
     window i is released when it is done, so at most two windows' frames,
-    2·W, are resident at a time. The output rows are twice the batch,
-    doubled until they hold the group.
+    2·W, are resident at a time on a device. The output rows are twice
+    the batch, doubled until they hold the group.
 
     ``sample_times`` (a list) receives each sample's chain wall time;
     ``clicks`` (a list) each sample's clicks ``[n, 3]`` (``ev`` must
@@ -800,28 +925,35 @@ def evaluate_dataset_group(ev: GroupEvaluator, dataset, bucket: int = 64,
     ``resident_windows`` (the most windows of frames alive at
     once). The JAX package pipelines chains ``depth`` deep; here the loop's
     one read a step keeps host and device in step, so there is no such
-    parameter. ``devices`` with more than one device is not ported."""
+    parameter.
+
+    ``devices`` (a list of devices) deals each shape group's jobs
+    round-robin into one sub-queue a device (over as many devices as the
+    group has batches of jobs, rotating the first device from group to
+    group, the JAX package's dealing), each run by its own job queue: ``ev``
+    on the first device, a replica (:meth:`GroupEvaluator.replica`) on each
+    other entry that gets a job. A device runs its sub-queues one after the
+    other; the devices run theirs at once, stepped in lockstep from this
+    thread (every device's step is started before any device's flags are
+    read), with no collective. ``stats["devices"]`` counts the list's
+    entries and ``stats["jobs_by_device"]`` the jobs each ran."""
     import weakref
 
-    if devices is not None and len(devices) > 1:
-        raise NotImplementedError(
-            "one job queue per device over several GPUs is not ported to "
-            "isegprobe_torch yet: ROADMAP Queue 1 item 9 (multi-device "
-            "groups)")
     if clicks is not None and not ev.record_clicks:
         raise ValueError("clicks= needs an evaluator made with "
                          "record_clicks=True")
+    devices = list(devices) if devices else [ev.device]
     jobs, by_shape = _build_jobs(dataset, bucket)
     results: List[Optional[np.ndarray]] = [None] * len(jobs)
     job_clicks: List[Optional[np.ndarray]] = [None] * len(jobs)
     b = ev.batch_size
     window = max(b, max_jobs_per_dispatch or 32)
-    dev = ev.device
-    n_dispatch, steps0, fills0, sizes = 0, ev.steps, ev.fills, []
+    n_dispatch, sizes = 0, []
+    jobs_by_device = [0] * len(devices)
     alive: list = []
     resident = 0
 
-    def put(group, lo, w):
+    def put(dev, group, lo, w):
         nonlocal resident
         win = group[lo:lo + w]
         win = win + [win[-1]] * (w - len(win))
@@ -836,7 +968,11 @@ def evaluate_dataset_group(ev: GroupEvaluator, dataset, bucket: int = 64,
         resident = max(resident, sum(r() is not None for r in alive))
         return out
 
-    for group in by_shape.values():
+    def chain(gev: GroupEvaluator, group):
+        """One sub-queue's chain of windows on ``gev``: a generator of
+        flag pairs, as :meth:`GroupEvaluator.stepper`."""
+        nonlocal n_dispatch
+        dev = gev.device
         n = len(group)
         w = _window_frames(b, window, n)
         sizes.append(w)
@@ -844,12 +980,13 @@ def evaluate_dataset_group(ev: GroupEvaluator, dataset, bucket: int = 64,
         while rows < n:
             rows *= 2
         t0 = time()
-        cur = put(group, 0, w)
-        st, q = ev.init(*cur), ev.queue(rows)
+        cur = put(dev, group, 0, w)
+        st, q = gev.init(*cur), gev.queue(rows)
         n_valid = torch.tensor(n, device=dev)
         for lo in range(0, n, w):
-            nxt = put(group, lo + w, w) if lo + w < n else None
-            st, q = ev.run(st, q, *cur, n_valid, torch.tensor(lo, device=dev))
+            nxt = put(dev, group, lo + w, w) if lo + w < n else None
+            st, q = yield from gev.stepper(st, q, *cur, n_valid,
+                                           torch.tensor(lo, device=dev))
             n_dispatch += 1
             cur = nxt
         del st
@@ -864,14 +1001,59 @@ def evaluate_dataset_group(ev: GroupEvaluator, dataset, bucket: int = 64,
                 job_clicks[order_idx] = out_clicks[row][: int(counts[row])]
             if sample_times is not None:
                 sample_times.append(wall)
+
+    def device_chain(gev: GroupEvaluator, subs):
+        for sub in subs:
+            yield from chain(gev, sub)
+
+    # deal each shape group round-robin; a device runs its sub-queues in
+    # group order
+    subs_by_device: Dict[int, list] = {}
+    base = 0  # rotates so that small groups land on different devices
+    for group in by_shape.values():
+        n_dev = min(len(devices), max(1, -(-len(group) // b)))
+        for di in range(n_dev):
+            sub = group[di::n_dev]
+            if not sub:
+                continue
+            k = (base + di) % len(devices)
+            subs_by_device.setdefault(k, []).append(sub)
+            jobs_by_device[k] += len(sub)
+        base = (base + n_dev) % len(devices)
+    # ev on the first device; a replica, with counters from 0, on each
+    # other device that got a job
+    evs = {k: ev if k == 0 else ev.replica(devices[k])
+           for k in sorted(subs_by_device)}
+    steppers = {k: device_chain(evs[k], subs_by_device[k]) for k in evs}
+    start = {id(ev): (ev.steps, ev.fills)}
+    # lockstep: every device's step is started before any device's flags
+    # are read
+    flags = {}
+    for k, g in steppers.items():
+        try:
+            flags[k] = next(g)
+        except StopIteration:
+            pass
+    while flags:
+        read = {k: evs[k].protocol._read(f) for k, f in flags.items()}
+        for k, v in read.items():
+            try:
+                flags[k] = steppers[k].send(v)
+            except StopIteration:
+                del flags[k]
     if clicks is not None:
         clicks.extend(job_clicks)
     if stats is not None:
-        steps = ev.steps - steps0
-        stats.update(dispatches=n_dispatch, batch_size=b, devices=1,
+        used = {id(e): e for e in evs.values()}
+        steps = sum(e.steps - start.get(i, (0, 0))[0]
+                    for i, e in used.items())
+        fills = sum(e.fills - start.get(i, (0, 0))[1]
+                    for i, e in used.items())
+        stats.update(dispatches=n_dispatch, batch_size=b,
+                     devices=len(devices), jobs_by_device=jobs_by_device,
                      window=window, windows=sizes,
                      useful_clicks=sum(len(a) for a in results
                                        if a is not None),
-                     steps=steps, lane_steps=steps * b,
-                     fills=ev.fills - fills0, resident_windows=resident)
+                     steps=steps, lane_steps=steps * b, fills=fills,
+                     resident_windows=resident)
     return results

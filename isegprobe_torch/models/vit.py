@@ -139,6 +139,12 @@ class Attention(nn.Module):
                       key_mask=key_mask)
         return self.proj(out)
 
+    def keys(self, x: torch.Tensor) -> torch.Tensor:
+        """The attention keys ``[B, N, C]`` (heads flattened): a view of
+        the packed qkv projection."""
+        c = x.shape[-1]
+        return self.qkv(x)[..., c:2 * c]
+
 
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden_dim: int,
@@ -177,10 +183,8 @@ class Block(nn.Module):
         return x + self.ls2(self.mlp(self.norm2(x)))
 
     def keys(self, x: torch.Tensor) -> torch.Tensor:
-        """The block's attention keys ``[B, N, C]`` (heads flattened): a
-        view of the packed qkv projection."""
-        c = x.shape[-1]
-        return self.attn.qkv(self.norm1(x))[..., c:2 * c]
+        """The block's attention keys ``[B, N, C]`` (heads flattened)."""
+        return self.attn.keys(self.norm1(x))
 
 
 class ViT(nn.Module):

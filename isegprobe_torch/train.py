@@ -94,9 +94,21 @@ package gives a run of the same script (``utils/exp.py``), with
   (``dataloader.workers`` of them) instead of threads; the items are the
   same.
 
-``training.model_parallel > 1`` and ``training.n_devices`` raise
-``NotImplementedError`` naming their ROADMAP item; a key or a model that
-is not known raises ``ValueError``.
+- Several processes (``parallel/mesh.py``; one a GPU, each on
+  ``cuda:<local rank>``): launch one command a process with
+  ``ISEG_COORDINATOR=host:port ISEG_NUM_PROCESSES=N ISEG_PROCESS_ID=i``,
+  or through torchrun with ``ISEG_DISTRIBUTED=auto`` (``torchrun
+  --nproc_per_node=N -m isegprobe_torch.train ...``). ``main`` joins the
+  group (NCCL on GPUs, gloo with ``device=cpu``) before any device use,
+  as the root ``train.py`` does. ``training.n_devices`` (by default the
+  world) must be the number of processes; ``training.model_parallel``
+  (1) ranks of it form the model axis: the frozen ViT blocks are split
+  over them (Megatron, ``parallel/tp.py``), the rest is data parallel
+  with ``dataloader.batch_size`` rows a rank. Rank 0 writes the run's
+  files.
+
+A key or a model that is not known raises ``ValueError``, as does a
+``training.model_parallel`` that does not divide the devices.
 """
 
 from __future__ import annotations
@@ -165,11 +177,6 @@ MODEL_SCRIPTS = {
     "sbd_vit_noup": "sbd/vit/patch-embed_noup.py",
 }
 MODELS_DIR = Path(__file__).resolve().parents[1] / "models"
-_NOT_PORTED = {
-    "training.n_devices": "ROADMAP Queue 1 item 9 (parallel/mesh.py, the "
-                          "multi-device job queues)",
-    "training.model_parallel": "ROADMAP Queue 1 item 9 (parallel/tp.py)",
-}
 # items an epoch when epoch_len / val_epoch_len are not given: the
 # Synthetic scripts' 320 and 48, SBD's whole split (-1) and 500
 _EPOCH_LENS = {"synthetic": (320, 48), "sbd": (-1, 500)}
@@ -251,15 +258,31 @@ def parse_args(argv) -> Dict:
         if cfg[key] is None:
             cfg[key] = default
     train_dtype(cfg)
-    for key, item in _NOT_PORTED.items():
-        value = cfg[key]
-        off = value is None or value is False or value == ""
-        if key.endswith(("model_parallel", "n_devices")):
-            off = off or value == 1
-        if not off:
-            raise NotImplementedError(f"{key}={value} is not ported to "
-                                      f"isegprobe_torch.train yet: {item}")
+    mp = cfg["training.model_parallel"]
+    mp = 1 if mp is None else mp
+    n = cfg["training.n_devices"]
+    if not isinstance(mp, int) or mp < 1 or (n and n % mp):
+        raise ValueError(f"training.model_parallel={mp} must be a positive "
+                         f"integer that divides training.n_devices={n}")
+    cfg["training.model_parallel"] = mp
     return cfg
+
+
+def make_run_mesh(cfg: Dict):
+    """The run's mesh (``parallel/mesh.make_mesh``): over the process group
+    when one was joined, or when ``training.n_devices`` or
+    ``training.model_parallel`` ask for more than one device (which then
+    raises: one process a device); None for a plain one-device run."""
+    import torch.distributed as dist
+
+    from isegprobe_torch.parallel.mesh import make_mesh
+
+    n = cfg["training.n_devices"]
+    mp = cfg["training.model_parallel"]
+    if not dist.is_initialized() and not (n and n > 1) and mp == 1:
+        return None
+    return make_mesh(n_devices=n or None, model_parallel=mp,
+                     device=cfg["device"])
 
 
 def dataset_family(cfg: Dict) -> str:
@@ -398,12 +421,14 @@ def loss_cfg() -> Dict:
 
 
 def build_trainer(cfg: Dict, on_step=None, params: Optional[Dict] = None,
-                  click_models=None):
+                  click_models=None, mesh=None):
     """The model, datasets, run directory and trainer of a parsed command
     line (the run's directories are the trainer's ``cfg.EXP_PATH``,
     ``cfg.CHECKPOINTS_PATH``, ``cfg.VIS_PATH`` and ``cfg.LOGS_PATH``; the
     W&B run starts here when asked for). ``click_models`` goes to the
-    trainer; as in the JAX package, no command-line key sets it."""
+    trainer; as in the JAX package, no command-line key sets it. ``mesh``
+    (:func:`make_run_mesh`) makes the trainer one rank of a parallel run,
+    on the mesh's device."""
     from types import SimpleNamespace
 
     from isegprobe_torch.models.probe_model import iSegProbeModel
@@ -412,7 +437,8 @@ def build_trainer(cfg: Dict, on_step=None, params: Optional[Dict] = None,
     from isegprobe_torch.utils.exp import init_experiment
     from isegprobe_torch.utils.log import init_wandb
 
-    device = resolve_device(cfg["device"])
+    device = resolve_device(mesh.device if mesh is not None
+                            else cfg["device"])
     crop = tuple(cfg["training_params.crop_size"])
     model = iSegProbeModel(**model_kwargs(cfg), device=device,
                            dtype=train_dtype(cfg))
@@ -435,7 +461,8 @@ def build_trainer(cfg: Dict, on_step=None, params: Optional[Dict] = None,
                           MODELS_DIR / MODEL_SCRIPTS[cfg["model"]],
                           cfg["exp.name"], cfg["training.resume_exp"],
                           cfg["training.resume_prefix"])
-    init_wandb(cfg, run["logs_path"])
+    if mesh is None or mesh.rank == 0:
+        init_wandb(cfg, run["logs_path"])
     tcfg = SimpleNamespace(
         dataloader=SimpleNamespace(
             batch_size=batch_size, val_batch_size=val_batch_size,
@@ -465,19 +492,30 @@ def build_trainer(cfg: Dict, on_step=None, params: Optional[Dict] = None,
         click_models=click_models,
         prev_mask_drop_prob=float(cfg["prev_mask_drop_prob"]),
         seed=cfg["training.seed"], params=params, device=device,
-        on_step=on_step)
+        on_step=on_step, mesh=mesh)
 
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     cfg = parse_args(sys.argv[1:] if argv is None else argv)
+    from isegprobe_torch.parallel.mesh import maybe_init_distributed
+
+    # before any device use, as the root train.py does
+    joined = maybe_init_distributed(
+        backend="gloo" if cfg["device"] == "cpu" else None)
     t0 = time.time()
-    trainer = build_trainer(cfg)
     try:
-        trainer.run(cfg["training_params.epochs"],
-                    validation=cfg["training_params.do_validation"])
+        trainer = build_trainer(cfg, mesh=make_run_mesh(cfg))
+        try:
+            trainer.run(cfg["training_params.epochs"],
+                        validation=cfg["training_params.do_validation"])
+        finally:
+            trainer.shutdown()
     finally:
-        trainer.shutdown()
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     print(f"trained {cfg['training_params.epochs']} epochs in "
           f"{time.time() - t0:.1f} s; checkpoints in "
           f"{trainer.cfg.CHECKPOINTS_PATH}")

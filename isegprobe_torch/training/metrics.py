@@ -12,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["compute_iou", "device_iou_stats", "AdaptiveIoU"]
+__all__ = ["compute_iou", "device_iou_parts", "device_iou_stats",
+           "AdaptiveIoU"]
 
 
 def compute_iou(pred_mask, gt_mask, ignore_mask=None,
@@ -34,18 +35,19 @@ def compute_iou(pred_mask, gt_mask, ignore_mask=None,
     return out
 
 
-def device_iou_stats(logits: torch.Tensor, gt: torch.Tensor, thresh: float,
+def device_iou_parts(logits: torch.Tensor, gt: torch.Tensor, thresh: float,
                      step: float, ignore_label: int = -1):
-    """Batch-mean IoU at the thresholds (t − step, t, t + step), on the
-    logits' device with no host sync. Returns ``(ious [3], valid)``:
-    ``valid`` is False when every gt mask of the batch is empty (the metric
-    skips the batch then)."""
+    """The sums behind :func:`device_iou_stats`: per threshold (t − step,
+    t, t + step) the sum of the defined samples' IoUs ``[3]`` and their
+    count ``[3]``, and the batch's count of non-empty gt masks ``[]``. A
+    data-parallel trainer sums them over its ranks, so that the metric is
+    the global batch's."""
     prob = torch.sigmoid(logits.float())
     gt = gt.float()
     gt_mask = gt > 0.5
     scoreable = gt != ignore_label
     axes = tuple(range(1, gt.ndim))
-    valid = (gt_mask.sum(dim=axes) > 0).any()
+    n_valid = (gt_mask.sum(dim=axes) > 0).sum()
 
     def iou_at(t):
         pm = (prob > t) & scoreable
@@ -54,11 +56,22 @@ def device_iou_stats(logits: torch.Tensor, gt: torch.Tensor, thresh: float,
         defined = union > 0
         per = torch.where(defined, inter / torch.clamp(union, min=1e-12),
                           torch.zeros_like(union))
-        return per.sum() / torch.clamp(defined.sum(), min=1)
+        return per.sum(), defined.sum()
 
-    triplet = torch.stack([iou_at(thresh - step), iou_at(thresh),
-                           iou_at(thresh + step)])
-    return triplet, valid
+    parts = [iou_at(thresh - step), iou_at(thresh), iou_at(thresh + step)]
+    return (torch.stack([p[0] for p in parts]),
+            torch.stack([p[1] for p in parts]), n_valid)
+
+
+def device_iou_stats(logits: torch.Tensor, gt: torch.Tensor, thresh: float,
+                     step: float, ignore_label: int = -1):
+    """Batch-mean IoU at the thresholds (t − step, t, t + step), on the
+    logits' device with no host sync. Returns ``(ious [3], valid)``:
+    ``valid`` is False when every gt mask of the batch is empty (the metric
+    skips the batch then)."""
+    sums, counts, n_valid = device_iou_parts(logits, gt, thresh, step,
+                                             ignore_label)
+    return sums / torch.clamp(counts, min=1), n_valid > 0
 
 
 class AdaptiveIoU:

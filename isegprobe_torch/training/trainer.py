@@ -52,6 +52,23 @@ a ``torch.Generator`` on the card seeded with ``seed + 1`` (JAX draws from
 ``PRNGKey(seed + 1)``, so the two packages' clicks differ past the
 deterministic cases); the items from the loader's per-item seeds, which
 equal the JAX package's process-mode items.
+
+Parallelism (``mesh``, ``parallel/mesh.py``): one process a device. Each
+data index loads its rank-strided shard (the loader's ``rank``/``world``),
+``dataloader.batch_size`` rows a rank, so the global batch is the data
+ranks' rows in data order, as the JAX package assembles it. The clicks'
+and the prev-mask dropout's draws are made for the global batch on every
+rank, from the shared seed, and each rank keeps its rows: a step of ``D``
+ranks takes the clicks a one-rank step takes on the same global batch, as
+JAX's one sharded program does. After the backward the trainable
+gradients are averaged over the data group in one bucketed all-reduce
+before Adam, so the replicated params stay equal; the step's loss and the
+IoU metric's sums are reduced over the group too (the global batch's).
+``mesh.model > 1`` splits the frozen ViT blocks over the model group
+(``parallel/tp.py``: kernel A runs each rank's heads). Only the master
+(rank 0) writes checkpoints (the full tree, gathered from the model group
+where it is split), TensorBoard scalars and image dumps; every rank joins
+``reduce_loss_dict`` for the logged losses.
 """
 
 from __future__ import annotations
@@ -80,7 +97,12 @@ from isegprobe_torch.models.convert import (
 from isegprobe_torch.models.init_tree import init_tree
 from isegprobe_torch.models.probe_model import filter_state_dict
 from isegprobe_torch.ops.edt import edt_l2sq_device
-from isegprobe_torch.training.metrics import device_iou_stats
+from isegprobe_torch.parallel.mesh import (
+    all_reduce_mean,
+    process_is_master,
+    reduce_loss_dict,
+)
+from isegprobe_torch.training.metrics import device_iou_parts, device_iou_stats
 from isegprobe_torch.training.optim import (
     make_layerwise_decay_optimizer,
     make_optimizer,
@@ -125,7 +147,9 @@ def split_params(model: torch.nn.Module,
 def get_next_points_device(prob: torch.Tensor, gt: torch.Tensor,
                            points: torch.Tensor, click_indx: int,
                            generator: torch.Generator,
-                           pred_thresh: float = 0.49) -> torch.Tensor:
+                           pred_thresh: float = 0.49,
+                           rows: Optional[Tuple[int, int]] = None
+                           ) -> torch.Tensor:
     """One corrective click per sample, on the tensors' device with no host
     sync (the JAX ``get_next_points_device``): the exact EDT of the false
     negative and false positive regions (``edt_l2sq_device``,
@@ -134,7 +158,9 @@ def get_next_points_device(prob: torch.Tensor, gt: torch.Tensor,
     the largest distance (``d² > max d² / 4``), written as ``(y, x,
     click_indx)`` into row ``N - click_indx`` (positive) or ``2N -
     click_indx`` (negative) of the ``[B, 2N, 3]`` points. A sample without
-    error keeps its points.
+    error keeps its points. ``rows=(n, lo)``: the batch is rows ``[lo, lo
+    + B)`` of a global batch of ``n``; the draw is made for all ``n`` and
+    these rows are kept (a data-parallel rank's share).
 
     prob, gt: ``[B, H, W, 1]``; returns new points."""
     b = prob.shape[0]
@@ -152,7 +178,12 @@ def get_next_points_device(prob: torch.Tensor, gt: torch.Tensor,
     inner = (dt > (max_d2 / 4.0)[:, None, None]).reshape(b, -1)
     has_any = max_d2 > 0
     w = pred.shape[2]
-    u = torch.rand(inner.shape, generator=generator, device=inner.device)
+    if rows is None:
+        u = torch.rand(inner.shape, generator=generator, device=inner.device)
+    else:
+        n, lo = rows
+        u = torch.rand((n, inner.shape[1]), generator=generator,
+                       device=inner.device)[lo:lo + b]
     idx = torch.where(inner, u, torch.full_like(u, -1.0)).argmax(dim=1)
     new_row = torch.stack([(idx // w).to(points.dtype),
                            (idx % w).to(points.dtype),
@@ -215,7 +246,10 @@ class iSegTrainer:
     ``dataloader.mp`` builds the items in spawned processes (the same
     items as threads); a model with parameters that are not
     float32 raises ``ValueError`` (the master weights are float32: build
-    it with ``dtype=torch.bfloat16`` for mixed precision)."""
+    it with ``dtype=torch.bfloat16`` for mixed precision). ``mesh``
+    (``parallel/mesh.make_mesh``) runs the trainer as one rank of a data-
+    and tensor-parallel run (the module docstring) on the mesh's device;
+    ``click_models`` that hold leaves of split blocks raise there."""
 
     def __init__(self, model, cfg, loss_cfg: Dict, trainset, valset,
                  optimizer: str = "adam",
@@ -231,12 +265,14 @@ class iSegTrainer:
                  prev_mask_drop_prob: float = 0.0,
                  seed: int = -1,
                  params: Optional[Dict] = None, device=None,
-                 on_step: Optional[Callable] = None) -> None:
+                 on_step: Optional[Callable] = None, mesh=None) -> None:
         if any(p.dtype != torch.float32 for p in model.parameters()):
             raise ValueError(
                 "the trainer keeps float32 master weights: build the model "
                 "with float32 parameters (dtype=torch.bfloat16 computes in "
                 "bf16 over them)")
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         self.model = model
         self.cfg = cfg
@@ -251,6 +287,10 @@ class iSegTrainer:
         self.checkpoint_interval = checkpoint_interval
         self.seed = seed if seed != -1 else 0
         self.on_step = on_step
+        self.mesh = mesh
+        self.is_master = process_is_master()
+        shard = (dict(rank=mesh.data_index, world=mesh.data) if mesh
+                 else {})
 
         batch_size = _get(cfg, "dataloader.batch_size")
         val_batch_size = _get(cfg, "dataloader.val_batch_size", batch_size)
@@ -258,10 +298,11 @@ class iSegTrainer:
         mp = bool(_get(cfg, "dataloader.mp", False))
         self.train_data = DataLoader(trainset, batch_size, shuffle=True,
                                      num_workers=workers, seed=self.seed,
-                                     salt="train", use_processes=mp)
+                                     salt="train", use_processes=mp,
+                                     **shard)
         self.val_data = DataLoader(valset, val_batch_size, shuffle=False,
                                    num_workers=workers, seed=self.seed,
-                                   salt="val", use_processes=mp)
+                                   salt="val", use_processes=mp, **shard)
 
         self.train_metrics = list(metrics or [])
         self.val_metrics = copy.deepcopy(self.train_metrics)
@@ -285,9 +326,13 @@ class iSegTrainer:
             logger.info("Loaded weights from %s", weights)
         load_jax_params(model, params)
         self._template = _shapes(params)
+        if mesh is not None and mesh.model > 1:
+            from isegprobe_torch.parallel.tp import shard_vit_tp
+
+            shard_vit_tp(model, mesh)
         self._click_states = tuple(
             self._click_state(cm) for cm in (click_models or ()))
-        split_params(model)
+        self._trainable, _ = split_params(model)
         opt_kwargs = {k: v for k, v in optimizer_params.items()
                       if k in ("betas", "eps", "momentum", "weight_decay")}
         if layerwise_decay:
@@ -345,6 +390,13 @@ class iSegTrainer:
         unknown = sorted(set(state) - set(own))
         if unknown:
             raise KeyError(f"click model leaves the model lacks: {unknown}")
+        if getattr(self.model, "tp_mesh", None) is not None:
+            from isegprobe_torch.parallel.tp import is_sharded
+
+            split = sorted(k for k in state if is_sharded(k))
+            if split:
+                raise ValueError("click_models under tensor parallelism "
+                                 f"hold leaves of split blocks: {split}")
         return {k: v.to(own[k].device, own[k].dtype)
                 for k, v in state.items()}
 
@@ -382,10 +434,18 @@ class iSegTrainer:
             logging_out["instance_aux_loss"] = aux_loss
         return total, logging_out
 
+    def _rows(self, b: int) -> Optional[Tuple[int, int]]:
+        """This rank's rows of the global batch, ``(n, lo)`` (None without
+        a mesh)."""
+        if self.mesh is None:
+            return None
+        return b * self.mesh.data, b * self.mesh.data_index
+
     def _simulate_clicks(self, images, gt, points, num_iters: int):
         """``num_iters`` no-grad forwards (iteration k through
         ``click_models[k]`` where there is one), each followed by a click;
         returns (prev mask, points)."""
+        rows = self._rows(images.shape[0])
         prev = torch.zeros_like(images[..., :1])
         for i in range(num_iters):
             if i < len(self._click_states):
@@ -395,10 +455,13 @@ class iSegTrainer:
                 out = self._forward(images, prev, points)
             prev = torch.sigmoid(out["instances"].float())
             points = get_next_points_device(prev, gt, points, i + 1,
-                                            self.generator)
+                                            self.generator, rows=rows)
         if self.max_num_next_clicks > 0 and self.prev_mask_drop_prob > 0:
-            drop = torch.rand(images.shape[0], generator=self.generator,
-                              device=images.device) < self.prev_mask_drop_prob
+            b = images.shape[0]
+            n, lo = rows or (b, 0)
+            drop = torch.rand(n, generator=self.generator,
+                              device=images.device)[lo:lo + b] \
+                < self.prev_mask_drop_prob
             if num_iters > 0:
                 prev = torch.where(drop[:, None, None, None],
                                    torch.zeros_like(prev), prev)
@@ -424,6 +487,10 @@ class iSegTrainer:
             outputs = self._forward(images, prev, points)
             loss, logging_out = self._loss(outputs, gt)
             loss.backward()
+            if self.mesh is not None:
+                all_reduce_mean([p.grad for p in self._trainable
+                                 if p.grad is not None],
+                                self.mesh.data_group, self.mesh.data)
             lr = self.lr_schedule(self.num_updates)
             for group in self.optimizer.param_groups:
                 group["lr"] = lr * group.get("lr_scale", 1.0)
@@ -435,13 +502,31 @@ class iSegTrainer:
                 loss, logging_out = self._loss(outputs, gt)
         logging_out = {k: v.detach() for k, v in logging_out.items()}
         logging_out["overall"] = loss.detach()
-        iou = device_iou_stats(outputs["instances"].detach(), gt, iou_thresh,
-                               iou_step)
+        if self.mesh is not None and self.mesh.distributed:
+            loss, iou = self._global_loss_and_iou(
+                loss.detach(), outputs["instances"].detach(), gt, iou_thresh,
+                iou_step)
+        else:
+            iou = device_iou_stats(outputs["instances"].detach(), gt,
+                                   iou_thresh, iou_step)
         self.vis_payload = None
         if vis:
             self.vis_payload = (torch.sigmoid(
                 outputs["instances"][0, ..., 0].detach().float()), points[0])
         return loss.detach(), logging_out, iou
+
+    def _global_loss_and_iou(self, loss, logits, gt, thresh, step):
+        """The global batch's loss (the data ranks' mean) and IoU triplet,
+        from one all-reduce of the loss and the IoU sums over the data
+        group."""
+        import torch.distributed as dist
+
+        sums, counts, n_valid = device_iou_parts(logits, gt, thresh, step)
+        buf = torch.cat([loss.float()[None], sums, counts.float(),
+                         n_valid.float()[None]])
+        dist.all_reduce(buf, group=self.mesh.data_group)
+        return (buf[0] / self.mesh.data,
+                (buf[1:4] / torch.clamp(buf[4:7], min=1), buf[7] > 0))
 
     # -- epochs -----------------------------------------------------------
 
@@ -463,7 +548,7 @@ class iSegTrainer:
     def _ensure_writer(self) -> None:
         """The TensorBoard writer on ``cfg.LOGS_PATH`` (none without it)."""
         logs = _get(self.cfg, "LOGS_PATH")
-        if self.sw is None and logs:
+        if self.sw is None and logs and self.is_master:
             self.sw = SummaryWriterAvg(log_dir=str(logs),
                                        dump_period=self.tb_dump_period)
 
@@ -547,15 +632,19 @@ class iSegTrainer:
         host = torch.stack([loss, iou[1].float(), *iou[0],
                             *(logging_out[k].float() for k in names)]
                            ).cpu().numpy()
+        # every rank joins the mean over processes (the JAX trainer's
+        # reduce_loss_dict); nothing happens in a world of one
+        logged = reduce_loss_dict(
+            {k: float(v) for k, v in zip(names, host[5:])})
         if self.sw is not None:
-            for k, v in zip(names, host[5:]):
+            for k, v in logged.items():
                 self.sw.add_scalar(f"Losses/{k}", float(v), global_step)
             self.sw.add_scalar("States/learning_rate",
                                float(self.lr_schedule(global_step)),
                                global_step)
             for m in self.train_metrics:
                 m.log_states(self.sw, f"Metrics/{m.name}", global_step)
-        if vis is not None:
+        if vis is not None and self.is_master:
             self.save_visualization(batch_np, vis, global_step,
                                     prefix="train")
         for m in self.train_metrics:
@@ -620,19 +709,29 @@ class iSegTrainer:
 
     def full_params(self, tops: Optional[Sequence[str]] = None) -> Dict:
         """The model's params as a flax-named numpy tree (the top-level
-        subtrees in ``tops``, or all)."""
+        subtrees in ``tops``, or all). Under tensor parallelism the split
+        blocks are gathered from the model group when ``tops`` takes the
+        backbone (every rank of the group must call it then)."""
         template = self._template if tops is None else {
             k: v for k, v in self._template.items() if k in tops}
-        return state_dict_to_jax_params(self.model.state_dict(), template)
+        state = self.model.state_dict()
+        if getattr(self.model, "tp_mesh", None) is not None and \
+                "backbone" in template:
+            from isegprobe_torch.parallel.tp import full_state_dict
+
+            state = full_state_dict(self.model)
+        return state_dict_to_jax_params(state, template)
 
     def save_checkpoint(self, epoch: Optional[int] = None) -> None:
         """``last_checkpoint.ckpt`` and the interval-scheduled epoch
         checkpoints, filtered by the model's ``save_cfg``, in the JAX
-        package's format."""
+        package's format. Every rank calls it; the master writes."""
         ckpt_dir = Path(_get(self.cfg, "CHECKPOINTS_PATH", "./checkpoints"))
         save_cfg = getattr(self.model, "save_cfg", None)
         tops = list(filter_state_dict(self._template, save_cfg))
         filtered = filter_state_dict(self.full_params(tops), save_cfg)
+        if not self.is_master:
+            return
         config = model_config(self.model)
         extra = {"epoch": epoch}
         save_checkpoint(filtered, config, ckpt_dir / "last_checkpoint.ckpt",

@@ -79,6 +79,14 @@ def _log_to(path: Path) -> None:
     logger.setLevel(logging.INFO)
 
 
+def _world() -> int:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
 def init_experiment(exp_path: Union[str, Path],
                     model_path: Union[str, Path],
                     name: Optional[str] = None, resume_exp=None,
@@ -107,8 +115,19 @@ def init_experiment(exp_path: Union[str, Path],
                     if p.is_dir() and p.name.split("_")[0].isdigit()),
                    default=-1)
         name = name or datetime.now().strftime("%Y-%m-%d")
-        run = parent / f"{last + 1:03d}_{name}"
-        run.mkdir()
+        run_num = last + 1
+        multiproc = _world() > 1
+        if multiproc:
+            # every rank takes rank 0's number, so that they agree on the
+            # run directory even where a shared file system makes the scan
+            # racy (the JAX package broadcasts it the same way)
+            import torch.distributed as dist
+
+            box = [run_num]
+            dist.broadcast_object_list(box, src=0)
+            run_num = int(box[0])
+        run = parent / f"{run_num:03d}_{name}"
+        run.mkdir(parents=True, exist_ok=multiproc)
     paths = {key: run / sub for key, sub in (
         ("checkpoints_path", "checkpoints"), ("vis_path", "vis"),
         ("logs_path", "logs"))}

@@ -201,16 +201,43 @@ def test_click_record_is_opt_in(tiny_arch, batch):  # noqa: F811
     assert (rec.clicks[0, n_last:] == -1).all()
 
 
-def test_unported_options_and_devices_raise():
-    from isegprobe_torch.inference.device_eval import make_device_evaluator
+def test_unported_options_and_devices_raise(tiny_arch):  # noqa: F811
+    """The options and devices of the evaluator: ``mesh`` (ported) splits
+    the lanes over a device list, a repeated device included, and gives
+    the one-device run's clicks and IoUs; group_api with a mesh and a
+    batch the devices do not divide raise; a GPU is the default device."""
+    from isegprobe_torch.inference.device_eval import (
+        MeshEvaluator,
+        evaluate_dataset_device,
+        make_device_evaluator,
+    )
     from isegprobe_torch.models.probe_model import (
         flagship_config,
         iSegProbeModel,
     )
 
+    _, _, tiny = _models()
+    data = _Scenes([_scene(s) for s in (0, 3, 5, 7)])
+    kw = _common(target_iou=0.3, min_crop_size=20, record_clicks=True)
+    one = make_device_evaluator(tiny, batch_size=4, device="cpu", **kw)
+    mesh = make_device_evaluator(tiny, batch_size=4, mesh=["cpu", "cpu"],
+                                 device="cpu", **kw)
+    assert isinstance(mesh, MeshEvaluator) and mesh.batch_size == 4
+    assert [s.batch_size for s in mesh.shards] == [2, 2]
+    assert mesh.shards[0].model is tiny and mesh.shards[1].model is not tiny
+    want_clicks, got_clicks = [], []
+    want = evaluate_dataset_device(one, data, clicks=want_clicks)
+    got = evaluate_dataset_device(mesh, data, clicks=got_clicks)
+    _assert_same(got, want, 0.0)
+    for a, b in zip(got_clicks, want_clicks):
+        np.testing.assert_array_equal(a, b)
+    assert mesh.steps == one.steps
     model = iSegProbeModel(**flagship_config((56, 56)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_device_evaluator(model, batch_size=8, mesh=object(),
+    with pytest.raises(ValueError, match="group_api"):
+        make_device_evaluator(model, batch_size=8, mesh=["cpu", "cpu"],
+                              group_api=True, device="cpu")
+    with pytest.raises(ValueError, match="not divisible"):
+        make_device_evaluator(model, batch_size=3, mesh=["cpu", "cpu"],
                               device="cpu")
     # continuous batching is ported: group_api gives the job queue
     group = make_device_evaluator(model, batch_size=8, group_api=True,

@@ -555,9 +555,9 @@ def test_evaluate_cli_writes_the_root_clis_files(fx, tmp_path, capsys):
 
 def test_evaluate_cli_keys():
     """The output keys parse (the 1.01 rule takes ``iou_analysis`` too;
-    ``logs_path`` defaults under ``EXPS_PATH``); ``profile_dir`` and
-    ``device_mesh`` still raise, naming their ROADMAP item; a run needs a
-    checkpoint or an ``exp_path``."""
+    ``logs_path`` defaults under ``EXPS_PATH``); ``device_mesh`` parses
+    (ported); a non-empty ``profile_dir`` still raises, naming its ROADMAP
+    item; a run needs a checkpoint or an ``exp_path``."""
     from isegprobe_torch.evaluate import parse_args
 
     cfg = parse_args(["checkpoint=c.ckpt", "print_ious=false",
@@ -569,11 +569,90 @@ def test_evaluate_cli_keys():
     assert parse_args(["checkpoint=c", "print_ious=false"])["target_iou"] \
         == 0.9
     assert parse_args(["exp_path=a/b"])["exp_path"] == "a/b"
-    for key in ("profile_dir=/p", "device_mesh=true"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            parse_args(["checkpoint=c", key])
+    assert parse_args(["checkpoint=c", "device_mesh=true"])["device_mesh"]
+    assert parse_args(["checkpoint=c", "profile_dir="])["profile_dir"] == ""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        parse_args(["checkpoint=c", "profile_dir=/p"])
     with pytest.raises(ValueError, match="checkpoint"):
         parse_args([])
+
+
+def _root_cli():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "isegprobe_evaluate_cli_root_keys", REPO / "evaluate.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_evaluate_cli_root_keys(tmp_path):
+    """The root CLI's other keys: ``cpu`` (``device=cpu``), ``trunk_cache``
+    by the root's ``_normalize_trunk_cache`` rules, ``device_mesh=false``
+    and an empty ``profile_dir`` parse, and ``main_cfg_path`` read as
+    PyYAML reads ``configs/main_cfg.yaml``, its ``EXPS_PATH`` and
+    ``DATASETS.*`` used unless given on the command line; a line outside
+    the file's form raises naming it."""
+    import yaml
+
+    from isegprobe_torch.evaluate import parse_args
+    from isegprobe_torch.utils.main_cfg import read_main_cfg
+
+    root = _root_cli()
+    cfg = parse_args(["checkpoint=c", "cpu=true", "device_mesh=false",
+                      "profile_dir="])
+    assert cfg["device"] == "cpu" and cfg["cpu"] is True
+    assert cfg["device_mesh"] is False
+    for value, want in (("on", "on"), ("AUTO", "auto"), ("off", "off"),
+                        ("true", True), ("false", False)):
+        assert parse_args(["checkpoint=c", f"trunk_cache={value}"])[
+            "trunk_cache"] == root._normalize_trunk_cache(want)
+    for bad in ("maybe", "1"):
+        with pytest.raises(ValueError, match="trunk_cache"):
+            root._normalize_trunk_cache(bad)
+        with pytest.raises(ValueError, match="trunk_cache"):
+            parse_args(["checkpoint=c", f"trunk_cache={bad}"])
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out.update(flat(v, f"{prefix}{k}."))
+            else:
+                out[prefix + k] = "" if v is None else str(v)
+        return out
+
+    main_cfg = REPO / "configs" / "main_cfg.yaml"
+    assert read_main_cfg(main_cfg) == flat(yaml.safe_load(
+        main_cfg.read_text()))
+    machine = tmp_path / "main_cfg.yaml"
+    machine.write_text(
+        "# machine paths\n"
+        "EXPS_PATH: '/runs'   # where runs go\n"
+        "DATASETS:\n"
+        "  GRABCUT_PATH: \"/d/grab cut\"\n"
+        "  DAVIS_PATH: /d/davis  # bare\n"
+        "  nested:\n"
+        "    deeper: x\n"
+        "  SBD_PATH: /d/sbd\n"
+        "EMPTY:\n")
+    assert read_main_cfg(machine) == flat(yaml.safe_load(
+        machine.read_text()))
+    cfg = parse_args(["checkpoint=c", f"main_cfg_path={machine}",
+                      "DATASETS.SBD_PATH=/mine"])
+    assert cfg["EXPS_PATH"] == "/runs"
+    assert cfg["logs_path"] == "/runs/evaluation_logs"
+    assert cfg["DATASETS.GRABCUT_PATH"] == "/d/grab cut"
+    assert cfg["DATASETS.DAVIS_PATH"] == "/d/davis"
+    assert cfg["DATASETS.SBD_PATH"] == "/mine"
+    assert cfg["DATASETS.BERKELEY_PATH"] == "/data/berkeley"
+    for text, line in (("A: 1\n  B: 2\n", 2), ("A:\n  - x\n", 2),
+                       ("A: [1, 2]\n", 1), ("\tA: 1\n", 1),
+                       ("A: 'open\n", 1), ("just text\n", 1)):
+        machine.write_text(text)
+        with pytest.raises(ValueError, match=f"main_cfg.yaml:{line}:"):
+            read_main_cfg(machine)
 
 
 def test_evaluate_cli_runs_an_experiments_checkpoints(tmp_path):

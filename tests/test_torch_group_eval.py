@@ -195,7 +195,55 @@ def test_group_options_that_raise(tiny_arch):  # noqa: F811
     ev = make_device_evaluator(model, batch_size=2, group_api=True,
                                device="cpu")
     data = _Scenes([_scene(0)])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        evaluate_dataset_group(ev, data, devices=["cpu", "cpu"])
+    # several devices are ported: one job queue a device, the jobs dealt
+    # round-robin, the results the one-device queue's
+    many = _Scenes([_scene(s) for s in (0, 3, 5, 7, 11)])
+    small = make_device_evaluator(model, batch_size=2, group_api=True,
+                                  **_common())
+    want = evaluate_dataset_group(small, many)
+    stats = {}
+    got = evaluate_dataset_group(small, many, devices=["cpu", "cpu"],
+                                 stats=stats)
+    assert [len(a) for a in got] == [len(a) for a in want]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert stats["devices"] == 2 and sum(stats["jobs_by_device"]) == 5
+    assert min(stats["jobs_by_device"]) > 0
     with pytest.raises(ValueError, match="record_clicks"):
         evaluate_dataset_group(ev, data, clicks=[])
+
+
+def test_device_queues_step_in_lockstep(tiny_arch, monkeypatch):  # noqa: F811
+    """With two devices named, the per-device queues are stepped in
+    lockstep: every device's step is started before either device's flags
+    are read, so the second device's reads interleave with the first's
+    instead of following them."""
+    from isegprobe_torch.inference import device_eval
+
+    _, _, model = _models()
+    ev = device_eval.make_device_evaluator(model, batch_size=2,
+                                           group_api=True, **_common())
+    data = _Scenes([_scene(s) for s in SEEDS])
+    want = device_eval.evaluate_dataset_group(ev, data)
+    order = []
+    read = device_eval.DeviceEvaluator._read
+
+    def logged(self, flag):
+        order.append(id(self))
+        return read(self, flag)
+
+    monkeypatch.setattr(device_eval.DeviceEvaluator, "_read", logged)
+    stats: dict = {}
+    got = device_eval.evaluate_dataset_group(ev, data, devices=["cpu"] * 2,
+                                             stats=stats)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert min(stats["jobs_by_device"]) > 0
+    first, second = ev.protocol, [i for i in order if i != id(ev.protocol)]
+    assert len(set(second)) == 1
+    # the reads alternate while both queues run
+    last_first = max(i for i, k in enumerate(order) if k == id(first))
+    first_second = order.index(second[0])
+    assert first_second == 1 and last_first > first_second
+    both = order[:2 * min(order.count(id(first)), len(second))]
+    assert both[0::2] == [id(first)] * (len(both) // 2)

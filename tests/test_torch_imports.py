@@ -1,8 +1,8 @@
 """The port stands alone: no module of isegprobe_torch, and not
-chip_smoke.py, imports JAX, flax, msgpack, OpenCV, PIL, tensorboardX,
-TensorBoard or the JAX package (the GPU machine has none of them; tests may
-use PIL to write files). Checked on the source text (AST), so lazy
-imports inside functions count too."""
+chip_smoke.py, imports JAX, flax, msgpack, OpenCV, PIL, PyYAML,
+tensorboardX, TensorBoard or the JAX package (the GPU machine has none of
+them; tests may use PIL to write files). Checked on the source text
+(AST), so lazy imports inside functions count too."""
 
 import ast
 from pathlib import Path
@@ -11,7 +11,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cv2", "msgpack", "PIL",
-             "tensorboardX", "tensorboard", "isegprobe_tpu"}
+             "yaml", "tensorboardX", "tensorboard", "isegprobe_tpu"}
 SOURCES = sorted((REPO / "isegprobe_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
 

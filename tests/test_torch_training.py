@@ -754,15 +754,16 @@ def test_train_cli_arguments():
     assert cfg["dataloader.mp"] is False and cfg["epoch_len"] == 16
     for ok in (["training_params.dtype=bfloat16"],
                ["training.resume_exp=000"], ["training.weights=x.ckpt"],
-               ["dataloader.mp=true"]):
+               ["dataloader.mp=true"], ["training.model_parallel=2"],
+               ["training.n_devices=4", "training.model_parallel=2"]):
         parse_args(["model=synthetic_dinov2_noup", *ok])
     for bad, err in ((["model=synthetic_dinov2_nonexistent"], ValueError),
                      (["model=synthetic_dinov2_noup",
                        "training_params.dtype=float16"], ValueError),
+                     (["model=synthetic_dinov2_noup", "training.n_devices=4",
+                       "training.model_parallel=3"], ValueError),
                      (["model=synthetic_dinov2_noup",
-                       "training.model_parallel=2"], NotImplementedError),
-                     (["model=synthetic_dinov2_noup",
-                       "training.n_devices=4"], NotImplementedError),
+                       "training.model_parallel=0"], ValueError),
                      (["model=synthetic_dinov2_noup", "colour=red"],
                       ValueError)):
         with pytest.raises(err):
