@@ -334,23 +334,31 @@ does not hold:
     evaluate CLI, ``load_model_for_eval(..., "int8")``), against
     ``isegprobe_torch/fixtures/synthetic_int8.npz``: kernels H (rows of
     [16400, 384], [16400, 1536] and [2050, 384] in bf16 and f32, the weights
-    [1152, 384], [1536, 384], [384, 1536]) and I (the flagship's four
-    products at M = 16400 and 2050, MaskCLIP's four at M = 2·785, its
-    packed in_proj with the bias after the cast, one f32 output) bit for
-    bit against their plain versions, timed beside their bounds, the plain
-    versions and the yardsticks ``torch._int_mm`` with the plain epilogue
-    and bf16 ``F.linear``; the trained flagship in int8: one 448² batch-2
-    forward within 2^-6 of JAX's int8 logit scale and 0.08 in probability
-    of the bf16 forward, exactly 12 A + 25 B + 48 I + 96 H, ms a forward
-    at batch 2 and 16 beside bf16's; the device loop at B=8 on the 78
-    objects beside bf16's (NoC on the fixture's 24 objects within 0.1 of
-    JAX's int8, the distance to JAX's f32 NoC printed, every step 1 C +
-    12 A + 25 B + 48 I + 96 H); host clicks on 2 objects (p50, exact
-    launches); the trained MaskCLIP in int8 on the card against its CPU
-    plain path at 224² (within 0.05 of the logit scale; 11 A + 25 B + 45 I
-    + 90 H); the drawn DINO key probe in int8 (11 A + 23 B + 45 I + 90 H);
-    the trained 448² LoftUp in int8 (padded, D at dh 128) through a loop of
-    2 objects × 4 clicks beside JAX's f32 trajectories;
+    [1152, 384], [1536, 384], [384, 1536]) and I (the persistent ``wgmma``
+    s8 GEMM: the flagship's four products at M = 16400 and 2050, MaskCLIP's
+    four at M = 2·785, its packed in_proj with the bias after the cast, one
+    f32 output) bit for bit against their plain versions, timed beside
+    their bounds, the plain versions and the yardsticks ``torch._int_mm``
+    with the plain epilogue and bf16 ``F.linear``; I also bit for bit at
+    the ragged M ∈ {1, 127, 129, 2050} × N ∈ {8, 200, 2304} × K ∈ {32, 96,
+    3072}, writing f32 and bf16, with no bias and the bias before and
+    after the cast (I's ptxas entries: no spill, no C7515 line in
+    ``quant.cu``); the trained flagship in int8, whose weights' int8 rows
+    are quantized on its first forward and kept: one 448² batch-2 forward
+    within 2^-6 of JAX's int8 logit scale and 0.08 in probability of the
+    bf16 forward, exactly 12 A + 25 B + 48 I + 48 H + 48 H of the weights
+    on the first forward and 12 A + 25 B + 48 I + 48 H on the next (bitwise
+    the first), ms a forward at batch 2 and 16 beside bf16's; the device
+    loop at B=8 on the 78 objects beside bf16's (NoC on the fixture's 24
+    objects within 0.1 of JAX's int8, the distance to JAX's f32 NoC
+    printed, every step 1 C + 12 A + 25 B + 48 I + 48 H); host clicks on 2
+    objects (p50, exact launches); the trained MaskCLIP in int8 on the card
+    against its CPU plain path at 224² (within 0.05 of the logit scale; 11
+    A + 25 B + 45 I + 45 H, and 45 H of the weights on its first forward);
+    the drawn DINO key probe in int8 (11 A + 23 B + 45 I + 45 H, and 45 H of
+    the weights first); the trained 448² LoftUp in int8 (padded, D at dh
+    128) through a loop of 2 objects × 4 clicks beside JAX's f32
+    trajectories (48 H of the weights on its first step);
 11m. demo_parallel, the interactive demo and ``parallel/`` (main paths
     98-104: ``python -m isegprobe_torch.demo``'s builder and
     ``interactive_demo/controller.py``, data and tensor parallelism on
@@ -588,17 +596,27 @@ OTHER_FORWARD_LAUNCHES = {
     "dinov2_lift": {"mha_qkv": 12, "layernorm": 25},
 }
 OTHER_CLICKS = 5
-# what one int8 forward launches (phase 11l; LoftUp in its padded layout)
+# what one int8 forward launches once its weights' int8 rows are cached
+# (phase 11l; LoftUp in its padded layout): one H an activation, one I a
+# product; the first forward of a loaded model adds one H a weight
 INT8_LAUNCHES = {
     "flagship": {**FORWARD_LAUNCHES["flagship"], "int8_gemm": 48,
-                 "quantize_rows": 96},
+                 "quantize_rows": 48},
     "loftup": {**FORWARD_LAUNCHES["loftup"], "int8_gemm": 48,
-               "quantize_rows": 96},
+               "quantize_rows": 48},
     "maskclip_noup": {**OTHER_FORWARD_LAUNCHES["maskclip_noup"],
-                      "int8_gemm": 45, "quantize_rows": 90},
+                      "int8_gemm": 45, "quantize_rows": 45},
     "vit_noup": {**OTHER_FORWARD_LAUNCHES["vit_noup"], "int8_gemm": 45,
-                 "quantize_rows": 90},
+                 "quantize_rows": 45},
 }
+# kernel I bitwise at ragged shapes (phase 11l): M x N x K
+INT8_RAGGED = ((1, 127, 129, 2050), (8, 200, 2304), (32, 96, 3072))
+
+
+def int8_first_forward(per_forward: dict) -> dict:
+    """A loaded int8 model's first forward: one more H a weight (the
+    weights' rows are quantized once, then cached)."""
+    return {**per_forward, "quantize_rows": 2 * per_forward["int8_gemm"]}
 
 # the RITM adaptive protocol and continuous batching (phase 11e): the JAX
 # package's adaptive results for the trained flagship (its device loop on
@@ -5388,6 +5406,40 @@ def int8_gemm_case(torch, F, quant, m: int, k: int, n: int, dtype: str,
     return res
 
 
+def int8_ragged(torch, quant) -> dict:
+    """Kernel I bit for bit against its plain version at every INT8_RAGGED
+    shape (ragged tiles and K-blocks: the loads zero-filled, the stores
+    clipped), writing f32 and bf16, with no bias and the bias before and
+    after the cast, on drawn int8 operands and scales."""
+    cases, bad = 0, []
+    for m in INT8_RAGGED[0]:
+        for n in INT8_RAGGED[1]:
+            for k in INT8_RAGGED[2]:
+                g = torch.Generator(device="cuda").manual_seed(
+                    m * 7 + n * 3 + k)
+                xq, wq = (torch.randint(-127, 128, shape, generator=g,
+                                        device="cuda", dtype=torch.int8)
+                          for shape in ((m, k), (n, k)))
+                sx = torch.rand(m, generator=g, device="cuda") + 0.01
+                sw = torch.rand(n, generator=g, device="cuda") * 0.01
+                b = torch.randn(n, generator=g, device="cuda")
+                for dtype in (torch.float32, torch.bfloat16):
+                    for bias, after in ((None, False), (b.to(dtype), False),
+                                        (b.to(dtype), True)):
+                        got = quant.int8_gemm(xq, wq, sx, sw, bias, dtype,
+                                              after)
+                        want = quant._int8_gemm_plain(xq, wq, sx, sw, bias,
+                                                      dtype, after)
+                        cases += 1
+                        if not bool(torch.equal(got, want)):
+                            bad.append({"shape": [m, k, n],
+                                        "dtype": str(dtype),
+                                        "bias": bias is not None,
+                                        "after": after})
+    torch.cuda.synchronize()
+    return {"cases": cases, "bad": bad}
+
+
 def noc_gap(a, b) -> float:
     return max(abs(float(x) - float(y)) for x, y in zip(a, b))
 
@@ -5489,6 +5541,11 @@ def int8_phase(torch, F) -> dict:
         seed += 1
     checks.append(int8_gemm_case(torch, F, quant, host, 384, 1152,
                                  "float32", seed, "float32 output"))
+    res["ragged"] = int8_ragged(torch, quant)
+    print("int8 ragged I", json.dumps(res["ragged"]))
+    if res["ragged"]["bad"]:
+        fail(f"kernel I differs from its plain version at ragged shapes: "
+             f"{res['ragged']['bad']}")
     for c in checks:
         print(f"int8 check {c['kernel']} {c['shape']} {c['dtype']}: "
               f"bitwise {c['ok']}, {c['ms']:.4f} ms (bound "
@@ -5520,6 +5577,10 @@ def int8_phase(torch, F) -> dict:
         zero_counters()
         logits = model(img_d, pts_d)["instances"]
         torch.cuda.synchronize()
+        got_first = {k: v for k, v in counters().items() if v}
+        zero_counters()
+        logits_again = model(img_d, pts_d)["instances"]
+        torch.cuda.synchronize()
         got = {k: v for k, v in counters().items() if v}
         logits16 = models["bfloat16"](img_d, pts_d)["instances"]
         ms = {}
@@ -5539,6 +5600,9 @@ def int8_phase(torch, F) -> dict:
     p16 = 1 / (1 + np.exp(-logits16.float().cpu().numpy()))
     prob_err = float(np.abs(p8 - p16).max())
     res["forward"] = {"launches_per_forward": got,
+                      "launches_first_forward": got_first,
+                      "cached_equals_first": bool(torch.equal(
+                          logits, logits_again)),
                       "max_abs_err_vs_jax_int8": err, "logit_scale": scale,
                       "err_share_of_scale": err / scale,
                       "max_prob_err_vs_bf16": prob_err,
@@ -5553,8 +5617,11 @@ def int8_phase(torch, F) -> dict:
     if prob_err > INT8_PROB_TOL:
         fail(f"int8 probabilities differ from bf16's by {prob_err} > "
              f"{INT8_PROB_TOL}")
-    if got != per_forward:
-        fail(f"int8 forward launched {got}, expected {per_forward}")
+    if got != per_forward or got_first != int8_first_forward(per_forward):
+        fail(f"int8 forward launched {got_first}, then {got}; expected "
+             f"{int8_first_forward(per_forward)}, then {per_forward}")
+    if not res["forward"]["cached_equals_first"]:
+        fail("int8 forward on cached weight rows differs from the first")
     paths["int8_forward"] = expected(**per_forward)
 
     # the device loops at B=8 on the 78 objects: bf16 beside int8; int8's
@@ -5645,24 +5712,29 @@ def int8_phase(torch, F) -> dict:
     points[:, 0] = (size * 0.4, size * 0.5, 0)
     points[1, 2] = (size * 0.8, size * 0.2, 1)
     with torch.inference_mode():
-        zero_counters()
-        got_l = clip(torch.from_numpy(image).cuda(),
-                     torch.from_numpy(points).cuda())["instances"]
-        torch.cuda.synchronize()
-        got = {k: v for k, v in counters().items() if v}
+        launched = []
+        for _ in range(2):  # the weights' rows quantized, then cached
+            zero_counters()
+            got_l = clip(torch.from_numpy(image).cuda(),
+                         torch.from_numpy(points).cuda())["instances"]
+            torch.cuda.synchronize()
+            launched.append({k: v for k, v in counters().items() if v})
+        got_first, got = launched
         ref = clip_cpu(torch.from_numpy(image),
                        torch.from_numpy(points))["instances"]
     err = float((got_l.float().cpu() - ref.float()).abs().max())
     scale = float(ref.float().abs().max())
     res["maskclip"] = {"size": size, "launches_per_forward": got,
+                       "launches_first_forward": got_first,
                        "max_abs_err_vs_cpu": err, "logit_scale": scale}
     print("int8 MaskCLIP forward", json.dumps(res["maskclip"]))
     if err > INT8_MASKCLIP_TOL * scale or not bool(
             torch.isfinite(got_l).all()):
         fail(f"int8 MaskCLIP: card forward differs from the CPU plain path "
              f"by {err} (logit scale {scale})")
-    if got != clip_fwd:
-        fail(f"int8 MaskCLIP launched {got}, expected {clip_fwd}")
+    if got != clip_fwd or got_first != int8_first_forward(clip_fwd):
+        fail(f"int8 MaskCLIP launched {got_first}, then {got}; expected "
+             f"{int8_first_forward(clip_fwd)}, then {clip_fwd}")
     paths["int8_maskclip_forward"] = expected(**clip_fwd)
     del clip, clip_cpu
 
@@ -5672,16 +5744,22 @@ def int8_phase(torch, F) -> dict:
     key = init_params(iSegProbeModel(**cfg, quant="int8"), seed=0).eval()
     key.to(torch.bfloat16)
     with torch.inference_mode():
-        zero_counters()
-        kl = key(img_d, pts_d)["instances"]
-        torch.cuda.synchronize()
-        got = {k: v for k, v in counters().items() if v}
+        launched = []
+        for _ in range(2):  # the weights' rows quantized, then cached
+            zero_counters()
+            kl = key(img_d, pts_d)["instances"]
+            torch.cuda.synchronize()
+            launched.append({k: v for k, v in counters().items() if v})
+        got_first, got = launched
     res["dino_key"] = {"launches_per_forward": got,
+                       "launches_first_forward": got_first,
                        "finite": bool(torch.isfinite(kl).all()),
                        "shape": list(kl.shape)}
     print("int8 DINO key probe forward", json.dumps(res["dino_key"]))
-    if got != key_fwd or not res["dino_key"]["finite"]:
-        fail(f"int8 DINO key probe: launched {got} (expected {key_fwd}), "
+    if (got != key_fwd or got_first != int8_first_forward(key_fwd)
+            or not res["dino_key"]["finite"]):
+        fail(f"int8 DINO key probe: launched {got_first}, then {got} "
+             f"(expected {int8_first_forward(key_fwd)}, then {key_fwd}), "
              f"finite {res['dino_key']['finite']}")
     paths["int8_dino_key_forward"] = expected(**key_fwd)
     del key
@@ -5703,9 +5781,10 @@ def int8_phase(torch, F) -> dict:
     launches = counters()
     per_step = dict(edt_row_envelope=1, **INT8_LAUNCHES["loftup"])
     want_l = expected(**{k: v * run.steps for k, v in per_step.items()})
+    want_l["quantize_rows"] += INT8_LAUNCHES["loftup"]["int8_gemm"]
     if launches != want_l:
-        fail(f"int8 LoftUp loop launched {launches} in {run.steps} steps, "
-             f"expected {want_l}")
+        fail(f"int8 LoftUp loop launched {launches} in {run.steps} steps "
+             f"(its first quantizes the weights), expected {want_l}")
     res["loftup"] = {
         "objects": TRAINED_LOFTUP_OBJECTS, "clicks": TRAINED_LOFTUP_CLICKS,
         "steps": run.steps, "wall_s": wall,
@@ -6349,6 +6428,23 @@ def main() -> int:
     if edt_config["local_bytes"] or (edt_ptxas and (
             edt_ptxas["spill_stores"] or edt_ptxas["spill_loads"])):
         fail(f"kernel C spills: {edt_config}, ptxas {edt_ptxas}")
+    # kernel I's four instantiations (output f32 / bf16 x bias f32 / bf16):
+    # no local bytes, and no wgmma serialized (C7515) in quant.cu
+    quant_log = reports.get("quant", "")
+    gemm_ptxas = {n: v for n, v in cuda_lib.ptxas_entries(quant_log).items()
+                  if "int8_gemm_kernel" in n}
+    results["int8_gemm_ptxas"] = list(gemm_ptxas.values())
+    results["quant_c7515_lines"] = sum("C7515" in line
+                                       for line in quant_log.splitlines())
+    print(f"kernel I: ptxas {json.dumps(results['int8_gemm_ptxas'])}; "
+          f"quant.cu C7515 lines {results['quant_c7515_lines']}")
+    if "quant" in reports and len(gemm_ptxas) != 4:
+        fail(f"kernel I has {len(gemm_ptxas)} ptxas entries, not 4")
+    if results["quant_c7515_lines"] or any(
+            v["stack_bytes"] or v["spill_stores"] or v["spill_loads"]
+            for v in gemm_ptxas.values()):
+        fail(f"kernel I spills or is serialized: {gemm_ptxas}, "
+             f"{results['quant_c7515_lines']} C7515 lines")
 
     # 3. kernels A and B against their plain versions, timed beside them;
     # batch 16 is the device loop's forward (8 lanes, flip TTA)

@@ -6,23 +6,42 @@ epilogue (kernel I, the same source), their plain PyTorch versions, and
 Counterpart of ``isegprobe_tpu/ops/quant.py``: the activations get one
 dynamic symmetric scale a row (token), the weight one a row of its
 ``[N, K]`` ``nn.Linear`` layout (an output channel, the JAX kernel's
-column), both quantized on every call from the stored float params; the
-product accumulates in int32 and is rescaled in f32. The rounding is
-XLA's: ``s = max(max|x| / 127, 1e-8)`` and ``q = round(x / s)`` with true
-f32 divisions, half to even, and ``y = (f32(acc) · sx) · sw`` multiplied
-left to right, then ``+ bias`` in f32, then cast. Neither kernel replaces
-a Pallas kernel: they are the XLA ops of the JAX ``int8_dynamic_matmul``
-on the card; the source note gives their bounds and design.
+column), both quantized from the stored float params; the product
+accumulates in int32 and is rescaled in f32. The rounding is XLA's:
+``s = max(max|x| / 127, 1e-8)`` and ``q = round(x / s)`` with true f32
+divisions, half to even, and ``y = (f32(acc) · sx) · sw`` multiplied left
+to right, then ``+ bias`` in f32, then cast. Neither kernel replaces a
+Pallas kernel: they are the XLA ops of the JAX ``int8_dynamic_matmul`` on
+the card; the source note gives their bounds and design.
+
+The JAX package quantizes the weight on every call. The wrappers' path
+quantizes a fixed weight once and keeps its int8 rows and scales in a
+cache keyed weakly on the weight tensor, checked against its version
+counter, storage, dtype, device and shape, so an in-place update,
+``load_state_dict``, ``.to(dtype)`` or a move re-quantizes it; the cached
+values are bitwise what quantizing it again would give. The entry holds
+the weight's storage, so its address cannot be handed to a new storage
+(``.to(torch.bfloat16).to(torch.float32)`` with no forward between) while
+the entry lives: one stale copy a weight is held until its next forward.
+A write through ``weight.data`` bumps no version counter and is not seen;
+update weights in place under ``torch.no_grad()`` or through
+``load_state_dict``. A weight whose gradient is being
+taken (``requires_grad`` with grad mode on) is never cached, and the
+cache is filled outside inference mode, so rows cached under
+``torch.inference_mode()`` serve a later forward under autograd. The
+plain versions stay uncached: they are the reference.
 
 On a CPU tensor :func:`quantize_rows` and :func:`int8_gemm` compute the
 plain versions (the integer product in float64, exact for these sums); on
 a CUDA tensor they launch the kernel or raise. ``quantize_rows.launches``
 and ``int8_gemm.launches`` count the launches: a :class:`QuantLinear`
-forward launches two H (its input and its weight) and one I. Under
-autograd (Input-BRS through the backbone) :func:`quant_linear` runs the
-kernels inside :class:`QuantLinearKernel`, whose backward is the VJP of the
-plain version: ``round`` and the int cast pass no gradient, as in JAX, so
-the input's gradient flows through its row scales alone.
+forward launches one H (its input) and one I, and one more H the first
+time it sees its weight (every time, if the weight's gradient is being
+taken). Under autograd (Input-BRS through the backbone)
+:func:`quant_linear` runs the kernels inside :class:`QuantLinearKernel`,
+whose backward is the VJP of the plain version: ``round`` and the int cast
+pass no gradient, as in JAX, so the input's gradient flows through its row
+scales alone.
 """
 
 from __future__ import annotations
@@ -32,6 +51,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.weak import WeakIdKeyDictionary
 
 from isegprobe_torch.models.dtype import compute_dtype
 from isegprobe_torch.ops import cuda_lib
@@ -46,6 +66,8 @@ QMAX = 127.0
 MAX_K = 32 * 96
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
+# weight -> ((version, data_ptr, dtype, device, shape), storage, (wq, sw))
+_weight_rows_cache = WeakIdKeyDictionary()
 
 
 def _load():
@@ -199,14 +221,39 @@ def int8_gemm(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
 int8_gemm.launches = 0
 
 
-def _quant_linear(quantize, gemm, x, weight, bias, out_dtype,
-                  bias_after_cast):
-    """:func:`quant_linear` through ``quantize`` and ``gemm``: the wrappers
-    (kernels H and I, their plain versions on the CPU) or the plain
+def _weight_rows(weight: torch.Tensor, cache: bool = True):
+    """``quantize_rows(weight)``, kept for a fixed weight: the first call
+    quantizes (kernel H on the card) and caches the rows and scales; later
+    calls return them while ``weight`` has the same version, storage,
+    dtype, device and shape. ``cache=False`` (or an inference tensor,
+    which keeps no version) always quantizes."""
+    if not cache or weight.is_inference():
+        return quantize_rows(weight)
+    key = (weight._version, weight.data_ptr(), weight.dtype, weight.device,
+           tuple(weight.shape))
+    storage = weight.untyped_storage()
+    hit = _weight_rows_cache.get(weight)
+    # the entry keeps its storage alive, so an equal address is that storage
+    if (hit is not None and hit[0] == key
+            and hit[1].data_ptr() == storage.data_ptr()):
+        return hit[2]
+    # normal tensors, so that rows cached under inference mode can meet
+    # autograd later
+    with torch.inference_mode(False), torch.no_grad():
+        wq, sw = quantize_rows(weight)
+    _weight_rows_cache[weight] = (key, storage, (wq, sw))
+    return wq, sw
+
+
+def _quant_linear(quantize, quantize_weight, gemm, x, weight, bias,
+                  out_dtype, bias_after_cast):
+    """:func:`quant_linear` through ``quantize`` (the input),
+    ``quantize_weight`` and ``gemm``: the wrappers (kernels H and I, their
+    plain versions on the CPU; the weight's rows cached) or the plain
     versions on any device."""
     k = x.shape[-1]
     xq, sx = quantize(x.reshape(-1, k))
-    wq, sw = quantize(weight)
+    wq, sw = quantize_weight(weight)
     y = gemm(xq, wq, sx, sw, bias, out_dtype, bias_after_cast)
     return y.reshape(*x.shape[:-1], weight.shape[0])
 
@@ -215,8 +262,9 @@ def _quant_linear_plain(x, weight, bias, out_dtype, bias_after_cast):
     """The plain version of :func:`quant_linear` on any device,
     differentiable in ``x`` through its row scales (``round`` and the int
     cast pass none)."""
-    return _quant_linear(_quantize_rows_plain, _int8_gemm_plain, x, weight,
-                         bias, out_dtype, bias_after_cast)
+    return _quant_linear(_quantize_rows_plain, _quantize_rows_plain,
+                         _int8_gemm_plain, x, weight, bias, out_dtype,
+                         bias_after_cast)
 
 
 class QuantLinearKernel(torch.autograd.Function):
@@ -228,8 +276,10 @@ class QuantLinearKernel(torch.autograd.Function):
     def forward(ctx, x, weight, bias, out_dtype, bias_after_cast):
         ctx.save_for_backward(x, weight, bias)
         ctx.out_dtype, ctx.bias_after_cast = out_dtype, bias_after_cast
-        return _quant_linear(quantize_rows, int8_gemm, x, weight, bias,
-                             out_dtype, bias_after_cast)
+        return _quant_linear(
+            quantize_rows,
+            lambda w: _weight_rows(w, cache=not w.requires_grad), int8_gemm,
+            x, weight, bias, out_dtype, bias_after_cast)
 
     @staticmethod
     def backward(ctx, grad):
@@ -253,8 +303,10 @@ def quant_linear(x: torch.Tensor, weight: torch.Tensor,
             t is not None and t.requires_grad for t in (x, weight, bias)):
         return QuantLinearKernel.apply(x, weight, bias, out_dtype,
                                        bias_after_cast)
-    return _quant_linear(quantize_rows, int8_gemm, x, weight, bias,
-                         out_dtype, bias_after_cast)
+    cache = not (torch.is_grad_enabled() and weight.requires_grad)
+    return _quant_linear(quantize_rows,
+                         lambda w: _weight_rows(w, cache=cache), int8_gemm,
+                         x, weight, bias, out_dtype, bias_after_cast)
 
 
 def int8_dynamic_matmul(x: torch.Tensor, weight: torch.Tensor

@@ -725,3 +725,118 @@ def test_attention_variant_kernels_raise(cuda_device):
         with pytest.raises(NotImplementedError):
             entry(qkv.clone().requires_grad_(), 2)
         assert entry.launches == before
+
+
+# -- kernels H and I (int8 W8A8) -----------------------------------------------
+
+def _int8_operands(m, n, k, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=device,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=g, device=device,
+                       dtype=torch.int8)
+    sx = torch.rand(m, generator=g, device=device) + 0.01
+    sw = torch.rand(n, generator=g, device=device) * 0.01
+    bias = torch.randn(n, generator=g, device=device)
+    return xq, wq, sx, sw, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [32, 96, 3072])
+@pytest.mark.parametrize("n", [8, 200, 2304])
+@pytest.mark.parametrize("m", [1, 127, 129, 2050])
+def test_int8_gemm_kernel_bitwise_at_ragged_shapes(cuda_device, m, n, k):
+    """Kernel I against its plain version, bit for bit, at M, N and K that
+    leave ragged tiles and K-blocks (TMA zero-fills the loads and clips the
+    stores), writing f32 and bf16, with no bias, the bias before the cast
+    and after it: the integer sum is exact, the epilogue the plain
+    version's rounding."""
+    from isegprobe_torch.ops import quant
+
+    xq, wq, sx, sw, b = _int8_operands(m, n, k, m * 7 + n * 3 + k,
+                                       cuda_device)
+    before = quant.int8_gemm.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        for bias, after in ((None, False), (b.to(dtype), False),
+                            (b.to(dtype), True)):
+            got = quant.int8_gemm(xq, wq, sx, sw, bias, dtype, after)
+            want = quant._int8_gemm_plain(xq, wq, sx, sw, bias, dtype, after)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and torch.equal(got, want), (
+                dtype, bias is not None, after)
+    assert quant.int8_gemm.launches == before + 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2050, 384), (37, 1536), (5, 3072),
+                                   (9, 40)])
+def test_quantize_rows_kernel_bitwise(cuda_device, dtype, shape):
+    """Kernel H against its plain version, bit for bit (rows of spread
+    magnitudes; K = 40 takes the element path)."""
+    from isegprobe_torch.ops import quant
+
+    x = (_randn(shape, 3, cuda_device) * torch.exp(
+        _randn((shape[0], 1), 4, cuda_device) * 2)).to(dtype)
+    q, s = quant.quantize_rows(x)
+    want_q, want_s = quant._quantize_rows_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+
+
+@pytest.mark.cuda
+def test_weight_rows_are_quantized_once_on_the_card(cuda_device):
+    """A QuantLinear forward launches two H and one I the first time it
+    sees its weight and one H and one I after, and the output is the plain
+    version's bit for bit either way."""
+    from isegprobe_torch.ops import quant
+
+    torch.manual_seed(0)
+    layer = quant.QuantLinear(384, 1152).to(cuda_device, torch.bfloat16)
+    x = torch.randn(2, 1025, 384, device=cuda_device).to(torch.bfloat16)
+    want = quant._quant_linear_plain(x, layer.weight, layer.bias,
+                                     torch.bfloat16, False)
+    for h in (2, 1, 1):
+        before = (quant.quantize_rows.launches, quant.int8_gemm.launches)
+        with torch.inference_mode():
+            got = layer(x)
+        torch.cuda.synchronize()
+        assert (quant.quantize_rows.launches - before[0],
+                quant.int8_gemm.launches - before[1]) == (h, 1)
+        assert torch.equal(got, want)
+    with torch.no_grad():
+        layer.weight.mul_(0.5)  # an in-place update: quantized again
+        before = quant.quantize_rows.launches
+        got = layer(x)
+    assert quant.quantize_rows.launches == before + 2
+    assert torch.equal(got, quant._quant_linear_plain(
+        x, layer.weight, layer.bias, torch.bfloat16, False))
+
+
+@pytest.mark.cuda
+def test_weight_cache_requantizes_after_a_round_trip_on_the_card(
+        cuda_device):
+    """``.to(bfloat16).to(float32)`` with no forward between: the caching
+    allocator would hand the new float32 weight the block its old storage
+    freed, with the same version, address, dtype and shape, but the cache
+    holds that storage, so the next forward quantizes the rounded weight
+    and equals the plain version bit for bit."""
+    from isegprobe_torch.ops import quant
+
+    torch.manual_seed(0)
+    layer = quant.QuantLinear(384, 1152).to(cuda_device)
+    x = torch.randn(2, 1025, 384, device=cuda_device)
+    with torch.inference_mode():
+        layer(x)
+    stale = quant._weight_rows_cache[layer.weight][2][0]
+    layer.to(torch.bfloat16).to(torch.float32)
+    before = quant.quantize_rows.launches
+    with torch.inference_mode():
+        got = layer(x)
+    torch.cuda.synchronize()
+    assert quant.quantize_rows.launches == before + 2
+    wq = quant._weight_rows_cache[layer.weight][2][0]
+    assert wq is not stale
+    assert torch.equal(wq, quant._quantize_rows_plain(layer.weight)[0])
+    assert torch.equal(got, quant._quant_linear_plain(
+        x, layer.weight, layer.bias, torch.float32, False))

@@ -6,7 +6,10 @@ numpy inputs.
 
 Kernels H and I run on the card only; here :func:`quantize_rows` and
 :func:`int8_gemm` compute their plain versions, which ``chip_smoke.py``
-holds the kernels against bit for bit. The quantizer and the integer
+holds the kernels against bit for bit. The serving path's cache of the
+weights' int8 rows is held to a fresh quantization bit for bit: after
+in-place updates, under autograd, and filled under inference mode before
+a BRS objective. ``scripts/bench_int8.py`` runs here at a tiny size. The quantizer and the integer
 product are exact, so the op-level tests are bitwise: XLA on the CPU
 divides, rounds half to even and rescales as the port does (no entry
 differs). Whole models are held at a share of the logit scale instead:
@@ -331,6 +334,131 @@ def test_unknown_quant_mode_raises():
             build()
 
 
+# -- the weight cache ------------------------------------------------------------
+
+def _uncached(monkeypatch):
+    """Quantize every weight afresh on every call, as the JAX package does
+    (the serving path before its weights' rows were cached)."""
+    from isegprobe_torch.ops import quant
+
+    monkeypatch.setattr(quant, "_weight_rows",
+                        lambda w, cache=True: quant.quantize_rows(w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cached_weight_rows_equal_a_fresh_quantization(dtype):
+    """A fixed weight's cached rows and scales are bitwise a fresh
+    ``_quantize_rows_plain`` of it (ties and the all-zero row included),
+    and a second call serves the same tensors."""
+    from isegprobe_torch.ops import quant
+
+    w = torch.from_numpy(_rows(6, (96, 256))).to(dtype)
+    wq, sw = quant._weight_rows(w)
+    want_q, want_s = quant._quantize_rows_plain(w)
+    assert torch.equal(wq, want_q) and torch.equal(sw, want_s)
+    again = quant._weight_rows(w)
+    assert again[0] is wq and again[1] is sw
+
+
+@pytest.mark.parametrize("update", ["copy_", "load_state_dict",
+                                    "to_bfloat16", "to_bfloat16_and_back"])
+def test_weight_cache_requantizes_after_an_update(update):
+    """An in-place ``copy_``, ``load_state_dict``, ``.to(bfloat16)`` and
+    ``.to(bfloat16).to(float32)`` with no forward between (the new float32
+    storage cannot take the old one's address, which the cache holds) each
+    make the next forward quantize the weight again: the rows it serves are
+    those of the new weight, and the layer's output is the uncached plain
+    version's, bit for bit."""
+    from isegprobe_torch.ops import quant
+    from isegprobe_torch.ops.quant import QuantLinear
+
+    torch.manual_seed(0)
+    layer = QuantLinear(128, 64)
+    x = torch.randn(5, 128)
+    with torch.no_grad():
+        layer(x)
+    stale = quant._weight_rows_cache[layer.weight][2][0]
+    assert torch.equal(stale, quant._quantize_rows_plain(layer.weight)[0])
+    new_w = torch.randn(64, 128)
+    if update == "copy_":
+        with torch.no_grad():
+            layer.weight.copy_(new_w)
+    elif update == "load_state_dict":
+        layer.load_state_dict({"weight": new_w,
+                               "bias": layer.bias.detach().clone()})
+    elif update == "to_bfloat16":
+        layer.to(torch.bfloat16)
+        x = x.to(torch.bfloat16)
+    else:
+        layer.to(torch.bfloat16).to(torch.float32)
+    with torch.no_grad():
+        got = layer(x)
+        want = quant._quant_linear_plain(x, layer.weight, layer.bias,
+                                         got.dtype, False)
+    wq, sw = quant._weight_rows_cache[layer.weight][2]
+    assert wq is not stale
+    want_q, want_s = quant._quantize_rows_plain(layer.weight)
+    assert torch.equal(wq, want_q) and torch.equal(sw, want_s)
+    assert torch.equal(got, want)
+
+
+def test_a_weight_whose_gradient_is_taken_is_not_cached():
+    """Under grad mode a weight that requires grad is quantized afresh and
+    gets the plain version's gradient; the same weight's rows are cached
+    once grad mode is off (an evaluation), and not served when its
+    gradient is taken again."""
+    from isegprobe_torch.ops import quant
+    from isegprobe_torch.ops.quant import QuantLinear
+
+    torch.manual_seed(1)
+    layer = QuantLinear(128, 64)
+    x = torch.randn(5, 128)
+    layer(x).sum().backward()
+    assert layer.weight not in quant._weight_rows_cache
+    w = layer.weight.detach().clone().requires_grad_(True)
+    quant._quant_linear_plain(x, w, layer.bias.detach(), torch.float32,
+                              False).sum().backward()
+    assert torch.equal(layer.weight.grad, w.grad) and bool(w.grad.any())
+    with torch.no_grad():
+        layer(x)
+    assert layer.weight in quant._weight_rows_cache
+    cached = quant._weight_rows_cache[layer.weight][2][0]
+    layer.weight.grad = None
+    layer(x).sum().backward()
+    assert torch.equal(layer.weight.grad, w.grad)
+    assert quant._weight_rows_cache[layer.weight][2][0] is cached
+
+
+def test_tiny_probe_int8_logits_bitwise_with_and_without_the_cache(
+        monkeypatch):
+    """The tiny int8 probe (bf16 params and compute): its logits with the
+    weights' rows cached, on the forward that fills the cache and on one it
+    serves, are bitwise those of the uncached path."""
+    from isegprobe_torch.models.probe_model import iSegProbeModel
+    from isegprobe_torch.models.vit import init_params
+    from isegprobe_torch.ops import quant
+    from isegprobe_torch.ops.quant import QuantLinear
+
+    model = init_params(iSegProbeModel(**_tiny_config(), quant="int8",
+                                       device="cpu"), seed=0).eval()
+    model.to(torch.bfloat16)
+    weights = [m.weight for m in model.modules()
+               if isinstance(m, QuantLinear)]
+    assert len(weights) == 48
+    rng = np.random.default_rng(2)
+    img = torch.from_numpy(rng.random((2, 28, 28, 4)).astype(np.float32))
+    pts = torch.from_numpy(np.array(
+        [[[10, 12, 0], [20, 5, 1]], [[3, 4, 0], [-1, -1, -1]]], np.float32))
+    with torch.inference_mode():
+        first = model(img, pts)["instances"]
+        served = model(img, pts)["instances"]
+    assert all(w in quant._weight_rows_cache for w in weights)
+    _uncached(monkeypatch)
+    with torch.inference_mode():
+        fresh = model(img, pts)["instances"]
+    assert torch.equal(first, fresh) and torch.equal(served, fresh)
+
+
 # -- the towers ----------------------------------------------------------------
 
 TINY = "dinov2_tiny_quant_test"
@@ -603,6 +731,57 @@ def test_brs_objective_int8_matches_jax(int8_brs_probe, monkeypatch, mode):
         assert _grad_err(got_g, want_g) <= GRAD_TOL
 
 
+@pytest.mark.parametrize("mode", ["RGB-BRS", "DistMap-BRS", "f-BRS-B"])
+def test_weight_rows_cached_under_inference_mode_serve_brs(
+        int8_brs_probe, monkeypatch, mode):
+    """Rows cached by a forward under ``torch.inference_mode()`` serve a
+    later BRS objective under autograd (frozen weights, as an evaluation
+    holds them): its value and gradient equal those of the uncached path
+    bit for bit, and JAX's within test_torch_brs.py's tolerances. Rows made
+    as inference tensors could not be saved for Input-BRS's backward."""
+    from isegprobe_torch.ops import quant
+    from isegprobe_torch.ops.quant import QuantLinear
+    from tests.test_torch_brs import (
+        GRAD_TOL,
+        SIZE,
+        VALUE_TOL,
+        _grad_err,
+        _jax_vg,
+        _objectives,
+        _port_vg,
+        seeded_x,
+    )
+
+    tmodel = int8_brs_probe[2]
+    weights = [m.weight for m in tmodel.modules()
+               if isinstance(m, QuantLinear)]
+    trained = [p for p in tmodel.parameters() if p.requires_grad]
+    for p in trained:
+        p.requires_grad_(False)
+    try:
+        rng = np.random.default_rng(9)
+        with torch.inference_mode():
+            tmodel(torch.from_numpy(rng.random(
+                (1, SIZE, SIZE, 4)).astype(np.float32)),
+                torch.tensor([[[SIZE / 2, SIZE / 3, 0], [-1, -1, -1]]]))
+        rows = {id(w): quant._weight_rows_cache[w][2][0] for w in weights}
+        j_func, t_func = _objectives(int8_brs_probe, monkeypatch, mode)
+        size = 2 * 128 if mode.startswith("f-BRS") else SIZE * SIZE * 3
+        x = seeded_x(mode, size)
+        got_v, got_g = _port_vg(t_func, x)
+        assert all(quant._weight_rows_cache[w][2][0] is rows[id(w)]
+                   for w in weights)
+        _uncached(monkeypatch)
+        fresh_v, fresh_g = _port_vg(t_func, x)
+        assert got_v == fresh_v and np.array_equal(got_g, fresh_g)
+        want_v, want_g = _jax_vg(j_func, x)
+        assert abs(got_v - want_v) <= VALUE_TOL * abs(want_v)
+        assert _grad_err(got_g, want_g) <= GRAD_TOL
+    finally:
+        for p in trained:
+            p.requires_grad_(True)
+
+
 # -- the trained flagship --------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -739,6 +918,47 @@ def test_evaluate_cli_int8_matches_jax(tmp_path, capsys):
             np.testing.assert_allclose(g, w, rtol=0, atol=LOOP_IOU_TOL)
     assert main(args + ["mode=RGB-BRS", "n_clicks=2"]) == 0
     assert "NoC@90%" in capsys.readouterr().out
+
+
+# -- bench_int8 ------------------------------------------------------------------
+
+def test_bench_int8_runs_on_cpu_at_a_tiny_size():
+    """``scripts/bench_int8.py`` on the CPU: the plain versions at a tiny
+    size, each case bitwise, nothing timed, no launch counted; its default
+    cases are the int8 phase's shapes."""
+    from isegprobe_torch.ops import quant
+    from isegprobe_torch.scripts import bench_int8
+
+    assert [c[:3] for c in bench_int8.I_CASES[:4]] == [
+        ("flagship qkv", 16400, 384), ("flagship proj", 16400, 384),
+        ("flagship fc1", 16400, 384), ("flagship fc2", 16400, 1536)]
+    assert bench_int8.I_CASES[8] == ("maskclip in_proj", 1570, 768, 2304,
+                                     "bfloat16", True)
+    before = (quant.quantize_rows.launches, quant.int8_gemm.launches)
+    h_cases = [((40, 64), "bfloat16", "activations"),
+               ((16, 96), "float32", "weight")]
+    i_cases = [("a", 33, 64, 24, "bfloat16", False),
+               ("b", 5, 96, 16, "float32", True)]
+    rec = bench_int8.main(device="cpu", label="tiny", h_cases=h_cases,
+                          i_cases=i_cases)
+    assert rec["label"] == "tiny" and rec["device"] == "cpu"
+    assert [c["kernel"] for c in rec["cases"]] == ["quantize_rows"] * 2 + [
+        "int8_gemm"] * 2
+    assert all(c["bitwise_equal"] and c["ms"] is None
+               and c["bound_by"] in ("bytes", "operations")
+               for c in rec["cases"])
+    assert rec["cases"][3]["bias_after_cast"] and "host" not in rec
+    assert (quant.quantize_rows.launches, quant.int8_gemm.launches) == before
+
+
+def test_bench_int8_raises_without_a_gpu_unless_asked_for_the_cpu(
+        monkeypatch):
+    from isegprobe_torch.scripts import bench_int8
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        bench_int8.main(h_cases=[((8, 32), "float32", "weight")],
+                        i_cases=[])
 
 
 if __name__ == "__main__":
