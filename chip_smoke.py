@@ -383,6 +383,22 @@ does not hold:
     4.3590), and the evaluate CLI with ``device_mesh=true`` (lockstep and
     with ``device_refill``) on the first 16 objects: one warning (one
     visible GPU), results equal to the command without it;
+11n. extended_data, the extended training loaders (main path 105:
+    ``data/datasets/extended.py`` on the committed trees
+    ``isegprobe_torch/fixtures/datasets/{coco_lvis,lvis,coco,ade20k,
+    openimages}/`` and their fixture ``extended_datasets.npz``): (a) every
+    file decoded in colour and unchanged to cv2's digests (progressive
+    JPEGs, interlaced and 1-bit PNGs among them), ms a progressive and a
+    baseline decode; (b) each loader's items (SBD's train augmentations,
+    ``stuff_prob`` 0.3, the hierarchy sampler) against JAX's digests, ms
+    an item a loader, and the composed set's items from 4 loader threads
+    and 4 spawned processes; (c) the full-width ``sbd_dinov2_noup`` step
+    twice on the composed batch against JAX's losses (within
+    ``TRAIN_LOSS_RTOL``) and leaves, exactly 2 × (12 A + 25 B); (d) eight
+    trainer steps at 224², batch 8, fed by the composed set through the
+    threaded loader with simulated clicks (every step (1 + num_iters) ×
+    (12 A + 25 B) + num_iters C), median ms a step (CUDA events, host
+    wall), data wait, peak memory;
 12. the learned-upsampler families, LoftUp and JBU-FeatUp on DINOv2-S/14 at
     448² (drawn, calibrated): kernels D (cross-attention, f32 and bf16, at
     every tile and load path as A) and E (JBU filter; also at the edges of
@@ -393,8 +409,10 @@ does not hold:
     one bf16 forward, checked as the flagship's), the host protocol (main path 3 and 5: p50 ms per
     click), the device loop at B=4 (main paths 4 and 6: every step 1 C plus
     one forward's launches, trajectories equal to B=1 and to the host
-    Predictor; the JBU loop also under the sync debugger), and the split of
-    one loop step into backbone, upsampler and head, with a profiler
+    Predictor; the JBU loop also under the sync debugger, and in bf16 beside
+    it: every step 1 C + 12 A + 25 B + 4 E, NoC within 0.1 of the f32
+    loop's, the first click where the two part, ms a step), and the split
+    of one loop step into backbone, upsampler and head, with a profiler
     breakdown of the LoftUp forward by kernel;
 13. the attention-variant sweep: kernels F (nodiv) and G (merged) against
     their plain versions at every query tile and exp dtype they take, at
@@ -433,6 +451,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -724,6 +743,17 @@ DATA_CLI_VAL_ITEMS = 8
 DATA_EVAL = ("GrabCut", "Berkeley", "DAVIS", "SBD", "PascalVOC")
 DATA_PATH_KEYS = {"SBD": "sbd", "GRABCUT": "grabcut", "BERKELEY": "berkeley",
                   "DAVIS": "davis", "PASCALVOC": "pascalvoc"}
+# the extended training loaders (phase 11n): the five trees and their
+# fixture (cv2's pixel digests in colour and unchanged, the JAX items of
+# each loader and of the composed set, the JAX step on the composed batch),
+# RITM's COCO-LVIS stuff probability, the trainer's steps
+EXT_FIXTURE = (Path(__file__).resolve().parent / "isegprobe_torch"
+               / "fixtures" / "extended_datasets.npz")
+EXT_LAYOUTS = ("coco_lvis", "lvis", "coco", "ade20k", "openimages")
+EXT_STUFF_PROB = 0.3
+EXT_STEPS = 8
+# the bf16 JBU loop's NoC against the f32 loop's (PERF.md section 2)
+JBU_BF16_NOC_TOL = 0.1
 FAMILY_READBACK = {"dinov2_loftup": 518, "dinov2_jbu": 518,
                    "dinov2_lift": 518, "dinov2_simplevit": 518,
                    "vit_noup": 224, "maskclip_noup": 224}
@@ -1669,6 +1699,9 @@ def learned_family(torch, name: str) -> dict:
         res["sync_check"] = sync_checked_run(torch, run, chunk,
                                              got[:FAMILY_BATCH], name)
         print(f"{name} sync_check", json.dumps(res["sync_check"]))
+        res["bf16_loop"] = bf16_family_loop(torch, model, cfg, loop_scenes,
+                                            target, per_forward, name,
+                                            res["device_loop"])
 
     # the split of one loop step (forward at batch 2·B): backbone with the
     # click encoding, upsampler, head (with JBU's resize to the crop size)
@@ -1710,7 +1743,81 @@ def learned_family(torch, name: str) -> dict:
     if "bf16_forward" in res:
         res["path_launches"][f"{name}_bf16_forward"] = expected(
             **res["bf16_forward"]["launches_per_forward"])
+    if "bf16_loop" in res:
+        res["path_launches"][f"{name}_bf16_loop"] = res["bf16_loop"][
+            "launches"]
     return res
+
+
+def bf16_family_loop(torch, model, cfg: dict, loop_scenes, target: float,
+                     per_forward: dict, name: str, f32: dict) -> dict:
+    """The family's device loop at B=FAMILY_BATCH in bf16 (params cast as
+    evaluate.py casts them) on the f32 loop's scenes and target: every
+    step 1 C plus one forward's launches, NoC@80/85/90 within
+    JBU_BF16_NOC_TOL of the f32 loop's, the first click at which the two
+    part (a click elsewhere, or an IoU more than LOOP_IOU_TOL away), ms a
+    step beside the f32 loop's."""
+    from isegprobe_torch.inference import device_eval
+    from isegprobe_torch.inference.metrics import compute_noc_metric
+    from isegprobe_torch.models.probe_model import iSegProbeModel
+
+    size = (FAMILY_SIZE, FAMILY_SIZE)
+    model16 = iSegProbeModel(**cfg).eval()
+    model16.load_state_dict(model.state_dict())
+    model16.to(torch.bfloat16)
+
+    def evaluator(m):
+        return device_eval.make_device_evaluator(
+            m, target_size=size, batch_size=FAMILY_BATCH, target_iou=target,
+            net_clicks_limit=20, max_clicks=FAMILY_CLICKS,
+            record_clicks=True)
+
+    clicks32: list = []
+    ious32 = device_eval.evaluate_dataset_device(
+        evaluator(model), Scenes(loop_scenes), clicks=clicks32)
+    run16 = evaluator(model16)
+    device_eval.evaluate_dataset_device(run16, Scenes(loop_scenes),
+                                        clicks=[])  # constants to the card
+    clicks16: list = []
+    steps0 = run16.steps  # the evaluator counts its steps over its calls
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.time()
+    ious16 = device_eval.evaluate_dataset_device(run16, Scenes(loop_scenes),
+                                                 clicks=clicks16)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = counters()
+    steps = run16.steps - steps0
+    want = expected(edt_row_envelope=steps,
+                    **{k: v * steps for k, v in per_forward.items()})
+    if launches != want:
+        fail(f"{name} bf16 loop launched {launches} in {steps} steps, "
+             f"expected {want}")
+    thrs = [0.80, 0.85, 0.90]
+    noc32 = compute_noc_metric(ious32, thrs, FAMILY_CLICKS)[0]
+    noc16 = compute_noc_metric(ious16, thrs, FAMILY_CLICKS)[0]
+    gap = max(abs(a - b) for a, b in zip(noc16, noc32))
+    parting = None
+    for k, (a, b, ca, cb) in enumerate(zip(ious16, ious32, clicks16,
+                                           clicks32)):
+        for j in range(min(len(a), len(b))):
+            if (np.asarray(ca[j]) != np.asarray(cb[j])).any() or \
+                    abs(float(a[j]) - float(b[j])) > LOOP_IOU_TOL:
+                if parting is None or j < parting["click"]:
+                    parting = {"object": k, "click": j + 1}
+                break
+    rec = {"batch": FAMILY_BATCH, "jobs": len(loop_scenes),
+           "target_iou": target, "steps": steps, "wall_s": wall,
+           "ms_per_step": 1e3 * wall / steps,
+           "f32_ms_per_step": f32["ms_per_step"], "noc_bf16": noc16,
+           "noc_f32": noc32, "noc_gap": gap, "first_parting": parting,
+           "lengths": [len(a) for a in ious16], "launches": launches}
+    print(f"{name} bf16_loop", json.dumps(rec))
+    if gap > JBU_BF16_NOC_TOL:
+        fail(f"{name}: the bf16 loop's NoC {noc16} is {gap} from the f32 "
+             f"loop's {noc32}")
+    return rec
 
 
 def against_fixture(ious, clicks, want_ious, want_n, want_clicks,
@@ -4537,6 +4644,8 @@ def converted_weights_phase(torch, F) -> dict:
         # print_ious=false: lanes stop at the target IoU (the NoC is read
         # at each object's first crossing, so it is the all-clicks one)
         cfg = evaluate_cli.parse_args([f"checkpoint={ckpt}",
+                                       "datasets=Synthetic",
+                                       "eval_mode=fixed448",
                                        "device_loop=true", "device_batch=8",
                                        "print_ious=false"])
         model, _ = eval_load(torch, ckpt, torch.float32)
@@ -6204,6 +6313,208 @@ def demo_parallel_phase(torch) -> dict:
     return res
 
 
+# -- phase 11n: the extended training loaders --------------------------------
+
+
+def ext_loader(layout: str, template, **kw):
+    """``layout``'s loader of ``data/datasets/extended.py`` on its tree,
+    with ``template``'s augmentations (SBD's train set), the hierarchy
+    sampler and ``EXT_STUFF_PROB`` where it takes one (the fixture's)."""
+    from isegprobe_torch.data import datasets as ds
+    from isegprobe_torch.data.points_sampler import MultiPointSampler
+
+    kw = dict(augmentator=template.augmentator,
+              points_sampler=MultiPointSampler(
+                  24, prob_gamma=0.80, merge_objects_prob=0.15,
+                  max_num_merged_objects=2, use_hierarchy=True),
+              min_object_area=80, keep_background_prob=0.01, **kw)
+    root = DATA_TREES / layout
+    stuff = {"stuff_prob": EXT_STUFF_PROB}
+    return {"coco_lvis": lambda: ds.CocoLvisDataset(root, **stuff, **kw),
+            "lvis": lambda: ds.LvisDataset(root, **kw),
+            "coco": lambda: ds.CocoDataset(root, **stuff, **kw),
+            "ade20k": lambda: ds.ADE20kDataset(root, **stuff, **kw),
+            "openimages": lambda: ds.OpenImagesDataset(root, **kw)}[
+                layout]()
+
+
+def ext_composed(template, **kw):
+    """The ``ComposeDataset`` of the five loaders (the fixture's)."""
+    from isegprobe_torch.data.compose_dataset import ComposeDataset
+
+    members = [ext_loader(layout, template) for layout in EXT_LAYOUTS]
+    return ComposeDataset(members, augmentator=template.augmentator,
+                          points_sampler=members[0].points_sampler,
+                          min_object_area=80, keep_background_prob=0.01,
+                          **kw)
+
+
+def extended_data_phase(torch) -> dict:
+    """Main path 105, the extended training loaders (phase 11n of the
+    module docstring): (a) decoding every file of the five trees, colour
+    and unchanged; (b) the items of each loader and of the composed set
+    (threads and processes) against JAX's digests; (c) the full-width SBD
+    step on the composed batch against JAX's; (d) eight trainer steps fed
+    by the composed set through the threaded loader. Returns the records
+    and the path launches."""
+    import zlib
+
+    from isegprobe_torch.data import image_io
+    from isegprobe_torch.data.loader import DataLoader, _stack, item_seed
+    from isegprobe_torch.train import sbd_datasets
+
+    t_phase = time.time()
+    res: dict = {}
+    fx = dict(np.load(EXT_FIXTURE))
+
+    # (a) every file to cv2's pixels, in colour and unchanged
+    t0 = time.time()
+    for name, want, want_u in zip(fx["file_names"], fx["file_digests"],
+                                  fx["file_digests_unchanged"]):
+        if pixel_digest(image_io.read_bgr(DATA_TREES / name)) != want:
+            fail(f"{name} decodes to other pixels than cv2.imread's")
+        if pixel_digest(image_io.read_unchanged(DATA_TREES / name)) \
+                != want_u:
+            fail(f"{name} decodes to other pixels than cv2.imread("
+                 "IMREAD_UNCHANGED)'s")
+    decode_all_s = time.time() - t0
+    jpegs = [DATA_TREES / n for n in fx["file_names"]
+             if str(n).endswith(".jpg")]
+    kinds = {"progressive": [], "baseline": []}
+    for path in jpegs:
+        data = path.read_bytes()
+        kind = "progressive" if b"\xff\xc2" in data else "baseline"
+        t0 = time.time()
+        for _ in range(5):
+            image_io.decode_bgr(data)
+        kinds[kind].append(((time.time() - t0) / 5, path))
+    res["decode"] = {"files": len(fx["file_names"]), "all_s": decode_all_s}
+    for kind, rows in kinds.items():
+        if not rows:
+            fail(f"the extended trees hold no {kind} JPEG")
+        res["decode"][f"{kind}_jpegs"] = len(rows)
+        res["decode"][f"ms_per_{kind}_jpeg_median"] = 1e3 * float(
+            np.median([r[0] for r in rows]))
+        res["decode"][f"{kind}_shape"] = list(
+            image_io.read_rgb(rows[0][1]).shape)
+    print("extended_decode", json.dumps(res["decode"]))
+
+    # (b) each loader's items against JAX's; ms an item a loader
+    template, _ = sbd_datasets(DATA_TREES / "sbd")
+    rec = {}
+    for layout in EXT_LAYOUTS:
+        ds = ext_loader(layout, template)
+        salt = zlib.crc32(layout.encode())
+        for row, seed in enumerate(DATA_SEEDS):
+            t0 = time.time()
+            got = [ds.get_item(p, item_seed(seed, salt, 0, p))
+                   for p in range(len(ds))]
+            took = time.time() - t0
+            if [item_digest(it) for it in got] != list(
+                    fx[f"items_{layout}"][row]):
+                fail(f"{layout}: the items of seed {seed} differ from the "
+                     "JAX items")
+            if row == 0:
+                rec[f"{layout}_ms_per_item"] = 1e3 * took / len(ds)
+    # the composed set through 4 threads (seeds 0 and 1, one set) and 4
+    # spawned processes (seed 0, a fresh set: LVIS shuffles an image's
+    # annotations in place, so a set's items depend on its earlier draws,
+    # as the fixture's do), batches of 4 so that no item is dropped
+    for row, seed, processes in ((0, 0, False), (1, 1, False),
+                                 (0, 0, True)):
+        if not row:
+            composed = ext_composed(template)
+        mode = "processes" if processes else "threads"
+        loader = DataLoader(composed, 4, shuffle=False,
+                            num_workers=DATA_WORKERS, seed=seed,
+                            salt="train", use_processes=processes)
+        try:
+            t0 = time.time()
+            batches = list(loader)
+            took = time.time() - t0
+        finally:
+            loader.shutdown()
+        items = [{k: v[i] for k, v in b.items()} for b in batches
+                 for i in range(len(b["images"]))]
+        if [item_digest(it) for it in items] != list(
+                fx["items_compose"][row]):
+            fail(f"the composed items of seed {seed} ({mode}) differ "
+                 "from the JAX items")
+        rec[f"compose_seed{seed}_{mode}_ms_per_item"] = \
+            1e3 * took / len(items)
+    res["items"] = rec
+    print("extended_items", json.dumps(rec))
+
+    # (c) the full-width SBD step on the composed batch against JAX's
+    composed = ext_composed(template)  # fresh, as the fixture's
+    salt = zlib.crc32(b"train")
+    positions = [int(p) for p in fx["step_positions"]]
+    items = [composed.get_item(p, item_seed(0, salt, 0, p))
+             for p in positions]
+    if [item_digest(it) for it in items] != list(fx["step_item_digests"]):
+        fail("the step batch's items differ from the JAX items")
+    batch_np = _stack(items)
+    sbd_arg = f"DATASETS.SBD_PATH={DATA_TREES / 'sbd'}"
+    trainer, _, step = step_vs_jax(
+        torch, "sbd_dinov2_noup", batch_np, fx["step_losses"],
+        fx["step_digest_names"], fx["step_digests"],
+        FORWARD_LAUNCHES["flagship"], [sbd_arg])
+    trainer.shutdown()
+    del trainer
+    step["positions"] = positions
+    print("extended_step_vs_jax", json.dumps(step))
+    res["step_vs_jax"] = step
+
+    # (d) eight trainer steps fed by the composed set (threads), clicks
+    per_step = {"train": []}
+    trainer = build(["model=sbd_dinov2_noup", sbd_arg,
+                     f"dataloader.workers={DATA_WORKERS}",
+                     f"exp_path={scratch()}", "image_dump_interval=0"],
+                    on_step=step_checker("extended_data",
+                                         FORWARD_LAUNCHES["flagship"],
+                                         per_step))
+    trainer.train_data.shutdown()
+    trainer.train_data = DataLoader(
+        ext_composed(template, epoch_len=EXT_STEPS * TRAIN_BATCH),
+        TRAIN_BATCH, shuffle=True, num_workers=DATA_WORKERS,
+        seed=trainer.seed, salt="train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.time()
+    trainer.training(0)
+    wall = time.time() - t0
+    trainer.shutdown()
+    st = trainer.stats
+    if len(st["num_iters"]) != EXT_STEPS:
+        fail(f"extended_data: the epoch ran {len(st['num_iters'])} steps, "
+             f"expected {EXT_STEPS}")
+    if not np.isfinite(trainer.epoch_losses).all():
+        fail(f"extended_data: non-finite losses {trainer.epoch_losses}")
+    launches = {k: sum(c[k] for c in per_step["train"]) for k in KERNELS}
+    wait = np.asarray(st["data_wait_s"]) * 1e3
+    res["train"] = {
+        "steps": EXT_STEPS, "batch": TRAIN_BATCH, "crop": TRAIN_CROP,
+        "workers": DATA_WORKERS, "wall_s": wall,
+        "num_iters": st["num_iters"],
+        "ms_per_step_median": 1e3 * float(np.median(st["step_wall_s"])),
+        "device_ms_per_step_median": float(np.median(
+            st["step_device_ms"])),
+        "data_wait_ms_median": float(np.median(wait)),
+        "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
+        "epoch_loss": float(trainer.epoch_losses[-1]),
+        "launches": launches}
+    print("extended_train", json.dumps(res["train"]))
+    del trainer
+    res["s"] = time.time() - t_phase
+    res["path_launches"] = {
+        "extended_step_vs_jax": step["launches"],
+        "extended_train": expected(**{k: v for k, v in launches.items()
+                                      if v})}
+    print(f"phase 11n extended_data: {res['s']:.1f} s")
+    return res
+
+
 def _parent_steps(torch, argv, gb, per_step: dict, paths: dict,
                   res: dict) -> tuple:
     """(b) of phase 11m in this process, while the gloo ranks run: the
@@ -6342,6 +6653,8 @@ def main() -> int:
     parser.add_argument("--out", help="also write every result to this JSON "
                         "file")
     args = parser.parse_args()
+    # the CLIs read configs/*.yaml at the working directory, as the root's do
+    os.chdir(Path(__file__).resolve().parent)
 
     import torch
     import torch.nn.functional as F
@@ -6878,6 +7191,14 @@ def main() -> int:
     results["demo_parallel"] = demo_parallel
 
     done("11m demo_parallel")
+    # 11n. the extended training loaders: decoding, the items of the five
+    # loaders and of their composition, the step against JAX's, eight
+    # trainer steps fed by the composed set
+    extended = extended_data_phase(torch)
+    results["extended_data"] = {k: v for k, v in extended.items()
+                                if k != "path_launches"}
+
+    done("11n extended_data")
     # 12. the learned-upsampler families (main paths 3-6)
     families = {name: learned_family(torch, name) for name in UPSAMPLERS}
     results["families"] = families
@@ -6940,6 +7261,7 @@ def main() -> int:
     paths.update(outputs["path_launches"])
     paths.update(int8["path_launches"])
     paths.update(demo_parallel["path_launches"])
+    paths.update(extended["path_launches"])
     for fam in families.values():
         paths.update(fam["path_launches"])
     kernels = []

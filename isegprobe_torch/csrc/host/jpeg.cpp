@@ -4,16 +4,23 @@
 // images.
 //
 // The JPEG decoder gives the pixels that libjpeg-turbo gives with its
-// default decompression settings, the settings OpenCV's imread uses:
+// default decompression settings, the settings OpenCV's imread uses. A
+// progressive file (SOF2: DC and AC first and refinement scans, EOB runs,
+// interleaved and not) is decoded into the whole-image coefficient buffer
+// and then takes the sequential path. libjpeg-turbo reads a multi-scan file
+// to its end before the first output pass, and smooths blocks
+// (jdcoefct.c:smoothing_ok) only when a component's coefficients 1-9 are
+// then still not fully refined: such a file is refused with its own error
+// code, never decoded without the smoothing. Every file:
 //   * the accurate integer inverse DCT (JDCT_ISLOW, jidctint.c), with its
 //     post-IDCT range-limit table;
 //   * "fancy" (triangle-filter) chroma upsampling for h2v1, h1v2 and h2v2
 //     (jdsample.c), box replication where a component is at most two
 //     samples wide or the ratio is another integer;
 //   * the table-driven YCbCr -> RGB conversion (jdcolor.c).
-// libjpeg-turbo's SIMD paths are bit-exact with that C code. Progressive,
-// arithmetic-coded, lossless, 12-bit and four-component files are refused
-// with their own error codes. The EXIF orientation tag (APP1, IFD0, tag
+// libjpeg-turbo's SIMD paths are bit-exact with that C code. Arithmetic-
+// coded, lossless, 12-bit and four-component files are refused with their
+// own error codes. The EXIF orientation tag (APP1, IFD0, tag
 // 0x0112) is reported, not applied.
 //
 // The warp is cv2.warpAffine(INTER_LINEAR, BORDER_CONSTANT 0) as this
@@ -36,7 +43,7 @@ namespace {
 enum {
   kOk = 0,
   kCorrupt = 1,
-  kProgressive = 2,
+  kSmoothing = 2,
   kArithmetic = 3,
   kUnsupported = 4,
   kTruncated = 5,
@@ -106,6 +113,9 @@ struct Comp {
   int bw = 0, bh = 0;  // blocks allocated a row and a column
   int pred = 0;
   std::vector<int16_t> coef;  // bh * bw blocks of 64, natural order
+  // progressive: the Al of the last scan of each zig-zag coefficient, -1
+  // before its first scan (libjpeg's coef_bits)
+  int coef_bits[64];
 };
 
 struct Decoder {
@@ -117,6 +127,8 @@ struct Decoder {
   int mcux = 0, mcuy = 0;
   Comp comp[4];
   int restart = 0;
+  bool progressive = false;
+  int eobrun = 0;
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
   int orientation = 1;
@@ -206,6 +218,79 @@ struct Decoder {
     }
   }
 
+  // jdphuff.c: the four kinds of progressive scan, for one block
+  void dc_first(Comp& c, int16_t* blk, int al) {
+    int s = decode(dc[c.td]);
+    if (s) s = extend(bits(s), s);
+    c.pred += s;
+    blk[0] = (int16_t)(c.pred * (1 << al));
+  }
+  void dc_refine(int16_t* blk, int al) {
+    if (bits(1)) blk[0] = (int16_t)(blk[0] | (1 << al));
+  }
+  void ac_first(Comp& c, int16_t* blk, int ss, int se, int al) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    const Huff& t = ac[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      int rs = decode(t);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = (int16_t)(extend(bits(s), s) * (1 << al));
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += bits(r);
+        --eobrun;
+        break;
+      }
+    }
+  }
+  // a coefficient already nonzero takes its correction bit
+  void refine_bit(int16_t* coef, int p1) {
+    if (bits(1) && (*coef & p1) == 0)
+      *coef = (int16_t)(*coef >= 0 ? *coef + p1 : *coef - p1);
+  }
+  void ac_refine(Comp& c, int16_t* blk, int ss, int se, int al) {
+    const int p1 = 1 << al, m1 = -p1;
+    const Huff& t = ac[c.ta];
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        int rs = decode(t);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = bits(1) ? p1 : m1;  // s != 1 is corrupt; libjpeg goes on too
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += bits(r);
+          break;
+        }
+        do {
+          int16_t* coef = &blk[kNatural[k]];
+          if (*coef != 0) {
+            refine_bit(coef, p1);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t* coef = &blk[kNatural[k]];
+        if (*coef != 0) refine_bit(coef, p1);
+      }
+      --eobrun;
+    }
+  }
+
   // at a restart marker: drop the buffered bits, skip the RSTn marker,
   // reset the DC predictions
   void restart_interval() {
@@ -222,6 +307,7 @@ struct Decoder {
       ++pos;
     }
     for (int i = 0; i < ncomp; ++i) comp[i].pred = 0;
+    eobrun = 0;
   }
 
   int scan() {
@@ -241,14 +327,40 @@ struct Decoder {
       comp[idx[i]].td = tables >> 4;
       comp[idx[i]].ta = tables & 15;
       if (comp[idx[i]].td > 3 || comp[idx[i]].ta > 3) return kCorrupt;
-      if (!dc[comp[idx[i]].td].present || !ac[comp[idx[i]].ta].present)
-        return kCorrupt;
     }
-    pos = end;  // Ss, Se, Ah/Al: fixed for sequential scans
+    int ss = u8(), se = u8(), a = u8();
+    if (a < 0) return kTruncated;
+    int ah = a >> 4, al = a & 15;
+    // the scan's kind: 0 sequential, 1 DC first, 2 DC refine, 3 AC first,
+    // 4 AC refine
+    int kind = 0;
+    if (progressive) {
+      if (ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1)) return kCorrupt;
+      if (al > 13 || (ah && al != ah - 1)) return kCorrupt;
+      kind = ss == 0 ? (ah ? 2 : 1) : (ah ? 4 : 3);
+      for (int i = 0; i < ns; ++i)
+        for (int k = ss; k <= se; ++k) comp[idx[i]].coef_bits[k] = al;
+    }
+    for (int i = 0; i < ns; ++i) {
+      const Comp& c = comp[idx[i]];
+      if ((kind == 0 || kind == 1) && !dc[c.td].present) return kCorrupt;
+      if ((kind == 0 || kind >= 3) && !ac[c.ta].present) return kCorrupt;
+    }
+    pos = end;
     for (int i = 0; i < ncomp; ++i) comp[i].pred = 0;
     buf = 0;
     nbits = 0;
     marker_hit = false;
+    eobrun = 0;
+    auto one = [&](Comp& c, int16_t* blk) {
+      switch (kind) {
+        case 0: block(c, blk); break;
+        case 1: dc_first(c, blk, al); break;
+        case 2: dc_refine(blk, al); break;
+        case 3: ac_first(c, blk, ss, se, al); break;
+        default: ac_refine(c, blk, ss, se, al); break;
+      }
+    };
     int todo = restart;
     if (ns == 1) {
       Comp& c = comp[idx[0]];
@@ -262,7 +374,7 @@ struct Decoder {
             }
             --todo;
           }
-          block(c, &c.coef[((size_t)y * c.bw + x) * 64]);
+          one(c, &c.coef[((size_t)y * c.bw + x) * 64]);
         }
     } else {
       for (int my = 0; my < mcuy; ++my)
@@ -279,7 +391,7 @@ struct Decoder {
             for (int v = 0; v < c.v; ++v)
               for (int h = 0; h < c.h; ++h) {
                 size_t bx = (size_t)mx * c.h + h, by = (size_t)my * c.v + v;
-                block(c, &c.coef[(by * c.bw + bx) * 64]);
+                one(c, &c.coef[(by * c.bw + bx) * 64]);
               }
           }
         }
@@ -350,15 +462,15 @@ struct Decoder {
       if (len < 2) return kTruncated;
       size_t start = pos, end = pos + len - 2;
       if (end > n) return kTruncated;
-      if (m == 0xC0 || m == 0xC1) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+        if (frame) return kCorrupt;
+        progressive = m == 0xC2;
         int rc = sof();
         if (rc) return rc;
-      } else if (m == 0xC2 || m == 0xC6 || m == 0xCA || m == 0xCE) {
-        return kProgressive;
       } else if (m == 0xC9 || m == 0xCA || m == 0xCB || m == 0xCD ||
-                 m == 0xCF) {
+                 m == 0xCE || m == 0xCF) {
         return kArithmetic;
-      } else if (m == 0xC3 || m == 0xC5 || m == 0xC7 || m == 0xCB) {
+      } else if (m == 0xC3 || m == 0xC5 || m == 0xC6 || m == 0xC7) {
         return kUnsupported;
       } else if (m == 0xC4) {
         while (pos < end) {
@@ -430,9 +542,28 @@ struct Decoder {
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
       c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+      for (int k = 0; k < 64; ++k) c.coef_bits[k] = -1;
     }
     frame = true;
     return kOk;
+  }
+
+  // jdcoefct.c:smoothing_ok once every scan is in: every component has DC
+  // data and nonzero quantizers 0-9, and some component's coefficients 1-9
+  // are not fully refined
+  bool smooths() const {
+    if (!progressive) return false;
+    static const int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (int i = 0; i < ncomp; ++i) {
+      const Comp& c = comp[i];
+      for (int j = 0; j < 10; ++j)
+        if (qt[c.tq][kPos[j]] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
   }
 };
 
@@ -1082,7 +1213,10 @@ const char* iseg_host_error(int code) {
   switch (code) {
     case kOk: return "ok";
     case kCorrupt: return "not a JPEG file or a corrupt one";
-    case kProgressive: return "progressive JPEG is not supported";
+    case kSmoothing:
+      return "progressive JPEG whose scans leave coefficients 1-9 of a "
+             "component unrefined (libjpeg-turbo block-smooths it) is not "
+             "supported";
     case kArithmetic: return "arithmetic-coded JPEG is not supported";
     case kUnsupported:
       return "unsupported JPEG (lossless, 12-bit, 2 or 4 components, "
@@ -1120,6 +1254,7 @@ int iseg_jpeg_decode_rgb(const uint8_t* data, size_t n, uint8_t* out) {
   dec.n = n;
   int rc = dec.header(true);
   if (rc) return rc;
+  if (dec.smooths()) return kSmoothing;
   const int W = dec.width, H = dec.height;
   std::vector<std::vector<uint8_t>> full(dec.ncomp);
   for (int i = 0; i < dec.ncomp; ++i) {

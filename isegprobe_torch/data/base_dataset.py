@@ -9,8 +9,9 @@ numpy::
 
 An item is built from a seed (``get_item(index, seed)``): the seed starts a
 ``random.Random`` and a ``np.random.RandomState``, and every draw of the
-item (index resolution, augmentation, click synthesis) comes from those
-two, in the order in which the JAX package draws from the global
+item (index resolution, the loader's own draws in ``get_sample``,
+augmentation, click synthesis) comes from those two, in the order in
+which the JAX package draws from the global
 ``random`` and ``np.random`` after its process workers seed them with the
 same number (``isegprobe_tpu/data/loader.py:_process_worker_get``). Seeded
 alike, an item is the JAX package's item. Subclasses implement
@@ -91,7 +92,7 @@ class iSegBaseDataset:
         rng = random.Random(int(seed))
         np_rng = np.random.RandomState(int(seed))
         sample = self.draw_sample(self._resolve_index(index, rng, np_rng),
-                                  np_rng)
+                                  rng, np_rng)
         sample = self.augment_sample(sample, rng)
         sample.remove_small_objects(self.min_object_area)
 
@@ -133,10 +134,14 @@ class iSegBaseDataset:
             if rng.random() < self.keep_background_prob:
                 return sample
 
-    def draw_sample(self, index: int, np_rng) -> DSample:
+    def draw_sample(self, index: int, rng, np_rng) -> DSample:
         """The sample an item starts from; a dataset whose choice is random
         (a mixture) draws it from ``np_rng``."""
-        return self.get_sample(index)
+        return self.get_sample(index, rng)
 
-    def get_sample(self, index: int) -> DSample:
+    def get_sample(self, index: int, rng=None) -> DSample:
+        """Sample ``index``. A loader that draws while reading (a stuff
+        layer kept or not, a mask picked) draws from ``rng``, a
+        ``random.Random``, where the JAX package draws from the global
+        ``random``; without one it draws from the global ``random`` too."""
         raise NotImplementedError

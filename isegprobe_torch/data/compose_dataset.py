@@ -3,7 +3,8 @@
 Counterpart of ``isegprobe_tpu/data/compose_dataset.py``. The mixture's
 draws come from the item's ``np.random.RandomState`` (``get_item``), in the
 order in which the JAX package draws them from the global ``np.random``
-(``draw_sample``), so
+(``draw_sample``), and a member's own draws from the item's
+``random.Random``, so
 a mixture's items are the JAX package's process-mode items seed for seed.
 """
 
@@ -32,9 +33,9 @@ class ComposeDataset(iSegBaseDataset):
         self._datasets = list(datasets)
         self.dataset_samples = _flat_index(self._datasets)
 
-    def get_sample(self, index: int) -> DSample:
+    def get_sample(self, index: int, rng=None) -> DSample:
         member, local = self.dataset_samples[index]
-        return self._datasets[member].get_sample(local)
+        return self._datasets[member].get_sample(local, rng)
 
 
 class ProportionalComposeDataset(ComposeDataset):
@@ -50,8 +51,8 @@ class ProportionalComposeDataset(ComposeDataset):
         super().__init__(datasets, **kwargs)
         self._ratios = list(ratios)
 
-    def draw_sample(self, index: int, np_rng) -> DSample:
+    def draw_sample(self, index: int, rng, np_rng) -> DSample:
         del index  # the draw does not depend on the requested index
         member = np_rng.choice(len(self._datasets), p=self._ratios)
         local = np_rng.choice(len(self._datasets[member]))
-        return self._datasets[member].get_sample(local)
+        return self._datasets[member].get_sample(local, rng)

@@ -55,7 +55,7 @@ class _PairedFolderDataset(iSegBaseDataset):
             p.name for p in self._images_path.glob("*.*"))
         self._masks_by_stem = {p.stem: p for p in self._insts_path.glob("*.*")}
 
-    def get_sample(self, index: int) -> DSample:
+    def get_sample(self, index: int, rng=None) -> DSample:
         name = self.dataset_samples[index]
         image = image_io.read_rgb(self._images_path / name)
         raw = image_io.read_bgr(self._masks_by_stem[name.split(".")[0]])
@@ -145,7 +145,7 @@ class SBDDataset(_SBDBase):
         self._buggy_mask_thresh = buggy_mask_thresh
         self._thin_cache = {}
 
-    def get_sample(self, index: int) -> DSample:
+    def get_sample(self, index: int, rng=None) -> DSample:
         image, mask = self._load_pair(self.dataset_samples[index])
         if self._buggy_mask_thresh > 0:
             if index not in self._thin_cache:
@@ -166,7 +166,7 @@ class SBDEvaluationDataset(_SBDBase):
         super().__init__(dataset_path, split, **kwargs)
         self.dataset_samples = self._instance_index()
 
-    def get_sample(self, index: int) -> DSample:
+    def get_sample(self, index: int, rng=None) -> DSample:
         name, instance_id = self.dataset_samples[index]
         image, mask = self._load_pair(name)
         binary = (mask == instance_id).astype(np.int32)
@@ -206,7 +206,7 @@ class PascalVocDataset(iSegBaseDataset):
         else:
             self.dataset_samples = (sets / f"{split}.txt").read_text().split()
 
-    def get_sample(self, index: int) -> DSample:
+    def get_sample(self, index: int, rng=None) -> DSample:
         name = self.dataset_samples[index]
         image = image_io.read_rgb(self._images_path / f"{name}.jpg")
         labels = image_io.read_gray(

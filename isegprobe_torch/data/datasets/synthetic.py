@@ -108,7 +108,7 @@ class SyntheticShapesDataset(iSegBaseDataset):
         self.min_instance_area = min_instance_area
         self.dataset_samples = list(range(n_samples))
 
-    def get_sample(self, index: int) -> DSample:
+    def get_sample(self, index: int, rng=None) -> DSample:
         rng = np.random.default_rng(self.seed * 1_000_003 + index)
         n_shapes = int(rng.integers(self.min_shapes, self.max_shapes + 1))
         image, labels = render_scene(rng, self.image_size, n_shapes)

@@ -4,22 +4,27 @@ The JAX package reads every image with ``cv2.imread`` (``IMREAD_COLOR``:
 8-bit BGR, EXIF orientation applied). The port's data layer reads the same
 pixels:
 
-* JPEG (baseline and extended sequential, Huffman-coded; 1 or 3
-  components; any integral sampling; restart markers; the EXIF orientation
-  tag) through ``csrc/host/jpeg.cpp``, libjpeg-turbo's decompression with
-  OpenCV's settings (``utils/host_lib.py`` builds it with g++ at first
-  use). A progressive or arithmetic-coded file raises ``ValueError``
-  naming it.
+* JPEG (baseline, extended sequential and progressive, Huffman-coded; 1
+  or 3 components; any integral sampling; restart markers; the EXIF
+  orientation tag) through ``csrc/host/jpeg.cpp``, libjpeg-turbo's
+  decompression with OpenCV's settings (``utils/host_lib.py`` builds it
+  with g++ at first use). A progressive file whose scans leave a
+  component's coefficients 1-9 unrefined (libjpeg-turbo block-smooths
+  such a file; a whole file from any standard encoder is not one), and an
+  arithmetic-coded, lossless or 12-bit file raise ``ValueError`` naming
+  the case.
 * PNG with ``zlib`` and numpy (the row unfilter in the same library): the
-  five filters, gray, gray + alpha, RGB, RGBA and palette images at every
-  bit depth, brought to 8-bit BGR as libpng's transforms under
-  ``IMREAD_COLOR`` bring them (16-bit samples keep their high byte, 1/2/4-bit
-  gray is scaled to 0-255, alpha and ``tRNS`` are dropped). An interlaced
-  file raises ``ValueError``.
+  five filters, interlaced (Adam7) or not, gray, gray + alpha, RGB, RGBA
+  and palette images at every bit depth, brought to 8-bit BGR as libpng's
+  transforms under ``IMREAD_COLOR`` bring them (16-bit samples keep their
+  high byte, 1/2/4-bit gray is scaled to 0-255, alpha and ``tRNS`` are
+  dropped).
 * BMP (``BI_RGB``): 8-bit palette and 24-bit images, bottom-up or
   top-down; other BMPs raise ``ValueError``.
 
-:func:`read_bgr` is ``cv2.imread(p)``, :func:`read_rgb` is
+:func:`read_bgr` is ``cv2.imread(p)``, :func:`read_unchanged` is
+``cv2.imread(p, cv2.IMREAD_UNCHANGED)`` (:func:`decode_unchanged` its
+``imdecode``), :func:`read_rgb` is
 ``cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB)`` and :func:`read_gray` is
 ``cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2GRAY)`` (the 15-bit
 fixed-point weights that this OpenCV build's conversion uses, bitwise on
@@ -47,6 +52,7 @@ import numpy as np
 from isegprobe_torch.utils import host_lib
 
 __all__ = ["read_bgr", "read_rgb", "read_gray", "decode_bgr",
+           "read_unchanged", "decode_unchanged",
            "bgr_to_gray", "encode_jpeg", "write_jpeg", "encode_png",
            "write_png"]
 
@@ -81,12 +87,36 @@ def bgr_to_gray(bgr: np.ndarray) -> np.ndarray:
 def decode_bgr(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """Decode a JPEG, PNG or BMP file's bytes to uint8 BGR, by signature."""
     if data[:3] == b"\xff\xd8\xff":
-        rgb = _decode_jpeg(data, name)
-        return np.ascontiguousarray(rgb[:, :, ::-1])
+        rgb, _, orientation = _decode_jpeg(data, name)
+        return _orient(rgb[:, :, ::-1], orientation)
     if data[:8] == _PNG_SIGNATURE:
         return _decode_png(data, name)
     if data[:2] == b"BM":
         return _decode_bmp(data, name)
+    raise ValueError(f"{name}: not a JPEG, PNG or BMP file")
+
+
+def read_unchanged(path) -> np.ndarray:
+    """``cv2.imread(path, cv2.IMREAD_UNCHANGED)``."""
+    return decode_unchanged(Path(path).read_bytes(), str(path))
+
+
+def decode_unchanged(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """``cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)``: gray comes back 2-D
+    (a gray JPEG, a gray PNG at every bit depth, 1/2/4-bit scaled to
+    0-255, a BMP whose palette is gray), colour BGR; a PNG with alpha
+    (gray + alpha with the gray repeated, RGBA, or a ``tRNS`` chunk on an
+    RGB or palette image) BGRA, ``tRNS`` on a gray PNG ignored; 16-bit PNG
+    samples stay uint16. The EXIF orientation is not applied."""
+    if data[:3] == b"\xff\xd8\xff":
+        rgb, channels, _ = _decode_jpeg(data, name)
+        if channels == 1:
+            return np.ascontiguousarray(rgb[:, :, 0])
+        return np.ascontiguousarray(rgb[:, :, ::-1])
+    if data[:8] == _PNG_SIGNATURE:
+        return _decode_png(data, name, unchanged=True)
+    if data[:2] == b"BM":
+        return _decode_bmp(data, name, unchanged=True)
     raise ValueError(f"{name}: not a JPEG, PNG or BMP file")
 
 
@@ -129,7 +159,9 @@ def write_jpeg(path, img: np.ndarray, quality: int = 95) -> None:
     Path(path).write_bytes(encode_jpeg(img, quality))
 
 
-def _decode_jpeg(data: bytes, name: str) -> np.ndarray:
+def _decode_jpeg(data: bytes, name: str):
+    """RGB pixels (gray repeated), the component count and the EXIF
+    orientation."""
     lib = host_lib.load()
     src = ctypes.create_string_buffer(data, len(data))
     h, w, c, orient = (ctypes.c_int() for _ in range(4))
@@ -141,7 +173,7 @@ def _decode_jpeg(data: bytes, name: str) -> np.ndarray:
     host_lib.check(lib.iseg_jpeg_decode_rgb(
         _as_u8p(src), len(data),
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))), name)
-    return _orient(out, orient.value)
+    return out, c.value, orient.value
 
 
 def _orient(img: np.ndarray, code: int) -> np.ndarray:
@@ -158,10 +190,44 @@ def _orient(img: np.ndarray, code: int) -> np.ndarray:
 # -- PNG ------------------------------------------------------------------
 
 
-def _decode_png(data: bytes, name: str) -> np.ndarray:
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_rows(raw: bytes, pos: int, h: int, w: int, depth: int, ch: int,
+              name: str):
+    """One (sub)image's samples from the filtered rows at ``raw[pos:]``:
+    ``[h, w, ch]`` uint16 for 16-bit samples, else uint8 (1/2/4-bit values
+    unscaled), and the position after them."""
+    bits = ch * depth
+    rowbytes = (w * bits + 7) // 8
+    size = h * (rowbytes + 1)
+    if len(raw) < pos + size:
+        raise ValueError(f"{name}: truncated PNG image data")
+    lib = host_lib.load()
+    src = ctypes.create_string_buffer(raw[pos:pos + size], size)
+    rows = np.empty((h, rowbytes), np.uint8)
+    host_lib.check(lib.iseg_png_unfilter(
+        _as_u8p(src), rows.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        h, rowbytes, max(1, bits // 8)), name)
+    if depth == 16:
+        samples = rows.view(">u2")[:, :w * ch].astype(np.uint16)
+    elif depth == 8:
+        samples = rows[:, :w * ch]
+    else:
+        per = 8 // depth
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+        samples = vals.reshape(h, rowbytes * per)[:, :w]
+    return samples.reshape(h, w, ch), pos + size
+
+
+def _decode_png(data: bytes, name: str, unchanged: bool = False
+                ) -> np.ndarray:
     pos = 8
     ihdr = None
-    palette = None
+    palette = trns = None
     idat = []
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
@@ -171,6 +237,8 @@ def _decode_png(data: bytes, name: str) -> np.ndarray:
             ihdr = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -178,47 +246,62 @@ def _decode_png(data: bytes, name: str) -> np.ndarray:
     if ihdr is None:
         raise ValueError(f"{name}: PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = ihdr
-    if interlace:
-        raise ValueError(f"{name}: interlaced PNG is not supported")
+    if interlace not in (0, 1):
+        raise ValueError(f"{name}: PNG interlace method {interlace} is not "
+                         "valid")
     if ctype not in _PNG_CHANNELS or depth not in (1, 2, 4, 8, 16):
         raise ValueError(f"{name}: PNG color type {ctype} at bit depth "
                          f"{depth} is not valid")
     if ctype == 3 and palette is None:
         raise ValueError(f"{name}: palette PNG without PLTE")
     ch = _PNG_CHANNELS[ctype]
-    bits = ch * depth
-    rowbytes = (w * bits + 7) // 8
     raw = zlib.decompress(b"".join(idat))
-    if len(raw) < h * (rowbytes + 1):
-        raise ValueError(f"{name}: truncated PNG image data")
-    lib = host_lib.load()
-    src = ctypes.create_string_buffer(raw, len(raw))
-    rows = np.empty((h, rowbytes), np.uint8)
-    host_lib.check(lib.iseg_png_unfilter(
-        _as_u8p(src), rows.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        h, rowbytes, max(1, bits // 8)), name)
-    if depth == 16:
-        samples = rows[:, 0::2][:, :w * ch].reshape(h, w, ch)  # high byte
-    elif depth == 8:
-        samples = rows[:, :w * ch].reshape(h, w, ch)
+    if not interlace:
+        samples, _ = _png_rows(raw, 0, h, w, depth, ch, name)
     else:
-        per = 8 // depth
-        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-        vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
-        samples = vals.reshape(h, rowbytes * per)[:, :w, None]
-        if ctype == 0:  # scaled to 8 bits; palette indices stay indices
-            samples = samples * {1: 255, 2: 85, 4: 17}[depth]
-        samples = samples.astype(np.uint8)
+        samples = np.zeros((h, w, ch), np.uint16 if depth == 16
+                           else np.uint8)
+        at = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
+            if pw > 0 and ph > 0:
+                samples[y0::dy, x0::dx], at = _png_rows(
+                    raw, at, ph, pw, depth, ch, name)
     if ctype == 3:
         idx = samples[:, :, 0]
         if idx.size and int(idx.max()) >= len(palette):
             raise ValueError(f"{name}: palette index out of range")
-        rgb = palette[idx]
-    elif ctype in (0, 4):
-        rgb = np.repeat(samples[:, :, :1], 3, axis=2)
-    else:
-        rgb = samples[:, :, :3]
-    return np.ascontiguousarray(rgb[:, :, ::-1])
+        bgr = palette[idx][:, :, ::-1]
+        if unchanged and trns is not None:
+            alpha = np.full(256, 255, np.uint8)
+            alpha[:min(len(trns), 256)] = np.frombuffer(trns[:256], np.uint8)
+            return np.ascontiguousarray(np.dstack([bgr, alpha[idx]]))
+        return np.ascontiguousarray(bgr)
+    if depth < 8 and ctype == 0:  # scaled to 8 bits
+        samples = samples * np.uint8({1: 255, 2: 85, 4: 17}[depth])
+    if not unchanged:
+        if depth == 16:  # the high byte
+            samples = (samples >> 8).astype(np.uint8)
+        gray = ctype in (0, 4)
+        bgr = np.repeat(samples[:, :, :1], 3, 2) if gray \
+            else samples[:, :, 2::-1]
+        return np.ascontiguousarray(bgr)
+    if ctype == 0:
+        return np.ascontiguousarray(samples[:, :, 0])
+    if ctype == 4:
+        return np.ascontiguousarray(samples[:, :, [0, 0, 0, 1]])
+    bgr = samples[:, :, 2::-1]
+    if ctype == 6:
+        return np.ascontiguousarray(np.dstack([bgr, samples[:, :, 3:]]))
+    if trns is not None and len(trns) >= 6:
+        key = np.array(struct.unpack(">HHH", trns[:6]), np.uint32)
+        if depth == 8:
+            key &= 0xFF
+        top = np.iinfo(samples.dtype).max
+        alpha = np.where((samples == key).all(2), 0, top).astype(
+            samples.dtype)
+        return np.ascontiguousarray(np.dstack([bgr, alpha]))
+    return np.ascontiguousarray(bgr)
 
 
 def _png_chunk(kind: bytes, body: bytes) -> bytes:
@@ -261,7 +344,8 @@ def write_png(path, img: np.ndarray) -> None:
 # -- BMP ------------------------------------------------------------------
 
 
-def _decode_bmp(data: bytes, name: str) -> np.ndarray:
+def _decode_bmp(data: bytes, name: str, unchanged: bool = False
+                ) -> np.ndarray:
     offset = struct.unpack_from("<I", data, 10)[0]
     hsize = struct.unpack_from("<I", data, 14)[0]
     if hsize < 40:
@@ -284,4 +368,7 @@ def _decode_bmp(data: bytes, name: str) -> np.ndarray:
     n_pal = n_colors or 256
     pal = np.frombuffer(data, np.uint8, count=4 * n_pal,
                         offset=14 + hsize).reshape(n_pal, 4)[:, :3]
-    return np.ascontiguousarray(pal[np.minimum(rows[:, :w], n_pal - 1)])
+    bgr = pal[np.minimum(rows[:, :w], n_pal - 1)]
+    if unchanged and (pal == pal[:, :1]).all():  # a gray palette
+        return np.ascontiguousarray(bgr[:, :, 0])
+    return np.ascontiguousarray(bgr)

@@ -282,8 +282,9 @@ def _cdiv(a: int, b: int) -> int:
 
 def _fill_edges(canvas: np.ndarray, edges, value) -> None:
     """OpenCV's ``FillEdgeCollection`` at ``LINE_8``: for each row, the
-    active edges sorted by x, spans between pairs, x in 16.16 fixed point
-    advanced by each edge's dx."""
+    active edges sorted by x, spans between pairs from the ceiling of the
+    left x to the floor of the right one, x in 16.16 fixed point advanced
+    by each edge's dx."""
     if len(edges) < 2:
         return
     h, w = canvas.shape[:2]
@@ -294,7 +295,7 @@ def _fill_edges(canvas: np.ndarray, edges, value) -> None:
                     if y0 <= y < y1)
         for i in range(0, len(xs) - 1, 2):
             x1 = (xs[i] + XY_ONE - 1) >> XY_SHIFT
-            x2 = ((xs[i + 1] + XY_ONE - 1) >> XY_SHIFT) - 1
+            x2 = xs[i + 1] >> XY_SHIFT
             if x1 < w and x2 >= 0:
                 canvas[y, max(x1, 0):min(x2, w - 1) + 1] = value
 
@@ -314,14 +315,13 @@ def fill_poly(canvas: np.ndarray, pts: np.ndarray, value=1) -> np.ndarray:
         _line8(canvas, t0, t1, value)
         c0, c1 = [x0, y0], [x1, y1]
         if not all(0 <= t[0] < w and 0 <= t[1] < h for t in (t0, t1)):
-            # an edge that leaves the image runs along its clipped part
+            # an edge that leaves the image runs along its clipped part;
+            # clipped to a point or a row, it stands upright at the clipped
+            # x over its own rows (this OpenCV build's fills, held against
+            # cv2.fillPoly on rings that leave the image)
             _clip_line(w, h, t0, t1)
-            if t0[1] != t1[1]:
-                c0 = [t0[0] << XY_SHIFT, t0[1]]
-                c1 = [t1[0] << XY_SHIFT, t1[1]]
-        else:
-            c0[0] += XY_ONE >> 1
-            c1[0] += XY_ONE >> 1
+            c0 = [t0[0] << XY_SHIFT, t0[1] if t0[1] != t1[1] else y0]
+            c1 = [t1[0] << XY_SHIFT, t1[1] if t0[1] != t1[1] else y1]
         if y0 != y1:
             dx = (c1[0] - c0[0]) // (c1[1] - c0[1])
             top = c0 if y0 < y1 else c1
@@ -533,16 +533,16 @@ def warp_affine(img: np.ndarray, m: np.ndarray, size: Tuple[int, int],
     """``cv2.warpAffine(img, m, size, flags=INTER_NEAREST if nearest else
     INTER_LINEAR, borderMode=BORDER_CONSTANT, borderValue=0)``; ``size`` is
     (width, height). Linear takes uint8 images ``[H, W]`` or ``[H, W, C]``,
-    nearest int32 masks; a trailing axis of one is dropped, as OpenCV
-    drops it."""
+    nearest int32 or uint8 masks (packed layers); a trailing axis of one
+    is dropped, as OpenCV drops it."""
     w, h = int(size[0]), int(size[1])
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[:, :, 0]
     inv = _invert_affine(m)
     if nearest:
-        if img.dtype != np.int32:
-            raise TypeError(f"warp_affine(nearest=True) takes int32 masks, "
-                            f"got {img.dtype}")
+        if img.dtype not in (np.int32, np.uint8):
+            raise TypeError(f"warp_affine(nearest=True) takes int32 or "
+                            f"uint8 masks, got {img.dtype}")
         return _warp_nearest(img, inv, w, h)
     if img.dtype != np.uint8:
         raise TypeError(f"warp_affine takes uint8 images, got {img.dtype}")

@@ -7,8 +7,8 @@ Usage (on a CUDA GPU; ``device=cpu`` runs the plain PyTorch path):
         [eval_mode=fixed224] [dtype=float32] [thresh=0.5] [device=cpu]
 
 It takes the evaluate CLI's ``key=value`` keys (``isegprobe_torch.
-evaluate.parse_args``; ``eval_mode`` defaults to ``configs/eval_cfg.yaml``'s
-``fixed224``, as the root demo reads it) and builds the predictor as the
+evaluate.parse_args``: ``configs/eval_cfg.yaml`` at the working directory,
+as the root demo reads it) and builds the predictor as the
 root does: ``load_model_for_eval`` at 448², the ZoomIn of
 ``get_zoomin_params(..., "demo")``, and ``inference/brs.py:get_predictor``
 with flip TTA and ``lbfgs_params={"maxfun": lbfgs_max_iters}``. Left click
@@ -28,16 +28,12 @@ from typing import Dict
 
 __all__ = ["parse_args", "make_predictor_builder", "main"]
 
-# configs/eval_cfg.yaml's eval_mode, which the root demo reads
-_DEMO_DEFAULTS = ["eval_mode=fixed224"]
-
-
 def parse_args(argv) -> Dict:
-    """The evaluate CLI's settings, with the demo's ``eval_mode``
-    default."""
+    """The evaluate CLI's settings (``configs/eval_cfg.yaml`` with the
+    overrides)."""
     from isegprobe_torch.evaluate import parse_args as eval_args
 
-    return eval_args([*_DEMO_DEFAULTS, *argv])
+    return eval_args(argv)
 
 
 def make_predictor_builder(cfg: Dict, model=None):

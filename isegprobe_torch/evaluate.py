@@ -16,8 +16,9 @@ Usage (on a CUDA GPU; ``device=cpu`` runs the plain PyTorch path):
         checkpoint=assets/trained/synthetic_dinov2_noup_160ep.ckpt \\
         [datasets=GrabCut,Berkeley,DAVIS,SBD,PascalVOC] \\
         [DATASETS.GRABCUT_PATH=/data/grabcut ...] \\
-        [scenes=isegprobe_torch/fixtures/synthetic2026_50.npz] \\
-        device_loop=true device_batch=8 [dtype=bfloat16] [eval_mode=fixed448]
+        [datasets=Synthetic \\
+         scenes=isegprobe_torch/fixtures/synthetic2026_50.npz] \\
+        device_loop=true device_batch=8 [dtype=bfloat16] [eval_mode=fixed224]
         [eval_ritm=false] [device_refill=false] [group_max_jobs=0]
         [n_clicks=20] [target_iou=0.9] [print_ious=true] [min_n_clicks=1]
         [thresh=0.5] [clicks_limit=null] [mode=NoBRS] [mxu_pad=auto]
@@ -27,18 +28,23 @@ Usage (on a CUDA GPU; ``device=cpu`` runs the plain PyTorch path):
         [EXPS_PATH=./experiments] [exp_path=] [model_name=null]
         [wandb=false] [wandb_project=iSegProbe-Eval] [wandb_name=null]
         [wandb_dir=/path/to/logs] [cpu=false] [trunk_cache=auto]
-        [device_mesh=false] [main_cfg_path=] [profile_dir=]
+        [device_mesh=false] [main_cfg_path=./configs/main_cfg.yaml]
+        [profile_dir=]
 
-``datasets`` is a comma-separated list of the root's ``get_dataset`` keys:
-``GrabCut``, ``Berkeley``, ``DAVIS``, ``SBD``, ``SBD_Train``,
-``PascalVOC``, ``COCO_MVal`` (each read from its ``DATASETS.*_PATH`` key,
-``configs/main_cfg.yaml``'s defaults) and ``Synthetic`` (the stored scenes
-of ``scenes=``). ``main_cfg_path=<file>`` reads ``EXPS_PATH`` and the
-``DATASETS.*`` paths from a file of ``configs/main_cfg.yaml``'s form
-(``utils/main_cfg.py``; the port needs no YAML package), as the root does
-(without it, the committed file's values, built in); a ``DATASETS.*=`` or
-``EXPS_PATH=`` key on the command line wins over the file (the root's
-command line has no such keys). ``eval_mode`` and
+The settings start, as the root's do, from ``configs/eval_cfg.yaml`` read
+at the working directory (``utils/config.py``; the port needs no YAML
+package), with the overrides typed as the root's ``load_config`` types
+them: with ``checkpoint=`` alone a run evaluates
+``GrabCut,Berkeley,SBD,DAVIS`` at ``fixed224``. ``datasets`` is a
+comma-separated list of the root's ``get_dataset`` keys: ``GrabCut``,
+``Berkeley``, ``DAVIS``, ``SBD``, ``SBD_Train``, ``PascalVOC``,
+``COCO_MVal`` (each read from its ``DATASETS.*_PATH`` key) and
+``Synthetic`` (the stored scenes of ``scenes=``). ``EXPS_PATH`` and the
+``DATASETS.*`` paths come from the file that ``main_cfg_path`` names
+(``./configs/main_cfg.yaml``), as the root reads them; a ``DATASETS.*=``
+or ``EXPS_PATH=`` key on the command line wins over the file (the root's
+command line has no such keys), and a key that neither the file nor the
+port knows raises (the root ignores it). ``eval_mode`` and
 ``eval_ritm`` pick each dataset's ZoomIn as the root's
 ``get_zoomin_params`` does: ``fixed<n>`` (or ``fixed<h>,<w>``) crops to
 that size, ``cvpr`` to 448² (672² on DAVIS), and ``eval_ritm=true
@@ -130,6 +136,7 @@ from isegprobe_torch.models.convert import (
 from isegprobe_torch.models.featurizers.dino import DINO_TRUNK
 from isegprobe_torch.models.featurizers.dinov2 import DINOV2_ARCHS
 from isegprobe_torch.models.init_tree import count_params, init_tree
+from isegprobe_torch.utils.config import apply_overrides, load_yaml
 from isegprobe_torch.utils.serialization import (
     build_model,
     load_checkpoint,
@@ -282,42 +289,44 @@ _PATH_DEFAULTS = {
     "DATASETS.COCO_MVAL_PATH": "/data/coco_mval",
     "DATASETS.PASCALVOC_PATH": "/data/pascalvoc",
 }
-_DEFAULTS = dict(checkpoint=None, datasets="Synthetic", **_PATH_DEFAULTS,
-                 scenes=str(SYNTHETIC_FIXTURE),
-                 eval_mode="fixed448", eval_ritm="false",
-                 device_loop="false", device_batch="1",
-                 device_refill="false", group_max_jobs="0",
-                 dtype="float32", n_clicks="20", target_iou="0.90",
-                 print_ious="true", min_n_clicks="1", thresh="0.5",
-                 clicks_limit="null", mode="NoBRS", mxu_pad="auto",
-                 fuse_hr_head="false", device=None, vis_preds="false",
-                 save_feats="false", save_feats_folder_name="features",
-                 save_feats_for_n_imgs="50", save_ious="false",
-                 iou_analysis="false", logs_path="",
-                 EXPS_PATH="./experiments", exp_path="", model_name="null",
-                 wandb="false", wandb_project="iSegProbe-Eval",
-                 wandb_name="null", wandb_dir="/path/to/logs",
-                 cpu="false", trunk_cache="auto", device_mesh="false",
-                 main_cfg_path="", profile_dir="")
+# the root's settings file, read at the working directory as the root
+# reads it
+EVAL_CFG = "configs/eval_cfg.yaml"
+# the keys the file lacks: the root's fuse_hr_head, trunk_cache and
+# profile_dir (it reads them with .get), and the port's own
+_EXTRA_DEFAULTS = dict(**_PATH_DEFAULTS, scenes=str(SYNTHETIC_FIXTURE),
+                       fuse_hr_head="false", device=None,
+                       EXPS_PATH="./experiments", trunk_cache="auto",
+                       profile_dir="")
 # the keys a main_cfg_path file gives
 _MAIN_CFG_KEYS = ("EXPS_PATH", *_PATH_DEFAULTS)
 
 
 def parse_args(argv) -> Dict:
-    """``key=value`` overrides into the run's settings; an unknown key
-    raises ``ValueError``, a non-empty ``profile_dir``
-    ``NotImplementedError`` naming its ROADMAP item."""
-    cfg = dict(_DEFAULTS)
+    """The run's settings: ``configs/eval_cfg.yaml`` (at the working
+    directory) with ``key=value`` overrides, typed as the root's
+    ``load_config`` types them, then the machine paths of the
+    ``main_cfg_path`` file; the keys the file lacks keep the port's
+    defaults and take their text as given. An unknown key raises
+    ``ValueError``, a non-empty ``profile_dir`` ``NotImplementedError``
+    naming its ROADMAP item."""
+    root = load_yaml(EVAL_CFG)
+    known = sorted([*root, *_EXTRA_DEFAULTS])
+    file_args = []
+    extra = dict(_EXTRA_DEFAULTS)
     given = set()
     for arg in argv:
         key, sep, value = arg.partition("=")
         if not sep:
             raise ValueError(f"expected key=value, got {arg!r}")
-        if key not in cfg:
-            raise ValueError(f"unknown key {key!r}; takes "
-                             f"{sorted(_DEFAULTS)}")
-        cfg[key] = value
+        if key in root:
+            file_args.append(arg)
+        elif key in extra:
+            extra[key] = value
+        else:
+            raise ValueError(f"unknown key {key!r}; takes {known}")
         given.add(key)
+    cfg = {**apply_overrides(root, file_args), **extra}
     if cfg["profile_dir"]:
         raise NotImplementedError(
             "profile_dir= is not ported to isegprobe_torch.evaluate yet: "
@@ -337,7 +346,8 @@ def parse_args(argv) -> Dict:
     if not cfg["checkpoint"] and not cfg["exp_path"]:
         raise ValueError("checkpoint=<path to a .ckpt> (or exp_path=<run>) "
                          "is required")
-    cfg["dataset_names"] = [n for n in cfg["datasets"].split(",") if n]
+    cfg["dataset_names"] = [n for n in str(cfg["datasets"]).split(",")
+                            if n]
     for name in cfg["dataset_names"]:
         if name not in DATASET_PATHS:
             raise NotImplementedError(
@@ -351,6 +361,7 @@ def parse_args(argv) -> Dict:
         raise ValueError(f"mode={cfg['mode']!r} is not a predictor mode; "
                          f"takes {list(BRS_MODES)}")
     cfg["eval_ritm"] = _flag(cfg["eval_ritm"])
+    cfg["eval_mode"] = str(cfg["eval_mode"])
     # the first dataset's ZoomIn; evaluate() computes each dataset's
     cfg["zoomin"] = get_zoomin_params(cfg["eval_ritm"], cfg["eval_mode"],
                                       cfg["dataset_names"][0])
@@ -359,7 +370,7 @@ def parse_args(argv) -> Dict:
         raise ValueError(f"dtype={cfg['dtype']}: takes {sorted(DTYPES)}")
     cfg["device_loop"] = _flag(cfg["device_loop"])
     cfg["device_batch"] = int(cfg["device_batch"])
-    refill = cfg["device_refill"].lower()
+    refill = str(cfg["device_refill"]).lower()
     if refill == "host":
         raise ValueError("device_refill=host was removed (it measured 0.98x "
                          "lockstep in the JAX package); use "
@@ -374,7 +385,7 @@ def parse_args(argv) -> Dict:
             f"(got {cfg['device_batch']})")
         cfg["device_refill"] = False
     cfg["group_max_jobs"] = int(cfg["group_max_jobs"])
-    pad = cfg.pop("mxu_pad").lower()
+    pad = str(cfg.pop("mxu_pad")).lower()
     if pad != "auto" and _flag(pad) != (cfg["dtype"] != "float32"):
         logging.getLogger(__name__).warning(
             f"mxu_pad={pad} ignored: LoftUp's layout follows dtype (padded "
@@ -386,15 +397,11 @@ def parse_args(argv) -> Dict:
     cfg["min_n_clicks"] = int(cfg["min_n_clicks"])
     cfg["thresh"] = float(cfg["thresh"])
     limit = cfg["clicks_limit"]
-    cfg["clicks_limit"] = (None if limit.lower() in ("null", "none", "")
-                           else int(limit))
+    cfg["clicks_limit"] = None if limit in (None, "") else int(limit)
     for key in ("vis_preds", "save_feats", "save_ious", "iou_analysis",
                 "wandb"):
         cfg[key] = _flag(cfg[key])
     cfg["save_feats_for_n_imgs"] = int(cfg["save_feats_for_n_imgs"])
-    for key in ("model_name", "wandb_name"):
-        if cfg[key].lower() in ("null", "none", ""):
-            cfg[key] = None
     cfg["logs_path"] = str(Path(cfg["logs_path"]) if cfg["logs_path"]
                            else Path(cfg["EXPS_PATH"]) / "evaluation_logs")
     # the root evaluate.py's rule: every click when the IoUs are printed or
@@ -442,8 +449,12 @@ def get_dataset(name: str, cfg: Dict):
     raise NotImplementedError(f"Dataset key: {name} is not found.")
 
 
-def _flag(value: str) -> bool:
-    return value.lower() in ("true", "1")
+def _flag(value) -> bool:
+    """A switch: a typed value by its truth, as the root reads it; the text
+    of a key the file lacks is true as ``true`` or ``1``."""
+    if isinstance(value, str):
+        return value.lower() in ("true", "1")
+    return bool(value)
 
 
 def normalize_trunk_cache(value: str) -> str:

@@ -46,13 +46,19 @@ Usage (on a CUDA GPU; ``device=cpu`` runs the plain PyTorch path):
     python -m isegprobe_torch.train model=sbd_dinov2_noup \\
         DATASETS.SBD_PATH=/data/sbd [dataloader.mp=true] ...
 
-Keys: those of ``configs/train_cfg.yaml`` that apply (``exp.name``,
-``dataloader.*``, ``training_params.*``, ``training.seed``,
-``training.start_epoch``, ``training.resume_exp``,
-``training.resume_prefix``, ``training.weights``), ``DATASETS.SBD_PATH``
-and ``PRETRAINED_MODELS.{DINOV2_VITS14,DINO_VITS16,MASKCLIP_VITB16}``
-(``configs/main_cfg.yaml``'s defaults; the port reads no YAML), plus the
-port's ``model``, ``device``, ``exp_path`` and ``epoch_len`` /
+Keys: the settings start, as the root's do, from
+``configs/train_cfg.yaml`` read at the working directory
+(``utils/config.py``; the port needs no YAML package), with the overrides
+typed as the root's ``load_config`` types them (``exp.name``,
+``dataloader.*``, ``training_params.*``, ``training.*``, ``wandb.*``;
+``exp.model_path=models/<script>.py`` names a script as ``model`` does);
+``DATASETS.SBD_PATH`` and
+``PRETRAINED_MODELS.{DINOV2_VITS14,DINO_VITS16,MASKCLIP_VITB16}`` come from
+the ``main_cfg.yaml`` the root finds for the script (``configs/``), and a
+key on the command line wins; a key that neither file nor the port knows
+raises (the root ignores it). The port's own keys are ``model``,
+``device``, ``exp_path``, ``training_params.lr`` /
+``render_size`` / ``aug_scale_range`` and ``epoch_len`` /
 ``val_epoch_len`` (items an epoch; by default the script's: 320 and 48 for
 the Synthetic scenes, the whole split and 500 for SBD). A run goes to
 ``<exp_path>/<script's directory under models/>/<script stem>/
@@ -113,7 +119,6 @@ A key or a model that is not known raises ``ValueError``, as does a
 
 from __future__ import annotations
 
-import ast
 import logging
 import sys
 import time
@@ -121,6 +126,13 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 from isegprobe_torch import resolve_device
+from isegprobe_torch.utils.config import (
+    _parse_value,
+    apply_overrides,
+    find_main_config,
+    load_yaml,
+)
+from isegprobe_torch.utils.main_cfg import flatten, read_main_cfg
 
 __all__ = ["DEFAULTS", "MODELS", "MODEL_SCRIPTS", "parse_args", "train_dtype",
            "model_kwargs", "synthetic_datasets", "sbd_datasets", "loss_cfg",
@@ -182,36 +194,17 @@ MODELS_DIR = Path(__file__).resolve().parents[1] / "models"
 _EPOCH_LENS = {"synthetic": (320, 48), "sbd": (-1, 500)}
 # models/defaults.py's difficulty weights, used when the file exists
 SBD_SAMPLES_WEIGHTS = "./assets/sbd_samples_weights.pkl"
-# configs/train_cfg.yaml's keys that apply, with its defaults
+# the root's settings file, read at the working directory as the root
+# reads it
+TRAIN_CFG = "configs/train_cfg.yaml"
+# the keys configs/train_cfg.yaml lacks, with their defaults: the machine
+# paths the root takes from configs/main_cfg.yaml (read here too) and the
+# port's own
 DEFAULTS: Dict[str, object] = {
     "model": None,
-    "exp.name": "exp_name_test",
-    "dataloader.workers": 4,
-    "dataloader.batch_size": 8,
-    "dataloader.val_batch_size": 8,
-    "dataloader.mp": False,
-    "training_params.epochs": 20,
-    "training_params.crop_size": [224, 224],
-    "training_params.remat_backbone": False,
-    "training_params.dtype": "float32",
-    "training_params.checkpoint_interval": [[0, 3], [15, 1]],
-    "training_params.lr_milestones": [17, 20],
-    "training_params.do_validation": True,
-    "training_params.num_max_points": 24,
     "training_params.lr": 5e-5,
     "training_params.render_size": None,
     "training_params.aug_scale_range": None,
-    "training.seed": 0,
-    "training.n_devices": None,
-    "training.model_parallel": 1,
-    "training.resume_exp": None,
-    "training.resume_prefix": "latest",
-    "training.start_epoch": 0,
-    "training.weights": None,
-    "wandb.log_wandb": False,
-    "wandb.project": "iSegProbe-Train",
-    "wandb.name": "",
-    "wandb.dir": "/path/to/logs",
     "DATASETS.SBD_PATH": "/data/sbd",
     "PRETRAINED_MODELS.DINOV2_VITS14": "",
     "PRETRAINED_MODELS.DINO_VITS16": "",
@@ -224,31 +217,56 @@ DEFAULTS: Dict[str, object] = {
     "tb_dump_period": 25,
     "prev_mask_drop_prob": 0.0,
 }
+# the keys the machine-paths file gives
+_MAIN_CFG_KEYS = ("DATASETS.SBD_PATH", "PRETRAINED_MODELS.DINOV2_VITS14",
+                  "PRETRAINED_MODELS.DINO_VITS16",
+                  "PRETRAINED_MODELS.MASKCLIP_VITB16")
 
 
-def _value(text: str):
-    low = text.lower()
-    if low in ("true", "false"):
-        return low == "true"
-    if low in ("null", "none", "~"):
+def _script_model(model_path) -> Optional[str]:
+    """The ``model`` key of a root ``exp.model_path`` (``models/<script>``),
+    or None."""
+    parts = Path(str(model_path)).parts
+    if "models" not in parts:
         return None
-    try:
-        return ast.literal_eval(text)
-    except (ValueError, SyntaxError):
-        return text
+    rel = "/".join(parts[len(parts) - parts[::-1].index("models"):])
+    return {v: k for k, v in MODEL_SCRIPTS.items()}.get(rel)
 
 
 def parse_args(argv) -> Dict:
-    """``key=value`` overrides onto :data:`DEFAULTS` (YAML-like values:
-    numbers, lists, true/false, null)."""
-    cfg = dict(DEFAULTS)
+    """The run's settings by dotted key: ``configs/train_cfg.yaml`` (at the
+    working directory) with the ``key=value`` overrides, typed as the
+    root's ``load_config`` types them, the machine paths of the
+    ``main_cfg.yaml`` that the root finds for the script
+    (``find_main_config``), and :data:`DEFAULTS` for the keys the files
+    lack; the command line wins. ``model`` names the script, or the root's
+    ``exp.model_path=models/<script>.py`` does."""
+    root = load_yaml(TRAIN_CFG)
+    keys = flatten(root)
+    file_args, extra, given = [], {}, set()
     for arg in argv:
         key, sep, text = arg.partition("=")
         if not sep:
             raise ValueError(f"expected key=value, got {arg!r}")
-        if key not in cfg:
-            raise ValueError(f"unknown key {key!r}; takes {sorted(cfg)}")
-        cfg[key] = _value(text)
+        if key in keys:
+            file_args.append(arg)
+        elif key in DEFAULTS:
+            extra[key] = _parse_value(text)
+        else:
+            raise ValueError(f"unknown key {key!r}; takes "
+                             f"{sorted([*keys, *DEFAULTS])}")
+        given.add(key)
+    cfg = {**DEFAULTS, **flatten(apply_overrides(root, file_args)), **extra}
+    if cfg["model"] is None:
+        cfg["model"] = _script_model(cfg["exp.model_path"])
+    if cfg["model"] in MODEL_SCRIPTS:
+        cfg["exp.model_path"] = f"models/{MODEL_SCRIPTS[cfg['model']]}"
+        main_cfg = (find_main_config(Path(cfg["exp.model_path"]).parent)
+                    or find_main_config("."))
+        machine = read_main_cfg(main_cfg) if main_cfg else {}
+        for key in _MAIN_CFG_KEYS:
+            if key in machine and key not in given:
+                cfg[key] = machine[key]
     if cfg["model"] not in MODELS:
         raise ValueError(f"model={cfg['model']}: takes one of "
                          f"{sorted(MODELS)} (models/synthetic/, "

@@ -736,8 +736,8 @@ def test_evaluate_ritm_cvpr_matches_root_cli(ritm_checkpoint, tmp_path,
                                   "group_max_jobs=2"]] if device_loop
                        else [])
     for args in runs:
-        assert main([f"checkpoint={ckpt}", f"scenes={scenes}", "device=cpu",
-                     *args]) == 0
+        assert main([f"checkpoint={ckpt}", "datasets=Synthetic",
+                     f"scenes={scenes}", "device=cpu", *args]) == 0
         port = capsys.readouterr().out
         assert _table_numbers(port) == _table_numbers(root)
         assert [line for line in port.splitlines()

@@ -502,7 +502,8 @@ def test_evaluate_cli_brs_mode(tiny_checkpoint, monkeypatch, capsys):
     from isegprobe_torch.inference.evaluation import evaluate_dataset
 
     ckpt, scenes = tiny_checkpoint
-    common = [f"checkpoint={ckpt}", f"scenes={scenes}", "device=cpu",
+    common = [f"checkpoint={ckpt}", "datasets=Synthetic", f"scenes={scenes}",
+              "device=cpu",
               f"eval_mode=fixed{SIZE}", "n_clicks=3", "print_ious=false"]
     cfg = ev.parse_args(common + ["mode=f-BRS-B", "thresh=0.45"])
     assert cfg["mode"] == "f-BRS-B" and cfg["thresh"] == 0.45

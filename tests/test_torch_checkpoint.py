@@ -324,8 +324,10 @@ def test_evaluate_cli_arguments():
         parse_args(["checkpoint=x", "dtype=float16"])
     with pytest.raises(ValueError, match="unknown key"):
         parse_args(["checkpoint=x", "colour=red"])
+    # configs/eval_cfg.yaml gives a checkpoint, as the root reads it
+    assert parse_args([])["checkpoint"] == "/path/to/checkpoint"
     with pytest.raises(ValueError, match="required"):
-        parse_args([])
+        parse_args(["checkpoint="])
 
 
 def test_evaluate_main_matches_jax(tmp_path, capsys):
@@ -343,7 +345,8 @@ def test_evaluate_main_matches_jax(tmp_path, capsys):
         np.savez(scenes, images=fx["images"][:2], labels=fx["labels"][:2],
                  objects=fx["objects"][:3])
     # the early-stop protocol (target IoU 0.9) of the JAX run below
-    args = [f"checkpoint={FLAGSHIP}", f"scenes={scenes}", "eval_mode=fixed112",
+    args = [f"checkpoint={FLAGSHIP}", "datasets=Synthetic", f"scenes={scenes}",
+            "eval_mode=fixed112",
             "n_clicks=3", "device=cpu", "print_ious=false"]
     jmodel, jparams = _evaluate_cli().load_model_for_eval(
         str(FLAGSHIP), {"dtype": "float32"}, target_size=(112, 112))

@@ -152,8 +152,10 @@ def write_trees(root=TREES) -> None:
     from scipy.io import savemat
 
     root = Path(root)
-    if root.exists():
-        shutil.rmtree(root)
+    # the trees written here (tests/test_torch_extended.py writes the others)
+    for layout in ("sbd", "grabcut", "berkeley", "davis", "pascalvoc"):
+        if (root / layout).exists():
+            shutil.rmtree(root / layout)
     # SBD
     sbd = root / "sbd"
     (sbd / "img").mkdir(parents=True)

@@ -573,8 +573,9 @@ def test_evaluate_cli_keys():
     assert parse_args(["checkpoint=c", "profile_dir="])["profile_dir"] == ""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         parse_args(["checkpoint=c", "profile_dir=/p"])
+    assert parse_args([])["checkpoint"] == "/path/to/checkpoint"
     with pytest.raises(ValueError, match="checkpoint"):
-        parse_args([])
+        parse_args(["checkpoint="])
 
 
 def _root_cli():
@@ -648,7 +649,7 @@ def test_evaluate_cli_root_keys(tmp_path):
     assert cfg["DATASETS.SBD_PATH"] == "/mine"
     assert cfg["DATASETS.BERKELEY_PATH"] == "/data/berkeley"
     for text, line in (("A: 1\n  B: 2\n", 2), ("A:\n  - x\n", 2),
-                       ("A: [1, 2]\n", 1), ("\tA: 1\n", 1),
+                       ("A: {a: 1}\n", 1), ("\tA: 1\n", 1),
                        ("A: 'open\n", 1), ("just text\n", 1)):
         machine.write_text(text)
         with pytest.raises(ValueError, match=f"main_cfg.yaml:{line}:"):

@@ -8,7 +8,13 @@ Bitwise, on every case:
   EXIF orientations 1-8 (written with PIL), PNGs of every colour type and
   bit depth with all five row filters (written here by a small encoder),
   OpenCV's own PNGs, and BMPs (OpenCV's and PIL's); ``bgr_to_gray`` on all
-  2^24 colours. A progressive or truncated JPEG and an interlaced PNG
+  2^24 colours. Progressive JPEGs (OpenCV's and PIL's scan scripts,
+  qualities 50/90/100, 4:2:0, 4:2:2, 4:4:4, gray, restart intervals) and
+  interlaced (Adam7) PNGs of every type, in colour and with
+  ``IMREAD_UNCHANGED``; ``read_unchanged`` on every PNG type with and
+  without ``tRNS``, 16-bit, JPEG (the EXIF orientation not applied) and
+  BMP. A progressive file cut after an early scan (which libjpeg-turbo
+  block-smooths), a truncated JPEG or PNG and a file of another kind
   raise.
 - ``data/raster.py``: ``rotation_matrix_2d`` against
   ``cv2.getRotationMatrix2D`` and ``warp_affine`` (linear on uint8 images,
@@ -93,18 +99,25 @@ def test_exif_orientation_as_opencv(tmp_path, orientation):
 
 
 def test_progressive_jpeg_and_interlaced_png_raise(tmp_path):
+    """What still raises: a progressive file whose scans leave
+    coefficients 1-9 unrefined (libjpeg-turbo block-smooths it; cut after
+    its first scan), an interlaced PNG whose passes are cut short, a
+    truncated JPEG and a file of another kind."""
     rng = np.random.default_rng(0)
     img = smooth_image(rng, 40, 56)
-    cv2.imwrite(str(tmp_path / "p.jpg"), img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(ValueError, match="p.jpg: progressive"):
+    ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    data = buf.tobytes()
+    second_scan = data.index(b"\xff\xda", data.index(b"\xff\xda") + 2)
+    (tmp_path / "p.jpg").write_bytes(data[:second_scan] + b"\xff\xd9")
+    with pytest.raises(ValueError, match="p.jpg: progressive.*unrefined"):
         image_io.read_rgb(tmp_path / "p.jpg")
-    png = encode_png([bytes(4)] * 2, 4, 2, 8, 0)
-    ihdr = png.index(b"IHDR")
-    # the same file with IHDR's interlace byte set (Adam7)
-    body = png[ihdr + 4:ihdr + 16] + b"\x01"
-    (tmp_path / "i.png").write_bytes(
-        png[:ihdr - 4] + _chunk(b"IHDR", body) + png[ihdr + 21:])
-    with pytest.raises(ValueError, match="interlaced"):
+    png = png_adam7(rng.integers(0, 256, (9, 11, 3)), 8, 2)
+    idat = png.index(b"IDAT")
+    body = zlib.compress(zlib.decompress(png[idat + 4:png.index(
+        b"IEND") - 8])[:-20])
+    (tmp_path / "i.png").write_bytes(png[:idat - 4] + _chunk(b"IDAT", body)
+                                     + _chunk(b"IEND", b""))
+    with pytest.raises(ValueError, match="truncated PNG"):
         image_io.read_rgb(tmp_path / "i.png")
     cv2.imwrite(str(tmp_path / "b.jpg"), img)
     data = (tmp_path / "b.jpg").read_bytes()
@@ -114,6 +127,109 @@ def test_progressive_jpeg_and_interlaced_png_raise(tmp_path):
     (tmp_path / "t.txt").write_bytes(b"not an image")
     with pytest.raises(ValueError, match="not a JPEG, PNG or BMP"):
         image_io.read_rgb(tmp_path / "t.txt")
+    with pytest.raises(ValueError, match="not a JPEG, PNG or BMP"):
+        image_io.read_unchanged(tmp_path / "t.txt")
+
+
+# -- progressive JPEG ---------------------------------------------------------
+
+@pytest.mark.parametrize("quality", [50, 90, 100])
+@pytest.mark.parametrize("sampling", ["420", "422", "444"])
+def test_progressive_jpeg_equals_opencv(quality, sampling):
+    """Progressive files as OpenCV writes them (libjpeg-turbo's standard
+    scan script: DC first and refine, AC first and refine scans with EOB
+    runs), with and without restart intervals and optimized tables, in
+    colour and unchanged; every size of ``JPEG_SIZES``."""
+    rng = np.random.default_rng(quality + len(sampling))
+    for h, w in JPEG_SIZES:
+        for extra in ([], [cv2.IMWRITE_JPEG_RST_INTERVAL, 3],
+                      [cv2.IMWRITE_JPEG_OPTIMIZE, 1]):
+            ok, buf = cv2.imencode(".jpg", smooth_image(rng, h, w), [
+                cv2.IMWRITE_JPEG_QUALITY, quality,
+                cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLINGS[sampling],
+                *extra])
+            data = buf.tobytes()
+            assert b"\xff\xc2" in data
+            np.testing.assert_array_equal(image_io.decode_bgr(data),
+                                          cv2.imdecode(buf, cv2.IMREAD_COLOR))
+            np.testing.assert_array_equal(
+                image_io.decode_unchanged(data),
+                cv2.imdecode(buf, cv2.IMREAD_UNCHANGED))
+
+
+def test_progressive_grayscale_jpeg_equals_opencv():
+    rng = np.random.default_rng(3)
+    for quality in (50, 95):
+        for h, w in JPEG_SIZES:
+            ok, buf = cv2.imencode(".jpg", smooth_image(rng, h, w, 1)[:, :, 0],
+                                   [cv2.IMWRITE_JPEG_QUALITY, quality,
+                                    cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                                    cv2.IMWRITE_JPEG_RST_INTERVAL, 2])
+            got = image_io.decode_unchanged(buf.tobytes())
+            want = cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)
+            assert got.shape == want.shape == (h, w)
+            np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(image_io.decode_bgr(buf.tobytes()),
+                                          cv2.imdecode(buf, cv2.IMREAD_COLOR))
+
+
+def _scans(data: bytes) -> list:
+    """The offsets of a JPEG's SOS markers."""
+    at, out = 2, []
+    while True:
+        at = data.find(b"\xff\xda", at)
+        if at < 0:
+            return out
+        out.append(at)
+        at += 2
+
+
+@pytest.mark.parametrize("sampling", ["420", "444"])
+def test_progressive_jpeg_cut_after_each_scan(sampling):
+    """A file cut after any scan (EOI spliced in) either decodes to
+    OpenCV's pixels or raises naming the block smoothing; with OpenCV's
+    scan script every early cut leaves coefficients 1-9 unrefined, so only
+    the whole file decodes."""
+    rng = np.random.default_rng(len(sampling))
+    ok, buf = cv2.imencode(".jpg", smooth_image(rng, 64, 80), [
+        cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+        cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLINGS[sampling]])
+    data = buf.tobytes()
+    cuts = _scans(data)[1:] + [len(data) - 2]
+    decoded = 0
+    for at in cuts:
+        cut = data[:at] + b"\xff\xd9"
+        want = cv2.imdecode(np.frombuffer(cut, np.uint8), cv2.IMREAD_COLOR)
+        try:
+            got = image_io.decode_bgr(cut)
+        except ValueError as e:
+            assert "unrefined" in str(e)
+            continue
+        np.testing.assert_array_equal(got, want)
+        decoded += 1
+    assert decoded == 1 and len(cuts) == 10
+
+
+def test_progressive_jpeg_of_other_scan_scripts():
+    """Scan scripts other than OpenCV's (written by PIL's libjpeg):
+    optimized progressive files at several qualities and subsamplings."""
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(5)
+    for quality, subsampling in ((75, 0), (85, 1), (95, 2)):
+        img = smooth_image(rng, 57, 83)
+        out = io.BytesIO()
+        Image.fromarray(img).save(out, "JPEG", quality=quality,
+                                  progressive=True, optimize=True,
+                                  subsampling=subsampling)
+        data = out.getvalue()
+        assert b"\xff\xc2" in data
+        np.testing.assert_array_equal(
+            image_io.decode_bgr(data),
+            cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR))
 
 
 # -- PNG --------------------------------------------------------------------------
@@ -214,6 +330,145 @@ def test_opencv_png_and_bmp(tmp_path, dtype):
             assert_same_as_cv2(tmp_path / "q.bmp")
 
 
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _rows(samples: np.ndarray, depth: int) -> list:
+    """The packed rows of ``samples`` ``[h, w, ch]`` at ``depth`` bits."""
+    out = []
+    for row in samples:
+        if depth == 16:
+            out.append(row.astype(">u2").tobytes())
+        elif depth == 8:
+            out.append(row.astype(np.uint8).tobytes())
+        else:
+            per = 8 // depth
+            v = np.zeros(-(-row.shape[0] // per) * per, np.int64)
+            v[:row.shape[0]] = row[:, 0]
+            shifts = np.arange(8 - depth, -1, -depth)
+            out.append(bytes((v.reshape(-1, per) << shifts).sum(-1)
+                             .astype(np.uint8)))
+    return out
+
+
+def png_adam7(samples, depth, ctype, palette=None, trns=None) -> bytes:
+    """An interlaced PNG of ``samples`` ``[h, w, ch]``: each pass's rows
+    filtered as ``encode_png`` filters them (row ``r`` by ``r % 5``)."""
+    samples = np.asarray(samples)
+    h, w = samples.shape[:2]
+    raw = b""
+    for x0, y0, dx, dy in ADAM7:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size:
+            one = encode_png(_rows(sub, depth), sub.shape[1], sub.shape[0],
+                             depth, ctype)
+            at = one.index(b"IDAT")
+            raw += zlib.decompress(one[at + 4:one.index(b"IEND") - 8])
+    data = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, ctype, 0, 0, 1))
+    if palette is not None:
+        data += _chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        data += _chunk(b"tRNS", trns)
+    return data + _chunk(b"IDAT", zlib.compress(raw)) + _chunk(b"IEND", b"")
+
+
+def _png_case(rng, ctype, depth, h, w, with_trns):
+    """Random samples of a PNG type (and its palette and ``tRNS``)."""
+    ch = _CHANNELS[ctype]
+    palette = trns = None
+    if ctype == 3:
+        n = 1 << depth
+        palette = rng.integers(0, 256, (n, 3)).astype(np.uint8)
+        samples = rng.integers(0, n, (h, w, 1))
+        if with_trns:
+            trns = bytes(rng.integers(0, 256, max(1, n // 2)).astype(
+                np.uint8))
+    else:
+        samples = rng.integers(0, 1 << depth, (h, w, ch))
+        if with_trns and ctype == 0:
+            trns = struct.pack(">H", int(samples[0, 0, 0]))
+        elif with_trns and ctype == 2:
+            trns = struct.pack(">HHH", *(int(v) for v in samples[0, 0]))
+    return samples, palette, trns
+
+
+PNG_TYPES = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16),
+             (3, 1), (3, 2), (3, 4), (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)]
+
+
+@pytest.mark.parametrize("ctype,depth", PNG_TYPES)
+def test_interlaced_png_equals_opencv(ctype, depth):
+    """Adam7 at every colour type and bit depth, with and without
+    ``tRNS``, sizes smaller than a pass and larger: ``IMREAD_COLOR`` and
+    ``IMREAD_UNCHANGED``."""
+    rng = np.random.default_rng(ctype * 31 + depth)
+    for h, w in [(1, 1), (1, 9), (9, 1), (3, 5), (7, 13), (16, 9), (33, 17)]:
+        for with_trns in ((False, True) if ctype in (0, 2, 3) else (False,)):
+            samples, palette, trns = _png_case(rng, ctype, depth, h, w,
+                                               with_trns)
+            data = png_adam7(samples, depth, ctype, palette, trns)
+            buf = np.frombuffer(data, np.uint8)
+            for mode, fn in ((cv2.IMREAD_COLOR, image_io.decode_bgr),
+                             (cv2.IMREAD_UNCHANGED,
+                              image_io.decode_unchanged)):
+                want = cv2.imdecode(buf, mode)
+                got = fn(data)
+                assert got.shape == want.shape and got.dtype == want.dtype
+                np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("ctype,depth", PNG_TYPES)
+def test_png_unchanged_equals_opencv(ctype, depth):
+    """``read_unchanged`` on every PNG type (all five filters), with and
+    without ``tRNS``: gray 2-D (16-bit kept, 1/2/4-bit scaled), colour
+    BGR, alpha BGRA (gray + alpha repeated), palette and RGB with ``tRNS``
+    BGRA."""
+    rng = np.random.default_rng(ctype * 17 + depth)
+    for h, w in [(1, 1), (3, 5), (7, 13), (33, 17)]:
+        for with_trns in ((False, True) if ctype in (0, 2, 3) else (False,)):
+            samples, palette, trns = _png_case(rng, ctype, depth, h, w,
+                                               with_trns)
+            data = encode_png(_rows(samples, depth), w, h, depth, ctype,
+                              palette, trns)
+            want = cv2.imdecode(np.frombuffer(data, np.uint8),
+                                cv2.IMREAD_UNCHANGED)
+            got = image_io.decode_unchanged(data)
+            assert got.shape == want.shape and got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+
+
+def test_unchanged_jpeg_and_bmp_equal_opencv(tmp_path):
+    """``read_unchanged`` on JPEGs (colour, gray, an EXIF orientation that
+    ``IMREAD_UNCHANGED`` does not apply) and BMPs (24-bit, gray and colour
+    palettes), and on OpenCV's own 8- and 16-bit PNGs."""
+    from PIL import Image
+
+    rng = np.random.default_rng(9)
+    img = smooth_image(rng, 37, 53)
+    cv2.imwrite(str(tmp_path / "c.jpg"), img)
+    cv2.imwrite(str(tmp_path / "g.jpg"), img[:, :, 0])
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    Image.fromarray(img).save(tmp_path / "o.jpg", quality=90,
+                              exif=exif.tobytes())
+    cv2.imwrite(str(tmp_path / "c.bmp"), img)
+    cv2.imwrite(str(tmp_path / "g.bmp"), img[:, :, 0])
+    Image.fromarray(img).quantize(16).save(tmp_path / "p.bmp")
+    Image.fromarray(img[:, :, 0]).convert("P").save(tmp_path / "q.bmp")
+    for c in (1, 3, 4):
+        for dtype in (np.uint8, np.uint16):
+            top = np.iinfo(dtype).max + 1
+            cv2.imwrite(str(tmp_path / f"{c}_{dtype.__name__}.png"),
+                        rng.integers(0, top, (19, 23, c)).astype(dtype))
+    for path in sorted(tmp_path.iterdir()):
+        want = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+        got = image_io.read_unchanged(path)
+        assert got.shape == want.shape and got.dtype == want.dtype, path
+        np.testing.assert_array_equal(got, want)
+
+
 def test_bgr_to_gray_on_every_colour():
     v = np.arange(256, dtype=np.uint8)
     b, g, r = np.meshgrid(v, v, v, indexing="ij")
@@ -312,7 +567,14 @@ def test_warp_affine_nearest_equals_opencv():
         got = raster.warp_affine(mask, m, (w, h), nearest=True)
         assert got.shape == want.shape and got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
-    with pytest.raises(TypeError, match="int32"):
-        raster.warp_affine(mask.astype(np.uint8), m, (w, h), nearest=True)
+        # CocoLvis's packed layers: uint8, two of them
+        layers = rng.integers(0, 5, (h, w, 2)).astype(np.uint8)
+        want = cv2.warpAffine(layers, m, (w, h), flags=cv2.INTER_NEAREST,
+                              borderMode=cv2.BORDER_CONSTANT, borderValue=0)
+        got = raster.warp_affine(layers, m, (w, h), nearest=True)
+        assert got.shape == want.shape and got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(TypeError, match="int32 or uint8"):
+        raster.warp_affine(mask.astype(np.float32), m, (w, h), nearest=True)
     with pytest.raises(TypeError, match="uint8"):
         raster.warp_affine(mask, m, (w, h))

@@ -900,7 +900,8 @@ def test_evaluate_cli_int8_matches_jax(tmp_path, capsys):
         scenes = tmp_path / "scenes.npz"
         np.savez(scenes, images=fx["images"][:2], labels=fx["labels"][:2],
                  objects=fx["objects"][:3])
-    args = [f"checkpoint={FLAGSHIP_CKPT}", f"scenes={scenes}",
+    args = [f"checkpoint={FLAGSHIP_CKPT}", "datasets=Synthetic",
+            f"scenes={scenes}",
             "eval_mode=fixed112", "n_clicks=3", "device=cpu",
             "print_ious=false", "dtype=int8"]
     jmodel, jparams = _evaluate_cli().load_model_for_eval(

@@ -735,8 +735,8 @@ def test_evaluate_cli_matches_root_cli_defaults(tmp_path, monkeypatch,
                                       f"logs_path={tmp_path}", *common])
     _root_evaluate().main()
     root = capsys.readouterr().out
-    assert main([f"checkpoint={FLAGSHIP}", f"scenes={scenes}", "device=cpu",
-                 *common]) == 0
+    assert main([f"checkpoint={FLAGSHIP}", "datasets=Synthetic",
+                 f"scenes={scenes}", "device=cpu", *common]) == 0
     port = capsys.readouterr().out
     assert _table_numbers(port) == _table_numbers(root)
     miou = [line for line in root.splitlines() if line.startswith("mIoU@k")]
@@ -803,7 +803,8 @@ def test_train_cli_runs_two_steps_and_evaluate_reads_it(tmp_path):
         scenes = tmp_path / "scenes.npz"
         np.savez(scenes, images=fx["images"][:1], labels=fx["labels"][:1],
                  objects=fx["objects"][:1])
-    assert evaluate.main([f"checkpoint={ckpt}", f"scenes={scenes}",
+    assert evaluate.main([f"checkpoint={ckpt}", "datasets=Synthetic",
+                          f"scenes={scenes}",
                           "eval_mode=fixed112", "n_clicks=2",
                           "device=cpu"]) == 0
 
