@@ -94,7 +94,12 @@ does not hold:
     and B under autograd at the train step's shapes ([8, 257, 1152] and
     [8, 257, 384], f32: the forward with grad equal to the no-grad kernel
     bitwise with one launch, the gradients equal to autograd through the
-    plain version; forward + backward timed beside the plain version's),
+    plain version; forward + backward timed beside the plain version's;
+    B's backward kernel also against its plain version ``_ln_plain_bwd``,
+    one launch for dx alone and two with dweight and dbias, bitwise over
+    two runs, graph-timed beside its bound and
+    ``aten.native_layer_norm_backward``; every step 25 B backward
+    launches),
     A, B and C forward-checked at those shapes; the Synthetic training
     items built without OpenCV from the seeds of ``isegprobe_torch/
     fixtures/synthetic_train_step.npz`` against its JAX items (masks and
@@ -165,11 +170,13 @@ does not hold:
     for every script of ``models/synthetic/``): (a) kernels D and E under
     autograd at the 224² train step's shapes (D: q [8, 50176, 4, 101]
     against k, v [8, 256, 4, 101]; E: hr [8, 2^k·16, 2^k·16, 384] at the
-    four JBU stages): the forward with grad equal to the no-grad kernel
-    bitwise with one launch, every input's gradient within 1e-5 of its
-    scale of autograd through the plain version, forward + backward timed
-    beside the plain version's (and SDPA's for D) with the peak memory of
-    each; (b) the full-width LoftUp and JBU steps from ``init_tree(config,
+    four JBU stages), and B with its backward kernel at LoftUp's padded
+    rows at 448² ([4, 28672, 512] real 404, [4, 68, 448, 256] real 203)
+    and SimpleViT's [16, 1024, 588] (as 11c): the forward with grad equal
+    to the no-grad kernel bitwise with one launch, every input's gradient
+    within 1e-5 of its scale of autograd through the plain version,
+    forward + backward timed beside the plain version's (and SDPA's for
+    D) with the peak memory of each; (b) the full-width LoftUp and JBU steps from ``init_tree(config,
     0)`` on the first items of the train-step fixture at num_iters=0,
     twice, against the JAX steps in ``isegprobe_torch/fixtures/
     synthetic_train_step_families.npz`` (losses within 1e-5 relative,
@@ -251,7 +258,8 @@ does not hold:
     on the first object after two clicks (the fixture's predictor states):
     value within 1e-5 relative and gradient within 1e-4 of its largest
     magnitude of JAX's, ms an evaluation and its ``torch.profiler``
-    split; (c, d) ``evaluate(...)`` with
+    split, B's backward launches an evaluation (non-zero in Input-BRS);
+    (c, d) ``evaluate(...)`` with
     ``mode=f-BRS-B`` on the first 8 objects (20 clicks, target 0.9),
     DistMap-BRS on 2 × 5 and RGB-BRS on 1 × 3 (with ``device_loop=true``,
     which runs the host protocol and says so): IoUs within 1e-3 up to an
@@ -329,7 +337,10 @@ does not hold:
     most 1.25 × the best without (every run draws the same clicks); one
     more run each under ``set_sync_debug_mode("warn")``: those steps make
     exactly the synchronizing calls they make without dumps; the
-    device-busy shares, ms to encode a 448² panel;
+    device-busy shares, ms to encode a 448² panel; (d) the evaluate CLI's
+    ``profile_dir`` on 2 Synthetic objects, 3 clicks (host protocol, 12 A
+    + 25 B a click): the ``torch.profiler`` trace it writes holds CUDA
+    kernel events, B's among them;
 11l. int8, W8A8 serving (main paths 92-97: ``dtype=int8`` of the
     evaluate CLI, ``load_model_for_eval(..., "int8")``), against
     ``isegprobe_torch/fixtures/synthetic_int8.npz``: kernels H (rows of
@@ -426,7 +437,9 @@ does not hold:
     reference and timed (the kernel times of F and G in the ``kernels``
     line), with every counter set to 0 just before and read just after, and
     each variant's kernel launched exactly as often as the sweep calls it;
-14. print the ``{"kernels": [...]}`` line (kernels A-I, launches by path,
+14. print the ``{"kernels": [...]}`` line (kernels A-I and B's backward,
+    ``layernorm_bwd``, with its launches on the training and BRS paths and
+    its cases alone; launches by path,
     the training and other-backbone paths among them, A, B, D and E with
     their forward + backward times at the train steps' shapes (D also
     SDPA's), A and B with their times at the other backbones' shapes,
@@ -661,9 +674,9 @@ REFILL_FAMILY_JOBS = 7
 # the JAX items and train step stored in the fixture, the step's shapes
 # (batch 8 at 224²: 257 tokens), an epoch of 96 items with 4 loader
 # threads, and the gates: gradients of A and B under autograd against
-# autograd through the plain version (the backward is that plain version
-# recomputed: equal but for the forward's rounding, 1e-5 of the gradient
-# scale); images of the items within 1 grey level on 0.1% of pixels (the
+# autograd through the plain version (1e-5 of the gradient scale; A's
+# backward is that plain version recomputed, B's a kernel of its own);
+# images of the items within 1 grey level on 0.1% of pixels (the
 # float64 noise resize may round a value the other way), masks and points
 # equal; the two steps' losses within 1e-5 relative of JAX's and the
 # trainable leaves within the tolerances of tests/test_torch_training.py;
@@ -676,10 +689,17 @@ TRAIN_CROP = 224
 TRAIN_STEPS = 12
 TRAIN_WORKERS = 4
 TRAIN_GRAD_TOL = 1e-5
-# under autograd the backward is the plain version's VJP recomputed, so a
-# kernel's gradient equals autograd through the plain version but for the
-# forward's rounding: 1e-5 of the scale in f32, one bf16 step (2^-8) in bf16
+# under autograd the backward of A, D and E is the plain version's VJP
+# recomputed, so their gradients equal autograd through the plain version
+# but for the forward's rounding; B's backward is a kernel of its own
+# (csrc/layernorm.cu), the closed form of that VJP summed in another order
+# (~1e-6 of the scale measured). Either way: 1e-5 of the scale in f32, one
+# bf16 step (2^-8) in bf16
 GRAD_TOL = {"float32": TRAIN_GRAD_TOL, "bfloat16": 2.0**-8}
+# what B's backward launches on the flagship's train step: its 25
+# LayerNorms take dx alone (the backbone's weights are frozen), one launch
+# each
+FLAGSHIP_B_BACKWARD = 25
 TRAIN_IMAGE_TOL = {"grey_levels": 1, "pixel_share": 1e-3}
 TRAIN_LR = 5e-5
 TRAIN_LOSS_RTOL = 1e-5
@@ -1529,6 +1549,14 @@ def counters() -> dict:
 def zero_counters() -> None:
     for w in kernel_wrappers().values():
         w.launches = 0
+    w = kernel_wrappers()["layernorm"]
+    w.backward_launches = 0
+
+
+def b_backward_launches() -> int:
+    """Launches of B's backward kernel since :func:`zero_counters` (its
+    wrapper counts them beside the forward's, on ``layernorm``)."""
+    return kernel_wrappers()["layernorm"].backward_launches
 
 
 def expected(**counts) -> dict:
@@ -1561,7 +1589,7 @@ def profile_forward(torch, model, crops, pts) -> dict:
     if not rows:
         return {}
     groups = {"D mha_kernel": "mha_kernel", "A attn_qkv": "attn_qkv_",
-              "B ln_kernel": "ln_kernel",
+              "B ln_kernel": "ln_kernel", "B backward": "ln_bwd_",
               "E jbu_kernel": "jbu_kernel", "C edt": "edt"}
     out: dict = {k: 0.0 for k in groups}
     out.update(conv=0.0, gemm=0.0, other=0.0)
@@ -2826,7 +2854,8 @@ def step_checker(name: str, per_forward: dict, per_step: dict,
                  recompute: dict | None = None):
     """A trainer's ``on_step``: every step launches exactly (1 + num_iters)
     × ``per_forward`` + num_iters C (+ ``recompute``, the backward's, on a
-    training step), recorded by kind in ``per_step``."""
+    training step), recorded by kind in ``per_step`` with B's backward
+    launches (``layernorm_bwd``)."""
     def on_step(kind, index, num_iters):
         got = counters()
         extra = (recompute or {}) if kind == "train" else {}
@@ -2836,7 +2865,8 @@ def step_checker(name: str, per_forward: dict, per_step: dict,
         if got != want:
             fail(f"{name} {kind} step {index} (num_iters {num_iters}) "
                  f"launched {got}, expected {want}")
-        per_step.setdefault(kind, []).append(got)
+        per_step.setdefault(kind, []).append(
+            {**got, "layernorm_bwd": b_backward_launches()})
         zero_counters()
 
     return on_step
@@ -2918,13 +2948,16 @@ def cli_epoch(torch, name: str, per_forward: dict, readback: int | None,
         "val_steps": len(per_step["val"]),
         "launches": {kind: {k: sum(c[k] for c in per_step[kind])
                             for k in KERNELS} for kind in per_step},
+        "b_backward_launches": sum(c["layernorm_bwd"]
+                                   for c in per_step["train"]),
         "readback_size": readback, "readback_rel_err": err}
 
 
 def step_vs_jax(torch, name: str, batch_np: dict, want_losses,
                 digest_names, digests, per_forward: dict, argv=(),
                 loss_rtol: float = TRAIN_LOSS_RTOL,
-                flips: int = TRAIN_FLIPS) -> tuple:
+                flips: int = TRAIN_FLIPS,
+                b_backward: int | None = None) -> tuple:
     """The full-width 224² step of ``models/synthetic/<name>.py`` (or of
     an ``sbd_*`` script) through the command line's trainer (``argv``
     appended), from ``init_tree(
@@ -2932,7 +2965,8 @@ def step_vs_jax(torch, name: str, batch_np: dict, want_losses,
     exactly 2 × ``per_forward`` launches, the losses within ``loss_rtol``
     of JAX's and every trainable leaf's digest within
     tests/test_torch_training.py's tolerances (with ``flips`` sign flips),
-    the click encoder's gradient non-zero. Returns (trainer, batch on the
+    the click encoder's gradient non-zero; B's backward launches counted
+    (exactly 2 × ``b_backward`` when given). Returns (trainer, batch on the
     card, record)."""
     t0 = time.time()
     model = name if name.startswith("sbd_") else f"synthetic_{name}"
@@ -2956,6 +2990,10 @@ def step_vs_jax(torch, name: str, batch_np: dict, want_losses,
     if step_launches != expected(**{k: 2 * v for k, v in
                                     per_forward.items()}):
         fail(f"{name}: two train steps launched {step_launches}")
+    b_bwd = b_backward_launches()
+    if b_backward is not None and b_bwd != 2 * b_backward:
+        fail(f"{name}: two train steps launched B's backward {b_bwd} "
+             f"times, expected {2 * b_backward}")
     grad_norm = float(torch.stack([
         p.grad.norm() for n, p in trainer.model.named_parameters()
         if n.startswith("embed_coords.") and p.grad is not None]).norm())
@@ -2983,6 +3021,7 @@ def step_vs_jax(torch, name: str, batch_np: dict, want_losses,
         "losses": losses, "jax_cpu_losses": [float(v) for v in want_losses],
         "loss_rel_err": loss_err, "digests": digest_err,
         "init_tree_s": init_s, "launches": step_launches,
+        "b_backward_launches": b_bwd,
         "step_ms": [ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])],
         "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
         "step_peak_mb": (torch.cuda.max_memory_allocated() - base) / 2**20,
@@ -3026,6 +3065,9 @@ def training_phase(torch) -> dict:
     if not all(g["ok"] for g in grads):
         fail(f"a kernel under autograd disagrees: {grads}")
     res["autograd"] = grads
+    # B's backward alone at the step's shape (dx alone first: the kernels
+    # line reads its record)
+    checks += [c for g in grads for c in g.get("backward", [])]
 
     # (b) the data layer without OpenCV against the JAX items
     trainset, _ = train_cli.synthetic_datasets()
@@ -3058,7 +3100,8 @@ def training_phase(torch) -> dict:
     # (c) the full-width step against JAX's, from init_tree(config, 0)
     trainer, batch, step = step_vs_jax(
         torch, "dinov2_noup", fx, fx["losses"], fx["digest_names"],
-        fx["digests"], FORWARD_LAUNCHES["flagship"])
+        fx["digests"], FORWARD_LAUNCHES["flagship"],
+        b_backward=FLAGSHIP_B_BACKWARD)
     step_launches = step["launches"]
     print("train_step_vs_jax", json.dumps(step))
     print(f"full-width train step: losses {step['losses']} (JAX on the CPU "
@@ -3081,6 +3124,10 @@ def training_phase(torch) -> dict:
                          [f"epoch_len={TRAIN_STEPS * TRAIN_BATCH}"])
     if epoch["steps"] != TRAIN_STEPS:
         fail(f"the epoch ran {epoch['steps']} steps, expected {TRAIN_STEPS}")
+    if epoch["b_backward_launches"] != FLAGSHIP_B_BACKWARD * TRAIN_STEPS:
+        fail(f"the epoch launched B's backward "
+             f"{epoch['b_backward_launches']} times, expected "
+             f"{FLAGSHIP_B_BACKWARD * TRAIN_STEPS}")
     launches = epoch["launches"]
     print("train_epoch", json.dumps(epoch))
     print(f"training epoch: {TRAIN_STEPS} steps in {epoch['wall_s']:.2f} s, "
@@ -3095,6 +3142,9 @@ def training_phase(torch) -> dict:
         "train_step_vs_jax": step_launches,
         "train_epoch": launches["train"],
         "train_validation": launches["val"]}
+    res["backward_launches"] = {
+        "train_step_vs_jax": step["b_backward_launches"],
+        "train_epoch": epoch["b_backward_launches"]}
     res["checks"] = checks + grads
     return res
 
@@ -3111,7 +3161,8 @@ def peak_mb(torch, fn) -> float:
 
 
 def autograd_case(torch, F, name: str, shape, seed: int,
-                  reps: int = 1, dtype: str = "float32") -> dict:
+                  reps: int = 1, dtype: str = "float32", real=None,
+                  eps: float = 1e-6, b_affine: bool = False) -> dict:
     """Kernel A, B, D or E under autograd at a training shape, in ``dtype``
     (bf16: the inputs that mixed-precision training gives the kernel in
     bf16, B's weight and bias and E's scalars float32): the forward with
@@ -3120,14 +3171,26 @@ def autograd_case(torch, F, name: str, shape, seed: int,
     as in :func:`jbu_case`): the check that holds the kernel at this shape;
     every input's gradient (qkv; x, weight, bias; q, k, v; hr, proj, temp,
     sigma) equals autograd through the plain version within the dtype's
-    GRAD_TOL of its scale. The backward is the plain version's VJP by
-    design, so that gate holds the Function's plumbing (which input gets
-    which gradient, in which dtype), not the kernel. Forward + backward
+    GRAD_TOL of its scale. The backward of A, D and E is the plain
+    version's VJP by design, so there that gate holds the Function's
+    plumbing (which input gets which gradient, in which dtype). B's
+    backward is a kernel (``csrc/layernorm.cu:iseg_layernorm_bwd``): its
+    gradients are also held against its plain version ``_ln_plain_bwd``
+    within GRAD_TOL, it launches twice here (x, weight and bias need
+    gradients), and ``bench_layernorm.backward_case`` checks it alone with
+    dx alone (one launch) and with all three (two; dweight and dbias
+    bitwise over two runs), timed by :func:`time_ms` (a CUDA graph)
+    beside its bound (:func:`_bound`) and
+    ``aten.native_layer_norm_backward``: the case the path takes, dx alone
+    or with ``b_affine`` all three (``real``: statistics over the first
+    ``real`` channels, the rest zeros, as LoftUp's padded layout; ``eps``
+    B's). Forward + backward
     timed (eager, CUDA events, ``reps`` calls a round) beside the plain
     version's and the library's (a yardstick: SDPA for A and D,
     ``F.layer_norm`` for B), each with its peak memory; the bound of the
     forward + backward's work at the inputs' widths."""
     from isegprobe_torch.ops import attention, jbu, layernorm
+    from isegprobe_torch.scripts import bench_layernorm
 
     tdt = getattr(torch, dtype)
     size = tdt.itemsize
@@ -3161,16 +3224,22 @@ def autograd_case(torch, F, name: str, shape, seed: int,
                    + 1).to(tdt),
                   torch.randn(d, generator=g, device="cuda") * 0.5 + 1,
                   torch.randn(d, generator=g, device="cuda")]
+        if real is not None:
+            for t in inputs:
+                t[..., real:] = 0
 
         def kernel(*ts):
-            return layernorm.layernorm(*ts, 1e-6)
+            return layernorm.layernorm(*ts, eps, real)
 
         def plain(*ts):
-            return layernorm._ln_plain(*ts, 1e-6)
+            return layernorm._ln_plain(*ts, eps, real)
 
         def library(x, w, bias):
             return F.layer_norm(x, (d,), w.to(x.dtype), bias.to(x.dtype),
-                                1e-6)
+                                eps)
+
+        if real is not None:
+            library = None  # no call takes statistics over part of a row
 
         # x, dy read, y and dx written; computed in f32
         rows = int(np.prod(shape[:-1]))
@@ -3230,17 +3299,42 @@ def autograd_case(torch, F, name: str, shape, seed: int,
                       if name == "jbu_filter" else 1.0)
     del ref, want
     cot = torch.randn(out.shape, generator=g, device="cuda").to(out.dtype)
+    bwd_before = layernorm.layernorm.backward_launches
     out.backward(cot)
+    bwd_launched = layernorm.layernorm.backward_launches - bwd_before
     del out
     refs = [t.clone().requires_grad_(True) for t in inputs]
     plain(*refs).backward(cot)
     dtypes_ok = all(t.grad.dtype == t.dtype for t in ts)
-    errs = [float((t.grad.float() - r.grad.float()).abs().max())
-            / max(float(r.grad.float().abs().max()), 1e-30)
-            for t, r in zip(ts, refs)]
-    del ts, refs
+
+    def rel(got, want):
+        return float((got.float() - want.float()).abs().max()) / max(
+            float(want.float().abs().max()), 1e-30)
+
+    errs = [rel(t.grad, r.grad) for t, r in zip(ts, refs)]
     ok = (bitwise and forward["ok"] and launched == 1 and dtypes_ok
           and max(errs) <= GRAD_TOL[dtype])
+    extra: dict = {}
+    if name == "layernorm":
+        closed = layernorm._ln_plain_bwd(*(t.detach() for t in inputs[:2]),
+                                         cot, eps, real)
+        extra["grad_rel_err_vs_closed_form"] = [
+            rel(t.grad, c) for t, c in zip(ts, closed)]
+        extra["backward_launches"] = bwd_launched
+        extra["backward"] = [bench_layernorm.backward_case(
+            f"{name}_{'dx' if needs == bench_layernorm.DX else 'all'}",
+            shape, dtype, "float32", real, eps, needs, seed,
+            torch.device("cuda"), tol=GRAD_TOL, bound=_bound,
+            timer=(lambda fn: time_ms(torch, fn)[0])
+            if (needs == bench_layernorm.ALL) == b_affine else None)
+            for needs in (bench_layernorm.DX, bench_layernorm.ALL)]
+        del closed
+        ok = (ok and bwd_launched == 2
+              and max(extra["grad_rel_err_vs_closed_form"]) <= GRAD_TOL[dtype]
+              and all(c["ok"] for c in extra["backward"]))
+    elif bwd_launched:
+        ok = False  # only B's backward is a kernel
+    del ts, refs
 
     def fwd_bwd(fn):
         xs = [t.detach().requires_grad_(True) for t in inputs]
@@ -3252,7 +3346,8 @@ def autograd_case(torch, F, name: str, shape, seed: int,
            "max_abs_err": forward["max_abs_err"],
            "launches_per_forward": launched, "grad_rel_err": errs,
            "grad_dtypes_ok": dtypes_ok, "grad_tol": GRAD_TOL[dtype],
-           "ok": ok, **_bound(ops, nbytes, op_dtype, exps=exps)}
+           **({"real": real, "eps": eps} if name == "layernorm" else {}),
+           **extra, "ok": ok, **_bound(ops, nbytes, op_dtype, exps=exps)}
     for key, fn in (("fwd_bwd", kernel), ("plain_fwd_bwd", plain),
                     ("library_fwd_bwd", library)):
         if fn is None:
@@ -3288,11 +3383,21 @@ def family_training_phase(torch) -> dict:
     grads += [autograd_case(torch, F, "jbu_filter", [
         TRAIN_BATCH, FAMILY_GRID << k, FAMILY_GRID << k, 384], seed=80 + k)
         for k in range(1, 5)]
+    # B with its backward kernel at LoftUp's padded rows at 448², B=4
+    # (statistics over 404 of 512 and 203 of 256 channels) and at
+    # SimpleViT's click encoder (588 wide, weight and bias trained)
+    grads += [autograd_case(torch, F, "layernorm", shape, seed=85 + i,
+                            reps=3, real=real, eps=eps, b_affine=affine)
+              for i, (shape, real, eps, affine) in enumerate((
+                  ((4, 28672, 512), 404, 1e-5, False),
+                  ((4, 68, 448, 256), 203, 1e-5, False),
+                  ((16, 1024, 588), None, 1e-6, True)))]
     for g in grads:
         print("family_autograd", json.dumps(g))
     if not all(g["ok"] for g in grads):
-        fail(f"kernel D or E under autograd disagrees: {grads}")
+        fail(f"kernel B, D or E under autograd disagrees: {grads}")
     res["autograd"] = grads
+    bwd_paths = {}
 
     # (b) the full-width steps against JAX's, from init_tree(config, 0)
     fx = dict(np.load(FAMILY_FIXTURE))
@@ -3318,6 +3423,7 @@ def family_training_phase(torch) -> dict:
               f"busy {step['profile'].get('busy_share', 0):.0%}")
         res[f"{name}_step_vs_jax"] = step
         paths[f"{name}_train_step_vs_jax"] = step["launches"]
+        bwd_paths[f"{name}_train_step_vs_jax"] = step["b_backward_launches"]
         # (c) a short run through the command line, clicks and validation
         _, cli = cli_epoch(torch, name, FAMILY_TRAIN_LAUNCHES[name],
                            FAMILY_READBACK[name],
@@ -3336,6 +3442,7 @@ def family_training_phase(torch) -> dict:
         res[f"{name}_cli"] = cli
         paths[f"{name}_train_cli"] = cli["launches"]["train"]
         paths[f"{name}_train_validation"] = cli["launches"]["val"]
+        bwd_paths[f"{name}_train_cli"] = cli["b_backward_launches"]
 
     # (d) LoftUp at 448²: its queries in 7 slabs of 64 rows, each
     # recomputed in the backward
@@ -3363,6 +3470,7 @@ def family_training_phase(torch) -> dict:
     ev[1].record()
     torch.cuda.synchronize()
     banded_launches = counters()
+    bwd_paths["loftup_448_train_step"] = b_backward_launches()
     want = expected(**{k: v + BANDED_RECOMPUTE.get(k, 0) for k, v in
                        FORWARD_LAUNCHES["loftup"].items()})
     if banded_launches != want or not np.isfinite(loss):
@@ -3371,7 +3479,8 @@ def family_training_phase(torch) -> dict:
     banded = {"size": BANDED_SIZE, "batch": BANDED_BATCH, "loss": loss,
               "step_ms": ev[0].elapsed_time(ev[1]),
               "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
-              "launches": banded_launches}
+              "launches": banded_launches,
+              "b_backward_launches": bwd_paths["loftup_448_train_step"]}
     trainer.shutdown()
     del trainer, batch
     print("loftup_448_step", json.dumps(banded))
@@ -3391,7 +3500,9 @@ def family_training_phase(torch) -> dict:
         res[f"{name}_cli"] = cli
         paths[f"{name}_train_cli"] = cli["launches"]["train"]
         paths[f"{name}_train_validation"] = cli["launches"]["val"]
+        bwd_paths[f"{name}_train_cli"] = cli["b_backward_launches"]
     res["path_launches"] = paths
+    res["backward_launches"] = bwd_paths
     return res
 
 
@@ -3481,13 +3592,15 @@ def bf16_training_phase(torch) -> dict:
     launches = {"dinov2_noup": FORWARD_LAUNCHES["flagship"],
                 "dinov2_loftup": FAMILY_TRAIN_LAUNCHES["dinov2_loftup"],
                 "dinov2_jbu": FAMILY_TRAIN_LAUNCHES["dinov2_jbu"]}
+    bwd_paths = {}
     for name in (str(f) for f in fx["families"]):
         batch_np = {k: v[:int(fx[f"{name}/batch"])] for k, v in items.items()}
         trainer, batch, step = step_vs_jax(
             torch, name, batch_np, fx[f"{name}/losses"],
             fx[f"{name}/digest_names"], fx[f"{name}/digests"],
             launches[name], argv=[bf16], loss_rtol=BF16_LOSS_RTOL,
-            flips=BF16_FLIPS)
+            flips=BF16_FLIPS, b_backward=FLAGSHIP_B_BACKWARD
+            if name == "dinov2_noup" else None)
         trainer._step(batch, 2)  # warm-up of the clicker's constants
         step["profile"] = profile_forward(
             torch, lambda *_: trainer._step(batch, 2), None, None)
@@ -3503,6 +3616,8 @@ def bf16_training_phase(torch) -> dict:
               f"{step['profile'].get('busy_share', 0):.0%} with 2 clicks")
         res[f"{name}_step_vs_jax"] = step
         paths[f"{name}_bf16_train_step_vs_jax"] = step["launches"]
+        bwd_paths[f"{name}_bf16_train_step_vs_jax"] = \
+            step["b_backward_launches"]
     # JBU, which the JAX package cannot train in bf16: the step alone
     trainer = build(["model=synthetic_dinov2_jbu", "dataloader.workers=0",
                      f"exp_path={scratch()}", bf16])
@@ -3537,6 +3652,7 @@ def bf16_training_phase(torch) -> dict:
         res[f"{name}_cli"] = cli
         paths[f"{name}_bf16_train_cli"] = cli["launches"]["train"]
         paths[f"{name}_bf16_train_validation"] = cli["launches"]["val"]
+        bwd_paths[f"{name}_bf16_train_cli"] = cli["b_backward_launches"]
 
     # (d) 448², batch 8, with and without remat: the flagship and LoftUp
     recompute = {"mha_qkv": 12, "layernorm": 24}  # each block once more
@@ -3646,6 +3762,7 @@ def bf16_training_phase(torch) -> dict:
     res["click_models"] = rec
     paths["click_models_step"] = rec["launches"]
     res["path_launches"] = paths
+    res["backward_launches"] = bwd_paths
     return res
 
 
@@ -4189,6 +4306,7 @@ def brs_phase(torch, F) -> dict:
 
     res: dict = {}
     launches: dict = {}
+    bwd_launches: dict = {}
     fx = dict(np.load(BRS_FIXTURE))
     size = (448, 448)
     per_forward = FORWARD_LAUNCHES["flagship"]
@@ -4228,6 +4346,7 @@ def brs_phase(torch, F) -> dict:
             zero_counters()
             value, grad, *_ = cap.func.value_and_grad(x)
             got_launches = counters()
+            got_bwd = b_backward_launches()
             err = brs_objective_error(float(value),
                                       grad.double().cpu().numpy(), fx, mode,
                                       k)
@@ -4239,6 +4358,13 @@ def brs_phase(torch, F) -> dict:
         # an evaluation's launches and ms (the host reads of __call__ in)
         rec["launches_per_evaluation"] = {
             k: v for k, v in got_launches.items() if v}
+        # Input-BRS differentiates through the backbone, so B's backward
+        # kernel runs in each of its evaluations (twice a LayerNorm where
+        # the loaded weights require a gradient); f-BRS optimizes after
+        # the backbone
+        rec["b_backward_launches_per_evaluation"] = got_bwd
+        if not mode.startswith("f-BRS") and not got_bwd:
+            fail(f"{mode}: an evaluation launched no B backward")
         rec["ms_per_evaluation"] = _host_ms(
             lambda: _one_evaluation(cap.func, x), reps=5)
         rec["profile"] = profile_forward(
@@ -4270,6 +4396,7 @@ def brs_phase(torch, F) -> dict:
                                      objects=slice(0, n_obj)))
             torch.cuda.synchronize()
             total = counters()
+            bwd_total = b_backward_launches()
         if out["protocol"] != "host" or (device_loop and not out["note"]):
             fail(f"mode={mode} device_loop={device_loop} ran "
                  f"{out['protocol']} ({out['note']})")
@@ -4286,6 +4413,7 @@ def brs_phase(torch, F) -> dict:
         if total != summed:
             fail(f"{mode}: {total} launched in all, {summed} by the clicks")
         launches[f"brs_{mode}"] = total
+        bwd_launches[f"brs_{mode}"] = bwd_total
         gate = brs_against_fixture(out["all_ious"], clicks, records, fx,
                                    mode)
         want_noc = compute_noc_metric(
@@ -4305,7 +4433,7 @@ def brs_phase(torch, F) -> dict:
             "early_stops": {s: sum(r["stop"] == s for r in records)
                             for s in ("clicks", "iou")},
             "protocol": out["protocol"], "note": out["note"],
-            "launches": total, **gate}
+            "launches": total, "b_backward_launches": bwd_total, **gate}
         print("brs_run", mode, json.dumps(runs[mode]))
     res["runs"] = runs
 
@@ -4468,7 +4596,8 @@ def brs_phase(torch, F) -> dict:
     # (g) A, B, D and E under autograd at the BRS paths' batch-1 shapes
     res["autograd"] = [
         autograd_case(torch, F, "mha_qkv", (1, 1025, 1152), 31, reps=5),
-        autograd_case(torch, F, "layernorm", (1, 1025, 384), 32, reps=5),
+        autograd_case(torch, F, "layernorm", (1, 1025, 384), 32, reps=5,
+                      b_affine=True),
         autograd_case(torch, F, "mha", ((1, 64 * 448, 4, 101),
                                         (1, 1024, 4, 101)), 33, reps=2),
         autograd_case(torch, F, "jbu_filter", (1, 512, 512, 384), 34,
@@ -4479,6 +4608,7 @@ def brs_phase(torch, F) -> dict:
         fail(f"a kernel under autograd at batch 1 fails: "
              f"{[c for c in res['autograd'] if not c['ok']]}")
     res["path_launches"] = launches
+    res["backward_launches"] = bwd_launches
     del model
     torch.cuda.empty_cache()
     return res
@@ -5014,6 +5144,9 @@ OUTPUTS_DUMP_INTERVAL = 4
 OUTPUTS_EPOCH_LEN = 96
 OUTPUTS_VAL_LEN = 8
 OUTPUTS_STEP_NOISE = 1.25
+# the evaluate CLI's profile_dir on the card (d): objects and clicks of the
+# profiled host-protocol run
+PROFILE_OBJECTS, PROFILE_CLICKS = 2, 3
 OUTPUTS_PAIRS = 3
 OUTPUTS_TAGS = sorted([
     "Losses/instance_loss", "Losses/nfl_k", "Losses/nfl_m_max",
@@ -5406,19 +5539,66 @@ def outputs_train_part(torch) -> tuple:
     return runs, total
 
 
+def outputs_profile_part(torch) -> tuple:
+    """(d) of phase 11k: the evaluate CLI's ``profile_dir`` on the card:
+    the trained flagship's host protocol on PROFILE_OBJECTS objects,
+    PROFILE_CLICKS clicks, one forward a click, with the ``torch.profiler``
+    trace of the evaluation written to the directory; the trace must hold
+    CUDA kernel events, kernel B's among them. Returns (record,
+    launches)."""
+    from isegprobe_torch import evaluate as evaluate_cli
+    from isegprobe_torch.data.scenes import SYNTHETIC_FIXTURE, SceneDataset
+
+    trace_dir = Path(scratch()) / "profile"
+    cfg = evaluate_cli.parse_args([
+        f"checkpoint={TRAINED_CKPTS['flagship']}", "datasets=Synthetic",
+        "eval_mode=fixed448", f"n_clicks={PROFILE_CLICKS}",
+        "print_ious=false", f"profile_dir={trace_dir}"])
+    model, _ = eval_load(torch, cfg["checkpoint"], torch.float32)
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.time()
+    out = evaluate_cli.evaluate(cfg, model, dataset=SceneDataset(
+        SYNTHETIC_FIXTURE, objects=slice(0, PROFILE_OBJECTS)))
+    wall = time.time() - t0
+    launches = counters()
+    n_clicks = sum(len(a) for a in out["all_ious"])
+    want = expected(**{k: v * n_clicks for k, v in
+                       FORWARD_LAUNCHES["flagship"].items()})
+    if out["protocol"] != "host" or launches != want:
+        fail(f"the profiled evaluation ran {out['protocol']} and launched "
+             f"{launches} for {n_clicks} clicks, expected {want}")
+    path = trace_dir / f"{out['model_name']}_Synthetic.pt.trace.json"
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    rec = {"objects": PROFILE_OBJECTS, "clicks": n_clicks, "wall_s": wall,
+           "trace_mb": path.stat().st_size / 2**20, "events": len(events),
+           "kernel_events": len(kernels),
+           "ln_kernel_events": sum("ln_kernel" in k for k in kernels),
+           "attn_kernel_events": sum("attn_qkv" in k for k in kernels)}
+    path.unlink()
+    print("outputs_profile_dir", json.dumps(rec))
+    if not rec["ln_kernel_events"]:
+        fail(f"the profile_dir trace holds no kernel B events: {rec}")
+    return rec, launches
+
+
 def run_outputs_phase(torch) -> dict:
     """Main paths of a researcher's outputs (phase 11k of the module
     docstring): (a) the evaluate CLI with every output key; (b) the
     feature probe of the trained probes; (c) the train CLI's run logs,
-    events and image dumps. Returns the records and the path launches."""
+    events and image dumps; (d) the evaluate CLI's ``profile_dir``.
+    Returns the records and the path launches."""
     fx = dict(np.load(OUTPUTS_FIXTURE))
     res: dict = {}
     res["evaluate"], eval_launches = outputs_eval_part(torch, fx)
     res["feats"], feats_launches = outputs_feats_part(torch, fx)
     res["train"], train_launches = outputs_train_part(torch)
+    res["profile_dir"], profile_launches = outputs_profile_part(torch)
     res["path_launches"] = {
         "outputs_evaluate_cli": eval_launches,
         "outputs_feature_probe": feats_launches,
+        "outputs_profiled_evaluate": profile_launches,
         **{f"outputs_train_{key}_{kind}": counts
            for key, by_kind in train_launches.items()
            for kind, counts in by_kind.items()}}
@@ -6758,6 +6938,23 @@ def main() -> int:
             for v in gemm_ptxas.values()):
         fail(f"kernel I spills or is serialized: {gemm_ptxas}, "
              f"{results['quant_c7515_lines']} C7515 lines")
+    # B's backward: every instantiation (the three widths a lane holds, dx
+    # alone and with dweight and dbias, each dtype pair and load path)
+    # without a spill, up to D = 1024 with its dweight / dbias sums
+    bwd_ptxas = {n: v for n, v in cuda_lib.ptxas_entries(
+        reports.get("layernorm", "")).items() if "ln_bwd" in n}
+    results["layernorm_bwd_ptxas"] = {
+        "entries": len(bwd_ptxas),
+        "max_registers": max((v["registers"] or 0
+                              for v in bwd_ptxas.values()), default=None),
+        "spill_bytes": sum(v["spill_stores"] + v["spill_loads"]
+                           for v in bwd_ptxas.values())}
+    print(f"kernel B backward: ptxas "
+          f"{json.dumps(results['layernorm_bwd_ptxas'])}")
+    if "layernorm" in reports and (not bwd_ptxas or any(
+            v["stack_bytes"] or v["spill_stores"] or v["spill_loads"]
+            for v in bwd_ptxas.values())):
+        fail(f"kernel B's backward spills: {bwd_ptxas}")
 
     # 3. kernels A and B against their plain versions, timed beside them;
     # batch 16 is the device loop's forward (8 lanes, flip TTA)
@@ -7242,7 +7439,13 @@ def main() -> int:
                           [2 * TRAINED_BATCH * 1025, 384]),
         "int8_gemm": ("isegprobe_torch/csrc/quant.cu",
                       "isegprobe_tpu/ops/quant.py:44",
-                      [2 * TRAINED_BATCH * 1025, 384, 1152])}
+                      [2 * TRAINED_BATCH * 1025, 384, 1152]),
+        # no pallas_call: B's backward is the VJP the JAX custom_vjp of
+        # _ln_pallas takes (_ln_pallas_ad_bwd: jax.vjp of _ln_jnp), at the
+        # flagship's train step (dx alone)
+        "layernorm_bwd": ("isegprobe_torch/csrc/layernorm.cu",
+                          "isegprobe_tpu/ops/layernorm.py:96",
+                          [TRAIN_BATCH, (TRAIN_CROP // 14) ** 2 + 1, 384])}
     # the kernels whose source instantiates the shared flash core
     on_core = ("mha_qkv", "mha", "mha_qkv_nodiv", "mha_qkv_merged")
     paths = {"host_protocol": launches, "device_loop": loop_launches,
@@ -7264,6 +7467,11 @@ def main() -> int:
     paths.update(extended["path_launches"])
     for fam in families.values():
         paths.update(fam["path_launches"])
+    # B's backward counts beside B's forward, on the paths that train
+    # through it or differentiate an objective (BRS)
+    bwd_paths = {}
+    for phase in (training, family_training, bf16_training, brs_res):
+        bwd_paths.update(phase["backward_launches"])
     kernels = []
     timing_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                    "library_ms")
@@ -7278,7 +7486,8 @@ def main() -> int:
         # I writes bf16 on every path; its f32 output is checked elsewhere
         c = timed_check(name, shape, "float32") or timed_check(
             name, shape, "bfloat16")
-        by_path = {p: counts[name] for p, counts in paths.items()}
+        by_path = (dict(bwd_paths) if name == "layernorm_bwd" else
+                   {p: counts[name] for p, counts in paths.items()})
         if not any(by_path.values()):
             fail(f"kernel {name} was launched on no main path: {by_path}")
         entry = {"name": name, "route": "cuda", "source": src,
@@ -7309,6 +7518,20 @@ def main() -> int:
             if g["kernel"] == name]
         if autograd:
             entry["autograd"] = autograd
+        if name == "layernorm_bwd":
+            # every shape it was checked at alone, graph-timed beside its
+            # bound and aten.native_layer_norm_backward
+            entry["by_case"] = [
+                {k: c.get(k) for k in (
+                    "shape", "dtype", "real", "needs", "launches", "ms",
+                    "bound_ms", "plain_ms", "library_ms", "fwd_ms",
+                    "fwd_bwd_ms", "fwd_bwd_bound_ms", "library_fwd_bwd_ms",
+                    "grad_rel_err_vs_plain", "affine_bitwise_repeat")}
+                for g in (training["autograd"] + family_training["autograd"]
+                          + bf16_training["autograd"] + brs_res["autograd"])
+                for c in g.get("backward", [])]
+            entry["replaces_kind"] = ("no pallas_call: jax.vjp of _ln_jnp "
+                                      "(XLA)")
         # the other backbones' shapes (phase 11d)
         family_shapes = [
             {"shape": o["shape"], "dtype": o["dtype"],

@@ -60,8 +60,10 @@ root spreads it over its chips: the lockstep loop's lanes split over them
 job queue a GPU. With one visible device it warns and runs on that one.
 ``trunk_cache`` (``auto``, ``on``, ``off``, or ``true``/``false`` for
 ``on``/``off``) goes to the fixed-crop device loop. ``cpu=true`` is
-``device=cpu``. ``profile_dir`` is accepted empty; a directory raises
-``NotImplementedError`` (the port's bench leg, ROADMAP Queue 1 item 2).
+``device=cpu``. A non-empty ``profile_dir``, where the root writes a
+``jax.profiler`` trace, writes a ``torch.profiler`` trace of each
+dataset's evaluation there (CPU activity, and the GPU's on a CUDA device):
+the Chrome trace ``<model_name>_<dataset>.pt.trace.json``.
 
 It prints a results table for each dataset × checkpoint and, with
 ``print_ious``, mIoU@k as the root ``evaluate.py`` does, with its rule for
@@ -308,8 +310,7 @@ def parse_args(argv) -> Dict:
     ``load_config`` types them, then the machine paths of the
     ``main_cfg_path`` file; the keys the file lacks keep the port's
     defaults and take their text as given. An unknown key raises
-    ``ValueError``, a non-empty ``profile_dir`` ``NotImplementedError``
-    naming its ROADMAP item."""
+    ``ValueError``."""
     root = load_yaml(EVAL_CFG)
     known = sorted([*root, *_EXTRA_DEFAULTS])
     file_args = []
@@ -327,10 +328,6 @@ def parse_args(argv) -> Dict:
             raise ValueError(f"unknown key {key!r}; takes {known}")
         given.add(key)
     cfg = {**apply_overrides(root, file_args), **extra}
-    if cfg["profile_dir"]:
-        raise NotImplementedError(
-            "profile_dir= is not ported to isegprobe_torch.evaluate yet: "
-            "ROADMAP Queue 1 item 2 (the port's bench leg)")
     if cfg["main_cfg_path"]:
         from isegprobe_torch.utils.main_cfg import read_main_cfg
 
@@ -541,6 +538,29 @@ def get_zoomin_params(eval_ritm: bool, eval_mode: str,
     raise NotImplementedError(f"Unknown eval_mode: {eval_mode}")
 
 
+def _start_trace(device: torch.device):
+    """A started ``torch.profiler`` of the host, and of the GPU when the
+    run is on one (the root's ``jax.profiler.start_trace``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_trace(prof, device: torch.device, path: Path) -> None:
+    """Stop ``prof`` once the device's work is done and write its Chrome
+    trace to ``path``."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+
+
 def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,
              dataset_name: Optional[str] = None,
              clicks: Optional[list] = None, dataset=None,
@@ -559,7 +579,9 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,
     ``dataset`` runs those samples (a subset) in place of the named
     dataset's. ``checkpoint`` (by default ``cfg["checkpoint"]``) names the
     model in the table. ``vis_preds`` and ``save_feats`` write their
-    callbacks' files under ``logs_path`` here (the host protocol)."""
+    callbacks' files under ``logs_path`` here (the host protocol); a
+    non-empty ``profile_dir`` gets the evaluation's ``torch.profiler``
+    trace, as the root starts and stops ``jax.profiler`` around it."""
     from isegprobe_torch.inference.adaptive_eval import make_adaptive_evaluator
     from isegprobe_torch.inference.device_eval import (
         evaluate_dataset_device,
@@ -611,6 +633,8 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,
                 "device_loop to the host per-click path for callbacks")
         logging.getLogger(__name__).info(note)
         use_device_loop = False
+    model_name = cfg.get("model_name") or Path(checkpoint).stem
+    prof = _start_trace(device) if cfg.get("profile_dir") else None
     t0 = time()
     if use_device_loop:
         kw = dict(batch_size=cfg["device_batch"],
@@ -656,10 +680,12 @@ def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,
                                        feats_callback=feats_callback,
                                        **protocol)
     elapsed = time() - t0
+    if prof is not None:
+        _stop_trace(prof, device, Path(cfg["profile_dir"])
+                    / f"{model_name}_{name}.pt.trace.json")
     noc, _, over_max = compute_noc_metric(all_ious, [0.8, 0.85, 0.9],
                                           cfg["n_clicks"])
     spc, _ = get_time_metrics(all_ious, elapsed)
-    model_name = cfg.get("model_name") or Path(checkpoint).stem
     table = get_results_table(noc, over_max, cfg["mode"], name, spc,
                               elapsed, n_clicks=cfg["n_clicks"],
                               model_name=model_name,

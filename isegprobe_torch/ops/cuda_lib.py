@@ -130,5 +130,6 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 def current_stream(t: torch.Tensor) -> int:
-    """The raw ``cudaStream_t`` PyTorch is using for ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw ``cudaStream_t`` PyTorch is using for ``t``'s device (read
+    without building a ``torch.cuda.Stream``: ~0.1 µs, not ~3)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -1,9 +1,11 @@
-"""The backward shared by every kernel's ``torch.autograd.Function``.
+"""The backward shared by the ``torch.autograd.Function`` of kernels A, D
+and E and of the int8 layer.
 
-Kernels A, B, D and E run forward only. Under autograd each runs inside a
-Function whose backward recomputes the kernel's plain PyTorch version and
-returns its VJP, as the JAX package's ``custom_vjp`` wrappers recompute
-their jnp / XLA forms under ``jax.vjp``.
+Those kernels run forward only. Under autograd each runs inside a Function
+whose backward recomputes the kernel's plain PyTorch version and returns
+its VJP, as the JAX package's ``custom_vjp`` wrappers recompute their jnp /
+XLA forms under ``jax.vjp``. Kernel B has a backward kernel of its own
+(``ops/layernorm.py``).
 """
 
 from __future__ import annotations

@@ -1,13 +1,15 @@
 """Kernels A and B under autograd: the backward bodies against ``jax.vjp``
 of the JAX package's references, and the ``autograd.Function`` plumbing.
 
-The port's ``AttentionKernel`` and ``LayerNormKernel`` run the CUDA kernel
-forward and, in the backward, recompute the plain version and return its
-VJP, as the JAX ``custom_vjp``s ``_mha_qkv_pallas_ad`` and
-``_ln_pallas_ad`` do with ``_mha_qkv_jnp`` and ``_ln_jnp``. Here, on the
-CPU, the kernel is replaced by the plain version (``monkeypatch``), so the
-Function's plumbing (saved tensors, which inputs get a gradient, the
-launch counter) runs as on the card.
+The port's ``AttentionKernel`` runs kernel A forward and, in the backward,
+recomputes the plain version and returns its VJP, as the JAX
+``custom_vjp`` ``_mha_qkv_pallas_ad`` does with ``_mha_qkv_jnp``.
+``LayerNormKernel`` runs kernel B forward and B's backward kernel, whose
+plain version is the closed form ``_ln_plain_bwd``
+(``test_torch_layernorm_bwd.py`` holds it against ``jax.vjp``). Here, on
+the CPU, the kernels are replaced by their plain versions
+(``monkeypatch``), so the Function's plumbing (saved tensors, which inputs
+get a gradient, the launch counter) runs as on the card.
 
 Tolerance: f32 gradients within 2e-5 absolute + 2e-5 relative of
 ``jax.vjp`` (the two sides sum in other orders; measured below 1e-6 of
@@ -94,10 +96,13 @@ def test_attention_function_plumbing(monkeypatch):
 
 
 def test_layernorm_function_plumbing(monkeypatch):
-    """``LayerNormKernel`` with the plain forward patched in for kernel B:
-    bitwise forward, and gradients only for the inputs that need them,
-    equal to autograd through the plain version."""
+    """``LayerNormKernel`` with the plain forward patched in for kernel B
+    and the closed form for its backward kernel: bitwise forward, and
+    gradients only for the inputs that need them, bitwise the closed
+    form's on the saved ``x`` and weight, and equal to autograd through
+    the plain version within the file's tolerance."""
     monkeypatch.setattr(layernorm, "_ln_cuda", layernorm._ln_plain)
+    monkeypatch.setattr(layernorm, "_ln_bwd_cuda", layernorm._ln_plain_bwd)
     rng = np.random.default_rng(1)
     x, w, b = (torch.from_numpy(rng.standard_normal(s, np.float32))
                for s in ((4, 9, 32), (32,), (32,)))
@@ -111,20 +116,23 @@ def test_layernorm_function_plumbing(monkeypatch):
         refs = [v.clone().requires_grad_(n) for v, n in zip((x, w, b),
                                                              needs)]
         layernorm._ln_plain(*refs, 1e-6).backward(g)
-        for t, r, n in zip(ts, refs, needs):
-            assert (t.grad is None) == (not n)
+        closed = layernorm._ln_plain_bwd(x, w, g, 1e-6, None, needs)
+        for t, r, c, n in zip(ts, refs, closed, needs):
+            assert (t.grad is None) == (not n) == (c is None)
             if n:
-                assert torch.equal(t.grad, r.grad)
+                assert torch.equal(t.grad, c)
+                _close(t.grad, r.grad)
 
 
 def test_wrappers_route_cpu_tensors_to_the_plain_version():
     """On a CPU tensor the entries compute the plain version (autograd
     flows through it) and count no launch."""
-    before = (attention.mha_qkv.launches, layernorm.layernorm.launches)
+    before = (attention.mha_qkv.launches, layernorm.layernorm.launches,
+              layernorm.layernorm.backward_launches)
     qkv = torch.randn(1, 5, 3 * 64, requires_grad=True)
     attention.mha_qkv(qkv, 1).sum().backward()
     x = torch.randn(3, 16, requires_grad=True)
     layernorm.layernorm(x, torch.ones(16), torch.zeros(16)).sum().backward()
     assert qkv.grad is not None and x.grad is not None
-    assert (attention.mha_qkv.launches, layernorm.layernorm.launches) == \
-        before
+    assert (attention.mha_qkv.launches, layernorm.layernorm.launches,
+            layernorm.layernorm.backward_launches) == before

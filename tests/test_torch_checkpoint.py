@@ -12,6 +12,7 @@ logits within 1e-3 of their scale, the pre-interpolated pos-embed within
 """
 
 import importlib.util
+import json
 import pickle
 import warnings
 from pathlib import Path
@@ -290,7 +291,7 @@ def test_results_table_and_time_metrics_match_jax():
                                     1.0))
 
 
-def test_evaluate_cli_arguments():
+def test_evaluate_cli_arguments(tiny_arch, tmp_path):  # noqa: F811
     from isegprobe_torch.evaluate import parse_args
 
     cfg = parse_args(["checkpoint=x.ckpt", "eval_mode=fixed448,336",
@@ -311,8 +312,24 @@ def test_evaluate_cli_arguments():
     cfg = parse_args(["checkpoint=x", "print_ious=false",
                       "iou_analysis=true"])
     assert cfg["iou_analysis"] and cfg["target_iou"] == 1.01
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        parse_args(["checkpoint=x", "profile_dir=/p"])
+    # a non-empty profile_dir writes the evaluation's torch.profiler trace
+    # (a CPU run of the tiny arch: one object, one click)
+    from isegprobe_torch.data.scenes import SYNTHETIC_FIXTURE, SceneDataset
+    from isegprobe_torch.evaluate import evaluate
+    from isegprobe_torch.models.probe_model import iSegProbeModel
+    from isegprobe_torch.models.vit import init_params
+
+    model = init_params(iSegProbeModel(**tiny_config(56), device="cpu"),
+                        seed=0).eval()
+    cfg = parse_args(["checkpoint=tiny.ckpt", "datasets=Synthetic",
+                      "eval_mode=fixed56", "n_clicks=1", "device=cpu",
+                      "print_ious=false", f"profile_dir={tmp_path / 'p'}"])
+    evaluate(cfg, model, dataset=SceneDataset(SYNTHETIC_FIXTURE,
+                                              objects=slice(0, 1)))
+    trace = json.loads((tmp_path / "p" / "tiny_Synthetic.pt.trace.json"
+                        ).read_text())
+    assert any(e.get("ph") == "X" and e.get("name", "").startswith("aten::")
+               for e in trace["traceEvents"])
     # continuous batching and the cvpr mode are ported
     cfg = parse_args(["checkpoint=x", "device_refill=true", "device_batch=3"])
     assert cfg["device_refill"] and cfg["group_max_jobs"] == 0

@@ -236,7 +236,9 @@ def test_clicker_ties_take_the_first_maximum(cuda_device):
 def test_kernels_under_autograd_match_plain(cuda_device, shape):
     """Kernels A and B under autograd (training): the forward is the
     kernel's, bitwise, and the gradients are autograd's through the plain
-    version (the backward recomputes it)."""
+    version (A's backward recomputes it; B's is a kernel of its own, the
+    same function summed in another order: its weight and bias gradients,
+    sums over every row, within 1e-5 of their scale)."""
     heads = shape[-1] // 3 // 64
     qkv = _randn(shape, 0, cuda_device)
     with torch.no_grad():
@@ -258,8 +260,62 @@ def test_kernels_under_autograd_match_plain(cuda_device, shape):
     y.backward(x)
     refs = [v.clone().requires_grad_(True) for v in (x, w, b)]
     layernorm._ln_plain(*refs, 1e-6).backward(x)
-    for a, r in zip(ts, refs):
-        torch.testing.assert_close(a.grad, r.grad, rtol=1e-5, atol=1e-5)
+    for i, (a, r) in enumerate(zip(ts, refs)):
+        scale = 1.0 if i == 0 else float(r.grad.abs().max())
+        torch.testing.assert_close(a.grad, r.grad, rtol=1e-5,
+                                   atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("shape,real", [((4, 33, 384), None),
+                                        ((2, 9, 203), None),
+                                        ((2, 17, 512), 404),
+                                        ((3, 5, 1024), None)])
+def test_layernorm_backward_kernel_matches_its_plain_version(
+        cuda_device, xdt, wdt, shape, real):
+    """B's backward kernel against ``_ln_plain_bwd`` (f32 within 1e-5 of
+    each gradient's scale; bf16 outputs within one rounding step, 2^-7):
+    one launch for dx alone, two with dweight and dbias, which two runs
+    give bit for bit; the 16-byte and element load paths, D up to 1024.
+    Two rows are zeros (with ``real`` < D, rows of padding alone): their
+    variance is exactly 0, the clamp's tie, and rstd is 1/sqrt(eps); their
+    dx is held within the same tolerance of its own scale."""
+    d = shape[-1]
+    x = (_randn(shape, 0, cuda_device) * 3 + 1).to(xdt)
+    w = (_randn((d,), 1, cuda_device) * 0.5 + 1).to(wdt)
+    dy = _randn(shape, 2, cuda_device).to(xdt)
+    if real is not None:
+        x[..., real:], w[real:] = 0, 0
+    zero = torch.zeros(x.numel() // d, dtype=torch.bool, device=cuda_device)
+    zero[[0, -1]] = True
+    x.view(-1, d)[zero] = 0
+    for needs in ((True, False, False), (True, True, True)):
+        before = layernorm.layernorm.backward_launches
+        got = layernorm._ln_bwd_cuda(x, w, dy, 1e-5, real, needs)
+        launched = layernorm.layernorm.backward_launches - before
+        assert launched == (2 if needs[1] else 1)
+        want = layernorm._ln_plain_bwd(x, w, dy, 1e-5, real, needs)
+        for i, (g, p_, t) in enumerate(zip(got, want, (x, w, w))):
+            assert (g is None) == (p_ is None)
+            if g is None:
+                continue
+            assert g.dtype == t.dtype
+            tol = 1e-5 if g.dtype == torch.float32 else 2.0**-7
+            parts = ((g.view(-1, d)[rows], p_.view(-1, d)[rows])
+                     for rows in (zero, ~zero)) if i == 0 else ((g, p_),)
+            for g_, p_r in parts:
+                scale = float(p_r.float().abs().max())
+                assert scale > 0
+                err = float((g_.float() - p_r.float()).abs().max())
+                assert err <= tol * scale
+        if needs[1]:
+            again = layernorm._ln_bwd_cuda(x, w, dy, 1e-5, real, needs)
+            assert torch.equal(got[1], again[1])
+            assert torch.equal(got[2], again[2])
 
 
 @pytest.mark.cuda

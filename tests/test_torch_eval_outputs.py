@@ -553,12 +553,16 @@ def test_evaluate_cli_writes_the_root_clis_files(fx, tmp_path, capsys):
     assert "falling back" not in capsys.readouterr().out
 
 
-def test_evaluate_cli_keys():
+def test_evaluate_cli_keys(tiny_arch_model, tmp_path):
     """The output keys parse (the 1.01 rule takes ``iou_analysis`` too;
     ``logs_path`` defaults under ``EXPS_PATH``); ``device_mesh`` parses
-    (ported); a non-empty ``profile_dir`` still raises, naming its ROADMAP
-    item; a run needs a checkpoint or an ``exp_path``."""
-    from isegprobe_torch.evaluate import parse_args
+    (ported); a non-empty ``profile_dir`` writes a trace of each dataset's
+    evaluation (the tiny arch on the CPU, GrabCut's tree, one click); a run
+    needs a checkpoint or an ``exp_path``."""
+    from isegprobe_torch.evaluate import evaluate, parse_args
+    from isegprobe_torch.models.probe_model import iSegProbeModel
+    from isegprobe_torch.models.vit import init_params
+    from tests.test_torch_model import tiny_config
 
     cfg = parse_args(["checkpoint=c.ckpt", "print_ious=false",
                       "iou_analysis=true", "EXPS_PATH=/e", "model_name=m",
@@ -571,8 +575,16 @@ def test_evaluate_cli_keys():
     assert parse_args(["exp_path=a/b"])["exp_path"] == "a/b"
     assert parse_args(["checkpoint=c", "device_mesh=true"])["device_mesh"]
     assert parse_args(["checkpoint=c", "profile_dir="])["profile_dir"] == ""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parse_args(["checkpoint=c", "profile_dir=/p"])
+    model = init_params(iSegProbeModel(**tiny_config(56), device="cpu"),
+                        seed=0).eval()
+    cfg = parse_args(["checkpoint=runs/m.ckpt", "datasets=GrabCut",
+                      f"DATASETS.GRABCUT_PATH={TREES / 'grabcut'}",
+                      "eval_mode=fixed56", "n_clicks=1", "device=cpu",
+                      "print_ious=false", f"profile_dir={tmp_path}"])
+    out = evaluate(cfg, model)
+    trace = json.loads((tmp_path / "m_GrabCut.pt.trace.json").read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert len(out["all_ious"]) > 0 and "aten::linear" in names
     assert parse_args([])["checkpoint"] == "/path/to/checkpoint"
     with pytest.raises(ValueError, match="checkpoint"):
         parse_args(["checkpoint="])
