@@ -113,10 +113,12 @@ peak memory at 448² on the H100, PERF.md). Both are the same function
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 import sys
 from pathlib import Path
-from time import time
+from time import time, time_ns
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -138,6 +140,7 @@ from isegprobe_torch.models.convert import (
 from isegprobe_torch.models.featurizers.dino import DINO_TRUNK
 from isegprobe_torch.models.featurizers.dinov2 import DINOV2_ARCHS
 from isegprobe_torch.models.init_tree import count_params, init_tree
+from isegprobe_torch.utils import trace
 from isegprobe_torch.utils.config import apply_overrides, load_yaml
 from isegprobe_torch.utils.serialization import (
     build_model,
@@ -553,12 +556,25 @@ def _start_trace(device: torch.device):
 
 def _stop_trace(prof, device: torch.device, path: Path) -> None:
     """Stop ``prof`` once the device's work is done and write its Chrome
-    trace to ``path``."""
+    trace to ``path``, with the program's spans (``utils/trace.py``) from
+    the profiler's start to its stop as complete events on their threads
+    (category ``program_span``; ``args``: the request id and the serial
+    numbers of the span and its parent)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     prof.stop()
+    t1_ns = time_ns()
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
+    doc = json.loads(path.read_text())
+    base, pid = doc["baseTimeNanoseconds"], os.getpid()
+    t0_ns = prof.profiler.kineto_results.trace_start_ns()
+    doc["traceEvents"] += [
+        dict(ph="X", cat="program_span", name=name, pid=pid, tid=tid,
+             ts=(a - base) / 1e3, dur=(b - a) / 1e3,
+             args=dict(rid=repr(rid), serial=serial, parent=parent))
+        for serial, name, rid, parent, tid, a, b in trace.spans(t0_ns, t1_ns)]
+    path.write_text(json.dumps(doc))
 
 
 def evaluate(cfg: Dict, model: Optional[torch.nn.Module] = None,

@@ -47,6 +47,7 @@ neither runs a collective. A list may name one device twice.
 from __future__ import annotations
 
 import copy
+import itertools
 from time import time
 from typing import Dict, List, Optional, Tuple
 
@@ -56,6 +57,7 @@ import torch
 from isegprobe_torch import resolve_device
 from isegprobe_torch.ops.edt import next_click_from_error
 from isegprobe_torch.ops.sample import crop_resize, inverse_paste
+from isegprobe_torch.utils import trace
 
 Roi = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -162,13 +164,14 @@ class DeviceEvaluator:
         around it, so that mode catches every other sync of a click."""
         self.host_reads += 1
         mode = torch.cuda.get_sync_debug_mode() if flag.is_cuda else 0
-        if not mode:
-            return flag.tolist()
-        torch.cuda.set_sync_debug_mode(0)
-        try:
-            return flag.tolist()
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
+        with trace.span("loop.read"):
+            if not mode:
+                return flag.tolist()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return flag.tolist()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
 
     # -- per-lane protocol steps, over the leading lane axis ----------------
 
@@ -403,27 +406,33 @@ class DeviceEvaluator:
     def _body(self, st, active):
         """One click for every lane; finished lanes freeze their outputs."""
         b = active.shape[0]
-        sel, points = self._select(st)
-        crops, pts = self._crop_points(st["image"], st["prev"], sel["roi"],
-                                       points)
+        with trace.span("loop.clicker"):
+            sel, points = self._select(st)
+        with trace.span("loop.crop"):
+            crops, pts = self._crop_points(st["image"], st["prev"],
+                                           sel["roi"], points)
         if self.use_cache:
             changed = ((sel["roi"] != st["trunk_roi"]).any(dim=1)
                        & active).any()
             trunk, trunk_roi = st["trunk"], st["trunk_roi"]
             if self._read(changed):
-                trunk = self._trunk(st["image"], sel["roi"])
+                with trace.span("loop.trunk"):
+                    trunk = self._trunk(st["image"], sel["roi"])
                 trunk_roi = sel["roi"]
                 self.trunk_recomputes += 1
-            logits = self.model.forward_with_cached_trunk(
-                crops, pts, trunk)["instances"]
+            with trace.span("loop.forward"):
+                logits = self.model.forward_with_cached_trunk(
+                    crops, pts, trunk)["instances"]
         else:
-            logits = self.model(crops, pts)["instances"]
-        prev = inverse_paste(self._merge_flip(logits, b), sel["roi"],
-                             tuple(st["gt"].shape[1:]))
-        new = {**st, **sel, **self._score(st, prev)}
-        if self.use_cache:
-            new["trunk"], new["trunk_roi"] = trunk, trunk_roi
-        return self._freeze(new, st, active)
+            with trace.span("loop.forward"):
+                logits = self.model(crops, pts)["instances"]
+        with trace.span("loop.score"):
+            prev = inverse_paste(self._merge_flip(logits, b), sel["roi"],
+                                 tuple(st["gt"].shape[1:]))
+            new = {**st, **sel, **self._score(st, prev)}
+            if self.use_cache:
+                new["trunk"], new["trunk_roi"] = trunk, trunk_roi
+            return self._freeze(new, st, active)
 
     def _freeze(self, new, st, active):
         """``new`` with the outputs of lanes not in ``active`` kept as in
@@ -435,6 +444,10 @@ class DeviceEvaluator:
 
     @torch.inference_mode()
     def _run(self, images, gts, valid_hws):
+        """The loop: under ``torch.profiler``, a ``loop.init`` span (the
+        state and the first flag's read), then one ``loop.step`` span a
+        step (``rid``: the step's index in ``steps``) over the click and
+        the read of the flag it leaves."""
         for name, t in (("image", images), ("gt", gts),
                         ("valid_hw", valid_hws)):
             if t.device != self.device:
@@ -443,13 +456,16 @@ class DeviceEvaluator:
         if images.shape[0] != self.batch_size:
             raise ValueError(f"expected {self.batch_size} lanes, got "
                              f"{images.shape[0]}")
-        st = self._init_state(images, gts, valid_hws)
-        while True:
+        with trace.span("loop.init"):
+            st = self._init_state(images, gts, valid_hws)
             active = ~st["done"] & (st["n"] < self.max_clicks)
-            if not self._read(active.any()):
-                break
-            st = self._body(st, active)
-            self.steps += 1
+            go = self._read(active.any())
+        while go:
+            with trace.span("loop.step", rid=self.steps):
+                st = self._body(st, active)
+                self.steps += 1
+                active = ~st["done"] & (st["n"] < self.max_clicks)
+                go = self._read(active.any())
         self.clicks = st.get("clicks")
         return st["ious"], st["n"]
 
@@ -764,6 +780,9 @@ def make_device_evaluator(model, target_size: Tuple[int, int] = (448, 448),
 # ---------------------------------------------------------------------------
 
 
+_dataset_calls = itertools.count()
+
+
 def _pad_job(image: np.ndarray, gt_mask: np.ndarray, bucket: int):
     """Zero-pad one object's image and mask to ``bucket``-pixel multiples;
     returns (image, gt, valid_hw) numpy arrays. uint8 images stay uint8."""
@@ -828,55 +847,65 @@ def evaluate_dataset_device(run_fn: DeviceEvaluator, dataset,
     record them). Chunks run one after
     the other: the loop's per-click reads keep host and device in step, so
     there is nothing for the JAX package's ``depth`` pipelining to overlap in
-    eager PyTorch, and the port has no such parameter."""
+    eager PyTorch, and the port has no such parameter. Under
+    ``torch.profiler`` the call is a ``loop.dataset`` span (``rid``: the
+    call's serial number) over ``loop.jobs`` and, a chunk, ``loop.upload``,
+    ``loop.run`` and ``loop.results``."""
     if clicks is not None and not run_fn.record_clicks:
         raise ValueError("clicks= needs an evaluator made with "
                          "record_clicks=True")
-    b = run_fn.batch_size
-    if b == 1:
-        all_ious = []
-        for index in range(len(dataset)):
-            sample = dataset.get_sample(index)
-            for object_id in sample.objects_ids:
-                t0 = time()
-                all_ious.append(evaluate_sample_device(
-                    run_fn, sample.image, sample.gt_mask(object_id), bucket))
-                if sample_times is not None:
-                    sample_times.append(time() - t0)
-                if clicks is not None:
-                    clicks.append(run_fn.clicks[0, :len(all_ious[-1])]
-                                  .cpu().numpy())
-        return all_ious
+    with trace.span("loop.dataset", rid=next(_dataset_calls)):
+        b = run_fn.batch_size
+        if b == 1:
+            all_ious = []
+            for index in range(len(dataset)):
+                sample = dataset.get_sample(index)
+                for object_id in sample.objects_ids:
+                    t0 = time()
+                    all_ious.append(evaluate_sample_device(
+                        run_fn, sample.image, sample.gt_mask(object_id),
+                        bucket))
+                    if sample_times is not None:
+                        sample_times.append(time() - t0)
+                    if clicks is not None:
+                        clicks.append(run_fn.clicks[0, :len(all_ious[-1])]
+                                      .cpu().numpy())
+            return all_ious
 
-    jobs, by_shape = _build_jobs(dataset, bucket)
-    results: List[Optional[np.ndarray]] = [None] * len(jobs)
-    job_clicks: List[Optional[np.ndarray]] = [None] * len(jobs)
-    for group in by_shape.values():
-        for lo in range(0, len(group), b):
-            chunk = group[lo:lo + b]
-            chunk = chunk + [chunk[-1]] * (b - len(chunk))
-            t0 = time()
-            imgs, gts, hws = _upload(
-                run_fn, *(np.stack([job[k] for job in chunk])
-                          for k in (1, 2, 3)))
-            ious, n = run_fn(imgs, gts, hws)
-            ious, n = ious.cpu().numpy(), n.cpu().numpy()
-            wall = time() - t0
-            if clicks is not None:
-                lane_clicks = run_fn.clicks.cpu().numpy()
-            seen = set()
-            for lane, (order_idx, *_rest) in enumerate(chunk):
-                if order_idx in seen:  # tail padding repeats the last job
-                    continue
-                seen.add(order_idx)
-                results[order_idx] = ious[lane][: int(n[lane])]
-                if clicks is not None:
-                    job_clicks[order_idx] = lane_clicks[lane][: int(n[lane])]
-                if sample_times is not None:
-                    sample_times.append(wall)
-    if clicks is not None:
-        clicks.extend(job_clicks)
-    return results
+        with trace.span("loop.jobs"):
+            jobs, by_shape = _build_jobs(dataset, bucket)
+        results: List[Optional[np.ndarray]] = [None] * len(jobs)
+        job_clicks: List[Optional[np.ndarray]] = [None] * len(jobs)
+        for group in by_shape.values():
+            for lo in range(0, len(group), b):
+                chunk = group[lo:lo + b]
+                chunk = chunk + [chunk[-1]] * (b - len(chunk))
+                t0 = time()
+                with trace.span("loop.upload"):
+                    imgs, gts, hws = _upload(
+                        run_fn, *(np.stack([job[k] for job in chunk])
+                                  for k in (1, 2, 3)))
+                with trace.span("loop.run"):
+                    ious, n = run_fn(imgs, gts, hws)
+                with trace.span("loop.results"):
+                    ious, n = ious.cpu().numpy(), n.cpu().numpy()
+                    wall = time() - t0
+                    if clicks is not None:
+                        lane_clicks = run_fn.clicks.cpu().numpy()
+                seen = set()
+                for lane, (order_idx, *_rest) in enumerate(chunk):
+                    if order_idx in seen:  # tail padding repeats the last job
+                        continue
+                    seen.add(order_idx)
+                    results[order_idx] = ious[lane][: int(n[lane])]
+                    if clicks is not None:
+                        job_clicks[order_idx] = (
+                            lane_clicks[lane][: int(n[lane])])
+                    if sample_times is not None:
+                        sample_times.append(wall)
+        if clicks is not None:
+            clicks.extend(job_clicks)
+        return results
 
 
 def _pow2_at_least(n: int) -> int:

@@ -7,6 +7,7 @@ reached, and the predictor answers each click with a mask.
 
 from __future__ import annotations
 
+import itertools
 from copy import deepcopy
 from time import time
 from typing import Callable, List, Optional, Tuple
@@ -14,6 +15,9 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 
 from isegprobe_torch.inference.clicker import Click, Clicker
+from isegprobe_torch.utils import trace
+
+_calls = itertools.count()
 
 
 def evaluate_sample(image: np.ndarray, gt_mask: np.ndarray, predictor,
@@ -27,25 +31,34 @@ def evaluate_sample(image: np.ndarray, gt_mask: np.ndarray, predictor,
     final probabilities). ``callback(image, gt_mask, probs, sample_id,
     click_indx, clicks)`` runs after each prediction; ``feats_callback(
     image, feats, sample_id, click_indx, clicks)`` before it, with the
-    predictor's ``get_lowres_highres_feats`` of a copy of the clicker."""
+    predictor's ``get_lowres_highres_feats`` of a copy of the clicker.
+    Under ``torch.profiler`` each click is a ``click`` span (``rid``: the
+    call's serial number and the click's index) over ``clicker``,
+    ``predict`` and ``iou`` spans; the callbacks run outside those three."""
     clicker = Clicker(gt_mask=gt_mask)
     pred_mask = np.zeros_like(gt_mask, dtype=bool)
     ious_list = []
     pred_probs = None
 
     predictor.set_input_image(image)
+    call = next(_calls)
     for click_indx in range(max_clicks):
-        clicker.make_next_click(pred_mask)
-        if feats_callback is not None:
-            _, feats = predictor.get_lowres_highres_feats(deepcopy(clicker))
-            feats_callback(image, feats, sample_id, click_indx,
-                           clicker.clicks_list)
-        pred_probs = predictor.get_prediction(clicker)
-        pred_mask = pred_probs > pred_thr
-        if callback is not None:
-            callback(image, gt_mask, pred_probs, sample_id, click_indx,
-                     clicker.clicks_list)
-        iou = get_iou(gt_mask, pred_mask)
+        with trace.span("click", rid=(call, click_indx)):
+            with trace.span("clicker"):
+                clicker.make_next_click(pred_mask)
+            if feats_callback is not None:
+                _, feats = predictor.get_lowres_highres_feats(
+                    deepcopy(clicker))
+                feats_callback(image, feats, sample_id, click_indx,
+                               clicker.clicks_list)
+            with trace.span("predict"):
+                pred_probs = predictor.get_prediction(clicker)
+            if callback is not None:
+                callback(image, gt_mask, pred_probs, sample_id, click_indx,
+                         clicker.clicks_list)
+            with trace.span("iou"):
+                pred_mask = pred_probs > pred_thr
+                iou = get_iou(gt_mask, pred_mask)
         ious_list.append(iou)
         if iou >= max_iou_thr and click_indx + 1 >= min_clicks:
             break

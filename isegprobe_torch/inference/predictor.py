@@ -41,6 +41,7 @@ import torch
 from isegprobe_torch import resolve_device
 from isegprobe_torch.inference.clicker import Click, Clicker
 from isegprobe_torch.ops.sample import crop_resize, inverse_paste
+from isegprobe_torch.utils import trace
 from isegprobe_torch.utils.misc import (
     clamp_bbox,
     expand_bbox,
@@ -175,31 +176,35 @@ class Predictor:
     def _click_step(self, prev_pad: torch.Tensor, roi: Bbox,
                     points: np.ndarray) -> torch.Tensor:
         ow = self.target_size[1]
-        crop = self._crop(prev_pad, roi)
-        pts, valid = self._crop_points(points, roi)
-        if self.with_flip:
-            fx = np.float32(ow) - pts[..., 1] - np.float32(1.0)
-            flipped = np.stack([pts[..., 0], fx, pts[..., 2]], axis=-1)
-            flipped = np.where(valid[..., None], flipped, np.float32(-1.0))
-            crop = torch.cat([crop, torch.flip(crop, dims=[2])], dim=0)
-            pts = np.concatenate([pts, flipped], axis=0)
-        pts_dev = torch.from_numpy(np.ascontiguousarray(pts, np.float32)).to(
-            self.device)
-        if self.cache_backbone:
-            # keyed by (ROI version, ROI value): the skip_clicks exits return
-            # the full frame without a new version
-            key = (self._roi_version, tuple(int(v) for v in roi))
-            if self._trunk_cache is None or self._trunk_cache[0] != key:
-                self._trunk_cache = (key,
-                                     self.model.compute_backbone_trunk(crop))
-            out = self.model.forward_with_cached_trunk(
-                crop, pts_dev, self._trunk_cache[1])
-        else:
-            out = self.model(crop, pts_dev)
-        logits = out["instances"].float()
-        if self.with_flip:
-            logits = 0.5 * (logits[:1] + torch.flip(logits[1:], dims=[2]))
-        return inverse_paste(torch.sigmoid(logits), roi, self.pad_hw)
+        with trace.span("predictor.crop"):
+            crop = self._crop(prev_pad, roi)
+            pts, valid = self._crop_points(points, roi)
+            if self.with_flip:
+                fx = np.float32(ow) - pts[..., 1] - np.float32(1.0)
+                flipped = np.stack([pts[..., 0], fx, pts[..., 2]], axis=-1)
+                flipped = np.where(valid[..., None], flipped,
+                                   np.float32(-1.0))
+                crop = torch.cat([crop, torch.flip(crop, dims=[2])], dim=0)
+                pts = np.concatenate([pts, flipped], axis=0)
+            pts_dev = torch.from_numpy(
+                np.ascontiguousarray(pts, np.float32)).to(self.device)
+        with trace.span("predictor.forward"):
+            if self.cache_backbone:
+                # keyed by (ROI version, ROI value): the skip_clicks exits
+                # return the full frame without a new version
+                key = (self._roi_version, tuple(int(v) for v in roi))
+                if self._trunk_cache is None or self._trunk_cache[0] != key:
+                    self._trunk_cache = (
+                        key, self.model.compute_backbone_trunk(crop))
+                out = self.model.forward_with_cached_trunk(
+                    crop, pts_dev, self._trunk_cache[1])
+            else:
+                out = self.model(crop, pts_dev)
+        with trace.span("predictor.paste"):
+            logits = out["instances"].float()
+            if self.with_flip:
+                logits = 0.5 * (logits[:1] + torch.flip(logits[1:], dims=[2]))
+            return inverse_paste(torch.sigmoid(logits), roi, self.pad_hw)
 
     # -- host-side protocol ------------------------------------------------
 
@@ -272,12 +277,15 @@ class Predictor:
     def get_prediction(self, clicker: Clicker, prev_mask=None) -> np.ndarray:
         """Probabilities ``[H, W]`` for the clicker's clicks so far;
         ``prev_mask`` ``[H, W]`` replaces the previous prediction as the
-        model's prev-mask input."""
+        model's prev-mask input. Under ``torch.profiler`` the steps are the
+        spans ``predictor.roi``, ``.crop``, ``.forward``, ``.paste`` and
+        ``.to_host`` (the host's wait for the device)."""
         clicks_list = clicker.get_clicks()
         self._select_slot(clicker, clicks_list)
         # the ROI machine sees the full click list; only the model's point
         # tensor truncates to net_clicks_limit
-        roi = self._compute_roi(clicks_list)
+        with trace.span("predictor.roi"):
+            roi = self._compute_roi(clicks_list)
         points = self.get_points_nd(clicks_list)
         h, w = self.image_hw
         # the previous probabilities never leave the device between clicks
@@ -286,7 +294,8 @@ class Predictor:
                                self.device))
         probs_pad = self._click_step(prev, roi, points)
         self._prev_probs_dev = probs_pad
-        probs = probs_pad[0, :h, :w, 0].cpu().numpy()
+        with trace.span("predictor.to_host"):
+            probs = probs_pad[0, :h, :w, 0].cpu().numpy()
         self.prev_prediction = probs
         return probs
 

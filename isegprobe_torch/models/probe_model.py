@@ -40,6 +40,7 @@ from isegprobe_torch.models.vit import PatchEmbed
 from isegprobe_torch.ops.dist_maps import encode_clicks
 from isegprobe_torch.ops.dynamic_resize import dyn_resize_2d_batched
 from isegprobe_torch.ops.resize import resize
+from isegprobe_torch.utils import trace
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -318,13 +319,17 @@ class iSegProbeModel(nn.Module):
         loop when :meth:`_fused_head` (LoftUp's output is guidance-sized,
         so the fused path needs no resize)."""
         if self._fused_head():
-            return self.upsampler(feats, image, tail=self.head.banded,
-                                  tail_halo=self.head.tail_halo)
+            with trace.span("model.upsampler"):
+                return self.upsampler(feats, image, tail=self.head.banded,
+                                      tail_halo=self.head.tail_halo)
         h, w = image.shape[1], image.shape[2]
-        feats = self.upsampler(feats, image)
-        if self.upsampler_type != "identity" and feats.shape[1:3] != (h, w):
-            feats = resize(feats, (h, w), "bilinear", align_corners=True)
-        return self.head(feats)
+        with trace.span("model.upsampler"):
+            feats = self.upsampler(feats, image)
+            if (self.upsampler_type != "identity"
+                    and feats.shape[1:3] != (h, w)):
+                feats = resize(feats, (h, w), "bilinear", align_corners=True)
+        with trace.span("model.head"):
+            return self.head(feats)
 
     def _embed_coords(self, coord_features: torch.Tensor) -> torch.Tensor:
         if self.maps_transform is not None:
@@ -338,13 +343,21 @@ class iSegProbeModel(nn.Module):
                 "instances_aux": None}
 
     def forward(self, image: torch.Tensor, points: torch.Tensor) -> Dict:
+        """:meth:`backbone_forward` of the click maps of ``points``, resized
+        to the input. Under ``torch.profiler`` its parts are the spans
+        ``model.clicks`` (click maps and their embedding),
+        ``model.backbone``, ``model.upsampler`` and ``model.head`` (inside
+        ``model.upsampler`` where the head is fused into LoftUp)."""
         image, prev_mask = self.prepare_input(image)
-        coord_features = self.get_coord_features(image, prev_mask, points)
-        outputs = self.backbone_forward(image, coord_features)
+        with trace.span("model.clicks"):
+            coord_tokens = self._embed_coords(
+                self.get_coord_features(image, prev_mask, points))
+        with trace.span("model.backbone"):
+            feats = self.backbone(image, coord_tokens)
+        out = self._upsample_and_head(feats, image)
         h, w = image.shape[1], image.shape[2]
-        outputs["instances"] = resize(outputs["instances"], (h, w),
-                                      "bilinear", align_corners=True)
-        return outputs
+        out = resize(out, (h, w), "bilinear", align_corners=True)
+        return {"instances": out, "instances_aux": None}
 
     # -- late-injection caching seams ---------------------------------------
     # With 'after_backbone' injection the frozen trunk depends only on the
@@ -355,7 +368,8 @@ class iSegProbeModel(nn.Module):
         """Trunk features ``[B, gh, gw, C]`` of the (un-normalised, possibly
         prev-mask-extended) crop, with no click injection."""
         image, _ = self.prepare_input(image)
-        return self.backbone(image, None)
+        with trace.span("model.backbone"):
+            return self.backbone(image, None)
 
     def forward_with_cached_trunk(self, image: torch.Tensor,
                                   points: torch.Tensor,
@@ -363,8 +377,9 @@ class iSegProbeModel(nn.Module):
         """The late-injection forward from cached trunk features: equal to
         ``forward`` for an ``after_backbone`` model."""
         image, prev_mask = self.prepare_input(image)
-        coord_features = self.get_coord_features(image, prev_mask, points)
-        coord_tokens = self._embed_coords(coord_features)
+        with trace.span("model.clicks"):
+            coord_tokens = self._embed_coords(
+                self.get_coord_features(image, prev_mask, points))
         b, gh, gw, c = trunk_feats.shape
         # the add the featurizer performs for 'after_backbone'
         feats = trunk_feats.float() + coord_tokens.reshape(b, gh, gw,

@@ -330,6 +330,15 @@ def test_evaluate_cli_arguments(tiny_arch, tmp_path):  # noqa: F811
                         ).read_text())
     assert any(e.get("ph") == "X" and e.get("name", "").startswith("aten::")
                for e in trace["traceEvents"])
+    # the program's spans over the profiler's events, on the same clock
+    clicks = [e for e in trace["traceEvents"]
+              if e.get("cat") == "program_span" and e["name"] == "click"]
+    assert len(clicks) == 1 and clicks[0]["ph"] == "X"
+    inside = [e for e in trace["traceEvents"] if e.get("ph") == "X"
+              and e.get("name", "").startswith("aten::")
+              and clicks[0]["ts"] <= e["ts"]
+              and e["ts"] + e["dur"] <= clicks[0]["ts"] + clicks[0]["dur"]]
+    assert any(e["name"] == "aten::linear" for e in inside)
     # continuous batching and the cvpr mode are ported
     cfg = parse_args(["checkpoint=x", "device_refill=true", "device_batch=3"])
     assert cfg["device_refill"] and cfg["group_max_jobs"] == 0

@@ -585,6 +585,9 @@ def test_evaluate_cli_keys(tiny_arch_model, tmp_path):
     trace = json.loads((tmp_path / "m_GrabCut.pt.trace.json").read_text())
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert len(out["all_ious"]) > 0 and "aten::linear" in names
+    spans = {e["name"] for e in trace["traceEvents"]
+             if e.get("cat") == "program_span"}
+    assert {"click", "predict", "model.backbone"} <= spans
     assert parse_args([])["checkpoint"] == "/path/to/checkpoint"
     with pytest.raises(ValueError, match="checkpoint"):
         parse_args(["checkpoint="])
